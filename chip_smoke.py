@@ -19,6 +19,20 @@ exits non-zero):
   parity  the same weights on the card and on the CPU: decoded outputs
           within boxes 1e-3 px / scores 1e-4, and NMS on the CPU's decoded
           outputs equal on both devices
+  k2      kernel K2 (deformable-attention gather) against its plain version
+          on the card within 1e-5, at the rtdetr-l predict shape (B=1), the
+          batch-16 device-function shape, and an edge case (hd=8, Q=37,
+          out-of-range rows); times, the bound, and the one PyTorch call that
+          computes the same function (embedding_bag) as the yardstick
+  rtdetr  RTDETR("rtdetr-l.yaml", device="cuda").predict(4 images) at 640 px,
+          default conf 0.25, with K2's launches read around the call (6 per
+          image); warm predict latency per image over 100 calls, the device
+          idle share from one profiled window of 10 calls, and the device
+          function's images/s at batch 16
+  rtdetr_parity  the same weights and letterboxed batch on the card and on
+          the CPU: dense encoder scores within 1e-3, top-k query indices
+          that differ (reported), final outputs within 1e-3 over the
+          queries whose index agrees
   kernels the per-kernel summary line
 The last line is {"ok": true, "device": {...}}.
 """
@@ -43,8 +57,15 @@ MIN_CANDIDATES = 1000
 IMAGE_SHAPES = ((480, 640), (720, 1280), (640, 640), (333, 500))
 PREDICT_CALLS = 200  # timed warm predict calls of the 4 images, one at a time
 PROFILED_CALLS = 20  # predict calls traced by torch.profiler for the device's busy time
-CONV_KERNELS = ("conv", "xmma", "implicit_gemm", "cutlass", "winograd", "fft", "pointwise_mult_and_sum",
-                "region_transform", "gemv2t")
+RTDETR_CALLS = 100  # the same for RT-DETR
+RTDETR_PROFILED_CALLS = 10
+RTDETR_LEVELS = ((80, 80), (40, 40), (20, 20))  # rtdetr-l's P3-P5 at 640 px: V = 8400 value rows
+PARITY_TOL = 1e-3  # card vs CPU, rtdetr-l encoder scores and final outputs
+# cuDNN's f32 convolutions run as implicit GEMM (fprop) or FFT (fft*,
+# pointwise_mult_and_sum_complex, gemv2T on float2); cuBLAS's matmuls as gemm.
+CONV_KERNELS = ("conv", "fprop", "implicit_gemm", "winograd", "fft", "pointwise_mult_and_sum",
+                "region_transform", "float2")
+MATMUL_KERNELS = ("gemm", "gemv", "xmma", "cutlass")
 
 
 def emit(phase: str, **fields) -> None:
@@ -79,15 +100,20 @@ def seeded_images():
 
 
 def category(name: str) -> str:
-    """Coarse kernel class; cuDNN's f32 convolutions run as implicit GEMM
-    (xmma) or FFT (fft*, pointwise_mult_and_sum_complex, gemv2T on float2)."""
+    """Coarse kernel class (CONV_KERNELS and MATMUL_KERNELS say how)."""
     n = name.lower()
     if "greedy_nms" in n:
         return "k1_greedy_nms"
+    if "msda_sample" in n:
+        return "k2_msda_sample"
     if any(s in n for s in CONV_KERNELS):
         return "convolution"
+    if any(s in n for s in MATMUL_KERNELS):
+        return "matmul"
     if "bn_fw" in n or "batch_norm" in n:
         return "batchnorm"
+    if "layer_norm" in n:
+        return "layernorm"
     if "sort" in n or "radix" in n:
         return "sort"
     if "memcpy" in n:
@@ -293,6 +319,143 @@ def parity(YOLO, nms_cuda, ops_nms, decode_single_label, model, batch):
                 nms_output_mismatch=nms_diff, k1_keep_mismatch=keep_diff, kept=int(valid_c.sum()))
 
 
+def k2_inputs(rng, b: int, q: int, nh: int, hd: int, shapes, p: int = 4, out_of_range: bool = False):
+    """A value table (B, nh, V, hd) and the flat corner rows and weights that
+    msda_flatten_coords makes of random locations in [-0.1, 1.1] (so corners
+    fall outside the maps) and softmax-like attention, all on the card. With
+    out_of_range, a fifth of the rows move outside [0, V) and every weight
+    is positive, so a row the kernel failed to skip would show."""
+    from ultralytics_pro_tpu_torch.kernels.msda_cuda import msda_flatten_coords
+
+    v = sum(h * w for h, w in shapes)
+    val = torch.from_numpy(rng.normal(size=(b, nh, v, hd)).astype(np.float32)).cuda()
+    locs = torch.from_numpy(rng.uniform(-0.1, 1.1, (b, q, nh, len(shapes), p, 2)).astype(np.float32)).cuda()
+    attn = rng.uniform(0, 1, (b, q, nh, len(shapes), p)).astype(np.float32)
+    attn = torch.from_numpy(attn / attn.sum((-1, -2), keepdims=True)).cuda()
+    idx, w = msda_flatten_coords(list(shapes), locs, attn)
+    if out_of_range:
+        mask = torch.from_numpy(rng.uniform(size=tuple(idx.shape)) < 0.2).cuda()
+        bad = torch.from_numpy(rng.choice([-1, -7, v, v + 5, 2 ** 30], size=tuple(idx.shape))
+                               .astype(np.int32)).cuda()
+        idx, w = torch.where(mask, bad, idx).contiguous(), (w + 0.1).contiguous()
+    return val, idx, w
+
+
+def k2_check(msda_cuda, name: str, b: int, q: int, nh: int, hd: int, shapes, seed: int,
+             out_of_range: bool = False) -> dict:
+    val, idx, w = k2_inputs(np.random.default_rng(seed), b, q, nh, hd, shapes, out_of_range=out_of_range)
+    out = msda_cuda.msda_sample(val, idx, w)
+    torch.cuda.synchronize()
+    ref = msda_cuda.msda_sample_plain(val, idx, w)
+    ref_cpu = msda_cuda.msda_sample_plain(val.cpu(), idx.cpu(), w.cpu())
+    max_abs_err = max(float((out - ref).abs().max()), float((out.cpu() - ref_cpu).abs().max()))
+    if not (bool(torch.isfinite(out).all()) and max_abs_err <= 1e-5):
+        raise AssertionError(f"K2 {name}: max abs error {max_abs_err} against the plain version")
+    ms = cuda_ms(lambda: msda_cuda.msda_sample(val, idx, w), iters=50)
+    plain_ms = cuda_ms(lambda: msda_cuda.msda_sample_plain(val, idx, w), iters=10)
+    # bound: the distinct in-range value rows this run's indices touch, idx, w
+    # and out once each, at the HBM rate; 2*hd operations per in-range corner
+    v = val.shape[2]
+    ok = (idx >= 0) & (idx < v)
+    bh_base = (torch.arange(b * nh, device=idx.device, dtype=torch.int64) * v).view(b, nh, 1, 1)
+    rows = int(torch.unique((idx.long() + bh_base)[ok]).numel())
+    nbytes = rows * hd * 4 + idx.numel() * 4 + w.numel() * 4 + out.numel() * 4
+    ops = 2 * hd * int(ok.sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    info = {"size": name, "B": b, "nh": nh, "V": v, "hd": hd, "Q": q, "S": idx.shape[-1],
+            "out_of_range_rows": int((~ok).sum()), "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations", "bytes": nbytes,
+            "distinct_value_rows": rows, "ops": ops, "library_ms": None, "library_max_abs_err": None}
+    if not out_of_range:
+        # the yardstick: one PyTorch call computing the same weighted row sums
+        # (the port never calls it); it takes in-range rows only
+        flat_val = val.reshape(-1, hd)
+        bags = (idx.long() + bh_base).reshape(-1, idx.shape[-1])
+        bag_w = w.reshape(-1, idx.shape[-1])
+
+        def library():
+            return torch.nn.functional.embedding_bag(bags, flat_val, per_sample_weights=bag_w, mode="sum")
+
+        info["library_max_abs_err"] = float((library().view_as(out) - out).abs().max())
+        info["library_ms"] = cuda_ms(library, iters=50)
+    return info
+
+
+def rtdetr_path(RTDETR, msda_cuda, nms_cuda, card: str, smi: str):
+    imgs = seeded_images()
+    model = RTDETR("rtdetr-l.yaml", device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.model.parameters())
+    model.predict(imgs[:1])  # first call: cuDNN, cuBLAS and allocator set-up
+    torch.cuda.synchronize()
+
+    msda_cuda.launches = 0
+    nms_cuda.launches = 0
+    results = model.predict(imgs)
+    torch.cuda.synchronize()
+    launches, k1_launches = msda_cuda.launches, nms_cuda.launches
+    if launches != 6 * len(imgs):
+        raise AssertionError(f"K2 launched {launches} times for {len(imgs)} images (6 decoder layers each)")
+    kept = [len(r) for r in results]
+    for r in results:
+        if not np.isfinite(r.boxes.data).all() or len(r) > 300:
+            raise AssertionError(f"{len(r)} detections, finite: {np.isfinite(r.boxes.data).all()}")
+    if not any(kept):
+        raise AssertionError("no image kept a box at conf 0.25")
+
+    per_image = []
+    for _ in range(RTDETR_CALLS):
+        t0 = time.perf_counter()
+        model.predict(imgs)
+        per_image.append((time.perf_counter() - t0) * 1e3 / len(imgs))
+    q = np.percentile(per_image, [0, 10, 50, 90, 100])
+    prof = profile_window(lambda: model.predict(imgs), RTDETR_PROFILED_CALLS)
+    call_ms = q[2] * len(imgs)
+    busy = prof["device_busy_ms_per_call"]
+
+    pred = model.predictor
+    batch = pred.preprocess(imgs)
+    batch16 = batch.repeat(4, 1, 1, 1)
+    ms16 = cuda_ms(lambda: pred.run(batch16), iters=5)
+    info = dict(model="rtdetr-l", parameters=n_params, imgsz=640, images=[list(s) for s in IMAGE_SHAPES],
+                conf=pred.conf, k2_launches=launches, k1_launches=k1_launches, kept=kept,
+                predict_calls=RTDETR_CALLS,
+                predict_ms_per_image={"median": q[2], "p10": q[1], "p90": q[3], "min": q[0], "max": q[4]},
+                predict_median_ms_per_call=call_ms,
+                device_idle_share=None if busy is None else max(0.0, 1 - busy / call_ms),
+                predict_profile=prof,
+                device_fn_batch16_ms=ms16, device_fn_batch16_images_per_s=16 * 1e3 / ms16,
+                card=card, nvidia_smi=smi)
+    return model, batch, info
+
+
+def rtdetr_parity(RTDETR, model, batch):
+    cpu_model = RTDETR("rtdetr-l.yaml", device="cpu", seed=0)
+    for (k, a), b in zip(model.model.state_dict().items(), cpu_model.model.state_dict().values()):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"seeded weights differ between devices at {k}")
+    x = batch.cpu().flip(-1).permute(0, 3, 1, 2).float() / 255.0
+    with torch.no_grad():
+        y_gpu, aux_gpu = model.model(x.cuda())
+        y_cpu, aux_cpu = cpu_model.model(x)
+    score_err = float((aux_gpu["enc_scores"].cpu() - aux_cpu["enc_scores"]).abs().max())
+    same = aux_gpu["topk_index"].cpu() == aux_cpu["topk_index"]
+    n_diff = int((~same).sum())
+    out_err = float(((y_gpu.cpu() - y_cpu).abs() * same[..., None]).max())
+    # where an index differs, how far apart the CPU's best-class scores of the
+    # two anchors are: a gap within the score error is a near-tie, not a fault
+    best = aux_cpu["enc_scores"].amax(-1)
+    gaps = (best.gather(1, aux_gpu["topk_index"].cpu()) - best.gather(1, aux_cpu["topk_index"]))[~same]
+    if not (score_err <= PARITY_TOL and out_err <= PARITY_TOL):
+        raise AssertionError(f"card vs CPU: encoder scores {score_err}, outputs {out_err} "
+                             f"(tolerance {PARITY_TOL}); {n_diff} top-k indices differ")
+    return dict(batch=list(batch.shape), output_shape=list(y_cpu.shape), max_abs_enc_score_err=score_err,
+                topk_index_mismatch=n_diff,
+                max_abs_score_gap_at_mismatch=float(gaps.abs().max()) if n_diff else None,
+                max_abs_output_err_where_index_agrees=out_err, tolerance=PARITY_TOL,
+                cpu_threads=torch.get_num_threads())
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     if not torch.cuda.is_available():
@@ -300,8 +463,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    from ultralytics_pro_tpu_torch import YOLO
-    from ultralytics_pro_tpu_torch.kernels import build, nms_cuda
+    from ultralytics_pro_tpu_torch import RTDETR, YOLO
+    from ultralytics_pro_tpu_torch.kernels import build, msda_cuda, nms_cuda
     from ultralytics_pro_tpu_torch.nn.modules.head import decode_single_label
     from ultralytics_pro_tpu_torch.ops import nms as ops_nms
 
@@ -334,6 +497,22 @@ def main() -> int:
     t = time.perf_counter()
     info = parity(YOLO, nms_cuda, ops_nms, decode_single_label, model, batch)
     emit("parity", **info, seconds=time.perf_counter() - t)
+    del model
+
+    t = time.perf_counter()
+    k2 = [k2_check(msda_cuda, "predict", 1, 300, 8, 32, RTDETR_LEVELS, seed=3),
+          k2_check(msda_cuda, "device_fn_batch16", 16, 300, 8, 32, RTDETR_LEVELS, seed=4),
+          k2_check(msda_cuda, "edge_hd8_q37_out_of_range", 2, 37, 4, 8, ((12, 16), (6, 8), (3, 4)), seed=5,
+                   out_of_range=True)]
+    emit("k2", checks=k2, card=card, nvidia_smi=smi, seconds=time.perf_counter() - t)
+
+    t = time.perf_counter()
+    model, batch, info = rtdetr_path(RTDETR, msda_cuda, nms_cuda, card, smi)
+    k2_launches = info["k2_launches"]
+    emit("rtdetr", **info, seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    info = rtdetr_parity(RTDETR, model, batch)
+    emit("rtdetr_parity", **info, seconds=time.perf_counter() - t)
 
     pred = k1[0]
     kernels = [{
@@ -346,6 +525,16 @@ def main() -> int:
         "bound_ms": pred["bound_ms"], "bound_by": pred["bound_by"],
         "library_ms": None,  # no single PyTorch call computes greedy NMS (no torchvision)
         "val_ms": k1[1]["ms"], "val_plain_ms": k1[1]["plain_ms"], "val_bound_ms": k1[1]["bound_ms"],
+    }, {
+        "name": "msda_sample", "route": "cuda",
+        "source": "ultralytics_pro_tpu_torch/csrc/msda_sample.cu",
+        "replaces": "ultralytics_pro_tpu/kernels/msda_pallas.py:52",
+        "tpu_kernel": "ultralytics_pro_tpu/kernels/msda_pallas.py:msda_sample_pallas",
+        "launches": k2_launches, "max_abs_err": max(c["max_abs_err"] for c in k2),
+        "ms": k2[0]["ms"], "plain_ms": k2[0]["plain_ms"], "bound_ms": k2[0]["bound_ms"],
+        "bound_by": k2[0]["bound_by"], "library_ms": k2[0]["library_ms"],  # F.embedding_bag
+        "batch16_ms": k2[1]["ms"], "batch16_plain_ms": k2[1]["plain_ms"],
+        "batch16_bound_ms": k2[1]["bound_ms"], "batch16_library_ms": k2[1]["library_ms"],
     }]
     emit("total", seconds=time.perf_counter() - t_all)
     print(smi, flush=True)

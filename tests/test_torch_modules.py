@@ -65,6 +65,18 @@ def to_nhwc(t):
     return t.detach().numpy().transpose(0, 2, 3, 1)
 
 
+@pytest.mark.parametrize("spec", ["gelu", "nn.GELU()"])
+def test_gelu_is_the_tanh_form_of_jax(spec):
+    """The YAML activation "gelu" is jax.nn.gelu's default, the tanh form."""
+    import jax
+
+    from ultralytics_pro_tpu_torch.nn.modules.conv import resolve_act
+
+    x = np.random.default_rng(9).normal(0, 3, (4096,)).astype(np.float32)
+    got = resolve_act(spec)(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, np.asarray(jax.nn.gelu(x)), atol=1e-6, rtol=0)
+
+
 @pytest.mark.parametrize("k,s", [(1, 1), (3, 2)])
 def test_conv(k, s):
     from ultralytics_pro_tpu.nn.modules.conv import Conv as JConv

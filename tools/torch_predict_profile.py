@@ -1,17 +1,19 @@
 """Where the port's predict time goes on one CUDA card.
 
-    python3 tools/torch_predict_profile.py [--reps 5]
+    python3 tools/torch_predict_profile.py [--model yolov8s|rtdetr-l] [--reps 5]
 
-Runs YOLO("yolov8s.yaml", device="cuda") (seeded random weights, f32, TF32
-off) on chip_smoke.py's workload (its images, `conf` and profiler window):
-`predict` on the 4 seeded images one at a time, and the device function
-`predictor.run` at batch 1 and 16. Each is traced with torch.profiler over
-`--reps` warm repetitions. Prints one JSON line per workload: wall ms per
-call, device busy ms (sum of kernel times on the one stream) and idle share,
-device ms by category (convolution, batchnorm, K1 greedy NMS, sort, memcpy,
-other) and the top kernels by device time. The profiler adds host time, so
-wall ms and idle share read high here; chip_smoke.py's phase `main` sets the
-busy time against unprofiled wall times.
+Runs YOLO("yolov8s.yaml", device="cuda") or RTDETR("rtdetr-l.yaml",
+device="cuda") (seeded random weights, f32, TF32 off) on chip_smoke.py's
+workload (its images, its `conf` for yolov8s and the default 0.25 for
+rtdetr-l, as its phases `main` and `rtdetr` run them): `predict` on the 4
+seeded images one at a time, and the device function `predictor.run` at
+batch 1 and 16. Each is traced with torch.profiler over `--reps` warm
+repetitions. Prints one JSON line per workload: wall ms per call, device busy
+ms (sum of kernel times on the one stream) and idle share, device ms by
+category (chip_smoke.category: convolution, matmul, batchnorm, layernorm, K1,
+K2, sort, memcpy, other) and the top kernels by device time. The profiler
+adds host time, so wall ms and idle share read high here; chip_smoke.py's
+phases `main` and `rtdetr` set the busy time against unprofiled wall times.
 """
 
 from __future__ import annotations
@@ -30,26 +32,31 @@ from chip_smoke import CONF, nvidia_smi, profile_window, seeded_images  # noqa: 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=("yolov8s", "rtdetr-l"), default="yolov8s")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 2
-    from ultralytics_pro_tpu_torch import YOLO
+    from ultralytics_pro_tpu_torch import RTDETR, YOLO
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = nvidia_smi()
     imgs = seeded_images()
-    model = YOLO("yolov8s.yaml", device="cuda", seed=0)
-    model.predict(imgs, conf=CONF)
+    if args.model == "yolov8s":
+        model, kw = YOLO("yolov8s.yaml", device="cuda", seed=0), {"conf": CONF}
+    else:
+        model, kw = RTDETR("rtdetr-l.yaml", device="cuda", seed=0), {}
+    model.predict(imgs, **kw)
     pred = model.predictor
     batch16 = pred.preprocess(imgs).repeat(4, 1, 1, 1)
     batch1 = batch16[:1].contiguous()
-    for name, fn in (("predict_4_images", lambda: model.predict(imgs, conf=CONF)),
+    for name, fn in (("predict_4_images", lambda: model.predict(imgs, **kw)),
                      ("device_fn_batch1", lambda: pred.run(batch1)),
                      ("device_fn_batch16", lambda: pred.run(batch16))):
-        print(json.dumps({"workload": name, "card": smi, **profile_window(fn, args.reps)}), flush=True)
+        print(json.dumps({"model": args.model, "workload": name, "card": smi, **profile_window(fn, args.reps)}),
+              flush=True)
     return 0
 
 

@@ -8,5 +8,6 @@ device="cpu".
 __version__ = "0.1.0"
 
 from ultralytics_pro_tpu_torch.engine.model import YOLO, Model  # noqa: E402
+from ultralytics_pro_tpu_torch.models.rtdetr import RTDETR  # noqa: E402
 
-__all__ = ["YOLO", "Model", "__version__"]
+__all__ = ["YOLO", "Model", "RTDETR", "__version__"]

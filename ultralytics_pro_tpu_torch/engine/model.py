@@ -14,7 +14,6 @@ from typing import Optional, Union
 import torch
 
 from ultralytics_pro_tpu_torch.cfg import DEFAULT_CFG_DICT
-from ultralytics_pro_tpu_torch.models import task_map
 from ultralytics_pro_tpu_torch.nn.tasks import guess_model_task, model_class_for, yaml_model_load
 from ultralytics_pro_tpu_torch.utils import select_device
 
@@ -38,7 +37,9 @@ class Model:
     def predict(self, source=None, stream: bool = False, **kwargs):
         args = {**DEFAULT_CFG_DICT, **kwargs}
         args["conf"] = args.get("conf") or 0.25
-        predictor_cls = task_map[self.task]["predictor"]
+        from ultralytics_pro_tpu_torch.models import predictor_for  # models/ imports this module
+
+        predictor_cls = predictor_for(self.model, self.task)
         if self.predictor is None or self.predictor.args != args:
             self.predictor = predictor_cls(self.model, args)
         return self.predictor(source, stream=stream)

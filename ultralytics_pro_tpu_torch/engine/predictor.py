@@ -26,8 +26,15 @@ from ultralytics_pro_tpu_torch.ops.nms import non_max_suppression_fused
 from ultralytics_pro_tpu_torch.utils import Profile
 
 
+def _to_host(out):
+    """The device function's output (a tensor or a dict of tensors) on the CPU."""
+    return {k: v.cpu() for k, v in out.items()} if isinstance(out, dict) else out.cpu()
+
+
 class BasePredictor:
     """Single-model streaming inference on the model's device."""
+
+    head_types = (Detect,)  # the heads whose outputs this predictor's run and postprocess read
 
     def __init__(self, model, args: Dict | None = None):
         """model: a DetectionModel already on its device."""
@@ -42,8 +49,10 @@ class BasePredictor:
         if self.args.get("augment"):
             raise NotImplementedError("test-time augmentation is not implemented in "
                                       "ultralytics_pro_tpu_torch")
-        if not isinstance(model.model[-1], Detect):
-            raise NotImplementedError(f"predict needs a Detect head, got {type(model.model[-1]).__name__}")
+        if not isinstance(model.model[-1], self.head_types):
+            wanted = " or ".join(t.__name__ for t in self.head_types)
+            raise NotImplementedError(f"{type(self).__name__} needs a {wanted} head, "
+                                      f"got {type(model.model[-1]).__name__}")
         self.device = next(model.parameters()).device
         self.letterbox = LetterBox((self.imgsz, self.imgsz), scaleup=False)
         self.classes_mask = None
@@ -92,7 +101,7 @@ class BasePredictor:
             with profilers[0]:
                 batch = self.preprocess([im0])
             with profilers[1]:
-                out = {k: v.cpu() for k, v in self.run(batch).items()}
+                out = _to_host(self.run(batch))
             with profilers[2]:
                 results = self.postprocess(out, tuple(batch.shape[1:3]), [im0], [path])
             r = results[0]

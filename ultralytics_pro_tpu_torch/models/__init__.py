@@ -1,5 +1,16 @@
-"""Task bindings: per-task predictor (detection only in this port)."""
+"""Task bindings: the predictor for a model (detection, and RT-DETR's NMS-free one)."""
 
 from ultralytics_pro_tpu_torch.engine.predictor import DetectionPredictor
+from ultralytics_pro_tpu_torch.models.rtdetr import RTDETR, RTDETRPredictor
+from ultralytics_pro_tpu_torch.nn.modules.head import RTDETRDecoder
 
-task_map = {"detect": {"predictor": DetectionPredictor}}
+task_map = {"detect": {"predictor": DetectionPredictor}, "rtdetr": {"predictor": RTDETRPredictor}}
+
+
+def predictor_for(model, task: str):
+    """The predictor class for a built model: an RTDETRDecoder head goes to
+    RTDETRPredictor whatever the task, any other to the task's predictor."""
+    return task_map["rtdetr" if isinstance(model.model[-1], RTDETRDecoder) else task]["predictor"]
+
+
+__all__ = ["RTDETR", "RTDETRPredictor", "predictor_for", "task_map"]

@@ -1,8 +1,18 @@
-"""YOLOv8 modules in NCHW with the torch reference's names."""
+"""YOLOv8 and RT-DETR modules in NCHW with the torch reference's names."""
 
-from ultralytics_pro_tpu_torch.nn.modules.block import DFL, SPPF, Bottleneck, C2f
-from ultralytics_pro_tpu_torch.nn.modules.conv import Concat, Conv, autopad
-from ultralytics_pro_tpu_torch.nn.modules.head import Detect, decode_single_label
+from ultralytics_pro_tpu_torch.nn.modules.block import DFL, SPPF, Bottleneck, C2f, HGBlock, HGStem, RepC3
+from ultralytics_pro_tpu_torch.nn.modules.conv import Concat, Conv, DWConv, LightConv, RepConv, autopad
+from ultralytics_pro_tpu_torch.nn.modules.head import Detect, RTDETRDecoder, decode_single_label
+from ultralytics_pro_tpu_torch.nn.modules.transformer import (
+    AIFI,
+    MLP,
+    DeformableTransformerDecoderLayer,
+    MSDeformAttn,
+    MultiheadAttention,
+    TransformerEncoderLayer,
+)
 
-__all__ = ["C2f", "Bottleneck", "Concat", "Conv", "DFL", "Detect", "SPPF", "autopad",
-           "decode_single_label"]
+__all__ = ["AIFI", "C2f", "Bottleneck", "Concat", "Conv", "DFL", "DWConv",
+           "DeformableTransformerDecoderLayer", "Detect", "HGBlock", "HGStem", "LightConv", "MLP",
+           "MSDeformAttn", "MultiheadAttention", "RTDETRDecoder", "RepC3", "RepConv", "SPPF",
+           "TransformerEncoderLayer", "autopad", "decode_single_label"]

@@ -1,15 +1,17 @@
 """YOLOv8 blocks, NCHW, with the reference's torch module names.
 
 Counterpart of `ultralytics_pro_tpu/nn/modules/block.py` (`Bottleneck:32`,
-`C2f:86`, `SPPF:173`, `DFL:251`).
+`C2f:86`, `SPPF:173`, `DFL:251`, and RT-DETR's `HGStem:413`, `HGBlock:437`,
+`RepC3:505`).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ultralytics_pro_tpu_torch.nn.modules.conv import Conv
+from ultralytics_pro_tpu_torch.nn.modules.conv import Conv, LightConv, RepConv
 
 
 def dfl_expectation(box: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
@@ -85,3 +87,58 @@ class SPPF(nn.Module):
         for _ in range(3):
             y.append(self.m(y[-1]))
         return self.cv2(torch.cat(y, 1))
+
+
+class HGStem(nn.Module):
+    """PPHGNetV2 stem: five ReLU convs and a 2x2 max-pool branch."""
+
+    def __init__(self, c1: int, cm: int, c2: int):
+        super().__init__()
+        self.stem1 = Conv(c1, cm, 3, 2, act=nn.ReLU())
+        self.stem2a = Conv(cm, cm // 2, 2, 1, 0, act=nn.ReLU())
+        self.stem2b = Conv(cm // 2, cm, 2, 1, 0, act=nn.ReLU())
+        self.stem3 = Conv(cm * 2, cm, 3, 2, act=nn.ReLU())
+        self.stem4 = Conv(cm, c2, 1, 1, act=nn.ReLU())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.stem1(x)
+        x2 = self.stem2b(F.pad(self.stem2a(F.pad(x, (0, 1, 0, 1))), (0, 1, 0, 1)))
+        x1 = F.max_pool2d(F.pad(x, (0, 1, 0, 1), value=float("-inf")), 2, 1)
+        return self.stem4(self.stem3(torch.cat([x1, x2], 1)))
+
+
+class HGBlock(nn.Module):
+    """PPHGNetV2 block: n cascaded convs (LightConv when `lightconv`), all
+    outputs concatenated, then a squeeze (sc) and an excite (ec) 1x1 conv;
+    the residual only when `shortcut` and c1 == c2."""
+
+    def __init__(self, c1: int, cm: int, c2: int, k: int = 3, n: int = 6, lightconv: bool = False,
+                 shortcut: bool = False):
+        super().__init__()
+        block = LightConv if lightconv else Conv
+        self.m = nn.ModuleList(block(c1 if i == 0 else cm, cm, k=k, act=nn.ReLU()) for i in range(n))
+        self.sc = Conv(c1 + n * cm, c2 // 2, 1, 1, act=nn.ReLU())
+        self.ec = Conv(c2 // 2, c2, 1, 1, act=nn.ReLU())
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = [x]
+        for m in self.m:
+            y.append(m(y[-1]))
+        y = self.ec(self.sc(torch.cat(y, 1)))
+        return x + y if self.add else y
+
+
+class RepC3(nn.Module):
+    """CSP block with n RepConvs: cv3(m(cv1(x)) + cv2(x)), cv3 only if c_ != c2."""
+
+    def __init__(self, c1: int, c2: int, n: int = 3, e: float = 1.0):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.m = nn.Sequential(*(RepConv(c_, c_) for _ in range(n)))
+        self.cv3 = Conv(c_, c2, 1, 1) if c_ != c2 else nn.Identity()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(self.m(self.cv1(x)) + self.cv2(x))

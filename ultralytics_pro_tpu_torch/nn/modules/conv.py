@@ -1,11 +1,15 @@
 """Convolution modules, NCHW, with the reference's torch module names.
 
 Counterpart of `ultralytics_pro_tpu/nn/modules/conv.py` (`autopad:39`,
-`Conv:86`, `Concat:305`, `Upsample:328`, and the model-wide `activation:`
-override at `:102-128`). BatchNorm uses eps 1e-3 and momentum 0.03 (`:27-28`).
+`Conv:86`, `DWConv:131`, `LightConv:254`, `Concat:305`, `Upsample:328`,
+`RepConv:383`, and the model-wide `activation:` override at `:102-128`).
+BatchNorm uses eps 1e-3 and momentum 0.03 (`:27-28`). "gelu" is the tanh
+form, as `jax.nn.gelu` computes it by default (`:109`).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -15,7 +19,8 @@ BN_MOMENTUM = 0.03
 
 _ACTS = {
     "silu": nn.SiLU, "relu": nn.ReLU, "relu6": nn.ReLU6,
-    "leakyrelu": lambda: nn.LeakyReLU(0.01), "gelu": nn.GELU, "hardswish": nn.Hardswish,
+    "leakyrelu": lambda: nn.LeakyReLU(0.01), "gelu": lambda: nn.GELU(approximate="tanh"),
+    "hardswish": nn.Hardswish,
     "mish": nn.Mish, "sigmoid": nn.Sigmoid, "tanh": nn.Tanh, "identity": nn.Identity,
 }
 
@@ -37,6 +42,14 @@ def autopad(k, p=None, d: int = 1):
     return p
 
 
+def conv_act(act) -> nn.Module:
+    """A Conv's activation: True -> the model-wide default, a module -> itself,
+    anything else -> identity."""
+    if act is True:
+        return resolve_act(Conv.default_act)
+    return act if isinstance(act, nn.Module) else nn.Identity()
+
+
 class Conv(nn.Module):
     """Conv2d (no bias) + BatchNorm2d + activation (SiLU unless overridden).
 
@@ -51,15 +64,44 @@ class Conv(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=False)
         self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
-        if act is True:
-            self.act = resolve_act(Conv.default_act)
-        elif isinstance(act, nn.Module):
-            self.act = act
-        else:
-            self.act = nn.Identity()
+        self.act = conv_act(act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.act(self.bn(self.conv(x)))
+
+
+class DWConv(Conv):
+    """Depth-wise conv: groups = gcd(c1, c2)."""
+
+    def __init__(self, c1: int, c2: int, k=1, s=1, d: int = 1, act=True):
+        super().__init__(c1, c2, k, s, g=math.gcd(c1, c2), d=d, act=act)
+
+
+class LightConv(nn.Module):
+    """1x1 Conv without activation, then a depth-wise k x k Conv with `act`."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, act=None):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, 1, act=False)
+        self.conv2 = DWConv(c2, c2, k, act=act if act is not None else nn.ReLU())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(self.conv1(x))
+
+
+class RepConv(nn.Module):
+    """RepVGG-style conv in its training form: a k x k and a 1x1 Conv (both
+    without activation) summed, then the activation. The identity-BN branch
+    stays off, as RepC3 builds it."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, g: int = 1, act=True):
+        super().__init__()
+        self.conv1 = Conv(c1, c2, k, s, g=g, act=False)
+        self.conv2 = Conv(c1, c2, 1, s, p=0, g=g, act=False)
+        self.act = conv_act(act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(self.conv1(x) + self.conv2(x))
 
 
 class Concat(nn.Module):

@@ -1,8 +1,9 @@
-"""The anchor-free Detect head and its decodes, NCHW.
+"""The anchor-free Detect head and its decodes, and the RT-DETR decoder head.
 
 Counterpart of `ultralytics_pro_tpu/nn/modules/head.py` (`Detect:48`,
-`_decode:87`, `decode_single_label:127`). Module names follow the torch
-reference (`cv2.i.0.conv.weight`, `cv3.i.2.bias`, `dfl.conv.weight`).
+`_decode:87`, `decode_single_label:127`, `RTDETRDecoder:440`). Module names
+follow the torch reference (`cv2.i.0.conv.weight`, `cv3.i.2.bias`,
+`dfl.conv.weight`, `decoder.layers.i.cross_attn.value_proj.weight`).
 
 Raw per-level maps are NCHW (B, 4*reg_max + nc, H, W). Decoded outputs are
 anchor-major like the JAX package's: (B, A, 4 + nc), anchors ordered level by
@@ -17,8 +18,10 @@ import torch
 from torch import nn
 
 from ultralytics_pro_tpu_torch.nn.modules.block import DFL, dfl_expectation
-from ultralytics_pro_tpu_torch.nn.modules.conv import Conv
+from ultralytics_pro_tpu_torch.nn.modules.conv import BN_EPS, BN_MOMENTUM, Conv
+from ultralytics_pro_tpu_torch.nn.modules.transformer import LN_EPS, MLP, DeformableTransformerDecoderLayer
 from ultralytics_pro_tpu_torch.ops.anchors import dist2bbox, make_anchors
+from ultralytics_pro_tpu_torch.ops.nms import _topk
 
 
 def _level_boxes(dist: torch.Tensor, stride: float) -> torch.Tensor:
@@ -88,3 +91,75 @@ def decode_single_label(raw, strides, nc: int, reg_max: int = 16):
         conf_out.append(logits.amax(1).float().sigmoid().flatten(1))
         cls_out.append(logits.argmax(1).to(torch.int32).flatten(1))
     return torch.cat(boxes_out, 1), torch.cat(conf_out, 1), torch.cat(cls_out, 1)
+
+
+class RTDETRDecoder(nn.Module):
+    """RT-DETR decoder head, inference branch: project and flatten the
+    multiscale maps, pick the top-nq encoder queries by their best class
+    logit, and refine them through `ndl` deformable decoder layers.
+
+    The training-only contrastive-denoising branch waits for the training
+    slice; `denoising_class_embed` is kept so that weights carry across.
+    Output (B, nq, 4 + nc): normalised cxcywh boxes and sigmoid scores. No NMS.
+    """
+
+    def __init__(self, nc: int = 80, ch=(), hd: int = 256, nq: int = 300, ndl: int = 6, nh: int = 8,
+                 ndp: int = 4, d_ffn: int = 1024):
+        super().__init__()
+        self.nc, self.hd, self.nq, self.nl = nc, hd, nq, len(ch)
+        self.stride = torch.zeros(self.nl)  # set by the model once strides are known
+        self.input_proj = nn.ModuleList(
+            nn.Sequential(nn.Conv2d(c, hd, 1, bias=False),
+                          nn.BatchNorm2d(hd, eps=BN_EPS, momentum=BN_MOMENTUM)) for c in ch)
+        self.decoder = nn.Module()  # the reference's name for the layers: decoder.layers.i
+        self.decoder.layers = nn.ModuleList(DeformableTransformerDecoderLayer(hd, nh, d_ffn, self.nl, ndp)
+                                            for _ in range(ndl))
+        self.denoising_class_embed = nn.Embedding(nc + 1, hd)
+        self.query_pos_head = MLP(4, 2 * hd, hd, num_layers=2)
+        self.enc_output = nn.Sequential(nn.Linear(hd, hd), nn.LayerNorm(hd, eps=LN_EPS))
+        self.enc_score_head = nn.Linear(hd, nc)
+        self.enc_bbox_head = MLP(hd, hd, 4, num_layers=3)
+        self.dec_score_head = nn.ModuleList(nn.Linear(hd, nc) for _ in range(ndl))
+        self.dec_bbox_head = nn.ModuleList(MLP(hd, hd, 4, num_layers=3) for _ in range(ndl))
+
+    @staticmethod
+    def anchors(shapes, device, grid_size: float = 0.05, eps: float = 1e-2):
+        """Grid anchors of every level in logit space, +inf where invalid,
+        and the (1, A, 1) validity mask."""
+        out = []
+        for i, (h, w) in enumerate(shapes):
+            sy = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
+            sx = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w
+            gy, gx = torch.meshgrid(sy, sx, indexing="ij")
+            xy = torch.stack([gx, gy], -1).reshape(h * w, 2)
+            wh = torch.full((h * w, 2), grid_size * (2.0 ** i), dtype=torch.float32, device=device)
+            out.append(torch.cat([xy, wh], -1))
+        anchors = torch.cat(out, 0)[None]  # (1, A, 4)
+        valid = ((anchors > eps) & (anchors < 1 - eps)).all(-1, keepdim=True)
+        anchors = torch.log(anchors / (1 - anchors))
+        return torch.where(valid, anchors, torch.inf), valid.to(torch.float32)
+
+    def forward(self, feats):
+        """feats: NCHW maps, one per level. Returns (y (B, nq, 4 + nc), aux)
+        with aux 'enc_scores' (B, A, nc), the dense encoder logits before the
+        query selection, and 'topk_index' (B, nq)."""
+        b = feats[0].shape[0]
+        shapes = [tuple(f.shape[2:]) for f in feats]
+        memory = torch.cat([p(f).flatten(2).transpose(1, 2) for p, f in zip(self.input_proj, feats)], 1)
+
+        anchors, valid = self.anchors(shapes, memory.device)
+        enc = self.enc_output(memory * valid)
+        enc_scores = self.enc_score_head(enc)  # (B, A, nc)
+        # top-nq queries by best class logit, ties in index order as lax.top_k gives them
+        _, topi = _topk(enc_scores.amax(-1), min(self.nq, enc_scores.shape[1]))  # (B, nq)
+        embed = torch.gather(enc, 1, topi[..., None].expand(-1, -1, self.hd))
+        anc = torch.gather(anchors.expand(b, -1, -1), 1, topi[..., None].expand(-1, -1, 4))
+        bbox = torch.sigmoid(self.enc_bbox_head(embed) + anc)  # (B, nq, 4) cxcywh
+
+        for i, layer in enumerate(self.decoder.layers):
+            embed = layer(embed, bbox, memory, shapes, query_pos=self.query_pos_head(bbox))
+            logit_prev = torch.log(bbox / (1 - bbox + 1e-9) + 1e-9)
+            bbox = torch.sigmoid(self.dec_bbox_head[i](embed) + logit_prev)
+        scores = self.dec_score_head[len(self.decoder.layers) - 1](embed)
+        y = torch.cat([bbox, scores.sigmoid()], -1)
+        return y, {"enc_scores": enc_scores, "topk_index": topi}

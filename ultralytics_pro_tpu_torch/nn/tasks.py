@@ -3,9 +3,10 @@
 Counterpart of `ultralytics_pro_tpu/nn/tasks.py` (`parse_model:1126`,
 `YOLOModule._forward:1230`, `yaml_model_load:1311`, `split_scale:1328`,
 `find_model_yaml:1347`, `BaseModel:1361`, `DetectionModel:1491`,
-`model_class_for:1610`, `guess_model_task:1624`) for the YOLOv8 module set:
-Conv, C2f, SPPF, nn.Upsample, Concat and Detect. Any other module raises
-NotImplementedError naming it.
+`model_class_for:1610`, `guess_model_task:1624`) for the YOLOv8 module set
+(Conv, C2f, SPPF, nn.Upsample, Concat, Detect) and RT-DETR's (DWConv,
+HGStem, HGBlock, RepC3, AIFI, RTDETRDecoder; builders at `:85`, `:260-263`,
+`:441-447`). Any other module raises NotImplementedError naming it.
 
 Models are nn.Modules in NCHW whose parameter names are the reference's
 (`model.N.cv1.conv.weight`). Weights are initialised from an explicit
@@ -21,12 +22,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ultralytics_pro_tpu_torch.nn.modules.block import C2f, SPPF
-from ultralytics_pro_tpu_torch.nn.modules.conv import Concat, Conv
-from ultralytics_pro_tpu_torch.nn.modules.head import Detect
+from ultralytics_pro_tpu_torch.nn.modules.block import SPPF, C2f, HGBlock, HGStem, RepC3
+from ultralytics_pro_tpu_torch.nn.modules.conv import Concat, Conv, DWConv
+from ultralytics_pro_tpu_torch.nn.modules.head import Detect, RTDETRDecoder
+from ultralytics_pro_tpu_torch.nn.modules.transformer import AIFI, MSDeformAttn, MultiheadAttention
 from ultralytics_pro_tpu_torch.utils import LOGGER, PKG_ROOT, miniyaml
 
-V8_MODULES = ("Conv", "C2f", "SPPF", "nn.Upsample", "Concat", "Detect")
+SCALED = {"Conv": Conv, "DWConv": DWConv, "C2f": C2f, "SPPF": SPPF, "RepC3": RepC3}  # c2 is width-scaled
+MODULES = (*SCALED, "HGStem", "HGBlock", "AIFI", "nn.Upsample", "Concat", "Detect", "RTDETRDecoder")
 
 
 def make_divisible(x, divisor: int = 8) -> int:
@@ -61,30 +64,44 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
                 raise NotImplementedError(
                     f"malformed model-yaml row {i}: expected [from, repeats, module, args], got {row!r}")
             f, n, m_name, args = row
-            if m_name not in V8_MODULES:
+            if m_name not in MODULES:
                 raise NotImplementedError(
                     f"module '{m_name}' (layer {i}) is not implemented in ultralytics_pro_tpu_torch; "
-                    f"implemented: {sorted(V8_MODULES)}")
+                    f"implemented: {sorted(MODULES)}")
             n = max(round(n * depth), 1) if n > 1 else n
             lit = {"None": None, "True": True, "False": False, "nc": nc}
             args = [lit.get(a, a) if isinstance(a, str) else a for a in args]
             c1 = chs[f] if isinstance(f, int) else None
-            if m_name in ("Conv", "C2f", "SPPF"):
+            if m_name in SCALED:
                 c2 = make_divisible(min(args[0], max_channels) * width, 8)
                 args = [c1, c2, *args[1:]]
-                if m_name == "C2f":
+                if m_name in ("C2f", "RepC3"):  # the repeats are the block's own n
                     args.insert(2, n)
                     n = 1
-                m = {"Conv": Conv, "C2f": C2f, "SPPF": SPPF}[m_name]
+                m = SCALED[m_name]
+            elif m_name in ("HGStem", "HGBlock"):  # [cm, c2, ...], not width-scaled
+                c2, m = args[1], HGStem
+                if m_name == "HGBlock":  # [cm, c2, k, lightconv, shortcut]; n as the JAX builder takes it
+                    args = [args[0], c2, args[2] if len(args) > 2 else 3, n if n > 1 else 6, *args[3:]]
+                    n, m = 1, HGBlock
+                args = [c1, *args]
+            elif m_name == "AIFI":
+                c2, m = c1, AIFI
+                args = [c1, *args]
             elif m_name == "nn.Upsample":
                 c2, m = c1, nn.Upsample
             elif m_name == "Concat":
                 c2, m = sum(chs[x] for x in f), Concat
-            else:  # Detect
+            elif m_name == "Detect":
                 c2, m = None, Detect
                 args = [args[0], [chs[x] for x in f]]
+            else:  # RTDETRDecoder [nc, hd, nq, ndl], as the JAX builder reads them (tasks.py:195)
+                c2, m = None, RTDETRDecoder
+                args = [args[0], [chs[x] for x in f], *args[1:4]]
             layer = nn.Sequential(*(m(*args) for _ in range(n))) if n > 1 else m(*args)
-            layer.i, layer.f, layer.type = i, f, m_name
+            # relative sources other than -1 become absolute layer indices (-2 -> i - 2)
+            layer.f = f if f == -1 else f % i if isinstance(f, int) else [x if x == -1 else x % i for x in f]
+            layer.i, layer.type = i, m_name
             layers.append(layer)
             save.extend(x % i for x in ([f] if isinstance(f, int) else f) if x != -1)
             if verbose:
@@ -148,22 +165,37 @@ def guess_model_task(cfg) -> str:
     return "detect"
 
 
+def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
+    """lecun-normal over the fan-in of weight[0], truncated at 2 sigma (flax's default)."""
+    std = math.sqrt(1.0 / weight[0].numel()) / 0.87962566103423978
+    with torch.no_grad():
+        w = torch.empty(weight.shape).normal_(generator=generator)
+        while bool((w.abs() > 2).any()):
+            bad = w.abs() > 2
+            w[bad] = torch.empty(int(bad.sum())).normal_(generator=generator)
+        weight.copy_(w * std)
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded initialisation: conv kernels lecun-normal (truncated at 2 sigma,
-    as flax's default), conv biases zero, BatchNorm at identity."""
+    """Seeded initialisation, as flax initialises the JAX modules: conv and
+    dense kernels (attention projections too) lecun-normal, their biases
+    zero, BatchNorm and LayerNorm at identity, embeddings normal(1.0); then
+    MSDeformAttn's own offset and attention init."""
     for m in model.modules():
-        if isinstance(m, nn.Conv2d) and m.weight.requires_grad:
-            fan_in = m.weight[0].numel()
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+        if isinstance(m, (nn.Conv2d, nn.Linear)) and m.weight.requires_grad:
+            _lecun_normal_(m.weight, generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+        elif isinstance(m, MultiheadAttention):
+            _lecun_normal_(m.in_proj_weight, generator)
+            nn.init.zeros_(m.in_proj_bias)
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+            m.reset_parameters()
+        elif isinstance(m, nn.Embedding):
             with torch.no_grad():
-                w = torch.empty(m.weight.shape).normal_(generator=generator)
-                while bool((w.abs() > 2).any()):
-                    bad = w.abs() > 2
-                    w[bad] = torch.empty(int(bad.sum())).normal_(generator=generator)
-                m.weight.copy_(w * std)
-                if m.bias is not None:
-                    m.bias.zero_()
-        elif isinstance(m, nn.BatchNorm2d):
+                m.weight.copy_(torch.empty(m.weight.shape).normal_(generator=generator))
+    for m in model.modules():
+        if isinstance(m, MSDeformAttn):
             m.reset_parameters()
 
 
@@ -185,7 +217,7 @@ class BaseModel(nn.Module):
         self.eval()
         self.stride = torch.tensor([32.0])
         head = self.model[-1]
-        if isinstance(head, Detect):
+        if isinstance(head, (Detect, RTDETRDecoder)):
             head.stride = self._infer_strides(ch)
             self.stride = head.stride
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
@@ -206,6 +238,8 @@ class BaseModel(nn.Module):
                 x = y[m.f] if isinstance(m.f, int) else [x if j == -1 else y[j] for j in m.f]
             if isinstance(m, Detect):
                 return x if stop_at_head else m(x, decode=decode)
+            if isinstance(m, RTDETRDecoder):
+                return x if stop_at_head else m(x)
             x = m(x)
             if m.i in self.save:
                 y[m.i] = x
@@ -213,7 +247,8 @@ class BaseModel(nn.Module):
 
     def forward(self, x: torch.Tensor, decode: bool = True):
         """x (B, C, H, W) float. For a Detect model: (decoded (B, A, 4+nc), raw
-        per-level maps), or the raw maps alone when decode=False."""
+        per-level maps), or the raw maps alone when decode=False. For an
+        RT-DETR model: (y (B, nq, 4+nc), aux), see `RTDETRDecoder.forward`."""
         return self._run(x, decode=decode)
 
 

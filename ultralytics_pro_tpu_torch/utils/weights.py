@@ -6,20 +6,41 @@ the port uses the torch reference's names (`model.22.cv2.0.0.conv.weight`,
 `model.2.cv1.bn.running_mean`). These functions are the inverse of
 `ultralytics_pro_tpu/utils/torch_import.py` (`torch_key_to_flax:42`,
 `_convert_array:62`), copied so the port needs nothing of that package:
-HWIO conv kernels become OIHW, `scale` -> `weight`, `mean`/`var` ->
-`running_mean`/`running_var`. Arrays are numpy on the JAX side. Load the
-result with `model.load_state_dict(sd)`, which is strict: a key missing or
-left over raises.
+HWIO conv kernels become OIHW, dense kernels are transposed, `scale` ->
+`weight`, `mean`/`var` -> `running_mean`/`running_var`. Only the first path
+token `layers_N` is the model's layer `model.N`; a nested one (an MLP's
+`layers_0`) is `layers.0`.
+
+RT-DETR adds two kinds of names:
+- flax attention (`ma/query|key|value|out`, kernels (C, nh, hd) and
+  (nh, hd, C)) <-> `nn.MultiheadAttention`'s `in_proj_weight` (3C, C) and
+  `in_proj_bias` (q, k, v rows in that order) and `out_proj`;
+- the decoder head's own names, from the explicit table `HEAD_NAMES`.
+
+Arrays are numpy on the JAX side. Load the result with
+`model.load_state_dict(sd)`, which is strict: a key missing or left over
+raises.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-_BN_NAMES = {"bn", "norm", "ln"}
+# (flax module path, torch module name) of the RT-DETR decoder head's modules
+# whose names differ; "{i}" stands for an index.
+HEAD_NAMES = (
+    ("decoder_layer_{i}", "decoder.layers.{i}"),
+    ("input_proj_{i}/conv", "input_proj.{i}.0"),
+    ("input_proj_{i}/bn", "input_proj.{i}.1"),
+    ("enc_output_norm", "enc_output.1"),
+    ("enc_output", "enc_output.0"),
+)
+BARE_PARAMS = ("denoising_class_embed",)  # flax `self.param` leaves: a module's one `weight`
+MHA_PARTS = ("query", "key", "value")  # the rows of in_proj_weight, in order
 
 
 def _flatten(tree, prefix=()):
@@ -30,57 +51,83 @@ def _flatten(tree, prefix=()):
             yield (*prefix, str(k)), v
 
 
+def _rename(name: str, sep: str, src: str, dst: str) -> str:
+    """Replace the whole-token occurrence of template src in name (tokens
+    split by sep) by template dst."""
+    pat = re.escape(src).replace(re.escape("{i}"), r"(\d+)")
+    return re.sub(rf"(?<![^{re.escape(sep)}]){pat}(?![^{re.escape(sep)}])",
+                  lambda m: dst.format(i=m.group(1) if m.groups() else ""), name)
+
+
 def _flax_path_to_torch(path) -> str:
-    """('layers_22', 'cv2_0_0', 'conv') -> 'model.22.cv2.0.0.conv'."""
+    """('layers_28', 'dec_bbox_head_0', 'layers_0') -> 'model.28.dec_bbox_head.0.layers.0'."""
+    joined = "/".join(path)
+    for flax_name, torch_name in HEAD_NAMES:
+        joined = _rename(joined, "/", flax_name, torch_name)
     out = []
-    for tok in path:
+    for pos, tok in enumerate(joined.split("/")):
+        if "." in tok:  # renamed by HEAD_NAMES
+            out.append(tok)
+            continue
         parts = tok.split("_")
         cut = len(parts)
         while cut > 1 and parts[cut - 1].isdigit():
             cut -= 1
         head = "_".join(parts[:cut])
-        out.append("model" if head == "layers" and cut == 1 and len(parts) > 1 else head)
+        out.append("model" if pos == 0 and head == "layers" and cut == 1 and len(parts) > 1 else head)
         out.extend(parts[cut:])
     return ".".join(out)
 
 
-def torch_key_to_flax(key: str) -> Tuple[Tuple[str, ...], str, str]:
-    """A torch state_dict key -> (flax path, leaf name, collection)."""
-    parts = key.split(".")
+def _torch_name_to_flax(name: str) -> Tuple[str, ...]:
+    """'model.28.decoder.layers.3.cross_attn' -> ('layers_28', 'decoder_layer_3', 'cross_attn')."""
+    parts = name.split(".")
     if parts[0] == "model":
         parts = parts[1:]
-    leaf = parts[-1]
     path = []
-    for p in parts[:-1]:
+    if parts and parts[0].isdigit():
+        path.append(f"layers_{parts[0]}")
+        parts = parts[1:]
+    joined = ".".join(parts)
+    for flax_name, torch_name in HEAD_NAMES:
+        joined = _rename(joined, ".", torch_name, flax_name)
+    for p in joined.split(".") if joined else []:
         if p.isdigit() and path:
             path[-1] = f"{path[-1]}_{p}"
-        elif p.isdigit():
-            path.append(f"layers_{p}")
         else:
-            path.append(p)
+            path.extend(p.split("/"))
+    return tuple(path)
+
+
+def torch_key_to_flax(key: str, ndim: int) -> Tuple[Tuple[str, ...], str, str]:
+    """A torch state_dict key of an array with ndim dims -> (flax path, leaf
+    name, collection). A 1-D `weight` is a norm's `scale`. Attention's packed
+    `in_proj_*` keys have no single flax leaf; see torch_state_dict_to_jax."""
+    name, leaf = key.rsplit(".", 1)
+    path = _torch_name_to_flax(name)
+    if path and path[-1] == "out_proj":
+        path = (*path[:-1], "out")
+    if path and path[-1] in BARE_PARAMS:
+        return path[:-1], path[-1], "params"
     if leaf == "weight":
-        if path and path[-1].split("_")[0] in _BN_NAMES:
-            return tuple(path), "scale", "params"
-        return tuple(path), "kernel", "params"
+        return path, "scale" if ndim == 1 else "kernel", "params"
     if leaf == "running_mean":
-        return tuple(path), "mean", "batch_stats"
+        return path, "mean", "batch_stats"
     if leaf == "running_var":
-        return tuple(path), "var", "batch_stats"
-    return tuple(path), leaf, "params"
+        return path, "var", "batch_stats"
+    return path, leaf, "params"
 
 
-def _to_torch_array(w: np.ndarray, leaf: str) -> np.ndarray:
+def _to_torch_array(w: np.ndarray, leaf: str, attention_part: str = "") -> np.ndarray:
+    if attention_part == "out" and leaf == "kernel":
+        return w.reshape(-1, w.shape[-1]).T  # (nh, hd, C) -> out_proj.weight (C, nh*hd)
+    if attention_part and leaf == "kernel":
+        return w.reshape(w.shape[0], -1).T  # (C, nh, hd) -> (nh*hd, C) rows of in_proj_weight
+    if attention_part in MHA_PARTS:
+        return w.reshape(-1)  # bias (nh, hd) -> rows of in_proj_bias
     if leaf == "kernel" and w.ndim == 4:
         return w.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     if leaf == "kernel" and w.ndim == 2:
-        return w.transpose(1, 0)
-    return w
-
-
-def _to_flax_array(w: np.ndarray) -> np.ndarray:
-    if w.ndim == 4:
-        return w.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-    if w.ndim == 2:
         return w.transpose(1, 0)
     return w
 
@@ -92,35 +139,75 @@ def jax_to_torch_state_dict(variables: dict, reg_max: int = 16) -> Dict[str, tor
     frozen `dfl.conv.weight` (arange(reg_max))."""
     leaf_names = {"params": {"kernel": "weight", "scale": "weight", "bias": "bias"},
                   "batch_stats": {"mean": "running_mean", "var": "running_var"}}
+    params = list(_flatten(variables.get("params", {})))
+    # flax attention modules: those whose `query` kernel is (C, nh, hd)
+    attention = {path[:-2] for path, w in params
+                 if path[-2:] == ("query", "kernel") and np.ndim(w) == 3}
     sd: Dict[str, torch.Tensor] = {}
-    for coll in ("params", "batch_stats"):
-        for path, w in _flatten(variables.get(coll, {})):
+    packed: Dict[str, Dict[str, np.ndarray]] = {}  # in_proj_* key -> {query|key|value: rows}
+    for coll, leaves in (("params", params), ("batch_stats", _flatten(variables.get("batch_stats", {})))):
+        for path, w in leaves:
             *mods, leaf = path
+            arr = np.asarray(w, dtype=np.float32)
+            if coll == "params" and leaf in BARE_PARAMS:
+                sd[f"{_flax_path_to_torch((*mods, leaf))}.weight"] = torch.from_numpy(arr.copy())
+                continue
             if leaf not in leaf_names[coll]:
                 raise KeyError(f"unknown {coll} leaf {'/'.join(path)}")
+            part = mods[-1] if coll == "params" and tuple(mods[:-1]) in attention else ""
+            arr = _to_torch_array(arr, leaf, part)
+            if part in MHA_PARTS:
+                key = f"{_flax_path_to_torch(mods[:-1])}.in_proj_{leaf_names[coll][leaf]}"
+                packed.setdefault(key, {})[part] = arr
+                continue
+            if part == "out":
+                mods = [*mods[:-1], "out_proj"]
             key = f"{_flax_path_to_torch(mods)}.{leaf_names[coll][leaf]}"
-            arr = _to_torch_array(np.asarray(w, dtype=np.float32), leaf)
             sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
             if coll == "batch_stats" and leaf == "mean":
                 sd[key.rsplit(".", 1)[0] + ".num_batches_tracked"] = torch.tensor(0)
+    for key, parts in packed.items():
+        if set(parts) != set(MHA_PARTS):
+            raise KeyError(f"attention {key} has parts {sorted(parts)}, wants {list(MHA_PARTS)}")
+        sd[key] = torch.from_numpy(np.ascontiguousarray(np.concatenate([parts[p] for p in MHA_PARTS])))
     heads = {k[:k.index("cv2.0.2.")] for k in sd if k.startswith("cv2.0.2.") or ".cv2.0.2." in k}
     for prefix in heads:  # '' for a bare Detect module, 'model.22.' inside a model
         sd[f"{prefix}dfl.conv.weight"] = torch.arange(reg_max, dtype=torch.float32).view(1, reg_max, 1, 1)
     return sd
 
 
-def torch_state_dict_to_jax(state_dict: Dict[str, torch.Tensor]) -> dict:
+def _put(tree: dict, path, leaf: str, arr: np.ndarray) -> None:
+    for p in path:
+        tree = tree.setdefault(p, {})
+    tree[leaf] = arr
+
+
+def torch_state_dict_to_jax(state_dict: Dict[str, torch.Tensor], num_heads: int = 8) -> dict:
     """The port's state_dict as the JAX package's {'params', 'batch_stats'}
-    trees of numpy arrays (the buffers JAX has no counterpart for drop)."""
+    trees of numpy arrays (the buffers JAX has no counterpart for drop).
+    `num_heads` splits attention projections into flax's (C, nh, hd) form."""
     out: dict = {"params": {}, "batch_stats": {}}
-    for key, w in state_dict.items():
+    for key, t in state_dict.items():
         if key.endswith("num_batches_tracked") or key.endswith("dfl.conv.weight"):
             continue
-        path, leaf, coll = torch_key_to_flax(key)
-        node = out[coll]
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = _to_flax_array(w.detach().cpu().numpy())
+        w = t.detach().cpu().numpy()
+        name, leaf = key.rsplit(".", 1)
+        if leaf in ("in_proj_weight", "in_proj_bias"):
+            path = _torch_name_to_flax(name)
+            for part, rows in zip(MHA_PARTS, np.split(w, 3)):
+                if leaf == "in_proj_weight":  # (nh*hd, C) -> (C, nh, hd)
+                    _put(out["params"], (*path, part), "kernel", rows.T.reshape(rows.shape[1], num_heads, -1))
+                else:
+                    _put(out["params"], (*path, part), "bias", rows.reshape(num_heads, -1))
+            continue
+        path, fleaf, coll = torch_key_to_flax(key, w.ndim)
+        if fleaf == "kernel" and path[-1] == "out" and name.endswith(".out_proj"):
+            w = w.T.reshape(num_heads, -1, w.shape[0])  # (C, nh*hd) -> (nh, hd, C)
+        elif fleaf == "kernel" and w.ndim == 4:
+            w = w.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        elif fleaf == "kernel" and w.ndim == 2:
+            w = w.transpose(1, 0)
+        _put(out[coll], path, fleaf, w)
     return out
 
 
