@@ -4,35 +4,48 @@
 
 Phases, one JSON line each on stdout (a failed phase raises and the script
 exits non-zero):
-  env     card name, `nvidia-smi` name and power limit; TF32 off throughout
   build   nvcc builds every kernel of csrc/ (seconds)
-  k1      kernel K1 (greedy NMS) against its plain version on the card, bit
-          for bit (max_abs_err over keep, valid and the kept boxes), at the
-          predict (B=16, K=8400) and val (B=2, K=30000) sizes, with times
-          and the bound
+  env     card name, `nvidia-smi` name and power limit, versions; torch's
+          TF32 flags as found, as seen inside the device function of a
+          yolov8n and an rtdetr-l predict call (both off: the predictors run
+          in full f32), and after each call (as found)
+  k1      kernel K1 (greedy NMS) against its plain version on the card and
+          on the CPU, bit for bit (max_mismatch and max_abs_err over keep,
+          valid and the kept boxes), on rows sorted as the main path hands
+          them over and on unsorted rows through the wrapper's sort, at the
+          predict (B=16, K=8400) and val (B=2, K=30000) sizes: on the timed
+          rows (overlapping copies of 320 objects, ties in one row, every
+          row 300 keeps) and on edge rows, checked and not timed (a
+          zero-area box with ties, a row that runs out, all -1, all equal);
+          times, and the bound recounted for the work exact greedy needs on
+          the timed rows
   main    YOLO("yolov8s.yaml", device="cuda").predict(4 images) at 640 px,
           with K1's launch count read around the call; warm predict latency
           per image over 200 calls (median and spread), the device's busy
-          time and idle share on those calls (one torch.profiler window of
-          20 calls against the unprofiled median), and the device
-          function's images/s at batch 16
+          time, idle share and kernel launches per image on those calls (one
+          torch.profiler window of 20 calls against the unprofiled median),
+          and the device function's images/s at batch 16
   parity  the same weights on the card and on the CPU: decoded outputs
           within boxes 1e-3 px / scores 1e-4, and NMS on the CPU's decoded
           outputs equal on both devices
-  k2      kernel K2 (deformable-attention gather) against its plain version
-          on the card within 1e-5, at the rtdetr-l predict shape (B=1), the
-          batch-16 device-function shape, and an edge case (hd=8, Q=37,
-          out-of-range rows); times, the bound, and the one PyTorch call that
-          computes the same function (embedding_bag) as the yardstick
+  k2      kernel K2 (deformable-attention sampling, coordinates fused in)
+          against its plain composition (msda_flatten_coords, then
+          msda_sample_plain) on the card and on the CPU within 1e-5, at the
+          rtdetr-l predict shape (B=1), the batch-16 device-function shape,
+          and an edge case (hd=8, Q=37, locations outside [0, 1]); times,
+          the bound, and embedding_bag on the equivalent corner rows as the
+          yardstick of the gather part
   rtdetr  RTDETR("rtdetr-l.yaml", device="cuda").predict(4 images) at 640 px,
           default conf 0.25, with K2's launches read around the call (6 per
           image); warm predict latency per image over 100 calls, the device
-          idle share from one profiled window of 10 calls, and the device
-          function's images/s at batch 16
+          idle share, kernel launches and comparison launches per image from
+          one profiled window of 10 calls, and the device function's
+          images/s at batch 16
   rtdetr_parity  the same weights and letterboxed batch on the card and on
-          the CPU: dense encoder scores within 1e-3, top-k query indices
-          that differ (reported), final outputs within 1e-3 over the
-          queries whose index agrees
+          the CPU: aux under the JAX decoder's keys and shapes, dense
+          encoder scores within 1e-3, top-k query indices that differ
+          (reported), final outputs within 1e-3 over the queries whose index
+          agrees
   kernels the per-kernel summary line
 The last line is {"ok": true, "device": {...}}.
 """
@@ -51,7 +64,13 @@ import torch
 # Peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s, f32 (non-tensor) FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-NMS_OPS_PER_CANDIDATE_STEP = 18  # IoU (min/max x4, sub x4, clip x2, mul x2, add/sub x3, div) + compare + argmax
+IOU_TEST_OPS = 17  # one IoU test: min/max x4, sub x4, clip x2, mul x2, add/sub x3, div, compare
+NMS_OPS_PER_CANDIDATE_STEP = 18  # the argmax form: an IoU test and the argmax, per candidate and step
+# K1's timed rows: candidates are jittered copies of NMS_OBJECTS boxes a row,
+# so most are suppressed and a row scans some 800-900 candidates before its
+# 300th keep at IoU 0.7, as yolov8s predict's rows scan 621-1,361 (PERF.md)
+NMS_OBJECTS = 320
+NMS_JITTER = 0.02  # std of a copy's centre and log size, relative to its object's size
 CONF = 1e-6  # random-init class logits sit near log(5/nc/(640/s)^2), i.e. scores ~1e-5
 MIN_CANDIDATES = 1000
 IMAGE_SHAPES = ((480, 640), (720, 1280), (640, 640), (333, 500))
@@ -61,6 +80,7 @@ RTDETR_CALLS = 100  # the same for RT-DETR
 RTDETR_PROFILED_CALLS = 10
 RTDETR_LEVELS = ((80, 80), (40, 40), (20, 20))  # rtdetr-l's P3-P5 at 640 px: V = 8400 value rows
 PARITY_TOL = 1e-3  # card vs CPU, rtdetr-l encoder scores and final outputs
+SLEEP_CYCLES = 100_000_000  # cuda_ms's head start for the host: about 50 ms at the H100's clock
 # cuDNN's f32 convolutions run as implicit GEMM (fprop) or FFT (fft*,
 # pointwise_mult_and_sum_complex, gemv2T on float2); cuBLAS's matmuls as gemm.
 CONV_KERNELS = ("conv", "fprop", "implicit_gemm", "winograd", "fft", "pointwise_mult_and_sum",
@@ -80,11 +100,17 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over iters calls, by CUDA events."""
+    """Mean device time of fn() over iters calls, by CUDA events. The calls
+    queue behind a sleep kernel of some 50 ms, so the card runs them back to
+    back however long the host takes to launch them: a short kernel's time is
+    its own, not its wrapper's host time. (A function that synchronises, or
+    that queues more launches than the card's queue holds, is still paced by
+    the host in part.)"""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -139,7 +165,7 @@ def profile_window(fn, reps: int) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    by_cat, kernels = {}, []
+    by_cat, kernels, compares = {}, [], 0
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
@@ -148,7 +174,9 @@ def profile_window(fn, reps: int) -> dict:
             continue
         cat = category(ev.key)
         by_cat[cat] = by_cat.get(cat, 0.0) + dev_us / 1e3 / reps
-        kernels.append((dev_us / 1e3 / reps, ev.count // reps, ev.key[:90]))
+        kernels.append((dev_us / 1e3 / reps, ev.count / reps, ev.key[:90]))
+        if "compare_scalar" in ev.key:
+            compares += ev.count / reps
     busy = sum(by_cat.values()) or None
     kernels.sort(reverse=True)
     return {"profiled_calls": reps, "profiled_wall_ms_per_call": wall_ms,
@@ -156,25 +184,49 @@ def profile_window(fn, reps: int) -> dict:
             "profiled_idle_share": None if busy is None else max(0.0, 1 - busy / wall_ms),
             "device_ms_by_category": by_cat,
             "kernel_launches_per_call": sum(k[1] for k in kernels),
+            "compare_scalar_launches_per_call": compares,
             "top_kernels": [{"ms": k[0], "per_call": k[1], "name": k[2]} for k in kernels[:12]]}
 
 
-def nms_inputs(rng, b: int, k: int, nc: int = 80, max_wh: float = 7680.0):
-    """Class-offset xyxy boxes and scores in [0, 1] or -1, with the cases K1
-    must get right: an all -1 row, a row that runs out after a few picks, and
-    rows of duplicate scores (ties)."""
+def nms_rows(rng, b: int, k: int, nc: int = 80, max_wh: float = 7680.0):
+    """K1's timed rows: class-offset xyxy boxes, each a jittered copy of one of
+    the row's NMS_OBJECTS objects, and scores in [0, 1] or -1, unsorted; the
+    last row's scores on a grid of 1/16 (ties). Every row reaches 300 keeps."""
+    c = rng.uniform(0, 640, (b, NMS_OBJECTS, 2))
+    wh = rng.uniform(8, 160, (b, NMS_OBJECTS, 2))
+    cls = rng.integers(0, nc, (b, NMS_OBJECTS))
+    obj = rng.integers(0, NMS_OBJECTS, (b, k))
+    c = np.take_along_axis(c, obj[..., None], 1)
+    wh = np.take_along_axis(wh, obj[..., None], 1)
+    c = c + rng.normal(0, NMS_JITTER, (b, k, 2)) * wh
+    wh = wh * np.exp(rng.normal(0, NMS_JITTER, (b, k, 2)))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1) + np.take_along_axis(cls, obj, 1)[..., None] * max_wh
+    scores = np.where(rng.uniform(0, 1, (b, k)) < 0.7, rng.uniform(0, 1, (b, k)), -1.0)
+    scores[b - 1] = np.where(scores[b - 1] > 0, np.ceil(scores[b - 1] * 16) / 16, -1.0)
+    return boxes.astype(np.float32), scores.astype(np.float32)
+
+
+def nms_edge_rows(rng, b: int, k: int, nc: int = 80, max_wh: float = 7680.0):
+    """K1's edge cases, checked and not timed: random class-offset boxes and
+    scores, and in the first rows (as many as b holds) a zero-area box at the
+    100th best of scores with ties, which does not suppress itself and so
+    fills every slot after it; a row that runs out after 5 picks; an all -1
+    row; a row whose live scores are all equal."""
     c = rng.uniform(0, 640, (b, k, 2))
     wh = rng.uniform(4, 160, (b, k, 2))
     cls = rng.integers(0, nc, (b, k, 1))
     boxes = np.concatenate([c - wh / 2, c + wh / 2], -1) + cls * max_wh
     scores = np.where(rng.uniform(0, 1, (b, k)) < 0.7, rng.uniform(0, 1, (b, k)), -1.0)
-    scores[0] = -1.0
-    if b > 2:
+    scores[0] = np.where(scores[0] > 0, np.ceil(scores[0] * 16) / 16, -1.0)  # ties
+    j = np.argsort(-scores[0], kind="stable")[99]
+    boxes[0, j, 2] = boxes[0, j, 0]  # zero width
+    if b > 1:
         scores[1] = -1.0
         scores[1, rng.choice(k, 5, replace=False)] = rng.uniform(0.1, 1, 5)
-    scores[b - 1] = np.where(scores[b - 1] > 0, np.ceil(scores[b - 1] * 16) / 16, -1.0)  # ties
-    if b > 4:
-        scores[2] = np.where(scores[2] > 0, 0.5, -1.0)  # every live score equal
+    if b > 2:
+        scores[2] = -1.0
+    if b > 3:
+        scores[3] = np.where(scores[3] > 0, 0.5, -1.0)
     return boxes.astype(np.float32), scores.astype(np.float32)
 
 
@@ -184,42 +236,114 @@ def kept_outputs(boxes, keep, valid):
     return keep.double(), valid.double(), kept.double()
 
 
+def iou_suppresses(winners, cands, thres: float):
+    """(W, C) bool: ops/nms.py:40-45 in f32, winners (W, 4) in the winner's place."""
+    f32 = np.float32
+    bj, bt = winners[:, None], cands[None]
+    w = np.maximum(np.minimum(bj[..., 2], bt[..., 2]) - np.maximum(bj[..., 0], bt[..., 0]), f32(0))
+    h = np.maximum(np.minimum(bj[..., 3], bt[..., 3]) - np.maximum(bj[..., 1], bt[..., 1]), f32(0))
+    area = lambda b: (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])  # noqa: E731
+    inter = w * h
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return inter / (area(bj) + area(bt) - inter + f32(1e-7)) > f32(thres)
+
+
+def greedy_work(boxes, scores, keep, valid, max_det: int, thres: float):
+    """The work exact greedy NMS needs on these sorted rows, from the plain
+    version's result: per candidate ahead of the row's stop, the IoU tests
+    against the keeps before it up to the first that suppresses it (a keep
+    also tests itself), and the candidates read (those ahead of the stop,
+    plus the first non-positive score where that ends the row)."""
+    tests = read = 0
+    for bx, sc, kp, vd in zip(boxes, scores, keep, valid):
+        kept = []
+        for x in kp[vd].tolist():  # the distinct keeps; a lazy box then repeats
+            if kept and x <= kept[-1]:
+                break
+            kept.append(x)
+        if kept and (len(kept) == max_det or len(kept) < int(vd.sum())):
+            stop = kept[-1] + 1
+            read += stop
+        else:
+            nonpos = np.flatnonzero(~(sc > 0))
+            stop = int(nonpos[0]) if len(nonpos) else len(sc)
+            read += min(len(sc), stop + 1)
+        if not kept:
+            continue
+        kept = np.asarray(kept)
+        before = np.searchsorted(kept, np.arange(stop))  # keeps ahead of each candidate
+        hit = iou_suppresses(bx[kept], bx[:stop], thres) & (np.arange(len(kept))[:, None] < before)
+        first = np.where(hit.any(0), hit.argmax(0) + 1, before + 1)  # a keep: all before it, then itself
+        tests += int(first.sum())
+    return tests, read
+
+
+def k1_compare(nms_cuda, boxes, scores, max_det: int, iou: float):
+    """K1 against its plain version on the card and on the CPU, on the rows
+    sorted (stable, descending) and as they are (through the wrapper's sort).
+    Returns the entries that differ, the max |kernel - plain| over keep
+    indices, valid flags and kept boxes (what a caller gathers), the sorted
+    rows and the kernel's result on them (host arrays)."""
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    sboxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    sscores = torch.gather(scores, 1, order)
+    mismatch, max_abs_err, on_sorted = 0, 0.0, []
+    for bx, sc, presorted in ((sboxes, sscores, True), (boxes, scores, False)):
+        keep, valid = nms_cuda.greedy_nms(bx, sc, max_det, iou, presorted=presorted)
+        torch.cuda.synchronize()
+        out = kept_outputs(bx.cpu(), keep.cpu(), valid.cpu())
+        refs = (nms_cuda.greedy_nms_plain(bx, sc, max_det, iou),
+                nms_cuda.greedy_nms_plain(bx.cpu(), sc.cpu(), max_det, iou))
+        for ref_k, ref_v in refs:
+            ref_k, ref_v = ref_k.cpu(), ref_v.cpu()
+            mismatch += int((keep.cpu() != ref_k).sum() + (valid.cpu() != ref_v).sum())
+            max_abs_err = max(max_abs_err, *(float((x - y).abs().max()) for x, y in
+                                              zip(out, kept_outputs(bx.cpu(), ref_k, ref_v))))
+        on_sorted.append((keep.cpu().numpy(), valid.cpu().numpy()))
+    return mismatch, max_abs_err, sboxes, sscores, on_sorted[0]
+
+
 def k1_check(nms_cuda, name: str, b: int, k: int, max_det: int, iou: float, seed: int) -> dict:
     rng = np.random.default_rng(seed)
-    boxes_np, scores_np = nms_inputs(rng, b, k)
-    boxes = torch.from_numpy(boxes_np).cuda()
-    scores = torch.from_numpy(scores_np).cuda()
-    keep, valid = nms_cuda.greedy_nms(boxes, scores, max_det, iou)
-    torch.cuda.synchronize()
-    keep_p, valid_p = nms_cuda.greedy_nms_plain(boxes, scores, max_det, iou)
-    keep_c, valid_c = nms_cuda.greedy_nms_plain(boxes.cpu(), scores.cpu(), max_det, iou)
-    mismatch = int((keep != keep_p).sum() + (valid != valid_p).sum()
-                   + (keep.cpu() != keep_c).sum() + (valid.cpu() != valid_c).sum())
-    # max |kernel - plain| over keep indices, valid flags and the kept boxes
-    # (what a caller gathers), against the plain version on the card and on the CPU
-    out = kept_outputs(boxes.cpu(), keep.cpu(), valid.cpu())
-    max_abs_err = max(float((a - b).abs().max())
-                      for ref_k, ref_v in ((keep_p.cpu(), valid_p.cpu()), (keep_c, valid_c))
-                      for a, b in zip(out, kept_outputs(boxes.cpu(), ref_k, ref_v)))
+    boxes, scores = (torch.from_numpy(a).cuda() for a in nms_rows(rng, b, k))
+    edge_boxes, edge_scores = (torch.from_numpy(a).cuda() for a in nms_edge_rows(rng, b, k))
+    mismatch, max_abs_err, sboxes, sscores, (keep_s, valid_s) = k1_compare(
+        nms_cuda, boxes, scores, max_det, iou)
+    edge_mismatch, edge_err, _, _, (_, edge_valid) = k1_compare(
+        nms_cuda, edge_boxes, edge_scores, max_det, iou)
+    mismatch, max_abs_err = mismatch + edge_mismatch, max(max_abs_err, edge_err)
     if mismatch or max_abs_err:
         raise AssertionError(f"K1 {name}: {mismatch} entries differ from the plain version "
                              f"(max abs error {max_abs_err})")
-    kept = valid.sum(1).cpu().numpy()
-    ms = cuda_ms(lambda: nms_cuda.greedy_nms(boxes, scores, max_det, iou), iters=20)
-    plain_ms = cuda_ms(lambda: nms_cuda.greedy_nms_plain(boxes, scores, max_det, iou), iters=3, warmup=1)
-    # bound: bytes read/written once, and the operations this data needs (each
-    # row runs kept steps over K, plus one final argmax pass if it stops early)
-    nbytes = b * k * (16 + 4) + b * max_det * (4 + 1)
-    ops = sum(int(s) * k * NMS_OPS_PER_CANDIDATE_STEP + (k if s < max_det else 0) for s in kept)
+    kept, edge_kept = valid_s.sum(1), edge_valid.sum(1)
+    if kept.min() != max_det:
+        raise AssertionError(f"K1 {name}: timed rows kept {kept.tolist()}, want {max_det} each")
+    if edge_kept[0] != max_det:
+        raise AssertionError(f"K1 {name}: the zero-area box did not fill its row ({edge_kept[0]} kept)")
+    ms = cuda_ms(lambda: nms_cuda.greedy_nms(sboxes, sscores, max_det, iou, presorted=True), iters=50)
+    unsorted_ms = cuda_ms(lambda: nms_cuda.greedy_nms(boxes, scores, max_det, iou), iters=50)
+    plain_ms = cuda_ms(lambda: nms_cuda.greedy_nms_plain(sboxes, sscores, max_det, iou), iters=3, warmup=1)
+    # bound: the candidates exact greedy must read and the IoU tests it must
+    # make on this data (greedy_work), the outputs written once; beside it the
+    # argmax form's operations (kept steps over K, plus one final argmax pass
+    # where a row stops early), the count PRs 4 and 5 used
+    tests, read = greedy_work(sboxes.cpu().numpy(), sscores.cpu().numpy(), keep_s, valid_s, max_det, iou)
+    nbytes = read * (16 + 4) + b * max_det * (4 + 1)
+    ops = tests * IOU_TEST_OPS
+    argmax_ops = sum(int(n) * k * NMS_OPS_PER_CANDIDATE_STEP + (k if n < max_det else 0) for n in kept)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
     return {"size": name, "B": b, "K": k, "max_det": max_det, "iou": iou, "max_mismatch": mismatch,
-            "max_abs_err": max_abs_err,
-            "kept_per_row": kept.tolist(), "ms": ms, "plain_ms": plain_ms,
+            "max_abs_err": max_abs_err, "checked": ["timed sorted", "timed unsorted", "edge sorted", "edge unsorted"],
+            "rows": {"timed": f"{NMS_OBJECTS} objects a row, jittered copies; ties in the last row",
+                     "edge": ["zero-area box at the 100th best, ties", "runs out after 5",
+                              "all -1", "all equal"][:b]},
+            "kept_per_row": kept.tolist(), "edge_kept_per_row": edge_kept.tolist(), "ms": ms, "unsorted_ms": unsorted_ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "bytes": nbytes, "ops": ops}
+            "bytes": nbytes, "candidates_read": read, "iou_tests": tests, "ops": ops,
+            "argmax_form_ops": argmax_ops, "argmax_form_bound_ms": argmax_ops / F32_FLOPS * 1e3}
 
 
-def main_path(YOLO, nms_cuda, decode_single_label, card: str, smi: str):
+def main_path(YOLO, nms_cuda, decode_single_label, full_f32, card: str, smi: str):
     imgs = seeded_images()
     model = YOLO("yolov8s.yaml", device="cuda", seed=0)
     model.predict(imgs[:1], conf=CONF)  # first call: cuDNN and allocator set-up
@@ -246,7 +370,7 @@ def main_path(YOLO, nms_cuda, decode_single_label, card: str, smi: str):
 
     pred = model.predictor
     head = model.model.model[-1]
-    with torch.no_grad():
+    with torch.no_grad(), full_f32():
         batch = pred.preprocess(imgs)
         x = batch.flip(-1).permute(0, 3, 1, 2).float() / 255.0
         _, conf, _ = decode_single_label(model.model(x, decode=False), head.stride.tolist(), head.nc)
@@ -276,19 +400,20 @@ def main_path(YOLO, nms_cuda, decode_single_label, card: str, smi: str):
                 predict_ms_per_image={"median": q[2], "p10": q[1], "p90": q[3], "min": q[0], "max": q[4]},
                 predict_median_ms_per_call=call_ms,
                 device_idle_share=None if busy is None else max(0.0, 1 - busy / call_ms),
+                kernel_launches_per_image=prof["kernel_launches_per_call"] / len(imgs),
                 predict_profile=prof,
                 device_fn_batch16_ms=ms16, device_fn_batch16_images_per_s=16 * 1e3 / ms16,
                 card=card, nvidia_smi=smi)
     return model, batch, info
 
 
-def parity(YOLO, nms_cuda, ops_nms, decode_single_label, model, batch):
+def parity(YOLO, nms_cuda, ops_nms, decode_single_label, full_f32, model, batch):
     cpu_model = YOLO("yolov8s.yaml", device="cpu", seed=0)
     for (k, a), b in zip(model.model.state_dict().items(), cpu_model.model.state_dict().values()):
         if not torch.equal(a.cpu(), b):
             raise AssertionError(f"seeded weights differ between devices at {k}")
     x = batch[:1].cpu().flip(-1).permute(0, 3, 1, 2).float() / 255.0
-    with torch.no_grad():
+    with torch.no_grad(), full_f32():  # the predictors' precision
         y_gpu, _ = model.model(x.cuda())
         y_cpu, raw_cpu = cpu_model.model(x)
     y_gpu = y_gpu.cpu()
@@ -309,7 +434,7 @@ def parity(YOLO, nms_cuda, ops_nms, decode_single_label, model, batch):
     cand = ops_nms.xywh2xyxy(torch.gather(b4, 1, idx[..., None].expand(-1, -1, 4)))
     cand = (cand + torch.gather(cl, 1, idx).float()[..., None] * 7680.0).contiguous()
     keep_c, valid_c = nms_cuda.greedy_nms_plain(cand, top, 300, 0.7)
-    keep_g, valid_g = nms_cuda.greedy_nms(cand.cuda(), top.cuda(), 300, 0.7)
+    keep_g, valid_g = nms_cuda.greedy_nms(cand.cuda(), top.cuda(), 300, 0.7, presorted=True)
     keep_diff = int((keep_g.cpu() != keep_c).sum() + (valid_g.cpu() != valid_c).sum())
     if nms_diff or keep_diff:
         raise AssertionError(f"NMS on the card differs from the CPU: {nms_diff} output entries, "
@@ -319,66 +444,63 @@ def parity(YOLO, nms_cuda, ops_nms, decode_single_label, model, batch):
                 nms_output_mismatch=nms_diff, k1_keep_mismatch=keep_diff, kept=int(valid_c.sum()))
 
 
-def k2_inputs(rng, b: int, q: int, nh: int, hd: int, shapes, p: int = 4, out_of_range: bool = False):
-    """A value table (B, nh, V, hd) and the flat corner rows and weights that
-    msda_flatten_coords makes of random locations in [-0.1, 1.1] (so corners
-    fall outside the maps) and softmax-like attention, all on the card. With
-    out_of_range, a fifth of the rows move outside [0, V) and every weight
-    is positive, so a row the kernel failed to skip would show."""
-    from ultralytics_pro_tpu_torch.kernels.msda_cuda import msda_flatten_coords
-
+def k2_inputs(rng, b: int, q: int, nh: int, hd: int, shapes, p: int = 4, lo: float = -0.1,
+              hi: float = 1.1):
+    """A value table (B, V, nh, hd) as MSDeformAttn makes it, locations
+    uniform in [lo, hi] (outside [0, 1] their corners fall outside the maps)
+    and attention weights that sum to 1 over each query's points, on the card."""
     v = sum(h * w for h, w in shapes)
-    val = torch.from_numpy(rng.normal(size=(b, nh, v, hd)).astype(np.float32)).cuda()
-    locs = torch.from_numpy(rng.uniform(-0.1, 1.1, (b, q, nh, len(shapes), p, 2)).astype(np.float32)).cuda()
+    value = torch.from_numpy(rng.normal(size=(b, v, nh, hd)).astype(np.float32)).cuda()
+    locs = torch.from_numpy(rng.uniform(lo, hi, (b, q, nh, len(shapes), p, 2)).astype(np.float32)).cuda()
     attn = rng.uniform(0, 1, (b, q, nh, len(shapes), p)).astype(np.float32)
     attn = torch.from_numpy(attn / attn.sum((-1, -2), keepdims=True)).cuda()
-    idx, w = msda_flatten_coords(list(shapes), locs, attn)
-    if out_of_range:
-        mask = torch.from_numpy(rng.uniform(size=tuple(idx.shape)) < 0.2).cuda()
-        bad = torch.from_numpy(rng.choice([-1, -7, v, v + 5, 2 ** 30], size=tuple(idx.shape))
-                               .astype(np.int32)).cuda()
-        idx, w = torch.where(mask, bad, idx).contiguous(), (w + 0.1).contiguous()
-    return val, idx, w
+    return value, locs, attn
 
 
 def k2_check(msda_cuda, name: str, b: int, q: int, nh: int, hd: int, shapes, seed: int,
-             out_of_range: bool = False) -> dict:
-    val, idx, w = k2_inputs(np.random.default_rng(seed), b, q, nh, hd, shapes, out_of_range=out_of_range)
-    out = msda_cuda.msda_sample(val, idx, w)
+             lo: float = -0.1, hi: float = 1.1) -> dict:
+    shapes = list(shapes)
+    value, locs, attn = k2_inputs(np.random.default_rng(seed), b, q, nh, hd, shapes, lo=lo, hi=hi)
+    out = msda_cuda.msda_sample_fused(value, shapes, locs, attn)
     torch.cuda.synchronize()
-    ref = msda_cuda.msda_sample_plain(val, idx, w)
-    ref_cpu = msda_cuda.msda_sample_plain(val.cpu(), idx.cpu(), w.cpu())
+    ref = msda_cuda.msda_sample_fused_plain(value, shapes, locs, attn)
+    ref_cpu = msda_cuda.msda_sample_fused_plain(value.cpu(), shapes, locs.cpu(), attn.cpu())
     max_abs_err = max(float((out - ref).abs().max()), float((out.cpu() - ref_cpu).abs().max()))
     if not (bool(torch.isfinite(out).all()) and max_abs_err <= 1e-5):
         raise AssertionError(f"K2 {name}: max abs error {max_abs_err} against the plain version")
-    ms = cuda_ms(lambda: msda_cuda.msda_sample(val, idx, w), iters=50)
-    plain_ms = cuda_ms(lambda: msda_cuda.msda_sample_plain(val, idx, w), iters=10)
-    # bound: the distinct in-range value rows this run's indices touch, idx, w
-    # and out once each, at the HBM rate; 2*hd operations per in-range corner
-    v = val.shape[2]
-    ok = (idx >= 0) & (idx < v)
-    bh_base = (torch.arange(b * nh, device=idx.device, dtype=torch.int64) * v).view(b, nh, 1, 1)
-    rows = int(torch.unique((idx.long() + bh_base)[ok]).numel())
-    nbytes = rows * hd * 4 + idx.numel() * 4 + w.numel() * 4 + out.numel() * 4
-    ops = 2 * hd * int(ok.sum())
+    ms = cuda_ms(lambda: msda_cuda.msda_sample_fused(value, shapes, locs, attn), iters=50)
+    plain_ms = cuda_ms(lambda: msda_cuda.msda_sample_fused_plain(value, shapes, locs, attn), iters=10)
+    # bound: the distinct value rows (b, head, row) that corners inside the
+    # maps touch, locs, attn and out once each, at the HBM rate; 2*hd
+    # operations per such corner
+    idx, w = msda_cuda.msda_flatten_coords(shapes, locs, attn)  # (B, nh, Q, S)
+    v = value.shape[1]
+    inside = w != 0
+    b_idx = torch.arange(b, device=idx.device).view(b, 1, 1, 1)
+    h_idx = torch.arange(nh, device=idx.device).view(1, nh, 1, 1)
+    flat = (b_idx * v + idx.long()) * nh + h_idx  # rows of value viewed as (B*V*nh, hd)
+    rows = int(torch.unique(flat[inside]).numel())
+    nbytes = rows * hd * 4 + (locs.numel() + attn.numel() + out.numel()) * 4
+    ops = 2 * hd * int(inside.sum())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
     info = {"size": name, "B": b, "nh": nh, "V": v, "hd": hd, "Q": q, "S": idx.shape[-1],
-            "out_of_range_rows": int((~ok).sum()), "max_abs_err": max_abs_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "locations": [lo, hi], "corners_outside": int((~inside).sum()), "max_abs_err": max_abs_err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations", "bytes": nbytes,
-            "distinct_value_rows": rows, "ops": ops, "library_ms": None, "library_max_abs_err": None}
-    if not out_of_range:
-        # the yardstick: one PyTorch call computing the same weighted row sums
-        # (the port never calls it); it takes in-range rows only
-        flat_val = val.reshape(-1, hd)
-        bags = (idx.long() + bh_base).reshape(-1, idx.shape[-1])
-        bag_w = w.reshape(-1, idx.shape[-1])
+            "distinct_value_rows": rows, "ops": ops}
+    # the yardstick: one PyTorch call computing the gather-accumulate part on
+    # the corner rows and weights that msda_flatten_coords made (not timed);
+    # no single call computes the fused function. The port never calls it.
+    flat_value = value.reshape(-1, hd)
+    bags, bag_w = flat.reshape(-1, idx.shape[-1]), w.reshape(-1, idx.shape[-1])
 
-        def library():
-            return torch.nn.functional.embedding_bag(bags, flat_val, per_sample_weights=bag_w, mode="sum")
+    def library():
+        return torch.nn.functional.embedding_bag(bags, flat_value, per_sample_weights=bag_w, mode="sum")
 
-        info["library_max_abs_err"] = float((library().view_as(out) - out).abs().max())
-        info["library_ms"] = cuda_ms(library, iters=50)
+    lib_out = library().view(b, nh, q, hd).transpose(1, 2).reshape(b, q, nh * hd)
+    info["library_max_abs_err"] = float((lib_out - out).abs().max())
+    info["library_ms"] = cuda_ms(library, iters=50)
+    info["library_covers"] = "the gather-accumulate on msda_flatten_coords' rows and weights"
     return info
 
 
@@ -423,37 +545,62 @@ def rtdetr_path(RTDETR, msda_cuda, nms_cuda, card: str, smi: str):
                 predict_ms_per_image={"median": q[2], "p10": q[1], "p90": q[3], "min": q[0], "max": q[4]},
                 predict_median_ms_per_call=call_ms,
                 device_idle_share=None if busy is None else max(0.0, 1 - busy / call_ms),
+                kernel_launches_per_image=prof["kernel_launches_per_call"] / len(imgs),
+                compare_scalar_launches_per_image=prof["compare_scalar_launches_per_call"] / len(imgs),
                 predict_profile=prof,
                 device_fn_batch16_ms=ms16, device_fn_batch16_images_per_s=16 * 1e3 / ms16,
                 card=card, nvidia_smi=smi)
     return model, batch, info
 
 
-def rtdetr_parity(RTDETR, model, batch):
+def rtdetr_parity(RTDETR, full_f32, model, batch):
     cpu_model = RTDETR("rtdetr-l.yaml", device="cpu", seed=0)
     for (k, a), b in zip(model.model.state_dict().items(), cpu_model.model.state_dict().values()):
         if not torch.equal(a.cpu(), b):
             raise AssertionError(f"seeded weights differ between devices at {k}")
     x = batch.cpu().flip(-1).permute(0, 3, 1, 2).float() / 255.0
-    with torch.no_grad():
+    with torch.no_grad(), full_f32():  # the predictors' precision
         y_gpu, aux_gpu = model.model(x.cuda())
         y_cpu, aux_cpu = cpu_model.model(x)
-    score_err = float((aux_gpu["enc_scores"].cpu() - aux_cpu["enc_scores"]).abs().max())
+    dec = cpu_model.model.model[-1]
+    b, nq, nc, ndl = x.shape[0], dec.nq, dec.nc, len(dec.decoder.layers)
+    want = {"enc_scores": (b, nq, nc), "enc_bboxes": (b, nq, 4), "dec_bboxes": (ndl, b, nq, 4),
+            "dec_scores": (ndl, b, nq, nc), "topk_index": (b, nq)}
+    shapes = {k: tuple(v.shape) for k, v in aux_gpu.items()}
+    if any(shapes.get(k) != v for k, v in want.items()):
+        raise AssertionError(f"aux shapes {shapes}, want {want} (the JAX decoder's keys)")
+    score_err = float((aux_gpu["enc_scores_dense"].cpu() - aux_cpu["enc_scores_dense"]).abs().max())
     same = aux_gpu["topk_index"].cpu() == aux_cpu["topk_index"]
     n_diff = int((~same).sum())
     out_err = float(((y_gpu.cpu() - y_cpu).abs() * same[..., None]).max())
     # where an index differs, how far apart the CPU's best-class scores of the
     # two anchors are: a gap within the score error is a near-tie, not a fault
-    best = aux_cpu["enc_scores"].amax(-1)
+    best = aux_cpu["enc_scores_dense"].amax(-1)
     gaps = (best.gather(1, aux_gpu["topk_index"].cpu()) - best.gather(1, aux_cpu["topk_index"]))[~same]
     if not (score_err <= PARITY_TOL and out_err <= PARITY_TOL):
         raise AssertionError(f"card vs CPU: encoder scores {score_err}, outputs {out_err} "
                              f"(tolerance {PARITY_TOL}); {n_diff} top-k indices differ")
-    return dict(batch=list(batch.shape), output_shape=list(y_cpu.shape), max_abs_enc_score_err=score_err,
-                topk_index_mismatch=n_diff,
+    return dict(batch=list(batch.shape), output_shape=list(y_cpu.shape), aux_shapes=shapes,
+                max_abs_enc_score_err=score_err, topk_index_mismatch=n_diff,
                 max_abs_score_gap_at_mismatch=float(gaps.abs().max()) if n_diff else None,
                 max_abs_output_err_where_index_agrees=out_err, tolerance=PARITY_TOL,
                 cpu_threads=torch.get_num_threads())
+
+
+def tf32_seen(model, call) -> dict:
+    """torch's TF32 flags (cudnn, cuda matmul) as found, inside model's forward
+    during call(), and after it."""
+    flags = lambda: [torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32]  # noqa: E731
+    found, inside = flags(), []
+    handle = model.model.register_forward_pre_hook(lambda *_: inside.append(flags()))
+    try:
+        call()
+    finally:
+        handle.remove()
+    after = flags()
+    if not inside or any(any(f) for f in inside) or after != found:
+        raise AssertionError(f"TF32 flags as found {found}, inside predict {inside}, after {after}")
+    return {"as_found": found, "inside_predict": inside[0], "after_predict": after}
 
 
 def main() -> int:
@@ -467,23 +614,28 @@ def main() -> int:
     from ultralytics_pro_tpu_torch.kernels import build, msda_cuda, nms_cuda
     from ultralytics_pro_tpu_torch.nn.modules.head import decode_single_label
     from ultralytics_pro_tpu_torch.ops import nms as ops_nms
+    from ultralytics_pro_tpu_torch.utils import full_f32
 
     t_all = time.perf_counter()
     t = time.perf_counter()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = torch.cuda.get_device_name(0)
-    smi = nvidia_smi()
-    emit("env", card=card, nvidia_smi=smi, count=torch.cuda.device_count(),
-         torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0],
-         tf32=False, seconds=time.perf_counter() - t)
-
-    t = time.perf_counter()
     path = build.build()
     ptxas = [ln.strip() for ln in build.build_info["ptxas"].splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
+             if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
     emit("build", library=path.name, built=build.build_info["built"],
          nvcc_seconds=build.build_info["seconds"], ptxas=ptxas, seconds=time.perf_counter() - t)
+
+    t = time.perf_counter()
+    card = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
+    img = seeded_images()[0]
+    tiny_yolo, tiny_detr = YOLO("yolov8n.yaml", device="cuda"), RTDETR("rtdetr-l.yaml", device="cuda")
+    emit("env", card=card, nvidia_smi=smi, count=torch.cuda.device_count(),
+         torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0],
+         tf32={"flags": ["cudnn.allow_tf32", "cuda.matmul.allow_tf32"],
+               "yolov8n_predict": tf32_seen(tiny_yolo, lambda: tiny_yolo.predict([img], imgsz=64)),
+               "rtdetr_l_predict": tf32_seen(tiny_detr, lambda: tiny_detr.predict([img], imgsz=64))},
+         seconds=time.perf_counter() - t)
+    del tiny_yolo, tiny_detr
 
     t = time.perf_counter()
     k1 = [k1_check(nms_cuda, "predict", 16, 8400, 300, 0.7, seed=1),
@@ -491,30 +643,33 @@ def main() -> int:
     emit("k1", checks=k1, card=card, nvidia_smi=smi, seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
-    model, batch, info = main_path(YOLO, nms_cuda, decode_single_label, card, smi)
+    model, batch, info = main_path(YOLO, nms_cuda, decode_single_label, full_f32, card, smi)
     launches = info["k1_launches"]
+    # device time per launch on the main path, from its profiled window
+    k1_path_ms = info["predict_profile"]["device_ms_by_category"].get("k1_greedy_nms", 0.0) / launches
     emit("main", **info, seconds=time.perf_counter() - t)
     t = time.perf_counter()
-    info = parity(YOLO, nms_cuda, ops_nms, decode_single_label, model, batch)
+    info = parity(YOLO, nms_cuda, ops_nms, decode_single_label, full_f32, model, batch)
     emit("parity", **info, seconds=time.perf_counter() - t)
     del model
 
     t = time.perf_counter()
     k2 = [k2_check(msda_cuda, "predict", 1, 300, 8, 32, RTDETR_LEVELS, seed=3),
-          k2_check(msda_cuda, "device_fn_batch16", 16, 300, 8, 32, RTDETR_LEVELS, seed=4),
-          k2_check(msda_cuda, "edge_hd8_q37_out_of_range", 2, 37, 4, 8, ((12, 16), (6, 8), (3, 4)), seed=5,
-                   out_of_range=True)]
+          k2_check(msda_cuda, "batch16", 16, 300, 8, 32, RTDETR_LEVELS, seed=4),
+          k2_check(msda_cuda, "edge_hd8_q37_outside", 2, 37, 4, 8, ((12, 16), (6, 8), (3, 4)), seed=5,
+                   lo=-0.6, hi=1.6)]
     emit("k2", checks=k2, card=card, nvidia_smi=smi, seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
     model, batch, info = rtdetr_path(RTDETR, msda_cuda, nms_cuda, card, smi)
     k2_launches = info["k2_launches"]
+    k2_path_ms = info["predict_profile"]["device_ms_by_category"].get("k2_msda_sample", 0.0) / k2_launches
     emit("rtdetr", **info, seconds=time.perf_counter() - t)
     t = time.perf_counter()
-    info = rtdetr_parity(RTDETR, model, batch)
+    info = rtdetr_parity(RTDETR, full_f32, model, batch)
     emit("rtdetr_parity", **info, seconds=time.perf_counter() - t)
 
-    pred = k1[0]
+    pred, val = k1
     kernels = [{
         "name": "greedy_nms", "route": "cuda",
         "source": "ultralytics_pro_tpu_torch/csrc/greedy_nms.cu",
@@ -524,15 +679,19 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in k1), "ms": pred["ms"], "plain_ms": pred["plain_ms"],
         "bound_ms": pred["bound_ms"], "bound_by": pred["bound_by"],
         "library_ms": None,  # no single PyTorch call computes greedy NMS (no torchvision)
-        "val_ms": k1[1]["ms"], "val_plain_ms": k1[1]["plain_ms"], "val_bound_ms": k1[1]["bound_ms"],
+        "main_path_profiled_ms": k1_path_ms,
+        "argmax_form_ops": pred["argmax_form_ops"],
+        "unsorted_ms": pred["unsorted_ms"], "val_ms": val["ms"], "val_plain_ms": val["plain_ms"],
+        "val_bound_ms": val["bound_ms"], "val_argmax_form_ops": val["argmax_form_ops"],
     }, {
-        "name": "msda_sample", "route": "cuda",
+        "name": "msda_sample_fused", "route": "cuda",
         "source": "ultralytics_pro_tpu_torch/csrc/msda_sample.cu",
         "replaces": "ultralytics_pro_tpu/kernels/msda_pallas.py:52",
-        "tpu_kernel": "ultralytics_pro_tpu/kernels/msda_pallas.py:msda_sample_pallas",
+        "tpu_kernel": "ultralytics_pro_tpu/kernels/msda_pallas.py:msda_sample_pallas (with msda_flatten_coords:83)",
         "launches": k2_launches, "max_abs_err": max(c["max_abs_err"] for c in k2),
         "ms": k2[0]["ms"], "plain_ms": k2[0]["plain_ms"], "bound_ms": k2[0]["bound_ms"],
-        "bound_by": k2[0]["bound_by"], "library_ms": k2[0]["library_ms"],  # F.embedding_bag
+        "bound_by": k2[0]["bound_by"], "library_ms": k2[0]["library_ms"],  # F.embedding_bag, gather part
+        "main_path_profiled_ms": k2_path_ms,
         "batch16_ms": k2[1]["ms"], "batch16_plain_ms": k2[1]["plain_ms"],
         "batch16_bound_ms": k2[1]["bound_ms"], "batch16_library_ms": k2[1]["library_ms"],
     }]

@@ -1,5 +1,5 @@
 """The port on a CUDA card: kernels K1 and K2 against their plain versions,
-and predict (yolov8n, and rtdetr-l through K2).
+and predict (yolov8n, and rtdetr-l through K2) in full f32.
 
 These tests need a card and nvcc, and import neither JAX nor the JAX package
 nor `tests/conftest.py` (which imports JAX), so they run on a machine that has
@@ -7,8 +7,8 @@ the card but no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Without a card they skip. `k1_inputs` also feeds the CPU tests of
-test_torch_nms.py.
+Without a card they skip (the `card` fixture decides, never an import).
+`k1_inputs` also feeds the CPU tests of test_torch_nms.py.
 """
 
 import numpy as np
@@ -18,11 +18,46 @@ import torch
 from ultralytics_pro_tpu_torch import RTDETR, YOLO
 from ultralytics_pro_tpu_torch.kernels import msda_cuda, nms_cuda
 
+TF32_FLAGS = ("cudnn", "matmul")
+
+
+def _tf32():
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def _set_tf32(flags):
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+@pytest.fixture
+def card():
+    """Skips the test without a CUDA card; checks that the test left torch's
+    TF32 flags as it found them, and restores them either way."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    before = _tf32()
+    yield
+    after = _tf32()
+    _set_tf32(before)
+    assert after == before, f"TF32 flags {dict(zip(TF32_FLAGS, before))} became {dict(zip(TF32_FLAGS, after))}"
+
+
+@pytest.fixture
+def tf32_on(card):
+    """TF32 allowed for convolutions and matmuls, as a caller may leave torch;
+    restored after the test."""
+    before = _tf32()
+    _set_tf32((True, True))
+    yield
+    _set_tf32(before)
+
 
 def k1_inputs(seed, b=5, k=256):
     """Seeded boxes with class offsets and scores; with b >= 4 the first rows
     hold the hard cases: an all -1 row, a row that runs out after at most 3
-    picks, duplicate scores, and a row whose live scores are all equal."""
+    picks, duplicate scores, and a row whose live scores are all equal; with
+    b >= 5 row 4 has a zero-area box at its 20th best score, which does not
+    suppress itself and so fills every slot after it."""
     rng = np.random.default_rng(seed)
     xy = rng.uniform(0, 200, (b, k, 2))
     wh = rng.uniform(5, 60, (b, k, 2))
@@ -35,41 +70,53 @@ def k1_inputs(seed, b=5, k=256):
         scores[1, [7, k // 2, k - 1]] = [0.9, 0.5, 0.5]
         scores[2] = np.where(scores[2] > 0, np.ceil(scores[2] * 8) / 8, -1.0)  # many ties
         scores[3] = np.where(scores[3] > 0, 0.25, -1.0)  # every live score equal
+    if b >= 5:
+        j = np.argsort(-scores[4], kind="stable")[19]
+        boxes[4, j, 2] = boxes[4, j, 0]  # zero width
     return boxes, scores.astype(np.float32)
 
 
 @pytest.mark.cuda
-def test_k1_kernel_equals_plain_on_card():
-    """The CUDA kernel against its plain version, bit for bit (card only)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+def test_k1_kernel_equals_plain_on_card(card):
+    """The CUDA kernel against its plain version, bit for bit: on rows sorted
+    as the main path hands them over (presorted) and on unsorted rows through
+    the wrapper's sort and map back, at the predict and val candidate counts,
+    with ties and a zero-area box (row 4) among the rows."""
     for seed, k in ((0, 8400), (1, 30000)):
-        boxes, scores = k1_inputs(seed, b=4, k=k)
+        boxes, scores = k1_inputs(seed, b=6, k=k)
         bc, sc = torch.from_numpy(boxes).cuda(), torch.from_numpy(scores).cuda()
-        before = nms_cuda.launches
-        keep, valid = nms_cuda.greedy_nms(bc, sc, 300, 0.7)
-        assert nms_cuda.launches == before + 1
-        rk, rv = nms_cuda.greedy_nms_plain(bc, sc, 300, 0.7)
-        assert torch.equal(keep, rk) and torch.equal(valid, rv)
+        order = torch.sort(sc, dim=1, descending=True, stable=True).indices
+        sb = torch.gather(bc, 1, order[..., None].expand(-1, -1, 4))
+        ss = torch.gather(sc, 1, order)
+        for rows, presorted in (((bc, sc), False), ((sb, ss), True)):
+            before = nms_cuda.launches
+            keep, valid = nms_cuda.greedy_nms(*rows, 300, 0.7, presorted=presorted)
+            torch.cuda.synchronize()
+            assert nms_cuda.launches == before + 1
+            rk, rv = nms_cuda.greedy_nms_plain(*rows, 300, 0.7)
+            assert torch.equal(keep, rk) and torch.equal(valid, rv)
+            assert int(valid[4].sum()) == 300  # the zero-area box fills its row
 
 
 @pytest.mark.cuda
-def test_k1_refuses_k_beyond_shared_memory():
-    """A K whose scores do not fit one block's shared memory (227 KB on an
-    H100) raises before any launch; there is no fallback."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+def test_k1_takes_any_k_and_refuses_max_det_beyond_shared_memory(card):
+    """Candidates stream through shared memory, so K is not limited by it
+    (K = 60000 runs); the keeps sit there, so a max_det whose keeps do not
+    fit one block's shared memory (227 KB on an H100) raises before any
+    launch; there is no fallback."""
     boxes, scores = k1_inputs(0, b=1, k=60000)
+    bc, sc = torch.from_numpy(boxes).cuda(), torch.from_numpy(scores).cuda()
+    keep, valid = nms_cuda.greedy_nms(bc, sc, 300, 0.7)
+    rk, rv = nms_cuda.greedy_nms_plain(bc, sc, 300, 0.7)
+    assert torch.equal(keep, rk) and torch.equal(valid, rv)
     before = nms_cuda.launches
     with pytest.raises(ValueError, match="shared memory"):
-        nms_cuda.greedy_nms(torch.from_numpy(boxes).cuda(), torch.from_numpy(scores).cuda(), 300, 0.7)
+        nms_cuda.greedy_nms(bc, sc, 20000, 0.7)
     assert nms_cuda.launches == before
 
 
 @pytest.mark.cuda
-def test_predict_on_card_launches_k1_per_image():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
+def test_predict_on_card_launches_k1_per_image(card):
     imgs = [np.random.default_rng(i).integers(0, 256, (48, 64, 3), dtype=np.uint8) for i in range(3)]
     m = YOLO("yolov8n.yaml", device="cuda")
     before = nms_cuda.launches
@@ -78,75 +125,69 @@ def test_predict_on_card_launches_k1_per_image():
     assert all(0 < len(r) <= 300 for r in res)
 
 
-def k2_inputs(seed, b=2, q=37, nh=4, hd=8, shapes=((12, 16), (6, 8), (3, 4)), p=4, out_of_range=False):
-    """The value table (B, nh, V, hd), flat corner rows and weights of
-    tests/test_msda_kernel.py's `_problem` (locations in [-0.1, 1.1], so
-    corners fall outside), made with numpy and the port's
-    msda_flatten_coords. With out_of_range, a fifth of the rows are moved
-    outside [0, V) and every weight is positive, so skipped rows would show."""
+def k2_inputs(seed, b=2, q=37, nh=4, hd=8, shapes=((12, 16), (6, 8), (3, 4)), p=4, lo=-0.1, hi=1.1):
+    """A value table (B, V, nh, hd) as MSDeformAttn makes it, locations
+    uniform in [lo, hi] (outside [0, 1] their corners fall outside the maps)
+    and attention weights that sum to 1 over each query's points, made with
+    numpy."""
     rng = np.random.default_rng(seed)
     v = sum(h * w for h, w in shapes)
-    val = torch.from_numpy(rng.normal(size=(b, nh, v, hd)).astype(np.float32))
-    locs = torch.from_numpy(rng.uniform(-0.1, 1.1, (b, q, nh, len(shapes), p, 2)).astype(np.float32))
+    value = torch.from_numpy(rng.normal(size=(b, v, nh, hd)).astype(np.float32))
+    locs = torch.from_numpy(rng.uniform(lo, hi, (b, q, nh, len(shapes), p, 2)).astype(np.float32))
     attn = rng.uniform(0, 1, (b, q, nh, len(shapes), p)).astype(np.float32)
     attn = torch.from_numpy(attn / attn.sum((-1, -2), keepdims=True))
-    idx, w = msda_cuda.msda_flatten_coords(list(shapes), locs, attn)
-    if out_of_range:
-        mask = torch.from_numpy(rng.uniform(size=tuple(idx.shape)) < 0.2)
-        bad = torch.from_numpy(rng.choice([-1, -7, v, v + 5, 2 ** 30], size=tuple(idx.shape)).astype(np.int32))
-        idx, w = torch.where(mask, bad, idx), w + 0.1
-    return val, idx.contiguous(), w.contiguous()
+    return value, list(shapes), locs, attn
 
 
 RTDETR_L_SHAPES = ((80, 80), (40, 40), (20, 20))  # rtdetr-l's levels at 640 px: V = 8400
+K2_CASES = {
+    "rtdetr_l_predict": dict(b=1, q=300, nh=8, hd=32, shapes=RTDETR_L_SHAPES),
+    "rtdetr_l_batch16": dict(b=16, q=300, nh=8, hd=32, shapes=RTDETR_L_SHAPES),
+    "edge_hd8_q37_outside": dict(lo=-0.6, hi=1.6),
+    "hd40_two_levels": dict(b=1, q=9, nh=3, hd=40, shapes=((5, 7), (3, 4)), p=3, lo=-1.0, hi=2.0),
+}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["problem", "problem_out_of_range", "rtdetr_l"])
-def test_k2_kernel_matches_plain_on_card(case):
-    """K2 against its plain version on the card and on the CPU, at 1e-5
-    (f32 sums over 48 corners in another order); out-of-range rows add 0."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    if case == "rtdetr_l":
-        val, idx, w = k2_inputs(2, b=1, q=300, nh=8, hd=32, shapes=RTDETR_L_SHAPES)
-    else:
-        val, idx, w = k2_inputs(1, out_of_range=case.endswith("out_of_range"))
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_k2_kernel_matches_plain_on_card(card, case):
+    """The fused K2 against its plain composition (msda_flatten_coords, then
+    msda_sample_plain) on the card and on the CPU, at 1e-5 (f32 sums over
+    L*P*4 corners in another order and with fused multiply-adds)."""
+    value, shapes, locs, attn = k2_inputs(2, **K2_CASES[case])
     before = msda_cuda.launches
-    out = msda_cuda.msda_sample(val.cuda(), idx.cuda(), w.cuda())
+    out = msda_cuda.msda_sample_fused(value.cuda(), shapes, locs.cuda(), attn.cuda())
     torch.cuda.synchronize()
     assert msda_cuda.launches == before + 1
-    ref_gpu = msda_cuda.msda_sample_plain(val.cuda(), idx.cuda(), w.cuda())
-    ref_cpu = msda_cuda.msda_sample_plain(val, idx, w)
+    ref_gpu = msda_cuda.msda_sample_fused_plain(value.cuda(), shapes, locs.cuda(), attn.cuda())
+    ref_cpu = msda_cuda.msda_sample_fused_plain(value, shapes, locs, attn)
     assert torch.isfinite(out).all()
     torch.testing.assert_close(out, ref_gpu, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(out.cpu(), ref_cpu, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
-def test_k2_refuses_grad_and_wrong_types():
-    """No backward and no silent casts: the wrapper raises before a launch."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    val, idx, w = (t.cuda() for t in k2_inputs(3, b=1, q=5))
+def test_k2_refuses_grad_and_wrong_types(card):
+    """No backward and no silent casts or copies: the wrapper raises before a launch."""
+    value, shapes, locs, attn = k2_inputs(3, b=1, q=5)
+    value, locs, attn = value.cuda(), locs.cuda(), attn.cuda()
     before = msda_cuda.launches
     with pytest.raises(RuntimeError, match="backward"):
-        msda_cuda.msda_sample(val.clone().requires_grad_(True), idx, w)
-    with pytest.raises(TypeError, match="int32"):
-        msda_cuda.msda_sample(val, idx.long(), w)
+        msda_cuda.msda_sample_fused(value.clone().requires_grad_(True), shapes, locs, attn)
+    with pytest.raises(TypeError, match="float32"):
+        msda_cuda.msda_sample_fused(value.double(), shapes, locs, attn)
     with pytest.raises(ValueError, match="contiguous"):
-        msda_cuda.msda_sample(val.transpose(2, 3), idx, w)
+        msda_cuda.msda_sample_fused(value.transpose(2, 3).contiguous().transpose(2, 3), shapes, locs, attn)
+    with pytest.raises(ValueError, match="levels"):
+        msda_cuda.msda_sample_fused(value, shapes[:2], locs[:, :, :, :2].contiguous(),
+                                    attn[:, :, :, :2].contiguous())
     assert msda_cuda.launches == before
 
 
 @pytest.mark.cuda
-def test_rtdetr_l_predict_on_card_runs_k2_in_every_decoder_layer():
+def test_rtdetr_l_predict_on_card_runs_k2_in_every_decoder_layer(card):
     """rtdetr-l at full width and depth on the card: 6 K2 launches per image
     (one per decoder layer), none of them from the plain version."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     imgs = [np.random.default_rng(i).integers(0, 256, (480, 640, 3), dtype=np.uint8) for i in range(2)]
     m = RTDETR("rtdetr-l.yaml", device="cuda")
     before = msda_cuda.launches
@@ -154,3 +195,16 @@ def test_rtdetr_l_predict_on_card_runs_k2_in_every_decoder_layer():
     assert msda_cuda.launches == before + 6 * len(imgs)
     assert all(0 <= len(r) <= 300 for r in res) and any(len(r) for r in res)
     assert all(np.isfinite(r.boxes.data).all() for r in res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["yolov8n", "rtdetr-l"])
+def test_card_predict_runs_in_full_f32_and_restores_tf32_flags(tf32_on, which):
+    """With TF32 allowed by the caller, each predictor's device function runs
+    with it off, and the flags are allowed again after the call."""
+    m = YOLO("yolov8n.yaml", device="cuda") if which == "yolov8n" else RTDETR("rtdetr-l.yaml", device="cuda")
+    seen = []
+    m.model.register_forward_pre_hook(lambda *_: seen.append(_tf32()))
+    m.predict([np.random.default_rng(0).integers(0, 256, (48, 64, 3), dtype=np.uint8)], imgsz=64)
+    assert seen == [(False, False)]
+    assert _tf32() == (True, True)

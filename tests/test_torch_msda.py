@@ -1,5 +1,6 @@
-"""Kernel K2's plain version and the coordinate math around it, against the
-JAX package (`ultralytics_pro_tpu/kernels/msda_pallas.py`).
+"""Kernel K2's plain version, the coordinate math and the gather-accumulate
+that the fused kernel computes, against the JAX package
+(`ultralytics_pro_tpu/kernels/msda_pallas.py`).
 
 Inputs are the `_problem` of tests/test_msda_kernel.py: locations in
 [-0.1, 1.1] so corners fall outside the maps, hd = 8, Q not a multiple of
@@ -16,7 +17,6 @@ import torch
 from tests.test_msda_kernel import _problem
 from tests.test_torch_modules import torch_threads  # noqa: F401 (autouse fixture)
 from ultralytics_pro_tpu_torch.kernels import msda_cuda
-from ultralytics_pro_tpu_torch.nn.modules.transformer import multi_scale_bilinear_sample
 
 
 def _t(a):
@@ -60,14 +60,15 @@ def test_plain_matches_interpreted_pallas_kernel():
 
     val, idx, w, _ = _coords(b=1, q=19, nh=2, hd=8)
     want = np.asarray(msda_sample_pallas(val, idx, w, interpret=True))
-    got = msda_cuda.msda_sample(_t(val), _t(idx), _t(w))  # CPU tensors: the plain version
+    got = msda_cuda.msda_sample_plain(_t(val), _t(idx), _t(w))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
 def test_out_of_range_rows_add_zero_as_in_the_pallas_kernel():
     """An index outside [0, V) matches no one-hot column in the TPU kernel, so
-    it adds 0; the plain version (and K2) skip it. msda_gather_xla is no
-    reference here: JAX's gather wraps negative indices and fills NaN past V."""
+    it adds 0; the plain version skips it (the fused kernel never forms such a
+    row: it reads no corner outside the map). msda_gather_xla is no reference
+    here: JAX's gather wraps negative indices and fills NaN past V."""
     import jax.numpy as jnp
 
     from ultralytics_pro_tpu.kernels.msda_pallas import msda_sample_pallas
@@ -80,7 +81,7 @@ def test_out_of_range_rows_add_zero_as_in_the_pallas_kernel():
     bad[mask] = rng.choice([-1, -7, v, v + 5, 2 ** 30], size=int(mask.sum()))
     w_np = np.asarray(w) + 0.1  # every corner weighted, out-of-range ones too
     want = np.asarray(msda_sample_pallas(val, jnp.asarray(bad), jnp.asarray(w_np), interpret=True))
-    got = msda_cuda.msda_sample(_t(val), _t(bad), _t(w_np))
+    got = msda_cuda.msda_sample_plain(_t(val), _t(bad), _t(w_np))
     assert np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     # and the skipped rows really contribute nothing
@@ -94,7 +95,7 @@ def test_multi_scale_bilinear_sample_matches_jax_reference():
 
     values, shapes, locs, attn = _problem()
     want = np.asarray(_multi_scale_bilinear_sample_reference(values, shapes, locs, attn))
-    got = multi_scale_bilinear_sample(torch.cat([_t(v) for v in values], 1), shapes, _t(locs), _t(attn))
+    got = msda_cuda.msda_sample_fused(torch.cat([_t(v) for v in values], 1), shapes, _t(locs), _t(attn))
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
@@ -103,10 +104,41 @@ def test_wrapper_takes_the_plain_version_only_for_cpu_tensors():
     """CPU tensors go to the plain version without counting a launch; a
     tensor on any other device goes to the kernel or raises, never to the
     plain version."""
-    val, idx, w, _ = _coords(b=1, q=5, nh=2, hd=8)
+    values, shapes, locs, attn = _problem(b=1, q=5, nh=2, hd=8)
+    value = _t(np.concatenate(values, 1))
     before = msda_cuda.launches
-    out = msda_cuda.msda_sample(_t(val), _t(idx), _t(w))
-    assert msda_cuda.launches == before and tuple(out.shape) == (1, 2, 5, 8)
+    out = msda_cuda.msda_sample_fused(value, shapes, _t(locs), _t(attn))
+    assert msda_cuda.launches == before and tuple(out.shape) == (1, 5, 2 * 8)
     with pytest.raises(ValueError, match="CUDA device"):
-        msda_cuda.msda_sample(_t(val).to("meta"), _t(idx), _t(w))
+        msda_cuda.msda_sample_fused(value.to("meta"), shapes, _t(locs), _t(attn))
     assert msda_cuda.launches == before
+
+
+@pytest.mark.parametrize("kw,lo,hi", [
+    (dict(), -0.1, 1.1),
+    (dict(b=1, q=19, nh=2, hd=8, seed=7), -0.6, 1.6),
+    (dict(b=1, q=70, nh=8, hd=32, shapes=((16, 16), (8, 8), (4, 4)), seed=8), -0.1, 1.1),
+    (dict(b=2, q=9, nh=3, hd=40, shapes=((5, 7), (3, 4)), p=3, seed=9), -1.0, 2.0),
+])
+def test_fused_plain_matches_jax_flatten_and_interpreted_pallas(kw, lo, hi):
+    """The fused kernel's plain version (coordinates, then gather-accumulate)
+    on the value table in the (B, V, nh, hd) layout that MSDeformAttn makes,
+    against the JAX msda_flatten_coords + msda_sample_pallas (interpret mode)
+    on the same inputs, with locations spread beyond [0, 1] so that corners
+    fall outside the maps. Tolerance 1e-5: f32 sums over L*P*4 corners in
+    another order."""
+    import jax.numpy as jnp
+
+    from ultralytics_pro_tpu.kernels.msda_pallas import msda_flatten_coords, msda_sample_pallas
+
+    values, shapes, locs, attn = _problem(**kw)
+    b, q, nh, nl, p, _ = locs.shape
+    locs = np.random.default_rng(kw.get("seed", 0) + 100).uniform(lo, hi, locs.shape).astype(np.float32)
+    value = jnp.concatenate(values, axis=1)  # (B, V, nh, hd)
+    idx, w = msda_flatten_coords(shapes, jnp.asarray(locs), attn)
+    want = msda_sample_pallas(value.transpose(0, 2, 1, 3), idx, w, interpret=True)  # (B, nh, Q, hd)
+    want = np.asarray(want).transpose(0, 2, 1, 3).reshape(b, q, -1)
+    got = msda_cuda.msda_sample_fused(_t(value), shapes, _t(locs), _t(attn))
+    assert tuple(got.shape) == want.shape == (b, q, nh * value.shape[-1])
+    assert (np.asarray(w) == 0).any()  # some corners fell outside a map
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)

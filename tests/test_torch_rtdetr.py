@@ -283,13 +283,59 @@ def test_rtdetr_decoder_with_invalid_anchors():
         got, taux = tm([nchw(f) for f in feats])
     assert tuple(got.shape) == (2, 221, 4 + 5)
     np.testing.assert_array_equal(taux["topk_index"].numpy(), topi)
-    tied = taux["enc_scores"][0, (valid[0, :, 0] == 0)].amax(-1)
+    tied = taux["enc_scores_dense"][0, (valid[0, :, 0] == 0)].amax(-1)
     assert bool((tied == tied[0]).all())  # the invalid anchors' scores tie exactly
     assert np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL_MODULE, rtol=0)
-    np.testing.assert_allclose(
-        torch.gather(taux["enc_scores"], 1, taux["topk_index"][..., None].expand(-1, -1, 5)).numpy(),
-        np.asarray(aux["enc_scores"]), atol=ATOL_MODULE, rtol=0)
+    np.testing.assert_allclose(taux["enc_scores"].numpy(), np.asarray(aux["enc_scores"]),
+                               atol=ATOL_MODULE, rtol=0)
+
+
+@pytest.mark.parametrize("ndl", [1, 3])
+def test_rtdetr_decoder_aux_matches_jax(ndl):
+    """aux carries every key of the JAX decoder's aux under its shape, each
+    within the module tolerance: the selected queries' encoder scores and
+    boxes, and every decoder layer's boxes and score logits (what the DETR
+    loss reads). The port's own keys come on top."""
+    from ultralytics_pro_tpu.nn.modules.head import RTDETRDecoder as JDecoder
+
+    rng = _rng(14)
+    chs, shapes = (16, 24), [(8, 10), (4, 5)]
+    feats = [rng.normal(0, 1, (2, h, w, c)).astype(np.float32) for (h, w), c in zip(shapes, chs)]
+    jm = JDecoder(nc=6, hd=32, nq=40, ndl=ndl)
+    tm = RTDETRDecoder(nc=6, ch=chs, hd=32, nq=40, ndl=ndl)
+    v = carry(jm, (feats,), tm)
+    _, aux = jm.apply(v, feats)
+    with torch.no_grad():
+        _, taux = tm([nchw(f) for f in feats])
+    assert set(aux) == {"enc_scores", "enc_bboxes", "dec_bboxes", "dec_scores"}
+    assert set(taux) == set(aux) | {"topk_index", "enc_scores_dense"}
+    assert tuple(taux["dec_scores"].shape) == (ndl, 2, 40, 6)
+    assert tuple(taux["enc_scores_dense"].shape) == (2, 100, 6)
+    for key in aux:
+        assert tuple(taux[key].shape) == np.shape(aux[key]), key
+        np.testing.assert_allclose(taux[key].numpy(), np.asarray(aux[key]), atol=ATOL_MODULE,
+                                   rtol=0, err_msg=key)
+
+
+@pytest.mark.parametrize("ndl", [1, 3])
+def test_rtdetr_decoder_without_aux_gives_the_same_output(ndl):
+    """aux=False, the predictor's call: y equal to the bit, aux None, and only
+    the last layer's score head runs (exact: the same operations on y's path)."""
+    rng = _rng(15)
+    chs, shapes = (16, 24), [(8, 10), (4, 5)]
+    feats = [nchw(rng.normal(0, 1, (2, h, w, c)).astype(np.float32)) for (h, w), c in zip(shapes, chs)]
+    tm = RTDETRDecoder(nc=6, ch=chs, hd=32, nq=40, ndl=ndl).eval()
+    calls = []
+    for i, head in enumerate(tm.dec_score_head):
+        head.register_forward_hook(lambda *_, i=i: calls.append(i))
+    with torch.no_grad():
+        y, aux = tm(feats)
+        assert calls == list(range(ndl))
+        calls.clear()
+        y_only, none = tm(feats, aux=False)
+    assert none is None and calls == [ndl - 1]
+    assert torch.equal(y_only, y)
 
 
 @pytest.fixture(scope="module")
@@ -362,3 +408,44 @@ def test_rtdetr_entry_points():
             fn()
     with pytest.raises(ValueError, match="RTDETRDecoder"):
         RTDETR("yolov8n.yaml", device="cpu")
+
+
+def test_rtdetr_predict_rebuilds_its_predictor_on_changed_arguments(narrow_pair):
+    """A port-only behaviour: like the port's Model.predict and the torch
+    reference, RTDETR.predict builds a new predictor when its arguments
+    change and keeps it while they do not. The JAX RTDETR keeps its first
+    predictor (ROADMAP.md section 3), so this is not held to it."""
+    tr = RTDETR(dict(NARROW), device="cpu")
+    tr.model.load_state_dict(narrow_pair[3].state_dict())
+    img = _rng(24).integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    low = tr.predict([img], imgsz=64, conf=0.3)
+    first = tr.predictor
+    tr.predict([img], imgsz=64, conf=0.3)
+    assert tr.predictor is first
+    high = tr.predict([img], imgsz=64, conf=0.6)
+    assert tr.predictor is not first and tr.predictor.conf == 0.6 and first.conf == 0.3
+    assert (high[0].boxes.data[:, 4] > 0.6).all() and len(high[0]) <= len(low[0])
+
+
+@pytest.mark.parametrize("flags", [(True, True), (False, False), (True, False)])
+@pytest.mark.parametrize("which", ["yolov8n", "narrow_rtdetr"])
+def test_predict_runs_in_full_f32_and_restores_tf32_flags(which, flags):
+    """Inside a predict call's device function TF32 is off for convolutions
+    and matmuls; after the call torch.backends.cudnn.allow_tf32 and
+    torch.backends.cuda.matmul.allow_tf32 are as the caller left them."""
+    from ultralytics_pro_tpu_torch import YOLO
+
+    model = (YOLO("yolov8n.yaml", device="cpu") if which == "yolov8n"
+             else RTDETR(dict(NARROW), device="cpu"))
+    seen = []
+    model.model.register_forward_pre_hook(
+        lambda *_: seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+        model.predict([_rng(25).integers(0, 256, (48, 64, 3), dtype=np.uint8)], imgsz=64, conf=0.25)
+        after = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    assert seen == [(False, False)]
+    assert after == flags

@@ -3,17 +3,18 @@
     python3 tools/torch_predict_profile.py [--model yolov8s|rtdetr-l] [--reps 5]
 
 Runs YOLO("yolov8s.yaml", device="cuda") or RTDETR("rtdetr-l.yaml",
-device="cuda") (seeded random weights, f32, TF32 off) on chip_smoke.py's
-workload (its images, its `conf` for yolov8s and the default 0.25 for
-rtdetr-l, as its phases `main` and `rtdetr` run them): `predict` on the 4
-seeded images one at a time, and the device function `predictor.run` at
-batch 1 and 16. Each is traced with torch.profiler over `--reps` warm
-repetitions. Prints one JSON line per workload: wall ms per call, device busy
-ms (sum of kernel times on the one stream) and idle share, device ms by
-category (chip_smoke.category: convolution, matmul, batchnorm, layernorm, K1,
-K2, sort, memcpy, other) and the top kernels by device time. The profiler
-adds host time, so wall ms and idle share read high here; chip_smoke.py's
-phases `main` and `rtdetr` set the busy time against unprofiled wall times.
+device="cuda") (seeded random weights, in the predictors' full f32 with TF32
+off) on chip_smoke.py's workload (its images, its `conf` for yolov8s and the
+default 0.25 for rtdetr-l, as its phases `main` and `rtdetr` run them):
+`predict` on the 4 seeded images one at a time, and the device function
+`predictor.run` at batch 1 and 16. Each is traced with torch.profiler over
+`--reps` warm repetitions. Prints one JSON line per workload: wall ms per
+call, device busy ms (sum of kernel times on the one stream), idle share and
+kernel launches, device ms by category (chip_smoke.category: convolution,
+matmul, batchnorm, layernorm, K1, K2, sort, memcpy, other) and the top
+kernels by device time. The profiler adds host time, so wall ms and idle
+share read high here; chip_smoke.py's phases `main` and `rtdetr` set the busy
+time against unprofiled wall times.
 """
 
 from __future__ import annotations
@@ -40,8 +41,6 @@ def main() -> int:
         return 2
     from ultralytics_pro_tpu_torch import RTDETR, YOLO
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     smi = nvidia_smi()
     imgs = seeded_images()
     if args.model == "yolov8s":

@@ -4,8 +4,9 @@ Counterpart of `ultralytics_pro_tpu/engine/predictor.py` (`BasePredictor:26`,
 `DetectionPredictor:219`). The jitted `run` of the JAX package (`_build_jit:45`)
 is a plain device function here: uint8 BGR batch -> RGB/255 -> forward ->
 fused single-label decode -> NMS (kernel K1 on the card), the branch
-`:136-148` takes for a plain Detect head. Letterboxing runs on the model's
-device.
+`:136-148` takes for a plain Detect head, in full f32 with TF32 off
+(`utils.full_f32`), as the JAX package computes it. Letterboxing runs on the
+model's device.
 
 Sources are HWC uint8 BGR numpy arrays, or a list of them. Reading image
 files needs OpenCV and waits for a later slice.
@@ -23,7 +24,7 @@ from ultralytics_pro_tpu_torch.engine.results import Results
 from ultralytics_pro_tpu_torch.nn.modules.head import Detect, decode_single_label
 from ultralytics_pro_tpu_torch.ops.boxes import scale_boxes
 from ultralytics_pro_tpu_torch.ops.nms import non_max_suppression_fused
-from ultralytics_pro_tpu_torch.utils import Profile
+from ultralytics_pro_tpu_torch.utils import Profile, full_f32
 
 
 def _to_host(out):
@@ -64,15 +65,17 @@ class BasePredictor:
     @torch.no_grad()
     def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The device function: (B, H, W, 3) uint8 BGR on the model's device ->
-        dict of (B, max_det) 'boxes' xyxy, 'scores', 'cls', 'valid'."""
+        dict of (B, max_det) 'boxes' xyxy, 'scores', 'cls', 'valid'. Runs in
+        full f32 (`utils.full_f32`)."""
         x = img_u8.flip(-1) if img_u8.shape[-1] == 3 else img_u8
         x = x.permute(0, 3, 1, 2).float().contiguous() / 255.0
         head = self.model.model[-1]
-        raw = self.model(x, decode=False)
-        boxes, conf, cls = decode_single_label(raw, head.stride.tolist(), head.nc, head.reg_max)
-        return non_max_suppression_fused(boxes, conf, cls, conf_thres=self.conf, iou_thres=self.iou,
-                                         max_det=self.max_det, agnostic=self.agnostic,
-                                         classes=self.classes_mask)
+        with full_f32():
+            raw = self.model(x, decode=False)
+            boxes, conf, cls = decode_single_label(raw, head.stride.tolist(), head.nc, head.reg_max)
+            return non_max_suppression_fused(boxes, conf, cls, conf_thres=self.conf,
+                                             iou_thres=self.iou, max_det=self.max_det,
+                                             agnostic=self.agnostic, classes=self.classes_mask)
 
     def preprocess(self, imgs: List[np.ndarray]) -> torch.Tensor:
         """Letterbox each image on the device; returns the (B, H, W, C) uint8 batch."""

@@ -91,8 +91,9 @@ def load_library() -> ctypes.CDLL:
         lib.upt_greedy_nms.restype = ci
         lib.upt_greedy_nms_init.argtypes = [ctypes.POINTER(ci)]
         lib.upt_greedy_nms_init.restype = ci
-        lib.upt_msda_sample.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
-        lib.upt_msda_sample.restype = ci
+        lib.upt_msda_sample_fused.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                                              ctypes.POINTER(ci), vp]
+        lib.upt_msda_sample_fused.restype = ci
         lib.upt_cuda_error_string.argtypes = [ci]
         lib.upt_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

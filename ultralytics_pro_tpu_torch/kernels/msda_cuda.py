@@ -1,21 +1,24 @@
-"""K2: multiscale deformable-attention gather-accumulate — CUDA kernel wrapper,
-its plain version, and the coordinate math that feeds it.
+"""K2: multiscale deformable-attention sampling — CUDA kernel wrapper, and its
+plain version: the coordinate math and the gather-accumulate it fuses.
 
-Replaces `ultralytics_pro_tpu/kernels/msda_pallas.py:msda_sample_pallas`.
-The kernel (`csrc/msda_sample.cu`) runs one warp per (batch*head, query),
-lanes over the head channels, and gathers each corner's value row directly
-instead of the TPU kernel's one-hot matmul. It is bound by bytes (the value
-rows it gathers, plus idx, w and out); at batch 1 those take about one
-launch's time, so the design launches once per decoder layer with no host
-sync (the note in the source says more).
+Replaces `ultralytics_pro_tpu/kernels/msda_pallas.py:msda_sample_pallas` and
+the `msda_flatten_coords` that feeds it there. The kernel
+(`csrc/msda_sample.cu`) runs one warp per (batch, query, head): lanes first
+compute the bilinear corners of the sampling points in registers, then read
+each corner's value row directly from the (B, V, nh, hd) table, with several
+points' gathers in flight, and write (B, Q, nh*hd). No corner tensors, no
+transpose copies: one launch per decoder layer. It is bound by bytes (the
+value rows it gathers, locs, attn and out); the note in the source says more.
 
-`msda_sample` takes CPU tensors to `msda_sample_plain`, and launches the
-kernel for CUDA tensors or raises; there is no fallback. `launches` counts
-kernel launches. `msda_flatten_coords` is plain PyTorch on either device, as
-the JAX package leaves it to XLA (`msda_pallas.py:msda_flatten_coords:83`).
+`msda_sample_fused` takes CPU tensors to `msda_sample_fused_plain`, which is
+`msda_flatten_coords` followed by `msda_sample_plain` (each held to its JAX
+counterpart by the CPU tests), and launches the kernel for CUDA tensors or
+raises; there is no fallback. `launches` counts kernel launches.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -74,37 +77,65 @@ def msda_sample_plain(val: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> 
     return (g * w[..., None]).sum(3).to(torch.float32)
 
 
-def msda_sample(val: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Gather-accumulate: the CUDA kernel for CUDA tensors, the plain version
-    for CPU ones. Same contract as `msda_sample_plain`."""
-    tensors = (val, idx, w)
+def msda_sample_fused_plain(value: torch.Tensor, shapes, locs: torch.Tensor,
+                            attn: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch multiscale deformable sampling: `msda_flatten_coords`,
+    then `msda_sample_plain` over the table as (B, nh, V, hd).
+
+    value (B, V, nh, hd) f32, the level-concatenated table; shapes [(H_l, W_l)];
+    locs (B, Q, nh, L, P, 2) in [0, 1]; attn (B, Q, nh, L, P). Returns
+    (B, Q, nh*hd) f32.
+    """
+    b, q = locs.shape[:2]
+    idx, w = msda_flatten_coords(shapes, locs, attn)
+    out = msda_sample_plain(value.transpose(1, 2), idx, w)  # (B, nh, Q, hd)
+    return out.transpose(1, 2).reshape(b, q, -1)
+
+
+MAX_LEVELS = 8  # csrc/msda_sample.cu kMaxLevels
+
+
+def msda_sample_fused(value: torch.Tensor, shapes, locs: torch.Tensor,
+                      attn: torch.Tensor) -> torch.Tensor:
+    """Multiscale deformable sampling: the CUDA kernel for CUDA tensors, the
+    plain version for CPU ones. Same contract as `msda_sample_fused_plain`."""
+    tensors = (value, locs, attn)
     if all(t.device.type == "cpu" for t in tensors):
-        return msda_sample_plain(val, idx, w)
-    if val.device.type != "cuda" or any(t.device != val.device for t in tensors):
-        raise ValueError(f"msda_sample: val on {val.device}, idx on {idx.device}, w on {w.device}; "
-                         "all must be on one CUDA device (or all on the CPU)")
+        return msda_sample_fused_plain(value, shapes, locs, attn)
+    if value.device.type != "cuda" or any(t.device != value.device for t in tensors):
+        raise ValueError(f"msda_sample_fused: value on {value.device}, locs on {locs.device}, "
+                         f"attn on {attn.device}; all must be on one CUDA device (or all on the CPU)")
     if any(t.requires_grad for t in tensors):
-        raise RuntimeError("msda_sample has no backward: the kernel would cut the autograd graph; "
-                           "call it under torch.no_grad()")
-    if val.dtype != torch.float32 or w.dtype != torch.float32 or idx.dtype != torch.int32:
-        raise TypeError(f"msda_sample takes val f32, idx int32, w f32; got {val.dtype}, "
-                        f"{idx.dtype}, {w.dtype}")
-    if val.ndim != 4 or idx.ndim != 4 or tuple(w.shape) != tuple(idx.shape) \
-            or tuple(idx.shape[:2]) != tuple(val.shape[:2]):
-        raise ValueError(f"msda_sample wants val (B, nh, V, hd) and idx, w (B, nh, Q, S), got "
-                         f"{tuple(val.shape)}, {tuple(idx.shape)}, {tuple(w.shape)}")
+        raise RuntimeError("msda_sample_fused has no backward: the kernel would cut the autograd "
+                           "graph; call it under torch.no_grad()")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"msda_sample_fused takes float32 value, locs and attn; got {value.dtype}, "
+                        f"{locs.dtype}, {attn.dtype}")
+    shapes = [(int(h), int(w)) for h, w in shapes]
+    if value.ndim != 4 or locs.ndim != 6 or locs.shape[-1] != 2 \
+            or tuple(attn.shape) != tuple(locs.shape[:5]) or locs.shape[0] != value.shape[0] \
+            or locs.shape[2] != value.shape[2] or locs.shape[3] != len(shapes) \
+            or value.shape[1] != sum(h * w for h, w in shapes):
+        raise ValueError(f"msda_sample_fused wants value (B, V, nh, hd) with V the levels' total "
+                         f"area, locs (B, Q, nh, L, P, 2), attn (B, Q, nh, L, P) and L level "
+                         f"shapes; got {tuple(value.shape)}, {tuple(locs.shape)}, "
+                         f"{tuple(attn.shape)} and {shapes}")
+    if not 1 <= len(shapes) <= MAX_LEVELS:
+        raise ValueError(f"msda_sample_fused takes 1 to {MAX_LEVELS} levels, got {len(shapes)}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("msda_sample takes contiguous tensors")
-    b, nh, v, hd = val.shape
-    q, s = idx.shape[2], idx.shape[3]
-    out = torch.empty((b, nh, q, hd), dtype=torch.float32, device=val.device)
+        raise ValueError("msda_sample_fused takes contiguous tensors")
+    b, v, nh, hd = value.shape
+    q, nl, npl = locs.shape[1], locs.shape[3], locs.shape[4]
+    out = torch.empty((b, q, nh * hd), dtype=torch.float32, device=value.device)
     if out.numel() == 0:
         return out
+    level_hw = (ctypes.c_int * (2 * nl))(*(x for hw in shapes for x in hw))
     lib = load_library()
-    with torch.cuda.device(val.device):
-        stream = torch.cuda.current_stream(val.device).cuda_stream
-        check(lib.upt_msda_sample(val.data_ptr(), idx.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                  b * nh, v, q, s, hd, stream), "msda_sample kernel launch")
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream(value.device).cuda_stream
+        check(lib.upt_msda_sample_fused(value.data_ptr(), locs.data_ptr(), attn.data_ptr(),
+                                        out.data_ptr(), b, q, nh, hd, v, nl, npl, level_hw,
+                                        stream), "msda_sample_fused kernel launch")
     global launches
     launches += 1
     return out

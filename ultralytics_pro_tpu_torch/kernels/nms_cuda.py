@@ -1,16 +1,19 @@
 """K1: batched exact greedy NMS — CUDA kernel wrapper and its plain version.
 
 Replaces `ultralytics_pro_tpu/kernels/nms_pallas.py:pallas_greedy_nms`. The
-kernel (`csrc/greedy_nms.cu`) runs one thread block per batch row with the
-row's live scores in shared memory, so rows proceed in parallel and each stops
-on its own once no positive score is left. Its bound on the card is the chain
-of `max_det` dependent argmax+sweep steps, not bytes (each box is read from L2
-once per step) nor operations (~18 per candidate per step); the design keeps
-every step inside one block so a step costs three barriers and no launch.
+kernel (`csrc/greedy_nms.cu`) takes rows sorted by score (descending, ties in
+index order), where exact greedy NMS is an in-order scan: one thread block per
+row streams the candidates through shared memory in tiles of 64, tests each
+tile against the row's keeps so far and resolves the tile's survivors among
+themselves through a 64-bit IoU mask, and stops at `max_det` keeps or at the
+first score that is not positive. Its bound on the card is that chain of tile
+rounds, not bytes or operations (the note in the source says more).
 
-`greedy_nms` takes a CPU tensor to `greedy_nms_plain`, and launches the kernel
-for a CUDA tensor or raises; there is no fallback. `launches` counts kernel
-launches.
+`greedy_nms` takes a CPU tensor to `greedy_nms_plain` (the argmax form, the
+reference semantics, which needs no sort), and launches the kernel for a CUDA
+tensor or raises; there is no fallback. On the card, rows that are not flagged
+`presorted` are sorted by the wrapper, and `keep` is mapped back to the rows'
+own indices. `launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import torch
 from ultralytics_pro_tpu_torch.kernels.build import check, load_library
 
 launches = 0
-_max_k: dict[int, int] = {}  # device index -> largest K one block's shared memory holds
+_max_keep: dict[int, int] = {}  # device index -> largest max_det one block's shared memory holds
 
 
 def greedy_nms_plain(boxes: torch.Tensor, scores: torch.Tensor, max_det: int = 300,
@@ -63,11 +66,24 @@ def greedy_nms_plain(boxes: torch.Tensor, scores: torch.Tensor, max_det: int = 3
     return keep, valid
 
 
+def _on_sorted_rows(fn, boxes, scores, max_det, iou_thres):
+    """fn on each row sorted by score (stable, descending), keep mapped back to
+    the row's own indices. The argmax form picks the same boxes in the same
+    order on both: equal scores keep their index order in a stable sort."""
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    keep, valid = fn(torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)),
+                     torch.gather(scores, 1, order), max_det, iou_thres)
+    return torch.where(valid, torch.gather(order, 1, keep.long()), 0).to(torch.int32), valid
+
+
 def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, max_det: int = 300,
-               iou_thres: float = 0.45):
+               iou_thres: float = 0.45, presorted: bool = False):
     """Greedy NMS: the CUDA kernel for CUDA tensors, the plain version for CPU ones.
 
-    Same contract as `greedy_nms_plain`.
+    Same contract as `greedy_nms_plain`. presorted: each row's scores already
+    do not increase along K, with equal scores in index order (a stable
+    descending sort, as `ops/nms.py:_topk` gives them); without it the wrapper
+    sorts the rows itself on the card (the plain version takes any order).
     """
     if boxes.device.type == "cpu" and scores.device.type == "cpu":
         return greedy_nms_plain(boxes, scores, max_det, iou_thres)
@@ -79,23 +95,31 @@ def greedy_nms(boxes: torch.Tensor, scores: torch.Tensor, max_det: int = 300,
     if boxes.ndim != 3 or boxes.shape[-1] != 4 or tuple(scores.shape) != tuple(boxes.shape[:2]):
         raise ValueError(f"greedy_nms wants boxes (B, K, 4) and scores (B, K), got "
                          f"{tuple(boxes.shape)} and {tuple(scores.shape)}")
+    b, k, _ = boxes.shape
+    if k < 1 or max_det < 1:
+        raise ValueError(f"greedy_nms needs K >= 1 and max_det >= 1, got K={k}, max_det={max_det}")
+    if not presorted:
+        return _on_sorted_rows(_launch, boxes, scores, max_det, iou_thres)
+    return _launch(boxes, scores, max_det, iou_thres)
+
+
+def _launch(boxes: torch.Tensor, scores: torch.Tensor, max_det: int, iou_thres: float):
+    """The kernel on sorted rows, checked CUDA tensors of one device."""
     if not (boxes.is_contiguous() and scores.is_contiguous()):
         raise ValueError("greedy_nms takes contiguous tensors")
     if boxes.data_ptr() % 16:
         raise ValueError("greedy_nms reads boxes as float4: boxes must be 16-byte aligned")
     b, k, _ = boxes.shape
-    if k < 1 or max_det < 1:
-        raise ValueError(f"greedy_nms needs K >= 1 and max_det >= 1, got K={k}, max_det={max_det}")
     lib = load_library()
     with torch.cuda.device(boxes.device):
         dev = torch.cuda.current_device()
-        if dev not in _max_k:
-            max_k = ctypes.c_int(0)
-            check(lib.upt_greedy_nms_init(ctypes.byref(max_k)), "upt_greedy_nms_init")
-            _max_k[dev] = max_k.value
-        if k > _max_k[dev]:
-            raise ValueError(f"greedy_nms: K={k} candidates exceed the {_max_k[dev]} that one "
-                             "block's shared memory holds on this device")
+        if dev not in _max_keep:
+            max_keep = ctypes.c_int(0)
+            check(lib.upt_greedy_nms_init(ctypes.byref(max_keep)), "upt_greedy_nms_init")
+            _max_keep[dev] = max_keep.value
+        if max_det > _max_keep[dev]:
+            raise ValueError(f"greedy_nms: max_det={max_det} keeps exceed the {_max_keep[dev]} "
+                             "that one block's shared memory holds on this device")
         keep = torch.empty((b, max_det), dtype=torch.int32, device=boxes.device)
         valid = torch.empty((b, max_det), dtype=torch.bool, device=boxes.device)
         if b == 0:

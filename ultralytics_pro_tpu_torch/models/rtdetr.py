@@ -3,10 +3,10 @@
 Counterpart of `ultralytics_pro_tpu/models/rtdetr.py` (`RTDETRPredictor:93`,
 `RTDETR:134`). The device function `run` is the JAX package's jitted `run`:
 uint8 BGR batch -> RGB / 255 -> forward -> (B, nq, 4 + nc) normalised cxcywh
-boxes and scores; deformable attention runs on kernel K2 for tensors on the
-card. The postprocess is that of `:119-131`: conf = best score, cls = its
-class, keep conf > `conf`, then letterboxed pixels -> original pixels with
-the same gain and pad rounding.
+boxes and scores, in full f32 with TF32 off (`utils.full_f32`); deformable
+attention runs on kernel K2 for tensors on the card. The postprocess is that
+of `:119-131`: conf = best score, cls = its class, keep conf > `conf`, then
+letterboxed pixels -> original pixels with the same gain and pad rounding.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ from ultralytics_pro_tpu_torch.engine.model import Model
 from ultralytics_pro_tpu_torch.engine.predictor import BasePredictor
 from ultralytics_pro_tpu_torch.engine.results import Results
 from ultralytics_pro_tpu_torch.nn.modules.head import RTDETRDecoder
+from ultralytics_pro_tpu_torch.utils import full_f32
 
 _LATER = ("comes with a later slice of the port, after detect val and train (ROADMAP.md queue 1): "
           "it needs the DETR loss, the Hungarian matcher, contrastive denoising and a K2 backward")
@@ -33,10 +34,12 @@ class RTDETRPredictor(BasePredictor):
     @torch.no_grad()
     def run(self, img_u8: torch.Tensor) -> torch.Tensor:
         """The device function: (B, H, W, 3) uint8 BGR on the model's device ->
-        (B, nq, 4 + nc) normalised cxcywh boxes and sigmoid scores."""
+        (B, nq, 4 + nc) normalised cxcywh boxes and sigmoid scores. Runs in
+        full f32 (`utils.full_f32`)."""
         x = img_u8.flip(-1) if img_u8.shape[-1] == 3 else img_u8
         x = x.permute(0, 3, 1, 2).float().contiguous() / 255.0
-        y, _ = self.model(x)
+        with full_f32():
+            y, _ = self.model(x, aux=False)  # predict reads y alone
         return y
 
     def postprocess(self, y: torch.Tensor, batch_shape, im0s, paths) -> List[Results]:

@@ -139,10 +139,17 @@ class RTDETRDecoder(nn.Module):
         anchors = torch.log(anchors / (1 - anchors))
         return torch.where(valid, anchors, torch.inf), valid.to(torch.float32)
 
-    def forward(self, feats):
-        """feats: NCHW maps, one per level. Returns (y (B, nq, 4 + nc), aux)
-        with aux 'enc_scores' (B, A, nc), the dense encoder logits before the
-        query selection, and 'topk_index' (B, nq)."""
+    def forward(self, feats, aux: bool = True):
+        """feats: NCHW maps, one per level. Returns (y (B, nq, 4 + nc), aux).
+
+        aux carries the JAX decoder's keys and shapes: 'enc_scores' (B, nq, nc)
+        and 'enc_bboxes' (B, nq, 4), the selected queries' encoder logits and
+        boxes; 'dec_bboxes' (ndl, B, nq, 4) and 'dec_scores' (ndl, B, nq, nc),
+        every decoder layer's boxes and score logits. The port adds
+        'topk_index' (B, nq) and 'enc_scores_dense' (B, A, nc), the encoder
+        logits of every anchor before the query selection. With aux=False it
+        is None, and only the last layer's score head runs: what a predict
+        keeps of the JAX decoder once its jitted run drops the unused outputs."""
         b = feats[0].shape[0]
         shapes = [tuple(f.shape[2:]) for f in feats]
         memory = torch.cat([p(f).flatten(2).transpose(1, 2) for p, f in zip(self.input_proj, feats)], 1)
@@ -154,12 +161,21 @@ class RTDETRDecoder(nn.Module):
         _, topi = _topk(enc_scores.amax(-1), min(self.nq, enc_scores.shape[1]))  # (B, nq)
         embed = torch.gather(enc, 1, topi[..., None].expand(-1, -1, self.hd))
         anc = torch.gather(anchors.expand(b, -1, -1), 1, topi[..., None].expand(-1, -1, 4))
-        bbox = torch.sigmoid(self.enc_bbox_head(embed) + anc)  # (B, nq, 4) cxcywh
+        refer_bbox = torch.sigmoid(self.enc_bbox_head(embed) + anc)  # (B, nq, 4) cxcywh
 
+        ndl = len(self.decoder.layers)
+        bbox, dec_bboxes, dec_scores = refer_bbox, [], []
         for i, layer in enumerate(self.decoder.layers):
             embed = layer(embed, bbox, memory, shapes, query_pos=self.query_pos_head(bbox))
             logit_prev = torch.log(bbox / (1 - bbox + 1e-9) + 1e-9)
             bbox = torch.sigmoid(self.dec_bbox_head[i](embed) + logit_prev)
-        scores = self.dec_score_head[len(self.decoder.layers) - 1](embed)
-        y = torch.cat([bbox, scores.sigmoid()], -1)
-        return y, {"enc_scores": enc_scores, "topk_index": topi}
+            dec_bboxes.append(bbox)
+            if aux or i == ndl - 1:
+                dec_scores.append(self.dec_score_head[i](embed))
+        y = torch.cat([bbox, dec_scores[-1].sigmoid()], -1)
+        if not aux:
+            return y, None
+        return y, {"dec_bboxes": torch.stack(dec_bboxes), "dec_scores": torch.stack(dec_scores),
+                   "enc_bboxes": refer_bbox,
+                   "enc_scores": torch.gather(enc_scores, 1, topi[..., None].expand(-1, -1, self.nc)),
+                   "topk_index": topi, "enc_scores_dense": enc_scores}

@@ -3,13 +3,14 @@ reference's module names.
 
 Counterpart of `ultralytics_pro_tpu/nn/modules/transformer.py` (`MLP:24`,
 `TransformerEncoderLayer:39`, `sincos_pos_embed_2d:60`, `AIFI:75`,
-`multi_scale_bilinear_sample:95`, `MSDeformAttn:175`,
-`DeformableTransformerDecoderLayer:228`). The numerics follow the JAX
+`MSDeformAttn:175`, `DeformableTransformerDecoderLayer:228`; the JAX
+`multi_scale_bilinear_sample:95` is `kernels/msda_cuda.py:msda_sample_fused`
+here). The numerics follow the JAX
 package where it differs from the torch reference: LayerNorm eps 1e-6
 (flax's default), GELU in its tanh form (`jax.nn.gelu`), and attention as
 flax's `MultiHeadDotProductAttention` computes it. The deformable sampling
-goes through kernel K2 (`kernels/msda_cuda.py:msda_sample`): the CUDA kernel
-for tensors on the card, its plain version for tensors on the CPU.
+goes through kernel K2 (`kernels/msda_cuda.py:msda_sample_fused`): the CUDA
+kernel for tensors on the card, its plain version for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ultralytics_pro_tpu_torch.kernels.msda_cuda import msda_flatten_coords, msda_sample
+from ultralytics_pro_tpu_torch.kernels.msda_cuda import msda_sample_fused
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
 
@@ -110,20 +111,6 @@ class AIFI(TransformerEncoderLayer):
         return tokens.transpose(1, 2).reshape(b, c, h, w)
 
 
-def multi_scale_bilinear_sample(value: torch.Tensor, shapes, locs: torch.Tensor,
-                                attn: torch.Tensor) -> torch.Tensor:
-    """Multiscale deformable attention core.
-
-    value: the level-concatenated (B, V, nh, hd) table; shapes [(H_l, W_l)];
-    locs (B, Q, nh, L, P, 2) in [0, 1]; attn (B, Q, nh, L, P). Returns
-    (B, Q, nh*hd).
-    """
-    b, q, nh = locs.shape[:3]
-    idx, w = msda_flatten_coords(shapes, locs, attn)
-    out = msda_sample(value.transpose(1, 2).contiguous(), idx, w)  # (B, nh, Q, hd)
-    return out.transpose(1, 2).reshape(b, q, nh * out.shape[-1])
-
-
 class MSDeformAttn(nn.Module):
     """Multiscale deformable attention."""
 
@@ -163,7 +150,7 @@ class MSDeformAttn(nn.Module):
         cxcy = refer_bbox[:, :, None, None, None, :2]
         wh = refer_bbox[:, :, None, None, None, 2:4]
         locs = cxcy + offsets / npt * wh * 0.5
-        return self.output_proj(multi_scale_bilinear_sample(v, shapes, locs, attn))
+        return self.output_proj(msda_sample_fused(v, shapes, locs, attn))
 
 
 class DeformableTransformerDecoderLayer(nn.Module):

@@ -231,7 +231,7 @@ class BaseModel(nn.Module):
             feats = self._run(torch.zeros(1, ch, s, s), stop_at_head=True)
         return torch.tensor([s / x.shape[-2] for x in feats])
 
-    def _run(self, x, stop_at_head: bool = False, decode: bool = True):
+    def _run(self, x, stop_at_head: bool = False, decode: bool = True, aux: bool = True):
         y = {}
         for m in self.model:
             if m.f != -1:
@@ -239,17 +239,18 @@ class BaseModel(nn.Module):
             if isinstance(m, Detect):
                 return x if stop_at_head else m(x, decode=decode)
             if isinstance(m, RTDETRDecoder):
-                return x if stop_at_head else m(x)
+                return x if stop_at_head else m(x, aux=aux)
             x = m(x)
             if m.i in self.save:
                 y[m.i] = x
         return x
 
-    def forward(self, x: torch.Tensor, decode: bool = True):
+    def forward(self, x: torch.Tensor, decode: bool = True, aux: bool = True):
         """x (B, C, H, W) float. For a Detect model: (decoded (B, A, 4+nc), raw
         per-level maps), or the raw maps alone when decode=False. For an
-        RT-DETR model: (y (B, nq, 4+nc), aux), see `RTDETRDecoder.forward`."""
-        return self._run(x, decode=decode)
+        RT-DETR model: (y (B, nq, 4+nc), aux), aux None when aux=False, see
+        `RTDETRDecoder.forward`."""
+        return self._run(x, decode=decode, aux=aux)
 
 
 class DetectionModel(BaseModel):

@@ -9,6 +9,8 @@ outputs are fixed (B, max_det) tensors plus a `valid` mask.
 
 The greedy loop is kernel K1 (`kernels/nms_cuda.py:greedy_nms`): the CUDA
 kernel for tensors on the card, its plain version for tensors on the CPU.
+The candidates that `_topk` selects are already sorted by score, so they go
+to K1 as `presorted` rows; `nms_indices` lets K1 sort its row.
 """
 
 from __future__ import annotations
@@ -27,10 +29,11 @@ def _topk(masked: torch.Tensor, k: int):
 
 def _suppress_and_gather(cand_boxes, top_scores, cls_idx, anchor_idx, extra, iou_thres,
                          max_det, max_wh, agnostic):
-    """Class-offset greedy NMS over (B, K) candidates, then the fixed-shape gather."""
+    """Class-offset greedy NMS over (B, K) candidates sorted by `_topk`, then
+    the fixed-shape gather."""
     offset = cls_idx.to(cand_boxes.dtype)[..., None] * (0.0 if agnostic else max_wh)
     keep, valid = greedy_nms((cand_boxes + offset).contiguous(), top_scores.contiguous(),
-                             max_det=max_det, iou_thres=iou_thres)
+                             max_det=max_det, iou_thres=iou_thres, presorted=True)
     keep = keep.long()
     out = {
         "boxes": torch.gather(cand_boxes, 1, keep[..., None].expand(-1, -1, 4)),

@@ -1,4 +1,5 @@
-"""Runtime utilities of the port: logging, simple classes, timing, devices.
+"""Runtime utilities of the port: logging, simple classes, timing, devices,
+precision.
 
 Own copies of the few names of `ultralytics_pro_tpu/utils/__init__.py` that
 the port uses (`LOGGER`, `SimpleClass`, `Profile`); that module imports
@@ -7,6 +8,7 @@ PyYAML, which the port does not need.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import sys
@@ -77,3 +79,19 @@ def select_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}; use 'cuda', 'cuda:N' or 'cpu'")
     return dev
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Convolutions and matmuls in full f32, TF32 off: the precision the JAX
+    package is held to. The predictors' device functions run under it. It
+    restores `torch.backends.cudnn.allow_tf32` and
+    `torch.backends.cuda.matmul.allow_tf32` on exit, so a call leaves torch's
+    global state as it found it."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
