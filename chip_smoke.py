@@ -46,6 +46,24 @@ exits non-zero):
           encoder scores within 1e-3, top-k query indices that differ
           (reported), final outputs within 1e-3 over the queries whose index
           agrees
+  val_fixture  accuracy on the card: YOLO(yolov8n, nc=3).val(...) with the
+          reference-trained weights of tests/fixtures/val_parity_model.npz
+          on the committed fixture set (a temporary copy) at 160 px, batch 8,
+          conf 0.001, on the card and on the CPU; P, R, mAP50 and mAP50-95
+          beside val_parity_ref.json's, and the differences; fails if the
+          card's mAP50 or mAP50-95 is more than 0.005 from the reference's
+  val     detect val at full size: yolov8s, 80 classes, seeded weights, 640
+          px, on the fixture images copied 8 times (128 images, 16 a batch,
+          grown by the bilinear branch), conf 1e-6 so every row of K1 holds
+          K = 30000 candidates; images/s of the whole val() call, the
+          validator's per-stage ms per image, K1's launches read around the
+          call (8), and from one torch.profiler window of the same call the
+          device's busy ms, idle share, K1's device ms per launch and the
+          `_topk` sort's device ms per batch
+  val_k1  K1 on one batch's real candidate rows captured from the val path
+          (offset boxes and sorted scores, (16, 30000)), bit for bit against
+          its plain version, timed, with the bound recounted on those rows
+          and the candidates each row scans before it stops (greedy_work)
   kernels the per-kernel summary line
 The last line is {"ok": true, "device": {...}}.
 """
@@ -54,9 +72,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -80,6 +101,11 @@ RTDETR_CALLS = 100  # the same for RT-DETR
 RTDETR_PROFILED_CALLS = 10
 RTDETR_LEVELS = ((80, 80), (40, 40), (20, 20))  # rtdetr-l's P3-P5 at 640 px: V = 8400 value rows
 PARITY_TOL = 1e-3  # card vs CPU, rtdetr-l encoder scores and final outputs
+FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
+VAL_FIXTURE_TOL = 0.005  # card vs val_parity_ref.json, the tolerance of tests/test_val_parity.py
+VAL_COPIES = 8  # the val phase's data: the fixture's 16 images 8 times over
+VAL_BATCH = 16
+VAL_IMGSZ = 640
 SLEEP_CYCLES = 100_000_000  # cuda_ms's head start for the host: about 50 ms at the H100's clock
 # cuDNN's f32 convolutions run as implicit GEMM (fprop) or FFT (fft*,
 # pointwise_mult_and_sum_complex, gemv2T on float2); cuBLAS's matmuls as gemm.
@@ -147,16 +173,17 @@ def category(name: str) -> str:
     return "other_elementwise_reduce"
 
 
-def profile_window(fn, reps: int) -> dict:
+def profile_window(fn, reps: int, warmup: int = 2, ops=()) -> dict:
     """Trace reps warm calls of fn with torch.profiler. Device busy ms per call
     is the sum of the kernels' device times (one stream, so they do not
     overlap); the profiler adds host time, so the window's own wall time and
     idle share read high. device_busy_ms_per_call is None if the trace holds
-    no device time."""
+    no device time. For each torch op named in ops (e.g. "aten::sort"), the
+    device time of the kernels it launched and its calls, per call of fn."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -179,7 +206,14 @@ def profile_window(fn, reps: int) -> dict:
             compares += ev.count / reps
     busy = sum(by_cat.values()) or None
     kernels.sort(reverse=True)
-    return {"profiled_calls": reps, "profiled_wall_ms_per_call": wall_ms,
+    op_times = {}
+    for ev in prof.key_averages():
+        if ev.key in ops:
+            dev_us = getattr(ev, "device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "cuda_time_total", 0.0)
+            op_times[ev.key] = {"device_ms_per_call": dev_us / 1e3 / reps, "calls_per_call": ev.count / reps}
+    return {"profiled_calls": reps, "profiled_wall_ms_per_call": wall_ms, "ops": op_times,
             "device_busy_ms_per_call": busy,
             "profiled_idle_share": None if busy is None else max(0.0, 1 - busy / wall_ms),
             "device_ms_by_category": by_cat,
@@ -253,8 +287,9 @@ def greedy_work(boxes, scores, keep, valid, max_det: int, thres: float):
     version's result: per candidate ahead of the row's stop, the IoU tests
     against the keeps before it up to the first that suppresses it (a keep
     also tests itself), and the candidates read (those ahead of the stop,
-    plus the first non-positive score where that ends the row)."""
-    tests = read = 0
+    plus the first non-positive score where that ends the row). Returns the
+    two counts per row."""
+    tests, reads = [], []
     for bx, sc, kp, vd in zip(boxes, scores, keep, valid):
         kept = []
         for x in kp[vd].tolist():  # the distinct keeps; a lazy box then repeats
@@ -263,19 +298,33 @@ def greedy_work(boxes, scores, keep, valid, max_det: int, thres: float):
             kept.append(x)
         if kept and (len(kept) == max_det or len(kept) < int(vd.sum())):
             stop = kept[-1] + 1
-            read += stop
+            reads.append(stop)
         else:
             nonpos = np.flatnonzero(~(sc > 0))
             stop = int(nonpos[0]) if len(nonpos) else len(sc)
-            read += min(len(sc), stop + 1)
+            reads.append(min(len(sc), stop + 1))
         if not kept:
+            tests.append(0)
             continue
         kept = np.asarray(kept)
         before = np.searchsorted(kept, np.arange(stop))  # keeps ahead of each candidate
         hit = iou_suppresses(bx[kept], bx[:stop], thres) & (np.arange(len(kept))[:, None] < before)
         first = np.where(hit.any(0), hit.argmax(0) + 1, before + 1)  # a keep: all before it, then itself
-        tests += int(first.sum())
-    return tests, read
+        tests.append(int(first.sum()))
+    return tests, reads
+
+
+def k1_bound(boxes, scores, keep, valid, max_det: int, thres: float) -> dict:
+    """The least time for K1's work on these sorted rows (greedy_work): the
+    candidates read and the outputs written once at the HBM rate, or the IoU
+    tests at the f32 rate, whichever is longer."""
+    tests, reads = greedy_work(boxes, scores, keep, valid, max_det, thres)
+    nbytes = sum(reads) * (16 + 4) + len(reads) * max_det * (4 + 1)
+    ops = sum(tests) * IOU_TEST_OPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "bytes": nbytes, "candidates_read": sum(reads), "iou_tests": sum(tests), "ops": ops,
+            "read_per_row": reads}
 
 
 def k1_compare(nms_cuda, boxes, scores, max_det: int, iou: float):
@@ -327,20 +376,16 @@ def k1_check(nms_cuda, name: str, b: int, k: int, max_det: int, iou: float, seed
     # make on this data (greedy_work), the outputs written once; beside it the
     # argmax form's operations (kept steps over K, plus one final argmax pass
     # where a row stops early), the count PRs 4 and 5 used
-    tests, read = greedy_work(sboxes.cpu().numpy(), sscores.cpu().numpy(), keep_s, valid_s, max_det, iou)
-    nbytes = read * (16 + 4) + b * max_det * (4 + 1)
-    ops = tests * IOU_TEST_OPS
+    bound = k1_bound(sboxes.cpu().numpy(), sscores.cpu().numpy(), keep_s, valid_s, max_det, iou)
+    del bound["read_per_row"]
     argmax_ops = sum(int(n) * k * NMS_OPS_PER_CANDIDATE_STEP + (k if n < max_det else 0) for n in kept)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
     return {"size": name, "B": b, "K": k, "max_det": max_det, "iou": iou, "max_mismatch": mismatch,
             "max_abs_err": max_abs_err, "checked": ["timed sorted", "timed unsorted", "edge sorted", "edge unsorted"],
             "rows": {"timed": f"{NMS_OBJECTS} objects a row, jittered copies; ties in the last row",
                      "edge": ["zero-area box at the 100th best, ties", "runs out after 5",
                               "all -1", "all equal"][:b]},
             "kept_per_row": kept.tolist(), "edge_kept_per_row": edge_kept.tolist(), "ms": ms, "unsorted_ms": unsorted_ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "bytes": nbytes, "candidates_read": read, "iou_tests": tests, "ops": ops,
-            "argmax_form_ops": argmax_ops, "argmax_form_bound_ms": argmax_ops / F32_FLOPS * 1e3}
+            **bound, "argmax_form_ops": argmax_ops, "argmax_form_bound_ms": argmax_ops / F32_FLOPS * 1e3}
 
 
 def main_path(YOLO, nms_cuda, decode_single_label, full_f32, card: str, smi: str):
@@ -587,6 +632,134 @@ def rtdetr_parity(RTDETR, full_f32, model, batch):
                 cpu_threads=torch.get_num_threads())
 
 
+def parity_yolov8n(YOLO, yaml_model_load, ref: dict, device: str):
+    """yolov8n at the reference's nc with its trained weights (val_parity_model.npz)."""
+    fx = np.load(FIXTURES / "val_parity_model.npz")
+    y = yaml_model_load("yolov8n.yaml")
+    y["nc"] = ref["dataset_args"]["nc"]
+    model = YOLO(y, device=device)
+    model.load_state_dict({k[4:]: fx[k] for k in fx.files if k.startswith("sd::")})
+    return model
+
+
+def val_fixture(YOLO, yaml_model_load, nms_cuda, tmp: Path, card: str, smi: str) -> dict:
+    ref = json.loads((FIXTURES / "val_parity_ref.json").read_text())
+    data = shutil.copytree(FIXTURES / "torch_val_synth", tmp / "fixture_set") / "data.yaml"
+    va = ref["val_args"]
+    kw = dict(imgsz=va["imgsz"], batch=8, conf=va["conf"], iou=va["iou"], max_det=va["max_det"])
+    keys = ("metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)", "metrics/mAP50-95(B)")
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = parity_yolov8n(YOLO, yaml_model_load, ref, device)
+        nms_cuda.launches = 0
+        t0 = time.perf_counter()
+        m = model.val(data=str(data), **kw)
+        runs[device] = {**{k: float(m.results_dict[k]) for k in keys}, "seconds": time.perf_counter() - t0,
+                        "k1_launches": nms_cuda.launches}
+    want = {k: ref["results"][k] for k in keys}
+    card_minus_ref = {k: runs["cuda"][k] - want[k] for k in keys}
+    card_minus_cpu = {k: runs["cuda"][k] - runs["cpu"][k] for k in keys}
+    for k in keys[2:]:
+        if not abs(card_minus_ref[k]) <= VAL_FIXTURE_TOL:
+            raise AssertionError(f"card {k} {runs['cuda'][k]} is {card_minus_ref[k]} from the reference's "
+                                 f"{want[k]} (tolerance {VAL_FIXTURE_TOL})")
+    if runs["cuda"]["k1_launches"] != 2:
+        raise AssertionError(f"K1 launched {runs['cuda']['k1_launches']} times for 2 batches")
+    return dict(model="yolov8n (val_parity_model.npz)", data="tests/fixtures/torch_val_synth", val_args=kw,
+                card_run=runs["cuda"], cpu_run=runs["cpu"], reference=want, card_minus_reference=card_minus_ref,
+                card_minus_cpu=card_minus_cpu, tolerance=VAL_FIXTURE_TOL, card=card, nvidia_smi=smi)
+
+
+def val_set_640(root: Path) -> Path:
+    """The val phase's data: the fixture's images and labels VAL_COPIES times
+    under new names (labels' classes 0-2 of 80 names)."""
+    src = FIXTURES / "torch_val_synth"
+    for sub in ("images", "labels"):
+        (root / sub / "val").mkdir(parents=True)
+    for c in range(VAL_COPIES):
+        for png in sorted((src / "images" / "val").glob("*.png")):
+            shutil.copy(png, root / "images" / "val" / f"copy{c}_{png.name}")
+            shutil.copy(src / "labels" / "val" / f"{png.stem}.txt", root / "labels" / "val" / f"copy{c}_{png.stem}.txt")
+    names = "".join(f"  {i}: class{i}\n" for i in range(80))
+    (root / "data.yaml").write_text("val: images/val\nnames:\n" + names)
+    return root / "data.yaml"
+
+
+def val_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str):
+    """yolov8s val at 640 on 128 images. Returns the phase's line and the
+    first batch's candidate rows as K1 received them (captured in the
+    warm-up call)."""
+    data = val_set_640(tmp / "val640")
+    kw = dict(data=str(data), imgsz=VAL_IMGSZ, batch=VAL_BATCH, conf=CONF, iou=0.7, max_det=300)
+    model = YOLO("yolov8s.yaml", device="cuda", seed=0)
+
+    captured, greedy_nms = [], ops_nms.greedy_nms
+
+    def capture(boxes, scores, **k):
+        if not captured:
+            captured.append((boxes.clone(), scores.clone(), k))
+        return greedy_nms(boxes, scores, **k)
+
+    ops_nms.greedy_nms = capture  # warm-up call: cuDNN, allocator, and the rows
+    try:
+        model.val(**kw)
+    finally:
+        ops_nms.greedy_nms = greedy_nms
+    boxes, scores, k = captured[0]
+    if tuple(scores.shape) != (VAL_BATCH, 30000) or not k.get("presorted"):
+        raise AssertionError(f"K1's val rows {tuple(scores.shape)} ({k}), want presorted ({VAL_BATCH}, 30000)")
+
+    n_images = VAL_COPIES * 16
+    nms_cuda.launches = 0
+    t0 = time.perf_counter()
+    metrics = model.val(**kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = nms_cuda.launches
+    n_batches = n_images // VAL_BATCH
+    if launches != n_batches:
+        raise AssertionError(f"K1 launched {launches} times for {n_batches} val batches")
+    confs = metrics.stats["conf"]
+    kept = [len(c) for c in confs]
+    if len(confs) != n_images or any(not 0 < len(c) <= 300 or not np.isfinite(c).all() or c.min() <= CONF
+                                     for c in confs):
+        raise AssertionError(f"val kept {kept} detections for {n_images} images, want 1-300 above conf")
+    prof = profile_window(lambda: model.val(**kw), reps=1, warmup=0, ops=("aten::sort",))
+    busy = prof["device_busy_ms_per_call"]
+    sort = prof["ops"].get("aten::sort", {})
+    info = dict(model="yolov8s", nc=80, imgsz=VAL_IMGSZ, images=n_images, batch=VAL_BATCH, conf=CONF, iou=0.7,
+                max_det=300, k1_launches=launches, k1_rows=list(scores.shape),
+                kept_per_image={"min": min(kept), "median": float(np.median(kept)), "max": max(kept)},
+                val_seconds=wall, images_per_s=n_images / wall,
+                ms_per_image={k: v * 1e3 / n_images for k, v in metrics.speed.items()},
+                map50=float(metrics.box.map50), device_busy_ms=busy,
+                device_idle_share=None if busy is None else max(0.0, 1 - busy / (wall * 1e3)),
+                k1_profiled_ms_per_launch=prof["device_ms_by_category"].get("k1_greedy_nms", 0.0) / n_batches,
+                topk_sort_ms_per_batch=sort.get("device_ms_per_call", 0.0) / n_batches,
+                topk_sort_calls_per_batch=sort.get("calls_per_call", 0.0) / n_batches,
+                sort_kernels_ms_per_batch=prof["device_ms_by_category"].get("sort", 0.0) / n_batches,
+                val_profile=prof, card=card, nvidia_smi=smi)
+    return info, (boxes, scores)
+
+
+def val_k1(nms_cuda, rows, card: str, smi: str) -> dict:
+    """K1 on the val path's real rows: bit for bit against the plain version,
+    timed, the bound recounted on them, and the candidates each row scans."""
+    boxes, scores = rows
+    mismatch, max_abs_err, sboxes, sscores, (keep, valid) = k1_compare(nms_cuda, boxes, scores, 300, 0.7)
+    if mismatch or max_abs_err:
+        raise AssertionError(f"K1 on val rows: {mismatch} entries differ from the plain version "
+                             f"(max abs error {max_abs_err})")
+    ms = cuda_ms(lambda: nms_cuda.greedy_nms(sboxes, sscores, 300, 0.7, presorted=True), iters=50)
+    plain_ms = cuda_ms(lambda: nms_cuda.greedy_nms_plain(sboxes, sscores, 300, 0.7), iters=3, warmup=1)
+    bound = k1_bound(sboxes.cpu().numpy(), sscores.cpu().numpy(), keep, valid, 300, 0.7)
+    reads = bound.pop("read_per_row")
+    scanned = {"min": int(np.min(reads)), "median": float(np.median(reads)), "max": int(np.max(reads))}
+    return dict(B=int(scores.shape[0]), K=int(scores.shape[1]), max_mismatch=mismatch, max_abs_err=max_abs_err,
+                kept_per_row=valid.sum(1).tolist(), ms=ms, plain_ms=plain_ms, **bound,
+                scanned_per_row=scanned, card=card, nvidia_smi=smi)
+
+
 def tf32_seen(model, call) -> dict:
     """torch's TF32 flags (cudnn, cuda matmul) as found, inside model's forward
     during call(), and after it."""
@@ -613,6 +786,7 @@ def main() -> int:
     from ultralytics_pro_tpu_torch import RTDETR, YOLO
     from ultralytics_pro_tpu_torch.kernels import build, msda_cuda, nms_cuda
     from ultralytics_pro_tpu_torch.nn.modules.head import decode_single_label
+    from ultralytics_pro_tpu_torch.nn.tasks import yaml_model_load
     from ultralytics_pro_tpu_torch.ops import nms as ops_nms
     from ultralytics_pro_tpu_torch.utils import full_f32
 
@@ -668,21 +842,38 @@ def main() -> int:
     t = time.perf_counter()
     info = rtdetr_parity(RTDETR, full_f32, model, batch)
     emit("rtdetr_parity", **info, seconds=time.perf_counter() - t)
+    del model
 
-    pred, val = k1
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        info = val_fixture(YOLO, yaml_model_load, nms_cuda, Path(tmp), card, smi)
+        emit("val_fixture", **info, seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        val, rows = val_path(YOLO, nms_cuda, ops_nms, Path(tmp), card, smi)
+        emit("val", **val, seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    vk1 = val_k1(nms_cuda, rows, card, smi)
+    emit("val_k1", **vk1, seconds=time.perf_counter() - t)
+
+    pred, val_size = k1
     kernels = [{
         "name": "greedy_nms", "route": "cuda",
         "source": "ultralytics_pro_tpu_torch/csrc/greedy_nms.cu",
         "replaces": "ultralytics_pro_tpu/kernels/nms_pallas.py:79",
         "tpu_kernel": "ultralytics_pro_tpu/kernels/nms_pallas.py:pallas_greedy_nms",
-        "launches": launches, "max_mismatch": max(c["max_mismatch"] for c in k1),
-        "max_abs_err": max(c["max_abs_err"] for c in k1), "ms": pred["ms"], "plain_ms": pred["plain_ms"],
+        "launches": launches, "max_mismatch": max([c["max_mismatch"] for c in k1] + [vk1["max_mismatch"]]),
+        "max_abs_err": max([c["max_abs_err"] for c in k1] + [vk1["max_abs_err"]]),
+        "ms": pred["ms"], "plain_ms": pred["plain_ms"],
         "bound_ms": pred["bound_ms"], "bound_by": pred["bound_by"],
         "library_ms": None,  # no single PyTorch call computes greedy NMS (no torchvision)
         "main_path_profiled_ms": k1_path_ms,
         "argmax_form_ops": pred["argmax_form_ops"],
-        "unsorted_ms": pred["unsorted_ms"], "val_ms": val["ms"], "val_plain_ms": val["plain_ms"],
-        "val_bound_ms": val["bound_ms"], "val_argmax_form_ops": val["argmax_form_ops"],
+        "unsorted_ms": pred["unsorted_ms"], "val_ms": val_size["ms"], "val_plain_ms": val_size["plain_ms"],
+        "val_bound_ms": val_size["bound_ms"], "val_argmax_form_ops": val_size["argmax_form_ops"],
+        "val_path_launches": val["k1_launches"], "val_path_profiled_ms": val["k1_profiled_ms_per_launch"],
+        "val_real_rows_ms": vk1["ms"], "val_real_rows_plain_ms": vk1["plain_ms"],
+        "val_real_rows_bound_ms": vk1["bound_ms"], "val_real_rows_bound_by": vk1["bound_by"],
+        "val_real_rows_scanned": vk1["scanned_per_row"],
     }, {
         "name": "msda_sample_fused", "route": "cuda",
         "source": "ultralytics_pro_tpu_torch/csrc/msda_sample.cu",

@@ -1,5 +1,6 @@
 """The port on a CUDA card: kernels K1 and K2 against their plain versions,
-and predict (yolov8n, and rtdetr-l through K2) in full f32.
+predict (yolov8n, and rtdetr-l through K2) in full f32, and detect val on
+the committed fixture set against val on the CPU.
 
 These tests need a card and nvcc, and import neither JAX nor the JAX package
 nor `tests/conftest.py` (which imports JAX), so they run on a machine that has
@@ -11,12 +12,19 @@ Without a card they skip (the `card` fixture decides, never an import).
 `k1_inputs` also feeds the CPU tests of test_torch_nms.py.
 """
 
+import json
+import shutil
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from ultralytics_pro_tpu_torch import RTDETR, YOLO
 from ultralytics_pro_tpu_torch.kernels import msda_cuda, nms_cuda
+from ultralytics_pro_tpu_torch.nn.tasks import yaml_model_load
+
+FIXTURES = Path(__file__).resolve().parent / "fixtures"
 
 TF32_FLAGS = ("cudnn", "matmul")
 
@@ -208,3 +216,32 @@ def test_card_predict_runs_in_full_f32_and_restores_tf32_flags(tf32_on, which):
     m.predict([np.random.default_rng(0).integers(0, 256, (48, 64, 3), dtype=np.uint8)], imgsz=64)
     assert seen == [(False, False)]
     assert _tf32() == (True, True)
+
+
+@pytest.mark.cuda
+def test_val_on_card_matches_val_on_cpu(tf32_on, tmp_path):
+    """yolov8n with the reference-trained weights on the fixture set at 160 px:
+    the card's mAP50 and mAP50-95 within 1e-3 of the CPU's (f32 forwards on
+    two devices), K1 launched once per batch, TF32 off inside and restored."""
+    ref = json.loads((FIXTURES / "val_parity_ref.json").read_text())
+    fx = np.load(FIXTURES / "val_parity_model.npz")
+    sd = {k[4:]: fx[k] for k in fx.files if k.startswith("sd::")}
+    data = shutil.copytree(FIXTURES / "torch_val_synth", tmp_path / "set") / "data.yaml"
+    kw = dict(imgsz=ref["val_args"]["imgsz"], batch=8, conf=ref["val_args"]["conf"],
+              iou=ref["val_args"]["iou"], max_det=ref["val_args"]["max_det"])
+    results = {}
+    for device in ("cuda", "cpu"):
+        y = yaml_model_load("yolov8n.yaml")
+        y["nc"] = ref["dataset_args"]["nc"]
+        model = YOLO(y, device=device)
+        model.load_state_dict(sd)
+        seen = []
+        model.model.register_forward_pre_hook(lambda *_: seen.append(_tf32()))
+        before = nms_cuda.launches
+        results[device] = model.val(data=str(data), **kw)
+        if device == "cuda":
+            assert nms_cuda.launches == before + 2  # 16 images, batch 8
+            assert seen == [(False, False)] * 2
+    card, cpu = results["cuda"].box, results["cpu"].box
+    assert abs(card.map50 - cpu.map50) <= 1e-3, (card.map50, cpu.map50)
+    assert abs(card.map - cpu.map) <= 1e-3, (card.map, cpu.map)

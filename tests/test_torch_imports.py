@@ -1,9 +1,10 @@
-"""Import hygiene of the port: the card's machine has no JAX, PyYAML or OpenCV.
+"""Import hygiene of the port: the card's machine has no JAX, PyYAML, OpenCV or PIL.
 
 In a subprocess whose `sys.meta_path` refuses jax, flax, yaml, cv2 and
 ultralytics_pro_tpu, every module of ultralytics_pro_tpu_torch and
-chip_smoke.py must import. An AST scan of the same files must find no import
-of those names.
+chip_smoke.py must import; with PIL refused as well, they import and
+`imread` still reads a PNG, equal to cv2's reading. An AST scan of the same
+files must find no import of the first names.
 """
 
 import ast
@@ -15,9 +16,14 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "ultralytics_pro_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "cv2", "ultralytics_pro_tpu")
 
-BLOCKER = f"""
+
+def _blocker(blocked, then: str = "") -> str:
+    """A script that refuses `blocked`, imports every module of the port and
+    chip_smoke.py, checks that none of `blocked` was loaded, runs `then` and
+    prints the number of modules."""
+    return f"""
 import importlib, importlib.abc, importlib.util, pkgutil, sys
-BLOCKED = {BLOCKED!r}
+BLOCKED = {blocked!r}
 
 class Blocker(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -34,10 +40,14 @@ for m in pkgutil.walk_packages(pkg.__path__, "ultralytics_pro_tpu_torch."):
     names.append(m.name)
 spec = importlib.util.spec_from_file_location("chip_smoke", {str(REPO / "chip_smoke.py")!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
+{then}
 leaked = sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print(len(names))
 """
+
+
+BLOCKER = _blocker(BLOCKED)
 
 
 def _sources():
@@ -50,6 +60,20 @@ def test_port_imports_with_jax_yaml_cv2_blocked():
     assert out.returncode == 0, out.stderr[-3000:]
     n = int(out.stdout.strip().splitlines()[-1])
     assert n == len(list(PORT.rglob("*.py"))) - 1  # every module but the package __init__
+
+
+def test_port_imports_and_reads_png_with_pil_blocked_too(tmp_path):
+    import cv2
+    import numpy as np
+
+    png = REPO / "tests" / "fixtures" / "torch_val_synth" / "images" / "val" / "val3.png"
+    then = ("from ultralytics_pro_tpu_torch.data.image_io import imread\n"
+            f"import numpy; numpy.save({str(tmp_path / 'read.npy')!r}, imread({str(png)!r}))")
+    out = subprocess.run([sys.executable, "-c", _blocker(BLOCKED + ("PIL",), then)], capture_output=True,
+                         text=True, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.strip().splitlines()[-1]) == len(list(PORT.rglob("*.py"))) - 1
+    np.testing.assert_array_equal(np.load(tmp_path / "read.npy"), cv2.imread(str(png)))
 
 
 def test_no_blocked_import_in_sources():

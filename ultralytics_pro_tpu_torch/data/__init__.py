@@ -1,5 +1,10 @@
-"""Data transforms of the port."""
+"""Data of the port: image reading, transforms, the detect val dataset and loader."""
 
-from ultralytics_pro_tpu_torch.data.augment import LetterBox
+from ultralytics_pro_tpu_torch.data.augment import Compose, LetterBox, resize_area, resize_bilinear
+from ultralytics_pro_tpu_torch.data.build import DataLoader, collate_detect
+from ultralytics_pro_tpu_torch.data.dataset import YOLODataset
+from ultralytics_pro_tpu_torch.data.image_io import imread
+from ultralytics_pro_tpu_torch.data.utils import check_det_dataset
 
-__all__ = ["LetterBox"]
+__all__ = ["Compose", "DataLoader", "LetterBox", "YOLODataset", "check_det_dataset",
+           "collate_detect", "imread", "resize_area", "resize_bilinear"]

@@ -1,0 +1,89 @@
+"""Batches for val: fixed-shape padded label arrays, read by a thread pool.
+
+Counterpart of `ultralytics_pro_tpu/data/build.py` (`collate_detect:23`,
+boxes-only branch, and `DataLoader:121`): the collate stacks images and pads
+labels to `max_gt` slots (img (B, S, S, 3) uint8 BGR, cls (B, G), bboxes
+(B, G, 4) normalised xywh, mask_gt (B, G)); the loader yields ordered
+batches whose samples a thread pool reads, and pads the last batch by
+repeating its last sample, with `pad_count` saying how many.
+"""
+
+from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterator
+
+import numpy as np
+
+
+def collate_detect(samples, max_gt: int = 128) -> Dict[str, np.ndarray]:
+    """Stack label dicts into a fixed-shape batch. Boxes (pixel xyxy) are
+    renormalised to the letterboxed image as xywh."""
+    b = len(samples)
+    imgs = np.stack([s["img"] for s in samples])  # (B, H, W, 3) uint8 BGR
+    h, w = imgs.shape[1:3]
+    cls = np.zeros((b, max_gt), np.float32)
+    bboxes = np.zeros((b, max_gt, 4), np.float32)
+    mask = np.zeros((b, max_gt), bool)
+    for i, s in enumerate(samples):
+        n = min(len(s["cls"]), max_gt)
+        if not n:
+            continue
+        bx = s["bboxes"][:n]
+        bboxes[i, :n, 0] = (bx[:, 0] + bx[:, 2]) / 2 / w
+        bboxes[i, :n, 1] = (bx[:, 1] + bx[:, 3]) / 2 / h
+        bboxes[i, :n, 2] = (bx[:, 2] - bx[:, 0]) / w
+        bboxes[i, :n, 3] = (bx[:, 3] - bx[:, 1]) / h
+        cls[i, :n] = s["cls"][:n]
+        mask[i, :n] = True
+    return {
+        "img": imgs,
+        "cls": cls,
+        "bboxes": bboxes,
+        "mask_gt": mask,
+        "im_files": [s.get("im_file") for s in samples],
+        "ori_shapes": [s.get("ori_shape") for s in samples],
+        "ratio_pads": [s.get("ratio_pad") for s in samples],
+    }
+
+
+class DataLoader:
+    """Iterable over the dataset's samples in order, in batches of batch_size
+    read by a thread pool. The last batch is padded by repeating its last
+    sample, and its `pad_count` says how many repeats the validator skips.
+    (The JAX loader's shuffle and drop_last serve training, not ported.)
+    """
+
+    def __init__(self, dataset, batch_size: int = 16, workers: int = 8, max_gt: int = 128):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.workers = max(1, workers)
+        self.max_gt = max_gt
+
+    def __len__(self):
+        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+
+    def _index_batches(self):
+        n, batches = len(self.dataset), []
+        for i in range(0, n, self.batch_size):
+            chunk = list(range(i, min(i + self.batch_size, n)))
+            pad = self.batch_size - len(chunk)
+            batches.append((chunk + [chunk[-1]] * pad, pad))
+        return batches
+
+    def __iter__(self) -> Iterator[Dict]:
+        batches = self._index_batches()
+        with ThreadPoolExecutor(max_workers=self.workers) as pool:
+            # one pool task per sample, batches assembled in order, up to 4 in flight
+            pending = []
+            for chunk, pad in batches:
+                pending.append(([pool.submit(self.dataset.__getitem__, i) for i in chunk], pad))
+                if len(pending) > 3:
+                    yield self._assemble(*pending.pop(0))
+            for futs, pad in pending:
+                yield self._assemble(futs, pad)
+
+    def _assemble(self, futures, pad: int = 0):
+        batch = collate_detect([f.result() for f in futures], max_gt=self.max_gt)
+        batch["pad_count"] = pad
+        return batch

@@ -1,0 +1,148 @@
+"""YOLO-format detection datasets, the val path.
+
+Counterpart of `ultralytics_pro_tpu/data/dataset.py` (`YOLODataset:34`):
+image scan (`get_img_files:140`, `IMG_FORMATS:25`), label paths
+(`img2label_paths:28`) and detect labels (`_parse_labels:207`), the
+long-side resize on load (`_read_resized:295` and `load_image:332` in one:
+area averaging to shrink, bilinear to grow), `get_image_and_label:344`, and
+the non-augment transforms (`build_transforms:386`) behind `__getitem__:414`.
+Images are read by `data/image_io.imread`, not OpenCV.
+
+Labels are parsed on every construction: the port writes no `.cache` beside
+the labels. Rectangular batches, image caches, augmentation, channel counts
+other than 3 and tasks other than detect raise NotImplementedError; the
+class filter and `fraction` of the JAX dataset (train options) are left out.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+from pathlib import Path
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ultralytics_pro_tpu_torch.data.augment import Compose, LetterBox, resize_area, resize_bilinear
+from ultralytics_pro_tpu_torch.data.image_io import imread
+
+IMG_FORMATS = {"bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp", "pfm"}
+
+
+def img2label_paths(img_paths: List[str]) -> List[str]:
+    """images/xxx.jpg -> labels/xxx.txt."""
+    sa, sb = f"{os.sep}images{os.sep}", f"{os.sep}labels{os.sep}"
+    return [sb.join(x.rsplit(sa, 1)).rsplit(".", 1)[0] + ".txt" for x in img_paths]
+
+
+class YOLODataset:
+    """Detection dataset over YOLO-format labels (val path)."""
+
+    def __init__(self, img_path, imgsz: int = 640, augment: bool = False, rect: bool = False,
+                 single_cls: bool = False, data: Optional[Dict] = None, task: str = "detect",
+                 cache=None):
+        unported = {"augment=True": augment, "rect=True": rect, f"cache={cache!r}": cache,
+                    f"task={task!r}": task != "detect"}
+        for what, asked in unported.items():
+            if asked:
+                raise NotImplementedError(f"YOLODataset({what}) is not implemented in "
+                                          "ultralytics_pro_tpu_torch yet; it ports the detect val path")
+        self.data = data or {}
+        ch = int(self.data.get("channels", 3) or 3)
+        if ch != 3:
+            raise NotImplementedError(f"datasets with channels={ch} are not implemented in "
+                                      "ultralytics_pro_tpu_torch yet (3 only)")
+        self.img_path = img_path
+        self.imgsz = imgsz
+        self.single_cls = single_cls
+        self.task = task
+        self.im_files = self.get_img_files(img_path)
+        self.labels = self.get_labels()
+        self.ni = len(self.labels)
+        self.transforms = self.build_transforms()
+
+    # -- files / labels -------------------------------------------------------
+    def get_img_files(self, img_path) -> List[str]:
+        files = []
+        for p in img_path if isinstance(img_path, list) else [img_path]:
+            p = Path(p)
+            if p.is_dir():
+                files += glob.glob(str(p / "**" / "*.*"), recursive=True)
+            elif p.is_file():  # txt file listing images
+                with open(p) as f:
+                    parent = str(p.parent) + os.sep
+                    files += [x.replace("./", parent) if x.startswith("./") else x
+                              for x in f.read().strip().splitlines()]
+            else:
+                raise FileNotFoundError(f"{p} does not exist")
+        files = sorted(x for x in files if x.rsplit(".", 1)[-1].lower() in IMG_FORMATS)
+        if not files:
+            raise FileNotFoundError(f"No images found in {img_path}")
+        return files
+
+    def get_labels(self) -> List[Dict]:
+        """Parsed labels, single_cls applied."""
+        labels = self._parse_labels(img2label_paths(self.im_files))
+        if self.single_cls:
+            for entry in labels:
+                if len(entry["cls"]):
+                    entry["cls"][:] = 0
+        return labels
+
+    def _parse_labels(self, label_files: List[str]) -> List[Dict]:
+        """Detect labels, `cls cx cy w h` a row, normalised; a missing file is an image without objects."""
+        labels = []
+        for im_file, lb_file in zip(self.im_files, label_files):
+            rows = []
+            if os.path.isfile(lb_file):
+                with open(lb_file) as f:
+                    rows = [x.split() for x in f.read().strip().splitlines() if len(x)]
+            lb = np.array(rows, np.float32) if rows else np.zeros((0, 5), np.float32)
+            labels.append({"im_file": im_file, "cls": lb[:, 0], "bboxes_n": lb[:, 1:5]})
+        return labels
+
+    # -- loading --------------------------------------------------------------
+    def load_image(self, i: int):
+        """Read + long-side resize to imgsz (`_read_resized`; there is no image
+        cache): area averaging to shrink, bilinear to grow (the val path's
+        INTER_AREA and INTER_LINEAR). Returns (image, (h0, w0), (h, w))."""
+        im = imread(self.im_files[i])
+        h0, w0 = im.shape[:2]
+        r = self.imgsz / max(h0, w0)
+        if r != 1:
+            size = (min(round(w0 * r), self.imgsz), min(round(h0 * r), self.imgsz))
+            im = resize_bilinear(im, size).numpy() if r > 1 else resize_area(im, size)
+        return im, (h0, w0), im.shape[:2]
+
+    def get_image_and_label(self, i: int) -> Dict:
+        """Label dict with pixel-space xyxy boxes for the (resized) image."""
+        im, ori_shape, resized = self.load_image(i)
+        lb = self.labels[i]
+        h, w = resized
+        n = lb["bboxes_n"]
+        out = {
+            "img": im,
+            "cls": lb["cls"].copy(),
+            "im_file": lb["im_file"],
+            "ori_shape": ori_shape,
+            "resized_shape": resized,
+            # the full pre-resize gain; LetterBox composes its own ratio and pads on top
+            "ratio_pad": (resized[0] / ori_shape[0], resized[1] / ori_shape[1]),
+        }
+        if len(n):
+            cx, cy, bw, bh = n[:, 0] * w, n[:, 1] * h, n[:, 2] * w, n[:, 3] * h
+            boxes = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], 1)
+        else:
+            boxes = np.zeros((0, 4), np.float32)
+        out["bboxes"] = boxes.astype(np.float32)
+        return out
+
+    # -- pipeline -------------------------------------------------------------
+    def build_transforms(self) -> Compose:
+        return Compose([LetterBox((self.imgsz, self.imgsz), scaleup=False)])
+
+    def __len__(self):
+        return self.ni
+
+    def __getitem__(self, i: int) -> Dict:
+        return self.transforms(self.get_image_and_label(i))

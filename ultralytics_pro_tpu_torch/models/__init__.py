@@ -1,10 +1,13 @@
-"""Task bindings: the predictor for a model (detection, and RT-DETR's NMS-free one)."""
+"""Task bindings: the predictor and validator for a model (detection, and
+RT-DETR's NMS-free predictor)."""
 
 from ultralytics_pro_tpu_torch.engine.predictor import DetectionPredictor
+from ultralytics_pro_tpu_torch.engine.validator import DetectionValidator
 from ultralytics_pro_tpu_torch.models.rtdetr import RTDETR, RTDETRPredictor
 from ultralytics_pro_tpu_torch.nn.modules.head import RTDETRDecoder
 
-task_map = {"detect": {"predictor": DetectionPredictor}, "rtdetr": {"predictor": RTDETRPredictor}}
+task_map = {"detect": {"predictor": DetectionPredictor, "validator": DetectionValidator},
+            "rtdetr": {"predictor": RTDETRPredictor}}
 
 
 def predictor_for(model, task: str):

@@ -47,11 +47,12 @@ class SimpleClass:
 
 
 class Profile:
-    """Context-manager timer: `dt` is the last block's seconds. With a CUDA
-    `device` it synchronises that device on entry and exit, so the time
-    covers the queued device work."""
+    """Context-manager timer: `dt` is the last block's seconds, `t` their sum
+    over every use. With a CUDA `device` it synchronises that device on entry
+    and exit, so the time covers the queued device work."""
 
     def __init__(self, device=None):
+        self.t = 0.0
         self.dt = 0.0
         self.cuda = device is not None and torch.device(device).type == "cuda"
 
@@ -67,6 +68,7 @@ class Profile:
     def __exit__(self, *a):
         self._sync()
         self.dt = time.perf_counter() - self._start
+        self.t += self.dt
 
 
 def select_device(device="cuda") -> torch.device:
