@@ -64,6 +64,33 @@ exits non-zero):
           (offset boxes and sorted scores, (16, 30000)), bit for bit against
           its plain version, timed, with the bound recounted on those rows
           and the candidates each row scans before it stops (greedy_work)
+  train_parity  one optimizer step of yolov8n (val_parity_model.npz, nc=3)
+          on 8 fixture images at 160 px, batch 8, nbs 8 (accumulate 1), no
+          warmup, through YOLO(...).train on the card and on the CPU; the
+          largest relative difference of each loss part, and of the updated
+          parameters, momentum buffers, EMA and BN statistics (from each
+          run's last.ckpt, against each tensor's largest magnitude); fails
+          beyond TRAIN_PARITY_TOL
+  train_overfit  tests/test_train_dynamics.py's overfit criterion on the
+          card: yolov8n (nc rebuilt to 3), 30 epochs at 128 px, batch 8, nbs
+          8, warmup_epochs 1.0, lr0 0.01, on the 16 fixture images (train =
+          val), val=True so K1 runs at every epoch end; fails unless the mean
+          total loss of the last 3 epochs is below 0.75x the first 3's, the
+          box loss falls and every epoch's fitness is a number; the final
+          EMA mAP50 and mAP50-95 on the set
+  train   yolov8s at full width, 640 px, batch 16 (nbs 64, accumulate 4,
+          the JAX defaults otherwise), 2 epochs on the val phase's 128
+          images (train = val, 80 class names), val after each epoch: train
+          images/s over epoch 2 (host clock, val excluded), device ms per
+          micro-batch (CUDA events), the model's FLOPs per step against the
+          f32 peak, one profiled micro-batch with its optimizer step (idle
+          share, device ms by category, the optimizer's among them,
+          launches), the criterion alone (TAL and loss, forward and
+          backward) in a profiled window, peak memory, the
+          loss parts, K1's launches in the two vals and its profiled ms a
+          launch there, and K1 on one batch of those rows captured from one
+          more val call, bit for bit against its plain version, timed, with
+          its bound; fails on a non-finite loss or a None fitness
   kernels the per-kernel summary line
 The last line is {"ok": true, "device": {...}}.
 """
@@ -109,9 +136,17 @@ VAL_IMGSZ = 640
 SLEEP_CYCLES = 100_000_000  # cuda_ms's head start for the host: about 50 ms at the H100's clock
 # cuDNN's f32 convolutions run as implicit GEMM (fprop) or FFT (fft*,
 # pointwise_mult_and_sum_complex, gemv2T on float2); cuBLAS's matmuls as gemm.
-CONV_KERNELS = ("conv", "fprop", "implicit_gemm", "winograd", "fft", "pointwise_mult_and_sum",
+CONV_KERNELS = ("conv", "fprop", "dgrad", "wgrad", "implicit_gemm", "winograd", "fft", "pointwise_mult_and_sum",
                 "region_transform", "float2")
 MATMUL_KERNELS = ("gemm", "gemv", "xmma", "cutlass")
+# The optimizer's foreach kernels (SGD, gradient clipping, EMA) run as multi_tensor_apply.
+OPTIMIZER_KERNELS = ("multi_tensor_apply", "foreach")
+# train_parity: card against CPU after one step, the tolerances of the CPU
+# tests that hold the port's step against the JAX step (tests/test_torch_train.py):
+# loss parts relative, trees against each tensor's largest magnitude
+TRAIN_PARITY_TOL = {"loss": 1e-4, "params": 1e-4, "ema": 1e-4, "batch_stats": 1e-4, "momentum_buffer": 2e-3}
+TRAIN_PARITY_IMAGES = 8
+TRAIN_IMGSZ, TRAIN_BATCH, TRAIN_EPOCHS = 640, 16, 2
 
 
 def emit(phase: str, **fields) -> None:
@@ -158,12 +193,16 @@ def category(name: str) -> str:
         return "k1_greedy_nms"
     if "msda_sample" in n:
         return "k2_msda_sample"
+    if any(s in n for s in OPTIMIZER_KERNELS):
+        return "optimizer"
     if any(s in n for s in CONV_KERNELS):
         return "convolution"
     if any(s in n for s in MATMUL_KERNELS):
         return "matmul"
-    if "bn_fw" in n or "batch_norm" in n:
+    if "bn_fw" in n or "bn_bw" in n or "batch_norm" in n or "batchnorm" in n:
         return "batchnorm"
+    if "nhwctonchw" in n or "nchwtonhwc" in n:  # cuDNN's layout copies around its NHWC engines
+        return "layout_transpose"
     if "layer_norm" in n:
         return "layernorm"
     if "sort" in n or "radix" in n:
@@ -173,7 +212,7 @@ def category(name: str) -> str:
     return "other_elementwise_reduce"
 
 
-def profile_window(fn, reps: int, warmup: int = 2, ops=()) -> dict:
+def profile_window(fn, reps: int, warmup: int = 2, ops=(), top: int = 12) -> dict:
     """Trace reps warm calls of fn with torch.profiler. Device busy ms per call
     is the sum of the kernels' device times (one stream, so they do not
     overlap); the profiler adds host time, so the window's own wall time and
@@ -219,7 +258,7 @@ def profile_window(fn, reps: int, warmup: int = 2, ops=()) -> dict:
             "device_ms_by_category": by_cat,
             "kernel_launches_per_call": sum(k[1] for k in kernels),
             "compare_scalar_launches_per_call": compares,
-            "top_kernels": [{"ms": k[0], "per_call": k[1], "name": k[2]} for k in kernels[:12]]}
+            "top_kernels": [{"ms": k[0], "per_call": k[1], "name": k[2]} for k in kernels[:top]]}
 
 
 def nms_rows(rng, b: int, k: int, nc: int = 80, max_wh: float = 7680.0):
@@ -760,6 +799,231 @@ def val_k1(nms_cuda, rows, card: str, smi: str) -> dict:
                 scanned_per_row=scanned, card=card, nvidia_smi=smi)
 
 
+def fixture_train_set(root: Path, n_images: int = 0) -> Path:
+    """The fixture's images and labels (the first n_images of them, or all)
+    under root/images/train, with a data YAML whose train and val are both
+    that directory, and the fixture's 3 class names."""
+    src = FIXTURES / "torch_val_synth"
+    pngs = sorted((src / "images" / "val").glob("*.png"))
+    for sub in ("images", "labels"):
+        (root / sub / "train").mkdir(parents=True)
+    for png in pngs[:n_images or None]:
+        shutil.copy(png, root / "images" / "train")
+        shutil.copy(src / "labels" / "val" / f"{png.stem}.txt", root / "labels" / "train")
+    names = "".join(f"  {i}: shape{i}\n" for i in range(3))
+    (root / "data.yaml").write_text("train: images/train\nval: images/train\nnames:\n" + names)
+    return root / "data.yaml"
+
+
+def tree_leaves(tree, path=()):
+    for k, v in tree.items():
+        yield from tree_leaves(v, (*path, k)) if isinstance(v, dict) else [("/".join((*path, k)), np.asarray(v))]
+
+
+def max_rel_tree_diff(got: dict, want: dict):
+    """The largest max|got - want| / max|want| over the tensors of two flax
+    trees, and the tensor where it is."""
+    want = dict(tree_leaves(want))
+    got = dict(tree_leaves(got))
+    if got.keys() != want.keys():
+        raise AssertionError(f"checkpoint trees differ in keys: {sorted(set(got) ^ set(want))[:5]}")
+    return max((float(np.abs(got[k] - w).max() / max(np.abs(w).max(), 1e-12)), k) for k, w in want.items())
+
+
+def train_one_step(YOLO, yaml_model_load, load_pickle, data: Path, project: Path, device: str):
+    """One optimizer step of the reference-trained yolov8n through
+    YOLO(...).train: 8 images, batch 8, nbs 8, no warmup. Returns the loss
+    parts, the last.ckpt dict and the optimizer steps taken."""
+    ref = json.loads((FIXTURES / "val_parity_ref.json").read_text())
+    model = parity_yolov8n(YOLO, yaml_model_load, ref, device)
+    model.train(data=str(data), epochs=1, imgsz=160, batch=TRAIN_PARITY_IMAGES, nbs=TRAIN_PARITY_IMAGES,
+                warmup_epochs=0.0, val=False, workers=4, max_gt=32, project=str(project))
+    tr = model.trainer
+    return tr.loss_history[0], load_pickle(tr.wdir / "last.ckpt"), tr.opt_steps
+
+
+def train_parity_diffs(YOLO, yaml_model_load, load_pickle, root: Path) -> dict:
+    """The one-step run on the card and on the CPU, and their largest
+    relative differences; raises beyond TRAIN_PARITY_TOL."""
+    data = fixture_train_set(root / "set", TRAIN_PARITY_IMAGES)
+    (lc, cc, sc), (lh, ch, sh) = (train_one_step(YOLO, yaml_model_load, load_pickle, data, root / d, d)
+                                  for d in ("cuda", "cpu"))
+    if sc != sh or sc != 1:
+        raise AssertionError(f"optimizer steps: card {sc}, CPU {sh}, want 1")
+    diffs = {f"loss_{k}": abs(lc[k] - lh[k]) / abs(lh[k]) for k in lh}
+    where = {}
+    for key in ("params", "momentum_buffer", "ema", "batch_stats"):
+        diffs[key], where[key] = max_rel_tree_diff(cc[key], ch[key])
+    bad = {k: v for k, v in diffs.items() if not v <= TRAIN_PARITY_TOL["loss" if k.startswith("loss") else k]}
+    if bad:
+        raise AssertionError(f"card vs CPU after one step beyond {TRAIN_PARITY_TOL}: {bad} (at {where})")
+    return {"loss_card": lc, "loss_cpu": lh, "max_rel_diff": diffs, "at": where, "tolerance": TRAIN_PARITY_TOL,
+            "ema_updates": [cc["ema_updates"], ch["ema_updates"]]}
+
+
+def train_parity(YOLO, yaml_model_load, load_pickle, tmp: Path, card: str, smi: str) -> dict:
+    info = train_parity_diffs(YOLO, yaml_model_load, load_pickle, tmp / "train_parity")
+    return dict(model="yolov8n (val_parity_model.npz)", images=TRAIN_PARITY_IMAGES, imgsz=160,
+                batch=TRAIN_PARITY_IMAGES, nbs=TRAIN_PARITY_IMAGES, warmup_epochs=0.0, **info,
+                cpu_threads=torch.get_num_threads(), card=card, nvidia_smi=smi)
+
+
+def results_csv(save_dir: Path):
+    """results.csv's rows as dicts (fitness '' when val gave None)."""
+    rows = (save_dir / "results.csv").read_text().splitlines()
+    keys = rows[0].split(",")
+    return [dict(zip(keys, r.split(","))) for r in rows[1:]]
+
+
+def fitness_values(save_dir: Path, epochs: int):
+    """Every epoch's fitness as a float; raises when an epoch's is missing
+    (a val that failed, which the facade logs and trains past)."""
+    fits = [r["metrics/fitness"] for r in results_csv(save_dir)]
+    if len(fits) != epochs or any(f in ("", "None") for f in fits):
+        raise AssertionError(f"epoch fitness {fits}: a val failed or an epoch is missing")
+    return [float(f) for f in fits]
+
+
+def train_overfit(YOLO, nms_cuda, tmp: Path, card: str, smi: str) -> dict:
+    data = fixture_train_set(tmp / "overfit_set")
+    epochs = 30
+    model = YOLO("yolov8n.yaml", device="cuda", seed=0)
+    nms_cuda.launches = 0
+    t0 = time.perf_counter()
+    model.train(data=str(data), epochs=epochs, imgsz=128, batch=8, nbs=8, workers=8, val=True, close_mosaic=0,
+                max_gt=32, warmup_epochs=1.0, lr0=0.01, project=str(tmp / "overfit"))
+    seconds = time.perf_counter() - t0
+    tr = model.trainer
+    hist = tr.loss_history
+    total = [sum(e.values()) for e in hist]
+    box = [e["box"] for e in hist]
+    first, last = float(np.mean(total[:3])), float(np.mean(total[-3:]))
+    fits = fitness_values(tr.save_dir, epochs)
+    if not (len(hist) == epochs and np.isfinite(total).all() and last < 0.75 * first
+            and np.mean(box[-3:]) < np.mean(box[:3])):
+        raise AssertionError(f"no convergence: total first {first}, last {last}; box {box}")
+    if nms_cuda.launches != 2 * epochs:
+        raise AssertionError(f"K1 launched {nms_cuda.launches} times in {epochs} vals of 2 batches")
+    m = model.val(data=str(data), imgsz=128, batch=8)
+    return dict(model="yolov8n (nc 80 -> 3, seed 0)", epochs=epochs, imgsz=128, batch=8, nbs=8, images=16,
+                train_seconds=seconds, opt_steps=tr.opt_steps, first3_mean_total=first, last3_mean_total=last,
+                ratio=last / first, box_first3=float(np.mean(box[:3])), box_last3=float(np.mean(box[-3:])),
+                total_per_epoch=total, fitness_per_epoch=fits, k1_launches=nms_cuda.launches,
+                final_ema_map50=float(m.box.map50), final_ema_map50_95=float(m.box.map), card=card,
+                nvidia_smi=smi)
+
+
+def conv_flops_per_image(model, imgsz: int) -> float:
+    """2 x multiply-adds of every Conv2d of one forward at imgsz (the head's
+    convolutions included), from the maps a forward produces."""
+    flops = []
+
+    def hook(m, inp, out):
+        k = m.weight.shape[1] * m.weight.shape[2] * m.weight.shape[3]  # (c_in / groups) * kh * kw
+        flops.append(2.0 * out.numel() * k / out.shape[0])
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            model.eval()(torch.zeros(1, 3, imgsz, imgsz, device=next(model.parameters()).device))
+    finally:
+        for h in handles:
+            h.remove()
+    return sum(flops)
+
+
+def train_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
+    """yolov8s train at 640 (JAX defaults: nbs 64, warmup 3 epochs, val) on
+    128 images. K1's rows of the epoch-end val are captured from one more
+    val call on the trained model and held to the plain version (val_k1)."""
+    from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset, check_det_dataset
+    from ultralytics_pro_tpu_torch.utils import full_f32
+
+    data = val_set_640(tmp / "train640_set")
+    data.write_text(data.read_text().replace("val: images/val", "train: images/val\nval: images/val"))
+    model = YOLO("yolov8s.yaml", device="cuda", seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    nms_cuda.launches = 0
+    t0 = time.perf_counter()
+    model.train(data=str(data), epochs=TRAIN_EPOCHS, imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH,
+                project=str(tmp / "train640"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    k1_launches = nms_cuda.launches
+    tr = model.trainer
+    nb = VAL_COPIES * 16 // TRAIN_BATCH
+    if not all(np.isfinite(v) for e in tr.loss_history for v in e.values()) or len(tr.loss_history) != TRAIN_EPOCHS:
+        raise AssertionError(f"loss history {tr.loss_history}")
+    fits = fitness_values(tr.save_dir, TRAIN_EPOCHS)
+    if k1_launches != TRAIN_EPOCHS * nb:
+        raise AssertionError(f"K1 launched {k1_launches} times in {TRAIN_EPOCHS} vals of {nb} batches")
+
+    # one micro-batch of the train set on the trained model (its parameters
+    # change; nothing below is checked against the run above)
+    d = check_det_dataset(str(data))
+    host = next(iter(DataLoader(YOLODataset(d["train"], imgsz=TRAIN_IMGSZ, data=d), batch_size=TRAIN_BATCH,
+                                workers=8, max_gt=128)))
+    dev = tr.put_batch(host)
+    lrs, mom = [tr.lr0] * 3, tr.momentum
+    tr.model.train()
+    ms_micro = cuda_ms(lambda: tr.step(dev, lrs, mom, False), iters=5)
+
+    def loop_micro():  # as the loop runs one: host batch up, step, the loss parts pulled
+        _, parts = tr.step(tr.put_batch(host), lrs, mom, True)
+        return torch.stack(list(parts.values())).tolist()
+
+    prof = profile_window(loop_micro, reps=3, top=25)
+    with torch.no_grad(), full_f32():
+        maps = [f.detach() for f in tr.model(dev["img"])]
+
+    def loss_and_tal():  # the criterion (TAL included) and its backward to the head's maps
+        feats = [f.clone().requires_grad_(True) for f in maps]
+        with full_f32():
+            total, _ = tr.criterion(feats, dev, dev["img"].shape[2:])
+            total.backward()
+
+    lprof = profile_window(loss_and_tal, reps=3)  # device time: its ~470 small launches pace CUDA events
+    tr.model.eval()
+    vprof = profile_window(lambda: tr.val_fn(tr.model), reps=1, warmup=0)
+    captured, greedy_nms = [], ops_nms.greedy_nms
+
+    def capture(boxes, scores, **k):
+        if not captured:
+            captured.append((boxes.clone(), scores.clone()))
+        return greedy_nms(boxes, scores, **k)
+
+    ops_nms.greedy_nms = capture
+    try:
+        tr.val_fn(tr.model)
+    finally:
+        ops_nms.greedy_nms = greedy_nms
+    k1_rows = val_k1(nms_cuda, captured[0], card, smi)
+    flops_fwd = conv_flops_per_image(tr.model, TRAIN_IMGSZ)
+    step_flops = 3 * flops_fwd * TRAIN_BATCH
+    bound_ms = step_flops / F32_FLOPS * 1e3
+    wall_micro_ms = tr.epoch_train_seconds[-1] * 1e3 / nb
+    busy = prof["device_busy_ms_per_call"]
+    return dict(model="yolov8s", nc=80, imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, nbs=tr.nbs, accumulate=tr.accumulate,
+                warmup_epochs=tr.warmup_epochs, epochs=TRAIN_EPOCHS, images=VAL_COPIES * 16,
+                micro_batches_per_epoch=nb, opt_steps=tr.opt_steps, train_seconds=seconds,
+                epoch_train_seconds=tr.epoch_train_seconds,
+                train_images_per_s_epoch2=nb * TRAIN_BATCH / tr.epoch_train_seconds[-1],
+                wall_ms_per_micro_batch_epoch2=wall_micro_ms,
+                device_ms_per_micro_batch=ms_micro,
+                device_ms_per_optimizer_step=prof["device_ms_by_category"].get("optimizer", 0.0),
+                device_ms_loss_and_tal_with_backward=lprof["device_busy_ms_per_call"],
+                loss_and_tal_launches=lprof["kernel_launches_per_call"],
+                conv_gflops_forward_per_image=flops_fwd / 1e9, step_tflops=step_flops / 1e12,
+                step_f32_bound_ms=bound_ms, step_flop_share=bound_ms / ms_micro,
+                device_idle_share_epoch2=None if busy is None else max(0.0, 1 - busy / wall_micro_ms),
+                micro_batch_profile=prof, max_memory_allocated_gb=peak / 1e9,
+                loss_history=tr.loss_history, fitness_per_epoch=fits, k1_launches=k1_launches,
+                k1_profiled_ms_per_launch=vprof["device_ms_by_category"].get("k1_greedy_nms", 0.0) / nb,
+                k1_on_val_rows=k1_rows,
+                val_device_busy_ms=vprof["device_busy_ms_per_call"], card=card, nvidia_smi=smi)
+
+
 def tf32_seen(model, call) -> dict:
     """torch's TF32 flags (cudnn, cuda matmul) as found, inside model's forward
     during call(), and after it."""
@@ -784,6 +1048,7 @@ def main() -> int:
         return 2
 
     from ultralytics_pro_tpu_torch import RTDETR, YOLO
+    from ultralytics_pro_tpu_torch.engine.trainer import load_pickle
     from ultralytics_pro_tpu_torch.kernels import build, msda_cuda, nms_cuda
     from ultralytics_pro_tpu_torch.nn.modules.head import decode_single_label
     from ultralytics_pro_tpu_torch.nn.tasks import yaml_model_load
@@ -855,14 +1120,27 @@ def main() -> int:
     vk1 = val_k1(nms_cuda, rows, card, smi)
     emit("val_k1", **vk1, seconds=time.perf_counter() - t)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        info = train_parity(YOLO, yaml_model_load, load_pickle, Path(tmp), card, smi)
+        emit("train_parity", **info, seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        info = train_overfit(YOLO, nms_cuda, Path(tmp), card, smi)
+        emit("train_overfit", **info, seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        train = train_path(YOLO, nms_cuda, ops_nms, Path(tmp), card, smi)
+        emit("train", **train, seconds=time.perf_counter() - t)
+
     pred, val_size = k1
+    tk1 = train["k1_on_val_rows"]
     kernels = [{
         "name": "greedy_nms", "route": "cuda",
         "source": "ultralytics_pro_tpu_torch/csrc/greedy_nms.cu",
         "replaces": "ultralytics_pro_tpu/kernels/nms_pallas.py:79",
         "tpu_kernel": "ultralytics_pro_tpu/kernels/nms_pallas.py:pallas_greedy_nms",
-        "launches": launches, "max_mismatch": max([c["max_mismatch"] for c in k1] + [vk1["max_mismatch"]]),
-        "max_abs_err": max([c["max_abs_err"] for c in k1] + [vk1["max_abs_err"]]),
+        "launches": launches,
+        "max_mismatch": max([c["max_mismatch"] for c in k1] + [vk1["max_mismatch"], tk1["max_mismatch"]]),
+        "max_abs_err": max([c["max_abs_err"] for c in k1] + [vk1["max_abs_err"], tk1["max_abs_err"]]),
         "ms": pred["ms"], "plain_ms": pred["plain_ms"],
         "bound_ms": pred["bound_ms"], "bound_by": pred["bound_by"],
         "library_ms": None,  # no single PyTorch call computes greedy NMS (no torchvision)
@@ -874,6 +1152,10 @@ def main() -> int:
         "val_real_rows_ms": vk1["ms"], "val_real_rows_plain_ms": vk1["plain_ms"],
         "val_real_rows_bound_ms": vk1["bound_ms"], "val_real_rows_bound_by": vk1["bound_by"],
         "val_real_rows_scanned": vk1["scanned_per_row"],
+        "train_path_launches": train["k1_launches"], "train_path_profiled_ms": train["k1_profiled_ms_per_launch"],
+        "train_path_rows_ms": tk1["ms"], "train_path_rows_plain_ms": tk1["plain_ms"],
+        "train_path_rows_bound_ms": tk1["bound_ms"], "train_path_rows_bound_by": tk1["bound_by"],
+        "train_path_rows_scanned": tk1["scanned_per_row"],
     }, {
         "name": "msda_sample_fused", "route": "cuda",
         "source": "ultralytics_pro_tpu_torch/csrc/msda_sample.cu",

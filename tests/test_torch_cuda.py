@@ -245,3 +245,27 @@ def test_val_on_card_matches_val_on_cpu(tf32_on, tmp_path):
     card, cpu = results["cuda"].box, results["cpu"].box
     assert abs(card.map50 - cpu.map50) <= 1e-3, (card.map50, cpu.map50)
     assert abs(card.map - cpu.map) <= 1e-3, (card.map, cpu.map)
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(tf32_on, tmp_path):
+    """One optimizer step of the reference-trained yolov8n through
+    YOLO(...).train on the card and on the CPU (8 fixture images, 160 px,
+    batch 8, nbs 8, no warmup): loss parts, parameters, momentum buffers,
+    EMA and BN statistics within chip_smoke.TRAIN_PARITY_TOL (phase
+    train_parity). TF32 stays off through every forward of the step and is
+    allowed again afterwards."""
+    from chip_smoke import TRAIN_PARITY_TOL, train_parity_diffs
+    from ultralytics_pro_tpu_torch.engine.trainer import load_pickle
+
+    seen = []  # the flags in every forward of a module in train mode: the steps' forwards
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda m, _: seen.append(_tf32()) if m.training else None)
+    try:
+        info = train_parity_diffs(YOLO, yaml_model_load, load_pickle, tmp_path)
+    finally:
+        handle.remove()
+    assert seen and set(seen) == {(False, False)}
+    assert _tf32() == (True, True)
+    for k, v in info["max_rel_diff"].items():
+        assert v <= TRAIN_PARITY_TOL["loss" if k.startswith("loss") else k], (k, v)

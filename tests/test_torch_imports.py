@@ -2,8 +2,9 @@
 
 In a subprocess whose `sys.meta_path` refuses jax, flax, yaml, cv2 and
 ultralytics_pro_tpu, every module of ultralytics_pro_tpu_torch and
-chip_smoke.py must import; with PIL refused as well, they import and
-`imread` still reads a PNG, equal to cv2's reading. An AST scan of the same
+chip_smoke.py must import, and a short training run goes through; with PIL
+refused as well, they import and `imread` still reads a PNG, equal to cv2's
+reading. An AST scan of the same
 files must find no import of the first names.
 """
 
@@ -74,6 +75,25 @@ def test_port_imports_and_reads_png_with_pil_blocked_too(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
     assert int(out.stdout.strip().splitlines()[-1]) == len(list(PORT.rglob("*.py"))) - 1
     np.testing.assert_array_equal(np.load(tmp_path / "read.npy"), cv2.imread(str(png)))
+
+
+def test_port_trains_with_jax_yaml_cv2_blocked(tmp_path):
+    """The train path (dataset, loader, model, TAL, loss, SGD, EMA, epoch-end
+    val on K1's plain version, checkpoint) runs in the blocking process and
+    loads what it wrote."""
+    import shutil
+
+    data = shutil.copytree(REPO / "tests" / "fixtures" / "torch_val_synth", tmp_path / "set")
+    (data / "train.yaml").write_text("train: images/val\nval: images/val\nnames:\n  0: a\n  1: b\n  2: c\n")
+    then = ("from ultralytics_pro_tpu_torch import YOLO\n"
+            "m = YOLO('yolov8n.yaml', device='cpu')\n"
+            f"m.train(data={str(data / 'train.yaml')!r}, epochs=1, imgsz=32, batch=8, nbs=8, workers=2, "
+            f"max_gt=16, warmup_epochs=0.0, project={str(tmp_path / 'runs')!r})\n"
+            "assert m.trainer.last_fitness is not None\n"
+            "YOLO(str(m.trainer.wdir / 'last.ckpt'), device='cpu')")
+    out = subprocess.run([sys.executable, "-c", _blocker(BLOCKED, then)], capture_output=True, text=True,
+                         cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
 
 
 def test_no_blocked_import_in_sources():

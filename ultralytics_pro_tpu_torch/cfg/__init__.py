@@ -1,15 +1,20 @@
-"""Predict and val settings of the port.
+"""Predict, val and train settings of the port.
 
-The keys of `ultralytics_pro_tpu/cfg/default.yaml` that `Model.predict` and
-`Model.val` read, as a dict, so the port needs no YAML parser for them.
+The keys of `ultralytics_pro_tpu/cfg/default.yaml` that `Model.predict`,
+`Model.val`, `Model.train` and the trainer read, with the JAX package's
+defaults, as a dict, so the port needs no YAML parser for them.
 `plots` defaults to False here (True there): the port draws no plots yet, and
-its validator raises when asked to.
+its validator raises when asked to. `augment` is off by default there too,
+so a train run sees the val transforms, and `optimizer` is left out: the
+trainer runs its 3-group SGD whatever it says, as the JAX one does
+(ROADMAP.md §3).
 """
 
 DEFAULT_CFG_DICT = {
     "imgsz": 640,
     "batch": 16,
     "workers": 8,
+    "device": None,  # train: 1 or None (one card); data parallel is not ported
     "conf": None,  # 0.25 at predict, 0.001 at val
     "iou": 0.7,
     "max_det": 300,
@@ -22,4 +27,30 @@ DEFAULT_CFG_DICT = {
     "max_gt": 128,  # padded GT slots per image
     "save_json": False,
     "plots": False,
+    # train
+    "epochs": 100,
+    "time": None,  # max hours, overrides epochs
+    "patience": 100,
+    "save_period": -1,
+    "cache": False,
+    "project": None,
+    "name": None,
+    "cos_lr": False,
+    "close_mosaic": 10,
+    "resume": False,
+    "multi_scale": False,
+    "remat": False,
+    "ckpt_format": "pickle",
+    "val": True,
+    "lr0": 0.01,
+    "lrf": 0.01,
+    "momentum": 0.937,
+    "weight_decay": 0.0005,
+    "warmup_epochs": 3.0,
+    "warmup_momentum": 0.8,
+    "warmup_bias_lr": 0.1,
+    "box": 7.5,
+    "cls": 0.5,
+    "dfl": 1.5,
+    "nbs": 64,
 }

@@ -1,15 +1,19 @@
-"""Batches for val: fixed-shape padded label arrays, read by a thread pool.
+"""Batches for train and val: fixed-shape padded label arrays, read by a thread pool.
 
 Counterpart of `ultralytics_pro_tpu/data/build.py` (`collate_detect:23`,
 boxes-only branch, and `DataLoader:121`): the collate stacks images and pads
 labels to `max_gt` slots (img (B, S, S, 3) uint8 BGR, cls (B, G), bboxes
-(B, G, 4) normalised xywh, mask_gt (B, G)); the loader yields ordered
-batches whose samples a thread pool reads, and pads the last batch by
-repeating its last sample, with `pad_count` saying how many.
+(B, G, 4) normalised xywh, mask_gt (B, G)); the loader yields batches whose
+samples a thread pool reads. For val it keeps the dataset's order and pads
+the last batch by repeating its last sample, with `pad_count` saying how
+many; for train it shuffles with `random.Random(seed + epoch)`, seed 0, and drops
+the last partial batch, as the JAX loader does, and `epoch` counts the
+passes.
 """
 
 from __future__ import annotations
 
+import random
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator
 
@@ -48,26 +52,37 @@ def collate_detect(samples, max_gt: int = 128) -> Dict[str, np.ndarray]:
 
 
 class DataLoader:
-    """Iterable over the dataset's samples in order, in batches of batch_size
-    read by a thread pool. The last batch is padded by repeating its last
-    sample, and its `pad_count` says how many repeats the validator skips.
-    (The JAX loader's shuffle and drop_last serve training, not ported.)
-    """
+    """Iterable over the dataset's samples in batches of batch_size read by a
+    thread pool. With shuffle, each pass takes the order
+    `random.Random(epoch)` gives and `epoch` then counts up; with
+    drop_last a last partial batch is dropped, else it is padded by repeating
+    its last sample, and its `pad_count` says how many repeats the validator
+    skips."""
 
-    def __init__(self, dataset, batch_size: int = 16, workers: int = 8, max_gt: int = 128):
+    def __init__(self, dataset, batch_size: int = 16, workers: int = 8, max_gt: int = 128,
+                 shuffle: bool = False, drop_last: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.workers = max(1, workers)
         self.max_gt = max_gt
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.epoch = 0
 
     def __len__(self):
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else (n + self.batch_size - 1) // self.batch_size
 
     def _index_batches(self):
-        n, batches = len(self.dataset), []
-        for i in range(0, n, self.batch_size):
-            chunk = list(range(i, min(i + self.batch_size, n)))
+        idx = list(range(len(self.dataset)))
+        if self.shuffle:
+            random.Random(self.epoch).shuffle(idx)  # the JAX loader's seed 0, plus the epoch
+        batches = []
+        for i in range(0, len(idx), self.batch_size):
+            chunk = idx[i:i + self.batch_size]
             pad = self.batch_size - len(chunk)
+            if pad and self.drop_last:
+                continue
             batches.append((chunk + [chunk[-1]] * pad, pad))
         return batches
 
@@ -82,8 +97,13 @@ class DataLoader:
                     yield self._assemble(*pending.pop(0))
             for futs, pad in pending:
                 yield self._assemble(futs, pad)
+        self.epoch += 1
 
     def _assemble(self, futures, pad: int = 0):
         batch = collate_detect([f.result() for f in futures], max_gt=self.max_gt)
         batch["pad_count"] = pad
         return batch
+
+    def reset(self):
+        """Called at close_mosaic, where the JAX loader has its dataset drop
+        its mosaic-type transforms. Without augmentation there are none."""

@@ -1,4 +1,4 @@
-"""YOLO-format detection datasets, the val path.
+"""YOLO-format detection datasets, for val and for train without augmentation.
 
 Counterpart of `ultralytics_pro_tpu/data/dataset.py` (`YOLODataset:34`):
 image scan (`get_img_files:140`, `IMG_FORMATS:25`), label paths
@@ -8,10 +8,14 @@ area averaging to shrink, bilinear to grow), `get_image_and_label:344`, and
 the non-augment transforms (`build_transforms:386`) behind `__getitem__:414`.
 Images are read by `data/image_io.imread`, not OpenCV.
 
+With `augment=False` (the JAX package's default, `cfg/default.yaml:66`)
+train images go through the same transforms as val, as in the JAX dataset.
 Labels are parsed on every construction: the port writes no `.cache` beside
-the labels. Rectangular batches, image caches, augmentation, channel counts
-other than 3 and tasks other than detect raise NotImplementedError; the
-class filter and `fraction` of the JAX dataset (train options) are left out.
+the labels. Rectangular batches, image caches, augmentation (the JAX
+`v8_transforms`: Mosaic, RandomPerspective, RandomHSV, flips, MixUp),
+channel counts other than 3 and tasks other than detect raise
+NotImplementedError; the class filter and `fraction` of the JAX dataset are
+left out.
 """
 
 from __future__ import annotations
@@ -36,17 +40,22 @@ def img2label_paths(img_paths: List[str]) -> List[str]:
 
 
 class YOLODataset:
-    """Detection dataset over YOLO-format labels (val path)."""
+    """Detection dataset over YOLO-format labels (no augmentation)."""
 
     def __init__(self, img_path, imgsz: int = 640, augment: bool = False, rect: bool = False,
                  single_cls: bool = False, data: Optional[Dict] = None, task: str = "detect",
                  cache=None):
-        unported = {"augment=True": augment, "rect=True": rect, f"cache={cache!r}": cache,
-                    f"task={task!r}": task != "detect"}
+        if augment:
+            raise NotImplementedError(
+                "YOLODataset(augment=True) is not implemented in ultralytics_pro_tpu_torch yet: the "
+                "train augmentations (the JAX package's data/augment.py v8_transforms) need cv2-free "
+                "forms, ROADMAP.md queue 1 (train augmentations); train with augment=False, the default")
+        unported = {"rect=True": rect, f"cache={cache!r}": cache, f"task={task!r}": task != "detect"}
         for what, asked in unported.items():
             if asked:
                 raise NotImplementedError(f"YOLODataset({what}) is not implemented in "
-                                          "ultralytics_pro_tpu_torch yet; it ports the detect val path")
+                                          "ultralytics_pro_tpu_torch yet; it ports the detect path "
+                                          "without augmentation")
         self.data = data or {}
         ch = int(self.data.get("channels", 3) or 3)
         if ch != 3:

@@ -1,10 +1,16 @@
-"""Model facade: `YOLO("yolov8s.yaml", device="cuda").predict(images)` and `.val(data=...)`.
+"""Model facade: `YOLO("yolov8s.yaml", device="cuda").predict(images)`, `.val(data=...)`
+and `.train(data=...)`.
 
 Counterpart of `ultralytics_pro_tpu/engine/model.py` (`Model:27`, `_new:44`,
-`predict:77`, `val:138` for detect, `YOLO:341`). The model lives on `device`,
-which defaults to the card and raises when there is none; pass device="cpu"
-for the CPU. Weights are initialised from a `torch.Generator` seeded with
-`seed`, or loaded from a torch-reference state dict (`load_state_dict`).
+`_load:52`, `predict:77`, `val:138` and `train:172` for detect,
+`_quick_val:286`, `YOLO:341`). The model lives on `device`, which defaults
+to the card and raises when there is none; pass device="cpu" for the CPU.
+Training runs on that device. Weights are initialised from a
+`torch.Generator` seeded with `seed`, loaded from a torch-reference state
+dict (`load_state_dict`), or read from a checkpoint of either package
+(`YOLO("best.ckpt")`: its EMA parameters where it has them, and its BN
+statistics). The checkpoint's `train_args` stay in `ckpt`; unlike the JAX
+facade the port does not apply them as defaults.
 """
 
 from __future__ import annotations
@@ -16,24 +22,48 @@ import torch
 
 from ultralytics_pro_tpu_torch.cfg import DEFAULT_CFG_DICT
 from ultralytics_pro_tpu_torch.nn.tasks import guess_model_task, model_class_for, yaml_model_load
-from ultralytics_pro_tpu_torch.utils import select_device
+from ultralytics_pro_tpu_torch.utils import LOGGER, select_device
 
 
 class Model:
-    """Unified YOLO-style model facade (predict, and val for detect, in this port)."""
+    """Unified YOLO-style model facade (predict, val and train for detect, in this port)."""
 
     def __init__(self, model: Union[str, Path, dict] = "yolov8n.yaml", task: Optional[str] = None,
                  device="cuda", seed: int = 0, verbose: bool = False):
         self.device = select_device(device)
+        self.seed = seed
         self.predictor = None
-        self._new(model, task, seed, verbose)
+        self.trainer = None
+        self.ckpt = None
+        if str(model).endswith((".ckpt", ".pkl")):
+            self._load(str(model), task)
+        else:
+            self._new(model, task, verbose)
 
-    def _new(self, cfg, task: Optional[str], seed: int, verbose: bool = False):
+    def _build(self, cfg: dict, nc: Optional[int] = None, verbose: bool = False):
+        gen = torch.Generator().manual_seed(self.seed)
+        return model_class_for(self.task)(cfg, nc=nc, verbose=verbose, generator=gen).to(self.device).eval()
+
+    def _new(self, cfg, task: Optional[str], verbose: bool = False):
         d = cfg if isinstance(cfg, dict) else yaml_model_load(cfg)
         self.task = task or guess_model_task(d)
-        cls = model_class_for(self.task)
-        gen = torch.Generator().manual_seed(seed)
-        self.model = cls(d, verbose=verbose, generator=gen).to(self.device).eval()
+        self.model = self._build(d, verbose=verbose)
+
+    def _load(self, weights: str, task: Optional[str] = None):
+        """A checkpoint of either package: the model from its `model_yaml`, its
+        EMA parameters (its parameters if it has none) and BN statistics."""
+        from ultralytics_pro_tpu_torch.engine.trainer import load_pickle
+        from ultralytics_pro_tpu_torch.utils.weights import jax_to_torch_state_dict
+
+        ckpt = load_pickle(weights)
+        d = ckpt.get("model_yaml")
+        if d is None:
+            raise ValueError(f"checkpoint {weights} carries no model yaml")
+        self.ckpt = ckpt
+        self.task = task or guess_model_task(d)
+        self.model = self._build(d)
+        self.load_state_dict(jax_to_torch_state_dict({"params": ckpt.get("ema") or ckpt["params"],
+                                                      "batch_stats": ckpt["batch_stats"]}))
 
     def predict(self, source=None, stream: bool = False, **kwargs):
         args = {**DEFAULT_CFG_DICT, **kwargs}
@@ -41,7 +71,7 @@ class Model:
         from ultralytics_pro_tpu_torch.models import predictor_for  # models/ imports this module
 
         predictor_cls = predictor_for(self.model, self.task)
-        if self.predictor is None or self.predictor.args != args:
+        if self.predictor is None or self.predictor.args != args or self.predictor.model is not self.model:
             self.predictor = predictor_cls(self.model, args)
         return self.predictor(source, stream=stream)
 
@@ -51,19 +81,26 @@ class Model:
         return self.model.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()},
                                           strict=strict)
 
-    def val(self, data=None, **kwargs):
-        """Evaluate on a detection dataset's `split` (default val); returns DetMetrics."""
-        from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset, check_det_dataset
-        from ultralytics_pro_tpu_torch.models import task_map  # models/ imports this module
+    @staticmethod
+    def _dataset(data, args) -> dict:
+        from ultralytics_pro_tpu_torch.data import check_det_dataset
 
-        args = {**DEFAULT_CFG_DICT, **kwargs}
         if (data or args.get("data")) is None:
-            raise ValueError("val needs data=<dataset yaml or dict>; the port bundles no datasets")
+            raise ValueError("val and train need data=<dataset yaml or dict>; the port bundles no datasets")
         d = check_det_dataset(data or args.get("data"))
         ch = int(d.get("channels", 3) or 3)
         if ch != 3:
-            raise NotImplementedError(f"val on a dataset with channels={ch} (which rebuilds the "
-                                      "model's stem) is not implemented in ultralytics_pro_tpu_torch yet")
+            raise NotImplementedError(f"a dataset with channels={ch} (which rebuilds the model's stem) "
+                                      "is not implemented in ultralytics_pro_tpu_torch yet")
+        return d
+
+    def val(self, data=None, **kwargs):
+        """Evaluate on a detection dataset's `split` (default val); returns DetMetrics."""
+        from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset
+        from ultralytics_pro_tpu_torch.models import task_map  # models/ imports this module
+
+        args = {**DEFAULT_CFG_DICT, **kwargs}
+        d = self._dataset(data, args)
         self.model.names = d["names"]
         imgsz, batch = int(args["imgsz"]), int(args["batch"])
         dataset = YOLODataset(d[args["split"]], imgsz=imgsz, augment=False, data=d, task=self.task,
@@ -72,6 +109,51 @@ class Model:
                             max_gt=int(args["max_gt"]))
         validator = task_map[self.task]["validator"](args)
         return validator(self.model, loader, names=d["names"])
+
+    def train(self, data=None, **kwargs):
+        """Train on a detection dataset's train split on the model's device,
+        validating the EMA parameters on its val split after every epoch
+        (val=True); the EMA parameters are left on the model. Returns None,
+        as the JAX facade does: results are on `self.trainer` and in its
+        save_dir (results.csv, weights/last.ckpt and best.ckpt)."""
+        from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset
+        from ultralytics_pro_tpu_torch.models import task_map  # models/ imports this module
+
+        args = {**DEFAULT_CFG_DICT, **kwargs}
+        d = self._dataset(data, args)
+        if d["nc"] != self.model.nc:
+            self.model = self._build(self.model.yaml, nc=d["nc"])
+        self.model.names = d["names"]
+        train_set = YOLODataset(d["train"], imgsz=int(args["imgsz"]), augment=bool(args["augment"]),
+                                data=d, task=self.task, cache=args.get("cache") or None)
+        train_loader = DataLoader(train_set, batch_size=int(args["batch"]), shuffle=True, drop_last=True,
+                                  max_gt=int(args["max_gt"]), workers=int(args["workers"]))
+        self.trainer = task_map[self.task]["trainer"](self.model, args)
+
+        val_fn = None
+        if args.get("val", True) and d.get("val"):
+            val_args = dict(args)
+
+            def val_fn(model):
+                try:
+                    return Model._quick_val(model, d, val_args, self.task).fitness
+                except Exception:  # the JAX facade trains on when a val fails; this logs why
+                    LOGGER.exception("val failed; training goes on with fitness None")
+                    return None
+
+        self.trainer.train(train_loader, val_fn=val_fn)
+
+    @staticmethod
+    def _quick_val(model, d: dict, args: dict, task: str):
+        """The epoch-end val: the dataset's val split through the task's validator."""
+        from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset
+        from ultralytics_pro_tpu_torch.models import task_map  # models/ imports this module
+
+        dataset = YOLODataset(d["val"], imgsz=int(args["imgsz"]), augment=False, data=d, task=task,
+                              rect=bool(args.get("rect", False)))
+        loader = DataLoader(dataset, batch_size=int(args["batch"]), max_gt=int(args["max_gt"]),
+                            workers=int(args["workers"]))
+        return task_map[task]["validator"](args)(model, loader, names=d["names"])
 
     def __call__(self, source=None, stream: bool = False, **kwargs):
         return self.predict(source, stream, **kwargs)

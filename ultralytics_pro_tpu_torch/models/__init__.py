@@ -1,12 +1,14 @@
-"""Task bindings: the predictor and validator for a model (detection, and
-RT-DETR's NMS-free predictor)."""
+"""Task bindings: the predictor, validator and trainer for a model
+(detection, and RT-DETR's NMS-free predictor)."""
 
 from ultralytics_pro_tpu_torch.engine.predictor import DetectionPredictor
+from ultralytics_pro_tpu_torch.engine.trainer import DetectionTrainer
 from ultralytics_pro_tpu_torch.engine.validator import DetectionValidator
 from ultralytics_pro_tpu_torch.models.rtdetr import RTDETR, RTDETRPredictor
 from ultralytics_pro_tpu_torch.nn.modules.head import RTDETRDecoder
 
-task_map = {"detect": {"predictor": DetectionPredictor, "validator": DetectionValidator},
+task_map = {"detect": {"predictor": DetectionPredictor, "validator": DetectionValidator,
+                       "trainer": DetectionTrainer},
             "rtdetr": {"predictor": RTDETRPredictor}}
 
 

@@ -3,8 +3,10 @@
 Counterpart of `ultralytics_pro_tpu/nn/modules/conv.py` (`autopad:39`,
 `Conv:86`, `DWConv:131`, `LightConv:254`, `Concat:305`, `Upsample:328`,
 `RepConv:383`, and the model-wide `activation:` override at `:102-128`).
-BatchNorm uses eps 1e-3 and momentum 0.03 (`:27-28`). "gelu" is the tanh
-form, as `jax.nn.gelu` computes it by default (`:109`).
+BatchNorm uses eps 1e-3 and momentum 0.03 (`:27-28`), and in train mode
+updates its running statistics as flax's `nn.BatchNorm` does (`:73-80`):
+see `BatchNorm2d`. "gelu" is the tanh form, as `jax.nn.gelu` computes it by
+default (`:109`).
 """
 
 from __future__ import annotations
@@ -12,10 +14,35 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` whose train-mode update of the running statistics is
+    flax's: `running = (1 - momentum) * running + momentum * batch` with the
+    biased batch variance, where torch's own update takes the unbiased one
+    (a factor n / (n - 1), n = B*H*W, that shows on small maps).
+
+    The batch statistics come from the same `F.batch_norm` call that
+    normalises (into scratch buffers at momentum 1), so train mode reads the
+    activation no more often than torch's own layer. `num_batches_tracked`
+    stays as loaded: flax has no counterpart. Eval mode is torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():  # var holds the unbiased batch variance
+            self.running_mean.mul_(1 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1 - self.momentum).add_(var, alpha=self.momentum * (n - 1) / n)
+        return y
 
 _ACTS = {
     "silu": nn.SiLU, "relu": nn.ReLU, "relu6": nn.ReLU6,
@@ -63,7 +90,7 @@ class Conv(nn.Module):
     def __init__(self, c1: int, c2: int, k=1, s=1, p=None, g: int = 1, d: int = 1, act=True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), groups=g, dilation=d, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = conv_act(act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

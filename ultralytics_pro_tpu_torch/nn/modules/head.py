@@ -18,7 +18,7 @@ import torch
 from torch import nn
 
 from ultralytics_pro_tpu_torch.nn.modules.block import DFL, dfl_expectation
-from ultralytics_pro_tpu_torch.nn.modules.conv import BN_EPS, BN_MOMENTUM, Conv
+from ultralytics_pro_tpu_torch.nn.modules.conv import BN_EPS, BN_MOMENTUM, BatchNorm2d, Conv
 from ultralytics_pro_tpu_torch.nn.modules.transformer import LN_EPS, MLP, DeformableTransformerDecoderLayer
 from ultralytics_pro_tpu_torch.ops.anchors import dist2bbox, make_anchors
 from ultralytics_pro_tpu_torch.ops.nms import _topk
@@ -110,7 +110,7 @@ class RTDETRDecoder(nn.Module):
         self.stride = torch.zeros(self.nl)  # set by the model once strides are known
         self.input_proj = nn.ModuleList(
             nn.Sequential(nn.Conv2d(c, hd, 1, bias=False),
-                          nn.BatchNorm2d(hd, eps=BN_EPS, momentum=BN_MOMENTUM)) for c in ch)
+                          BatchNorm2d(hd, eps=BN_EPS, momentum=BN_MOMENTUM)) for c in ch)
         self.decoder = nn.Module()  # the reference's name for the layers: decoder.layers.i
         self.decoder.layers = nn.ModuleList(DeformableTransformerDecoderLayer(hd, nh, d_ffn, self.nl, ndp)
                                             for _ in range(ndl))

@@ -6,7 +6,12 @@ Counterpart of `ultralytics_pro_tpu/nn/tasks.py` (`parse_model:1126`,
 `model_class_for:1610`, `guess_model_task:1624`) for the YOLOv8 module set
 (Conv, C2f, SPPF, nn.Upsample, Concat, Detect) and RT-DETR's (DWConv,
 HGStem, HGBlock, RepC3, AIFI, RTDETRDecoder; builders at `:85`, `:260-263`,
-`:441-447`). Any other module raises NotImplementedError naming it.
+`:441-447`). Any other module raises NotImplementedError naming it, and the
+detect heads of the v5 and v10 YAMLs name their ROADMAP queue item too.
+
+In train mode (`model.train()`) a Detect model returns the head's raw
+per-level maps, NCHW, as the JAX head returns `{"feats": raw}` when
+`train=True` (`nn/modules/head.py:120-123`).
 
 Models are nn.Modules in NCHW whose parameter names are the reference's
 (`model.N.cv1.conv.weight`). Weights are initialised from an explicit
@@ -30,6 +35,10 @@ from ultralytics_pro_tpu_torch.utils import LOGGER, PKG_ROOT, miniyaml
 
 SCALED = {"Conv": Conv, "DWConv": DWConv, "C2f": C2f, "SPPF": SPPF, "RepC3": RepC3}  # c2 is width-scaled
 MODULES = (*SCALED, "HGStem", "HGBlock", "AIFI", "nn.Upsample", "Concat", "Detect", "RTDETRDecoder")
+QUEUED = {  # heads of YAMLs the JAX package trains, and where the port takes them up
+    "AnchorDetect": "ROADMAP.md queue 1 item 9 (the v5 YAMLs, with v5AnchorLoss)",
+    "v10Detect": "ROADMAP.md queue 1 item 9 (v10, with E2EDetectLoss)",
+}
 
 
 def make_divisible(x, divisor: int = 8) -> int:
@@ -64,6 +73,9 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
                 raise NotImplementedError(
                     f"malformed model-yaml row {i}: expected [from, repeats, module, args], got {row!r}")
             f, n, m_name, args = row
+            if m_name in QUEUED:
+                raise NotImplementedError(f"module '{m_name}' (layer {i}) is not implemented in "
+                                          f"ultralytics_pro_tpu_torch yet: {QUEUED[m_name]}")
             if m_name not in MODULES:
                 raise NotImplementedError(
                     f"module '{m_name}' (layer {i}) is not implemented in ultralytics_pro_tpu_torch; "
@@ -237,7 +249,7 @@ class BaseModel(nn.Module):
             if m.f != -1:
                 x = y[m.f] if isinstance(m.f, int) else [x if j == -1 else y[j] for j in m.f]
             if isinstance(m, Detect):
-                return x if stop_at_head else m(x, decode=decode)
+                return x if stop_at_head else m(x, decode=decode and not self.training)
             if isinstance(m, RTDETRDecoder):
                 return x if stop_at_head else m(x, aux=aux)
             x = m(x)
@@ -247,7 +259,8 @@ class BaseModel(nn.Module):
 
     def forward(self, x: torch.Tensor, decode: bool = True, aux: bool = True):
         """x (B, C, H, W) float. For a Detect model: (decoded (B, A, 4+nc), raw
-        per-level maps), or the raw maps alone when decode=False. For an
+        per-level maps), or the raw maps alone when decode=False or in train
+        mode. For an
         RT-DETR model: (y (B, nq, 4+nc), aux), aux None when aux=False, see
         `RTDETRDecoder.forward`."""
         return self._run(x, decode=decode, aux=aux)

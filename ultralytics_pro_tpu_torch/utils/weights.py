@@ -184,13 +184,14 @@ def _put(tree: dict, path, leaf: str, arr: np.ndarray) -> None:
 
 def torch_state_dict_to_jax(state_dict: Dict[str, torch.Tensor], num_heads: int = 8) -> dict:
     """The port's state_dict as the JAX package's {'params', 'batch_stats'}
-    trees of numpy arrays (the buffers JAX has no counterpart for drop).
+    trees of numpy arrays, copies that later training does not change (the
+    buffers JAX has no counterpart for drop).
     `num_heads` splits attention projections into flax's (C, nh, hd) form."""
     out: dict = {"params": {}, "batch_stats": {}}
     for key, t in state_dict.items():
         if key.endswith("num_batches_tracked") or key.endswith("dfl.conv.weight"):
             continue
-        w = t.detach().cpu().numpy()
+        w = t.detach().cpu().numpy().copy()  # on the CPU .numpy() would alias the model's tensor
         name, leaf = key.rsplit(".", 1)
         if leaf in ("in_proj_weight", "in_proj_bias"):
             path = _torch_name_to_flax(name)
