@@ -91,6 +91,33 @@ exits non-zero):
           launch there, and K1 on one batch of those rows captured from one
           more val call, bit for bit against its plain version, timed, with
           its bound; fails on a non-finite loss or a None fitness
+  seg_fixture, pose_fixture  accuracy of the other tasks on the card: the
+          reference-trained yolov8n-seg and yolov8n-pose
+          (val_parity_{segment,pose}_model.npz, nc 3, pose's kpt_shape [5, 3])
+          through YOLO(...).val on tests/fixtures/torch_val_synth_{segment,pose}
+          at 160 px, batch 8, conf 0.001, iou 0.7, on the card and on the CPU;
+          fails if a box, mask or pose mAP50 or mAP50-95 of the card is more
+          than TASK_FIXTURE_TOL from the CPU's or 0.005 from the *_ref.json's
+  seg, pose  YOLO("yolov8s-seg.yaml") (80 classes) and YOLO("yolov8s-pose.yaml")
+          (nc 1, 17x3 keypoints), seeded weights, predict on the 4 images at
+          640 px with conf 1e-6: K1's launches around the call (one an image),
+          masks (bool, the original image's size) or keypoints checked; warm
+          latency per image over TASK_CALLS calls, the idle share, launches
+          an image and K1's ms a launch from one profiled window, the device
+          function's images/s at batch 16, the copies' device ms an image;
+          segment's mask step (combine, pad cut, resize, crop) in device ms
+          an image beside the forward's (both from the profiler), and its
+          mask probabilities against the same step on the CPU (within
+          MASK_TOL, > 0.5 bits flipped on at most MASK_EDGE_SHARE);
+          K1 on one batch's captured rows (the 4 images, K = 8400) bit for
+          bit against its plain version, timed, with its bound, and the NMS
+          outputs, the `extra` payload among them, equal to the plain path's
+  seg_val yolov8s-seg val at 640, 80 classes, seeded weights, the segment set
+          copied 8 times (128 images, batch 16), conf 1e-6: multi-label K1 at
+          K = 30000 with the 32-wide payload; images/s, idle share, `_topk`'s
+          sort and K1 from one profiled call, and K1 on one batch's captured
+          rows (bit for bit, timed, bound) with the payload's gather equal to
+          the plain path's
   kernels the per-kernel summary line
 The last line is {"ok": true, "device": {...}}.
 """
@@ -98,6 +125,7 @@ The last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import shutil
 import subprocess
@@ -147,6 +175,20 @@ OPTIMIZER_KERNELS = ("multi_tensor_apply", "foreach")
 TRAIN_PARITY_TOL = {"loss": 1e-4, "params": 1e-4, "ema": 1e-4, "batch_stats": 1e-4, "momentum_buffer": 2e-3}
 TRAIN_PARITY_IMAGES = 8
 TRAIN_IMGSZ, TRAIN_BATCH, TRAIN_EPOCHS = 640, 16, 2
+TASK_FIXTURE_TOL = 1e-4  # card vs CPU, each mAP on the segment and pose fixture sets
+TASK_CALLS = 50  # timed warm predict calls of yolov8s-seg and yolov8s-pose
+TASK_PROFILED_CALLS = 5
+MASK_TOL, MASK_EDGE_SHARE = 1e-5, 1e-3  # mask step, card vs CPU: probabilities, and > 0.5 bits that flip
+# the other tasks: the reference-trained fixture model and set, the served
+# model, and the mAPs against the reference's keys
+TASKS = {
+    "segment": dict(stem="val_parity_segment", fixture_yaml="yolov8n-seg.yaml", set="torch_val_synth_segment",
+                    served="yolov8s-seg", maps=(("box.map50", "metrics/mAP50(B)"), ("box.map", "metrics/mAP50-95(B)"),
+                                                ("seg.map50", "metrics/mAP50(M)"), ("seg.map", "metrics/mAP50-95(M)"))),
+    "pose": dict(stem="val_parity_pose", fixture_yaml="yolov8n-pose.yaml", set="torch_val_synth_pose",
+                 served="yolov8s-pose", maps=(("box.map50", "metrics/mAP50(B)"), ("box.map", "metrics/mAP50-95(B)"),
+                                              ("pose.map50", "metrics/mAP50(P)"), ("pose.map", "metrics/mAP50-95(P)"))),
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -364,6 +406,52 @@ def k1_bound(boxes, scores, keep, valid, max_det: int, thres: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "bytes": nbytes, "candidates_read": sum(reads), "iou_tests": sum(tests), "ops": ops,
             "read_per_row": reads}
+
+
+@contextlib.contextmanager
+def capture_k1(ops_nms):
+    """Records the first K1 call NMS makes inside the block: K1's rows as it
+    received them (class-offset boxes, scores) and its keyword arguments,
+    and the arguments and result of the gather around it
+    (`_suppress_and_gather`, which gathers the `extra` payload). Yields a
+    dict that holds 'rows', 'k1_kwargs', 'gather_args' and 'gather_out'
+    once a call has been made."""
+    cap, greedy_nms, gather = {}, ops_nms.greedy_nms, ops_nms._suppress_and_gather
+
+    def k1(boxes, scores, **k):
+        if "rows" not in cap:
+            cap["rows"], cap["k1_kwargs"] = (boxes.clone(), scores.clone()), k
+        return greedy_nms(boxes, scores, **k)
+
+    def suppress_and_gather(*args):
+        out = gather(*args)
+        if "gather_out" not in cap:
+            cap["gather_args"] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+            cap["gather_out"] = {k: v.clone() for k, v in out.items()}
+        return out
+
+    ops_nms.greedy_nms, ops_nms._suppress_and_gather = k1, suppress_and_gather
+    try:
+        yield cap
+    finally:
+        ops_nms.greedy_nms, ops_nms._suppress_and_gather = greedy_nms, gather
+
+
+def gather_mismatch(ops_nms, nms_cuda, cap) -> int:
+    """Entries of the captured NMS outputs (boxes, scores, cls, valid and the
+    `extra` payload) that differ from the same gather run with K1's plain
+    version on the same candidates."""
+    greedy_nms = ops_nms.greedy_nms
+    ops_nms.greedy_nms = lambda b, sc, max_det, iou_thres, presorted=False: nms_cuda.greedy_nms_plain(
+        b, sc, max_det, iou_thres)
+    try:
+        plain = ops_nms._suppress_and_gather(*cap["gather_args"])
+    finally:
+        ops_nms.greedy_nms = greedy_nms
+    got = cap["gather_out"]
+    if plain.keys() != got.keys():
+        raise AssertionError(f"NMS outputs {sorted(got)} against the plain path's {sorted(plain)}")
+    return sum(int((got[k] != plain[k]).sum()) for k in got)
 
 
 def k1_compare(nms_cuda, boxes, scores, max_det: int, iou: float):
@@ -671,11 +759,15 @@ def rtdetr_parity(RTDETR, full_f32, model, batch):
                 cpu_threads=torch.get_num_threads())
 
 
-def parity_yolov8n(YOLO, yaml_model_load, ref: dict, device: str):
-    """yolov8n at the reference's nc with its trained weights (val_parity_model.npz)."""
-    fx = np.load(FIXTURES / "val_parity_model.npz")
-    y = yaml_model_load("yolov8n.yaml")
+def parity_yolov8n(YOLO, yaml_model_load, ref: dict, device: str, stem: str = "val_parity",
+                   model_yaml: str = "yolov8n.yaml"):
+    """A yolov8n at the reference's nc (and the synthetic set's kpt_shape for
+    pose) with the reference-trained weights of {stem}_model.npz."""
+    fx = np.load(FIXTURES / f"{stem}_model.npz")
+    y = yaml_model_load(model_yaml)
     y["nc"] = ref["dataset_args"]["nc"]
+    if ref.get("task") == "pose":
+        y["kpt_shape"] = [5, 3]
     model = YOLO(y, device=device)
     model.load_state_dict({k[4:]: fx[k] for k in fx.files if k.startswith("sd::")})
     return model
@@ -709,10 +801,10 @@ def val_fixture(YOLO, yaml_model_load, nms_cuda, tmp: Path, card: str, smi: str)
                 card_minus_cpu=card_minus_cpu, tolerance=VAL_FIXTURE_TOL, card=card, nvidia_smi=smi)
 
 
-def val_set_640(root: Path) -> Path:
-    """The val phase's data: the fixture's images and labels VAL_COPIES times
-    under new names (labels' classes 0-2 of 80 names)."""
-    src = FIXTURES / "torch_val_synth"
+def val_set_640(root: Path, src: str = "torch_val_synth") -> Path:
+    """The val phases' data: a fixture set's images and labels VAL_COPIES
+    times under new names (labels' classes 0-2 of 80 names)."""
+    src = FIXTURES / src
     for sub in ("images", "labels"):
         (root / sub / "val").mkdir(parents=True)
     for c in range(VAL_COPIES):
@@ -724,29 +816,21 @@ def val_set_640(root: Path) -> Path:
     return root / "data.yaml"
 
 
-def val_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str):
-    """yolov8s val at 640 on 128 images. Returns the phase's line and the
-    first batch's candidate rows as K1 received them (captured in the
-    warm-up call)."""
-    data = val_set_640(tmp / "val640")
+def val_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str, model_name: str = "yolov8s",
+             src: str = "torch_val_synth"):
+    """model_name val at 640 on 128 images of the fixture set src. Returns the
+    phase's line and what `capture_k1` recorded of the first batch in the
+    warm-up call (K1's rows and the gather around it)."""
+    data = val_set_640(tmp / f"{src}_640", src)
     kw = dict(data=str(data), imgsz=VAL_IMGSZ, batch=VAL_BATCH, conf=CONF, iou=0.7, max_det=300)
-    model = YOLO("yolov8s.yaml", device="cuda", seed=0)
+    model = YOLO(f"{model_name}.yaml", device="cuda", seed=0)
 
-    captured, greedy_nms = [], ops_nms.greedy_nms
-
-    def capture(boxes, scores, **k):
-        if not captured:
-            captured.append((boxes.clone(), scores.clone(), k))
-        return greedy_nms(boxes, scores, **k)
-
-    ops_nms.greedy_nms = capture  # warm-up call: cuDNN, allocator, and the rows
-    try:
+    with capture_k1(ops_nms) as cap:  # warm-up call: cuDNN, allocator, and the rows
         model.val(**kw)
-    finally:
-        ops_nms.greedy_nms = greedy_nms
-    boxes, scores, k = captured[0]
-    if tuple(scores.shape) != (VAL_BATCH, 30000) or not k.get("presorted"):
-        raise AssertionError(f"K1's val rows {tuple(scores.shape)} ({k}), want presorted ({VAL_BATCH}, 30000)")
+    boxes, scores = cap["rows"]
+    if tuple(scores.shape) != (VAL_BATCH, 30000) or not cap["k1_kwargs"].get("presorted"):
+        raise AssertionError(f"K1's val rows {tuple(scores.shape)} ({cap['k1_kwargs']}), "
+                             f"want presorted ({VAL_BATCH}, 30000)")
 
     n_images = VAL_COPIES * 16
     nms_cuda.launches = 0
@@ -766,7 +850,7 @@ def val_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str):
     prof = profile_window(lambda: model.val(**kw), reps=1, warmup=0, ops=("aten::sort",))
     busy = prof["device_busy_ms_per_call"]
     sort = prof["ops"].get("aten::sort", {})
-    info = dict(model="yolov8s", nc=80, imgsz=VAL_IMGSZ, images=n_images, batch=VAL_BATCH, conf=CONF, iou=0.7,
+    info = dict(model=model_name, nc=80, imgsz=VAL_IMGSZ, images=n_images, batch=VAL_BATCH, conf=CONF, iou=0.7,
                 max_det=300, k1_launches=launches, k1_rows=list(scores.shape),
                 kept_per_image={"min": min(kept), "median": float(np.median(kept)), "max": max(kept)},
                 val_seconds=wall, images_per_s=n_images / wall,
@@ -778,25 +862,39 @@ def val_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str):
                 topk_sort_calls_per_batch=sort.get("calls_per_call", 0.0) / n_batches,
                 sort_kernels_ms_per_batch=prof["device_ms_by_category"].get("sort", 0.0) / n_batches,
                 val_profile=prof, card=card, nvidia_smi=smi)
-    return info, (boxes, scores)
+    if hasattr(metrics, "seg"):
+        info["mask_map50"] = float(metrics.seg.map50)
+    return info, cap
 
 
-def val_k1(nms_cuda, rows, card: str, smi: str) -> dict:
-    """K1 on the val path's real rows: bit for bit against the plain version,
+def val_k1(nms_cuda, rows, card: str, smi: str, max_det: int = 300, iou: float = 0.7) -> dict:
+    """K1 on a path's real rows: bit for bit against the plain version,
     timed, the bound recounted on them, and the candidates each row scans."""
     boxes, scores = rows
-    mismatch, max_abs_err, sboxes, sscores, (keep, valid) = k1_compare(nms_cuda, boxes, scores, 300, 0.7)
+    mismatch, max_abs_err, sboxes, sscores, (keep, valid) = k1_compare(nms_cuda, boxes, scores, max_det, iou)
     if mismatch or max_abs_err:
-        raise AssertionError(f"K1 on val rows: {mismatch} entries differ from the plain version "
+        raise AssertionError(f"K1 on captured rows: {mismatch} entries differ from the plain version "
                              f"(max abs error {max_abs_err})")
-    ms = cuda_ms(lambda: nms_cuda.greedy_nms(sboxes, sscores, 300, 0.7, presorted=True), iters=50)
-    plain_ms = cuda_ms(lambda: nms_cuda.greedy_nms_plain(sboxes, sscores, 300, 0.7), iters=3, warmup=1)
-    bound = k1_bound(sboxes.cpu().numpy(), sscores.cpu().numpy(), keep, valid, 300, 0.7)
+    ms = cuda_ms(lambda: nms_cuda.greedy_nms(sboxes, sscores, max_det, iou, presorted=True), iters=50)
+    plain_ms = cuda_ms(lambda: nms_cuda.greedy_nms_plain(sboxes, sscores, max_det, iou), iters=3, warmup=1)
+    bound = k1_bound(sboxes.cpu().numpy(), sscores.cpu().numpy(), keep, valid, max_det, iou)
     reads = bound.pop("read_per_row")
     scanned = {"min": int(np.min(reads)), "median": float(np.median(reads)), "max": int(np.max(reads))}
     return dict(B=int(scores.shape[0]), K=int(scores.shape[1]), max_mismatch=mismatch, max_abs_err=max_abs_err,
                 kept_per_row=valid.sum(1).tolist(), ms=ms, plain_ms=plain_ms, **bound,
                 scanned_per_row=scanned, card=card, nvidia_smi=smi)
+
+
+def captured_k1(ops_nms, nms_cuda, cap, card: str, smi: str) -> dict:
+    """val_k1 on the captured rows, and the captured NMS outputs (the payload
+    among them) against the plain path's; raises if any entry differs."""
+    k = cap["k1_kwargs"]
+    info = val_k1(nms_cuda, cap["rows"], card, smi, k["max_det"], k["iou_thres"])
+    info["gather_mismatch_vs_plain"] = gather_mismatch(ops_nms, nms_cuda, cap)
+    info["payload_width"] = int(cap["gather_out"]["extra"].shape[-1]) if "extra" in cap["gather_out"] else 0
+    if info["gather_mismatch_vs_plain"]:
+        raise AssertionError(f"{info['gather_mismatch_vs_plain']} NMS output entries differ from the plain path's")
+    return info
 
 
 def fixture_train_set(root: Path, n_images: int = 0) -> Path:
@@ -986,19 +1084,9 @@ def train_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
     lprof = profile_window(loss_and_tal, reps=3)  # device time: its ~470 small launches pace CUDA events
     tr.model.eval()
     vprof = profile_window(lambda: tr.val_fn(tr.model), reps=1, warmup=0)
-    captured, greedy_nms = [], ops_nms.greedy_nms
-
-    def capture(boxes, scores, **k):
-        if not captured:
-            captured.append((boxes.clone(), scores.clone()))
-        return greedy_nms(boxes, scores, **k)
-
-    ops_nms.greedy_nms = capture
-    try:
+    with capture_k1(ops_nms) as cap:
         tr.val_fn(tr.model)
-    finally:
-        ops_nms.greedy_nms = greedy_nms
-    k1_rows = val_k1(nms_cuda, captured[0], card, smi)
+    k1_rows = val_k1(nms_cuda, cap["rows"], card, smi)
     flops_fwd = conv_flops_per_image(tr.model, TRAIN_IMGSZ)
     step_flops = 3 * flops_fwd * TRAIN_BATCH
     bound_ms = step_flops / F32_FLOPS * 1e3
@@ -1022,6 +1110,153 @@ def train_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
                 k1_profiled_ms_per_launch=vprof["device_ms_by_category"].get("k1_greedy_nms", 0.0) / nb,
                 k1_on_val_rows=k1_rows,
                 val_device_busy_ms=vprof["device_busy_ms_per_call"], card=card, nvidia_smi=smi)
+
+
+def metric(m, attr: str) -> float:
+    """A metric by dotted name: metric(m, "seg.map50")."""
+    for part in attr.split("."):
+        m = getattr(m, part)
+    return float(m)
+
+
+def task_fixture(YOLO, yaml_model_load, nms_cuda, task: str, tmp: Path, card: str, smi: str) -> dict:
+    """The reference-trained fixture model of a task on its committed set, on
+    the card and on the CPU; raises beyond TASK_FIXTURE_TOL (card vs CPU) or
+    VAL_FIXTURE_TOL (card vs the reference)."""
+    spec = TASKS[task]
+    ref = json.loads((FIXTURES / f"{spec['stem']}_ref.json").read_text())
+    data = shutil.copytree(FIXTURES / spec["set"], tmp / f"{task}_fixture_set") / "data.yaml"
+    va = ref["val_args"]
+    kw = dict(imgsz=va["imgsz"], batch=8, conf=va["conf"], iou=va["iou"], max_det=va["max_det"])
+    runs = {}
+    for device in ("cuda", "cpu"):
+        model = parity_yolov8n(YOLO, yaml_model_load, ref, device, spec["stem"], spec["fixture_yaml"])
+        nms_cuda.launches = 0
+        t0 = time.perf_counter()
+        m = model.val(data=str(data), **kw)
+        runs[device] = {**{a: metric(m, a) for a, _ in spec["maps"]}, "seconds": time.perf_counter() - t0,
+                        "k1_launches": nms_cuda.launches}
+    want = {a: ref["results"][key] for a, key in spec["maps"]}
+    card_minus_cpu = {a: runs["cuda"][a] - runs["cpu"][a] for a in want}
+    card_minus_ref = {a: runs["cuda"][a] - want[a] for a in want}
+    bad = {a: (card_minus_cpu[a], card_minus_ref[a]) for a in want
+           if not (abs(card_minus_cpu[a]) <= TASK_FIXTURE_TOL and abs(card_minus_ref[a]) <= VAL_FIXTURE_TOL)}
+    if bad:
+        raise AssertionError(f"{task} fixture mAPs (card - CPU, card - reference) beyond "
+                             f"({TASK_FIXTURE_TOL}, {VAL_FIXTURE_TOL}): {bad}")
+    if runs["cuda"]["k1_launches"] != 2:
+        raise AssertionError(f"K1 launched {runs['cuda']['k1_launches']} times for 2 batches")
+    return dict(model=f"{spec['fixture_yaml']} ({spec['stem']}_model.npz)", data=f"tests/fixtures/{spec['set']}",
+                val_args=kw, card_run=runs["cuda"], cpu_run=runs["cpu"], reference=want,
+                card_minus_cpu=card_minus_cpu, card_minus_reference=card_minus_ref,
+                tolerance={"card_vs_cpu": TASK_FIXTURE_TOL, "card_vs_reference": VAL_FIXTURE_TOL},
+                card=card, nvidia_smi=smi)
+
+
+def check_task_results(task: str, results, imgs, model) -> list:
+    """Each image's detections finite and in number 1-300, with masks (bool,
+    the image's size) or keypoints (finite, kpt_shape); returns the
+    detection counts."""
+    dets = []
+    for r, im in zip(results, imgs):
+        n = len(r)
+        if not 0 < n <= 300 or not np.isfinite(r.boxes.data).all():
+            raise AssertionError(f"{task}: {n} detections, finite: {np.isfinite(r.boxes.data).all()}")
+        if task == "segment":
+            m = r.masks.data
+            if m.dtype != bool or m.shape != (n, *im.shape[:2]):
+                raise AssertionError(f"masks {m.dtype} {m.shape} for {n} boxes on {im.shape}")
+        else:
+            k = r.keypoints.data
+            if k.shape != (n, *model.model.model[-1].kpt_shape) or not np.isfinite(k).all():
+                raise AssertionError(f"keypoints {k.shape} for {n} boxes")
+        dets.append(n)
+    return dets
+
+
+def task_predict(YOLO, nms_cuda, ops_nms, task: str, card: str, smi: str) -> dict:
+    """yolov8s-seg or yolov8s-pose predict at 640 on the 4 seeded images."""
+    from ultralytics_pro_tpu_torch.ops.boxes import scale_boxes
+    from ultralytics_pro_tpu_torch.ops.masks import process_mask_native
+    from ultralytics_pro_tpu_torch.utils import full_f32
+
+    spec = TASKS[task]
+    imgs = seeded_images()
+    model = YOLO(f"{spec['served']}.yaml", device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.model.parameters())
+    model.predict(imgs[:1], conf=CONF)  # first call: cuDNN and allocator set-up
+    torch.cuda.synchronize()
+
+    nms_cuda.launches = 0
+    results = model.predict(imgs, conf=CONF)
+    torch.cuda.synchronize()
+    launches = nms_cuda.launches
+    if launches != len(imgs):
+        raise AssertionError(f"K1 launched {launches} times for {len(imgs)} images")
+    dets = check_task_results(task, results, imgs, model)
+
+    per_image = []
+    for _ in range(TASK_CALLS):
+        t0 = time.perf_counter()
+        model.predict(imgs, conf=CONF)
+        per_image.append((time.perf_counter() - t0) * 1e3 / len(imgs))
+    q = np.percentile(per_image, [0, 10, 50, 90, 100])
+    prof = profile_window(lambda: model.predict(imgs, conf=CONF), TASK_PROFILED_CALLS)
+    call_ms = q[2] * len(imgs)
+    busy = prof["device_busy_ms_per_call"]
+
+    pred = model.predictor
+    batch = pred.preprocess(imgs)
+    ms16 = cuda_ms(lambda: pred.run(batch.repeat(4, 1, 1, 1)), iters=5)
+    with capture_k1(ops_nms) as cap:  # one batch of the 4 images: K1's rows and the payload's gather
+        pred.run(batch)
+    info = dict(model=spec["served"], parameters=n_params, nc=model.model.nc, imgsz=640,
+                images=[list(sh) for sh in IMAGE_SHAPES], conf=CONF, k1_launches=launches, detections=dets,
+                predict_calls=TASK_CALLS,
+                predict_ms_per_image={"median": q[2], "p10": q[1], "p90": q[3], "min": q[0], "max": q[4]},
+                predict_median_ms_per_call=call_ms,
+                device_idle_share=None if busy is None else max(0.0, 1 - busy / call_ms),
+                kernel_launches_per_image=prof["kernel_launches_per_call"] / len(imgs),
+                k1_profiled_ms_per_launch=prof["device_ms_by_category"].get("k1_greedy_nms", 0.0) / len(imgs),
+                memcpy_device_ms_per_image=prof["device_ms_by_category"].get("memcpy", 0.0) / len(imgs),
+                predict_profile=prof, device_fn_batch16_ms=ms16, device_fn_batch16_images_per_s=16 * 1e3 / ms16,
+                k1_on_batch_rows=captured_k1(ops_nms, nms_cuda, cap, card, smi), card=card, nvidia_smi=smi)
+    if task == "pose":
+        info["kpt_shape"] = list(model.model.model[-1].kpt_shape)
+        return info
+    # segment: device ms of the mask step of each image (its 300 detections)
+    # against the forward's, both at batch 1 as predict runs them, from the
+    # profiler (CUDA events around batch-1 calls measure the host's launch
+    # rate); and the step's mask probabilities against the same step on the CPU
+    fwd, masks, errs, edge = [], [], [], []
+    for i, im in enumerate(imgs):
+        x1 = batch[i:i + 1]
+        out = pred.run(x1)
+        n = int(out["valid"][0].sum())
+        args = (out["protos"][0], out["extra"][0][:n],
+                scale_boxes(tuple(x1.shape[1:3]), out["boxes"][0][:n], im.shape[:2]), im.shape[:2])
+
+        def mask_step():
+            with full_f32():
+                return process_mask_native(*args) > 0.5
+
+        masks.append(profile_window(mask_step, reps=3)["device_busy_ms_per_call"])
+        with full_f32():
+            prob = process_mask_native(*args).cpu()
+        ref = process_mask_native(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+        errs.append(float((prob - ref).abs().max()))
+        edge.append(float(((prob > 0.5) != (ref > 0.5)).float().mean()))
+        xf = x1.flip(-1).permute(0, 3, 1, 2).float() / 255.0
+        with torch.no_grad(), full_f32():
+            fwd.append(profile_window(lambda: model.model(xf), reps=3)["device_busy_ms_per_call"])
+    if max(errs) > MASK_TOL or max(edge) > MASK_EDGE_SHARE:
+        raise AssertionError(f"mask step on the card vs the CPU: max abs error {errs}, pixels that flip {edge}")
+    info.update(mask_step_device_ms_per_image=masks, forward_device_ms_per_image=fwd,
+                mask_step_over_forward=float(np.sum(masks) / np.sum(fwd)),
+                mask_step_card_vs_cpu={"max_abs_err": errs, "flipped_share": edge,
+                                       "tolerance": [MASK_TOL, MASK_EDGE_SHARE]},
+                mask_pixels_set_share=[float(r.masks.data.mean()) for r in results])
+    return info
 
 
 def tf32_seen(model, call) -> dict:
@@ -1114,11 +1349,27 @@ def main() -> int:
         info = val_fixture(YOLO, yaml_model_load, nms_cuda, Path(tmp), card, smi)
         emit("val_fixture", **info, seconds=time.perf_counter() - t)
         t = time.perf_counter()
-        val, rows = val_path(YOLO, nms_cuda, ops_nms, Path(tmp), card, smi)
+        val, cap = val_path(YOLO, nms_cuda, ops_nms, Path(tmp), card, smi)
         emit("val", **val, seconds=time.perf_counter() - t)
     t = time.perf_counter()
-    vk1 = val_k1(nms_cuda, rows, card, smi)
+    vk1 = captured_k1(ops_nms, nms_cuda, cap, card, smi)
     emit("val_k1", **vk1, seconds=time.perf_counter() - t)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for task, phase in (("segment", "seg_fixture"), ("pose", "pose_fixture")):
+            t = time.perf_counter()
+            info = task_fixture(YOLO, yaml_model_load, nms_cuda, task, Path(tmp), card, smi)
+            emit(phase, **info, seconds=time.perf_counter() - t)
+    task_runs = {}
+    for task, phase in (("segment", "seg"), ("pose", "pose")):
+        t = time.perf_counter()
+        task_runs[task] = task_predict(YOLO, nms_cuda, ops_nms, task, card, smi)
+        emit(phase, **task_runs[task], seconds=time.perf_counter() - t)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        seg_val, cap = val_path(YOLO, nms_cuda, ops_nms, Path(tmp), card, smi, "yolov8s-seg", "torch_val_synth_segment")
+        seg_val["k1_on_batch_rows"] = captured_k1(ops_nms, nms_cuda, cap, card, smi)
+        emit("seg_val", **seg_val, seconds=time.perf_counter() - t)
 
     with tempfile.TemporaryDirectory() as tmp:
         t = time.perf_counter()
@@ -1133,14 +1384,19 @@ def main() -> int:
 
     pred, val_size = k1
     tk1 = train["k1_on_val_rows"]
+    task_k1 = {"seg_predict": (task_runs["segment"], task_runs["segment"]["k1_on_batch_rows"]),
+               "pose_predict": (task_runs["pose"], task_runs["pose"]["k1_on_batch_rows"]),
+               "seg_val": (seg_val, seg_val["k1_on_batch_rows"])}
+    captured = (vk1, tk1, *(rows for _, rows in task_k1.values()))
     kernels = [{
         "name": "greedy_nms", "route": "cuda",
         "source": "ultralytics_pro_tpu_torch/csrc/greedy_nms.cu",
         "replaces": "ultralytics_pro_tpu/kernels/nms_pallas.py:79",
         "tpu_kernel": "ultralytics_pro_tpu/kernels/nms_pallas.py:pallas_greedy_nms",
         "launches": launches,
-        "max_mismatch": max([c["max_mismatch"] for c in k1] + [vk1["max_mismatch"], tk1["max_mismatch"]]),
-        "max_abs_err": max([c["max_abs_err"] for c in k1] + [vk1["max_abs_err"], tk1["max_abs_err"]]),
+        "max_mismatch": max(c["max_mismatch"] for c in (*k1, *captured)),
+        "max_abs_err": max(c["max_abs_err"] for c in (*k1, *captured)),
+        "gather_mismatch_vs_plain": sum(c.get("gather_mismatch_vs_plain", 0) for c in captured),
         "ms": pred["ms"], "plain_ms": pred["plain_ms"],
         "bound_ms": pred["bound_ms"], "bound_by": pred["bound_by"],
         "library_ms": None,  # no single PyTorch call computes greedy NMS (no torchvision)
@@ -1156,6 +1412,10 @@ def main() -> int:
         "train_path_rows_ms": tk1["ms"], "train_path_rows_plain_ms": tk1["plain_ms"],
         "train_path_rows_bound_ms": tk1["bound_ms"], "train_path_rows_bound_by": tk1["bound_by"],
         "train_path_rows_scanned": tk1["scanned_per_row"],
+        **{f"{name}_{key}": rows[key] for name, (_, rows) in task_k1.items()
+           for key in ("B", "K", "payload_width", "ms", "plain_ms", "bound_ms", "bound_by", "scanned_per_row")},
+        **{f"{name}_path_launches": run["k1_launches"] for name, (run, _) in task_k1.items()},
+        **{f"{name}_path_profiled_ms": run["k1_profiled_ms_per_launch"] for name, (run, _) in task_k1.items()},
     }, {
         "name": "msda_sample_fused", "route": "cuda",
         "source": "ultralytics_pro_tpu_torch/csrc/msda_sample.cu",

@@ -1,6 +1,7 @@
 """The port on a CUDA card: kernels K1 and K2 against their plain versions,
-predict (yolov8n, and rtdetr-l through K2) in full f32, and detect val on
-the committed fixture set against val on the CPU.
+predict (yolov8n, and rtdetr-l through K2) in full f32, detect, segment and
+pose val on the committed fixture sets against val on the CPU, and K1 on
+segment and pose rows with their payload.
 
 These tests need a card and nvcc, and import neither JAX nor the JAX package
 nor `tests/conftest.py` (which imports JAX), so they run on a machine that has
@@ -269,3 +270,36 @@ def test_train_step_on_card_matches_cpu(tf32_on, tmp_path):
     assert _tf32() == (True, True)
     for k, v in info["max_rel_diff"].items():
         assert v <= TRAIN_PARITY_TOL["loss" if k.startswith("loss") else k], (k, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["segment", "pose"])
+def test_task_val_on_card_matches_cpu_and_k1_carries_the_payload(tf32_on, tmp_path, task):
+    """The reference-trained yolov8n-seg / yolov8n-pose on its committed set at
+    160 px: every mAP of the card within chip_smoke.TASK_FIXTURE_TOL of the
+    CPU's, K1 once a batch; K1 on the first batch's captured rows bit for bit
+    against its plain version, and the NMS outputs with the payload (32 mask
+    coefficients, 15 keypoint values) equal to the plain path's."""
+    from chip_smoke import TASK_FIXTURE_TOL, TASKS, capture_k1, gather_mismatch, metric, parity_yolov8n
+    from ultralytics_pro_tpu_torch.ops import nms as ops_nms
+
+    spec = TASKS[task]
+    ref = json.loads((FIXTURES / f"{spec['stem']}_ref.json").read_text())
+    data = shutil.copytree(FIXTURES / spec["set"], tmp_path / "set") / "data.yaml"
+    kw = dict(imgsz=ref["val_args"]["imgsz"], batch=8, conf=ref["val_args"]["conf"], iou=ref["val_args"]["iou"])
+    maps = {}
+    for device in ("cuda", "cpu"):
+        model = parity_yolov8n(YOLO, yaml_model_load, ref, device, spec["stem"], spec["fixture_yaml"])
+        before = nms_cuda.launches
+        with capture_k1(ops_nms) as cap:
+            m = model.val(data=str(data), **kw)
+        maps[device] = [metric(m, a) for a, _ in spec["maps"]]
+        if device == "cuda":
+            assert nms_cuda.launches == before + 2  # 16 images, batch 8
+            boxes, scores = cap["rows"]
+            keep, valid = nms_cuda.greedy_nms(boxes, scores, 300, kw["iou"], presorted=True)
+            rk, rv = nms_cuda.greedy_nms_plain(boxes, scores, 300, kw["iou"])
+            assert torch.equal(keep, rk) and torch.equal(valid, rv)
+            assert cap["gather_out"]["extra"].shape[-1] == (32 if task == "segment" else 15)
+            assert gather_mismatch(ops_nms, nms_cuda, cap) == 0
+    assert np.abs(np.subtract(maps["cuda"], maps["cpu"])).max() <= TASK_FIXTURE_TOL, maps

@@ -2,7 +2,8 @@
 
 In a subprocess whose `sys.meta_path` refuses jax, flax, yaml, cv2 and
 ultralytics_pro_tpu, every module of ultralytics_pro_tpu_torch and
-chip_smoke.py must import, and a short training run goes through; with PIL
+chip_smoke.py must import, a short training run goes through, and segment
+val (polygon fill and mask shrink included) and pose predict run; with PIL
 refused as well, they import and `imread` still reads a PNG, equal to cv2's
 reading. An AST scan of the same
 files must find no import of the first names.
@@ -93,6 +94,26 @@ def test_port_trains_with_jax_yaml_cv2_blocked(tmp_path):
             "YOLO(str(m.trainer.wdir / 'last.ckpt'), device='cpu')")
     out = subprocess.run([sys.executable, "-c", _blocker(BLOCKED, then)], capture_output=True, text=True,
                          cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+
+
+def test_port_serves_segment_and_pose_with_jax_yaml_cv2_blocked(tmp_path):
+    """Segment val on its fixture set (labels, letterbox, the collate's
+    polygon fill and shrink, masks on the model's device, mask IoU) and pose
+    predict run in the blocking process, with PIL refused too."""
+    import shutil
+
+    data = shutil.copytree(REPO / "tests" / "fixtures" / "torch_val_synth_segment", tmp_path / "seg")
+    then = ("import numpy as np\n"
+            "from ultralytics_pro_tpu_torch import YOLO\n"
+            "import ultralytics_pro_tpu_torch.data.rasterize, ultralytics_pro_tpu_torch.ops.masks\n"
+            f"m = YOLO('yolov8n-seg.yaml', device='cpu').val(data={str(data / 'data.yaml')!r}, imgsz=64, batch=8)\n"
+            "assert m.seg.map50 >= 0\n"
+            "img = np.zeros((48, 64, 3), np.uint8)\n"
+            "r = YOLO('yolov8n-pose.yaml', device='cpu').predict([img], imgsz=64, conf=1e-6)[0]\n"
+            "assert r.keypoints.data.shape[1:] == (17, 3)")
+    out = subprocess.run([sys.executable, "-c", _blocker(BLOCKED + ("PIL",), then)], capture_output=True,
+                         text=True, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
 
 

@@ -1,13 +1,15 @@
 """Where the port's predict time goes on one CUDA card.
 
-    python3 tools/torch_predict_profile.py [--model yolov8s|rtdetr-l] [--reps 5]
+    python3 tools/torch_predict_profile.py [--model yolov8s|yolov8s-seg|yolov8s-pose|rtdetr-l] [--reps 5]
 
-Runs YOLO("yolov8s.yaml", device="cuda") or RTDETR("rtdetr-l.yaml",
+Runs YOLO("<model>.yaml", device="cuda") or RTDETR("rtdetr-l.yaml",
 device="cuda") (seeded random weights, in the predictors' full f32 with TF32
-off) on chip_smoke.py's workload (its images, its `conf` for yolov8s and the
-default 0.25 for rtdetr-l, as its phases `main` and `rtdetr` run them):
-`predict` on the 4 seeded images one at a time, and the device function
-`predictor.run` at batch 1 and 16. Each is traced with torch.profiler over
+off) on chip_smoke.py's workload (its images, its `conf` for the YOLO models
+and the default 0.25 for rtdetr-l, as its phases `main`, `seg`, `pose` and
+`rtdetr` run them): `predict` on the 4 seeded images one at a time, and the
+device function `predictor.run` at batch 1 and 16; for yolov8s-seg also the
+postprocess of the 4 images' batch-1 outputs (the mask step on the card and
+the copy of the masks to the host). Each is traced with torch.profiler over
 `--reps` warm repetitions. Prints one JSON line per workload: wall ms per
 call, device busy ms (sum of kernel times on the one stream), idle share and
 kernel launches, device ms by category (chip_smoke.category: convolution,
@@ -33,7 +35,7 @@ from chip_smoke import CONF, nvidia_smi, profile_window, seeded_images  # noqa: 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("yolov8s", "rtdetr-l"), default="yolov8s")
+    ap.add_argument("--model", choices=("yolov8s", "yolov8s-seg", "yolov8s-pose", "rtdetr-l"), default="yolov8s")
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -43,17 +45,24 @@ def main() -> int:
 
     smi = nvidia_smi()
     imgs = seeded_images()
-    if args.model == "yolov8s":
-        model, kw = YOLO("yolov8s.yaml", device="cuda", seed=0), {"conf": CONF}
-    else:
+    if args.model == "rtdetr-l":
         model, kw = RTDETR("rtdetr-l.yaml", device="cuda", seed=0), {}
+    else:
+        model, kw = YOLO(f"{args.model}.yaml", device="cuda", seed=0), {"conf": CONF}
     model.predict(imgs, **kw)
     pred = model.predictor
-    batch16 = pred.preprocess(imgs).repeat(4, 1, 1, 1)
+    batch = pred.preprocess(imgs)
+    batch16 = batch.repeat(4, 1, 1, 1)
     batch1 = batch16[:1].contiguous()
-    for name, fn in (("predict_4_images", lambda: model.predict(imgs, **kw)),
-                     ("device_fn_batch1", lambda: pred.run(batch1)),
-                     ("device_fn_batch16", lambda: pred.run(batch16))):
+    workloads = [("predict_4_images", lambda: model.predict(imgs, **kw)),
+                 ("device_fn_batch1", lambda: pred.run(batch1)),
+                 ("device_fn_batch16", lambda: pred.run(batch16))]
+    if args.model == "yolov8s-seg":
+        outs = [pred.run(batch[i:i + 1]) for i in range(len(imgs))]
+        shape = tuple(batch.shape[1:3])
+        workloads.append(("postprocess_4_images", lambda: [pred.postprocess(o, shape, [im], ["x"])
+                                                           for o, im in zip(outs, imgs)]))
+    for name, fn in workloads:
         print(json.dumps({"model": args.model, "workload": name, "card": smi, **profile_window(fn, args.reps)}),
               flush=True)
     return 0

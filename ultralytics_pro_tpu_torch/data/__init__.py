@@ -1,4 +1,5 @@
-"""Data of the port: image reading, transforms, the detect val dataset and loader."""
+"""Data of the port: image reading, transforms, polygon rasterising, the detect,
+segment and pose datasets and the loader."""
 
 from ultralytics_pro_tpu_torch.data.augment import Compose, LetterBox, resize_area, resize_bilinear
 from ultralytics_pro_tpu_torch.data.build import DataLoader, collate_detect

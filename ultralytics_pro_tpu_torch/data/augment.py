@@ -17,7 +17,8 @@ Counterparts of `ultralytics_pro_tpu/data/augment.py` (`LetterBox:27`,
 `LetterBox` pads centred with the rounding of `augment.py:48-71`. Called on
 an image it returns the letterboxed HWC uint8 tensor (the predictor's form);
 called on a label dict it letterboxes `img` (a numpy array), shifts and
-scales `bboxes` (pixel xyxy) and composes `ratio_pad` as `:88-93` does.
+scales `bboxes` (pixel xyxy), `keypoints` (invisible ones stay at 0) and
+`segments`, and composes `ratio_pad`, as `:88-117` does.
 """
 
 from __future__ import annotations
@@ -117,9 +118,10 @@ class LetterBox:
         return self._pad(img, pads)
 
     def letterbox_labels(self, labels: Dict) -> Dict:
-        """The label-dict form (augment.py:41-119, boxes only): `img` (HWC
-        uint8 numpy) letterboxed, `bboxes` (n, 4) pixel xyxy scaled and
-        shifted, `ratio_pad` ((gain_h, gain_w), (left, top)) composed with the
+        """The label-dict form (augment.py:41-119, axis-aligned boxes): `img`
+        (HWC uint8 numpy) letterboxed, `bboxes` (n, 4) pixel xyxy, `keypoints`
+        (n, K, 2|3) and `segments` (a list of (k, 2)) scaled and shifted,
+        `ratio_pad` ((gain_h, gain_w), (left, top)) composed with the
         dataset's pre-resize gain, `resized_shape` the letterboxed (h, w)."""
         img = labels["img"]
         shape = img.shape[:2]
@@ -140,6 +142,15 @@ class LetterBox:
             b[:, [0, 2]] += left
             b[:, [1, 3]] += top
             labels["bboxes"] = b
+        if labels.get("keypoints") is not None and len(labels["keypoints"]):
+            k = labels["keypoints"].copy()
+            k[..., 0] = k[..., 0] * r + left
+            k[..., 1] = k[..., 1] * r + top
+            if k.shape[-1] == 3:  # invisible points stay at 0
+                k[..., :2] = np.where(k[..., 2:3] > 0, k[..., :2], 0.0)
+            labels["keypoints"] = k
+        if labels.get("segments") is not None:
+            labels["segments"] = [s * r + np.array([left, top], np.float32) for s in labels["segments"]]
         labels["resized_shape"] = img.shape[:2]
         return labels
 

@@ -1,9 +1,13 @@
 """Batches for train and val: fixed-shape padded label arrays, read by a thread pool.
 
 Counterpart of `ultralytics_pro_tpu/data/build.py` (`collate_detect:23`,
-boxes-only branch, and `DataLoader:121`): the collate stacks images and pads
+axis-aligned boxes, and `DataLoader:121`): the collate stacks images and pads
 labels to `max_gt` slots (img (B, S, S, 3) uint8 BGR, cls (B, G), bboxes
-(B, G, 4) normalised xywh, mask_gt (B, G)); the loader yields batches whose
+(B, G, 4) normalised xywh, mask_gt (B, G)), with pose's keypoints (B, G, K, 3)
+normalised and segment's instance masks (B, G, S/mask_ratio, S/mask_ratio):
+each polygon filled at the full size and shrunk as cv2 does it
+(`data/rasterize.py`), overlaps given to the smaller instance and the
+instance rows reordered largest first, as `:72-96` does; the loader yields batches whose
 samples a thread pool reads. For val it keeps the dataset's order and pads
 the last batch by repeating its last sample, with `pad_count` saying how
 many; for train it shuffles with `random.Random(seed + epoch)`, seed 0, and drops
@@ -19,16 +23,26 @@ from typing import Dict, Iterator
 
 import numpy as np
 
+from ultralytics_pro_tpu_torch.data.rasterize import fill_poly, resize_linear_u8
 
-def collate_detect(samples, max_gt: int = 128) -> Dict[str, np.ndarray]:
+
+def collate_detect(samples, max_gt: int = 128, mask_ratio: int = 4) -> Dict[str, np.ndarray]:
     """Stack label dicts into a fixed-shape batch. Boxes (pixel xyxy) are
-    renormalised to the letterboxed image as xywh."""
+    renormalised to the letterboxed image as xywh; keypoints (pose) are
+    normalised, segments become masks at 1/mask_ratio (segment)."""
     b = len(samples)
     imgs = np.stack([s["img"] for s in samples])  # (B, H, W, 3) uint8 BGR
     h, w = imgs.shape[1:3]
     cls = np.zeros((b, max_gt), np.float32)
     bboxes = np.zeros((b, max_gt, 4), np.float32)
     mask = np.zeros((b, max_gt), bool)
+    kpts = masks = None
+    if samples[0].get("keypoints") is not None:
+        k = samples[0]["keypoints"].shape[1] if len(samples[0]["keypoints"]) else 17
+        kpts = np.zeros((b, max_gt, k, 3), np.float32)
+    if samples[0].get("segments") is not None:
+        mh, mw = h // mask_ratio, w // mask_ratio
+        masks = np.zeros((b, max_gt, mh, mw), np.float32)
     for i, s in enumerate(samples):
         n = min(len(s["cls"]), max_gt)
         if not n:
@@ -40,7 +54,29 @@ def collate_detect(samples, max_gt: int = 128) -> Dict[str, np.ndarray]:
         bboxes[i, :n, 3] = (bx[:, 3] - bx[:, 1]) / h
         cls[i, :n] = s["cls"][:n]
         mask[i, :n] = True
-    return {
+        if kpts is not None and len(s.get("keypoints", [])):
+            kk = s["keypoints"][:n].copy()
+            kk[..., 0] /= w
+            kk[..., 1] /= h
+            kpts[i, :n] = kk
+        if masks is not None:
+            ms = np.zeros((n, mh, mw), np.float32)
+            for j, poly in enumerate(s["segments"][:n]):
+                if len(poly) >= 3:
+                    full = fill_poly(np.zeros((h, w), np.uint8), np.asarray(poly, np.int32).reshape(-1, 2))
+                    ms[j] = resize_linear_u8(full, (mw, mh))
+            # overlaps go to the smaller instance; rows reordered largest first
+            order = np.argsort(-ms.reshape(n, -1).sum(1), kind="stable")
+            winner = np.zeros((mh, mw), np.int32)
+            for rank, j in enumerate(order, start=1):
+                winner[ms[j] > 0] = rank
+            for rank in range(1, n + 1):
+                masks[i, rank - 1] = winner == rank
+            cls[i, :n] = cls[i, :n][order]
+            bboxes[i, :n] = bboxes[i, :n][order]
+            if kpts is not None:
+                kpts[i, :n] = kpts[i, :n][order]
+    out = {
         "img": imgs,
         "cls": cls,
         "bboxes": bboxes,
@@ -49,6 +85,11 @@ def collate_detect(samples, max_gt: int = 128) -> Dict[str, np.ndarray]:
         "ori_shapes": [s.get("ori_shape") for s in samples],
         "ratio_pads": [s.get("ratio_pad") for s in samples],
     }
+    if kpts is not None:
+        out["keypoints"] = kpts
+    if masks is not None:
+        out["masks"] = masks
+    return out
 
 
 class DataLoader:

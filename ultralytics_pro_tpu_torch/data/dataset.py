@@ -1,8 +1,11 @@
-"""YOLO-format detection datasets, for val and for train without augmentation.
+"""YOLO-format detect, segment and pose datasets, for val and for train without
+augmentation.
 
 Counterpart of `ultralytics_pro_tpu/data/dataset.py` (`YOLODataset:34`):
 image scan (`get_img_files:140`, `IMG_FORMATS:25`), label paths
-(`img2label_paths:28`) and detect labels (`_parse_labels:207`), the
+(`img2label_paths:28`) and labels (`_parse_labels:207`: detect boxes,
+segment polygons with their bounding boxes, pose boxes with `kpt_shape`
+keypoints from the dataset YAML, a missing visibility written as 2), the
 long-side resize on load (`_read_resized:295` and `load_image:332` in one:
 area averaging to shrink, bilinear to grow), `get_image_and_label:344`, and
 the non-augment transforms (`build_transforms:386`) behind `__getitem__:414`.
@@ -13,7 +16,7 @@ train images go through the same transforms as val, as in the JAX dataset.
 Labels are parsed on every construction: the port writes no `.cache` beside
 the labels. Rectangular batches, image caches, augmentation (the JAX
 `v8_transforms`: Mosaic, RandomPerspective, RandomHSV, flips, MixUp),
-channel counts other than 3 and tasks other than detect raise
+channel counts other than 3 and the obb and classify tasks raise
 NotImplementedError; the class filter and `fraction` of the JAX dataset are
 left out.
 """
@@ -31,6 +34,7 @@ from ultralytics_pro_tpu_torch.data.augment import Compose, LetterBox, resize_ar
 from ultralytics_pro_tpu_torch.data.image_io import imread
 
 IMG_FORMATS = {"bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp", "pfm"}
+TASKS = ("detect", "segment", "pose")
 
 
 def img2label_paths(img_paths: List[str]) -> List[str]:
@@ -39,8 +43,15 @@ def img2label_paths(img_paths: List[str]) -> List[str]:
     return [sb.join(x.rsplit(sa, 1)).rsplit(".", 1)[0] + ".txt" for x in img_paths]
 
 
+def _poly2xywh(pts: np.ndarray) -> np.ndarray:
+    """A polygon's (k, 2) points -> the xywh box of its extent."""
+    x1, y1 = pts[:, 0].min(), pts[:, 1].min()
+    x2, y2 = pts[:, 0].max(), pts[:, 1].max()
+    return np.array([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], np.float32)
+
+
 class YOLODataset:
-    """Detection dataset over YOLO-format labels (no augmentation)."""
+    """Detect, segment or pose dataset over YOLO-format labels (no augmentation)."""
 
     def __init__(self, img_path, imgsz: int = 640, augment: bool = False, rect: bool = False,
                  single_cls: bool = False, data: Optional[Dict] = None, task: str = "detect",
@@ -50,12 +61,12 @@ class YOLODataset:
                 "YOLODataset(augment=True) is not implemented in ultralytics_pro_tpu_torch yet: the "
                 "train augmentations (the JAX package's data/augment.py v8_transforms) need cv2-free "
                 "forms, ROADMAP.md queue 1 (train augmentations); train with augment=False, the default")
-        unported = {"rect=True": rect, f"cache={cache!r}": cache, f"task={task!r}": task != "detect"}
+        unported = {"rect=True": rect, f"cache={cache!r}": cache, f"task={task!r}": task not in TASKS}
         for what, asked in unported.items():
             if asked:
                 raise NotImplementedError(f"YOLODataset({what}) is not implemented in "
-                                          "ultralytics_pro_tpu_torch yet; it ports the detect path "
-                                          "without augmentation")
+                                          f"ultralytics_pro_tpu_torch yet; it ports the {', '.join(TASKS)} "
+                                          "paths without augmentation")
         self.data = data or {}
         ch = int(self.data.get("channels", 3) or 3)
         if ch != 3:
@@ -99,15 +110,36 @@ class YOLODataset:
         return labels
 
     def _parse_labels(self, label_files: List[str]) -> List[Dict]:
-        """Detect labels, `cls cx cy w h` a row, normalised; a missing file is an image without objects."""
+        """Labels by task, normalised; a missing file is an image without
+        objects. detect: `cls cx cy w h`; segment: `cls x1 y1 x2 y2 ...` (a
+        polygon, boxed by its extent); pose: `cls cx cy w h` and kpt_shape[0]
+        keypoints of kpt_shape[1] values."""
+        kpt_shape = tuple(self.data.get("kpt_shape", (17, 3)))
         labels = []
         for im_file, lb_file in zip(self.im_files, label_files):
             rows = []
             if os.path.isfile(lb_file):
                 with open(lb_file) as f:
                     rows = [x.split() for x in f.read().strip().splitlines() if len(x)]
-            lb = np.array(rows, np.float32) if rows else np.zeros((0, 5), np.float32)
-            labels.append({"im_file": im_file, "cls": lb[:, 0], "bboxes_n": lb[:, 1:5]})
+            entry = {"im_file": im_file}
+            if self.task == "segment":
+                segments = [np.array(r[1:], np.float32).reshape(-1, 2) for r in rows]
+                entry["cls"] = np.array([float(r[0]) for r in rows], np.float32)
+                entry["bboxes_n"] = np.array([_poly2xywh(p) for p in segments], np.float32).reshape(-1, 4)
+                entry["segments_n"] = segments
+            elif self.task == "pose":
+                k, nd = kpt_shape
+                v = [np.array(r, np.float32) for r in rows]
+                kpts = [x[5:5 + k * nd].reshape(k, nd) for x in v]
+                if nd == 2:
+                    kpts = [np.concatenate([kp, 2 * np.ones((k, 1), np.float32)], 1) for kp in kpts]
+                entry["cls"] = np.array([x[0] for x in v], np.float32)
+                entry["bboxes_n"] = np.array([x[1:5] for x in v], np.float32).reshape(-1, 4)
+                entry["keypoints_n"] = np.stack(kpts) if kpts else np.zeros((0, k, 3), np.float32)
+            else:
+                lb = np.array(rows, np.float32) if rows else np.zeros((0, 5), np.float32)
+                entry["cls"], entry["bboxes_n"] = lb[:, 0], lb[:, 1:5]
+            labels.append(entry)
         return labels
 
     # -- loading --------------------------------------------------------------
@@ -124,7 +156,8 @@ class YOLODataset:
         return im, (h0, w0), im.shape[:2]
 
     def get_image_and_label(self, i: int) -> Dict:
-        """Label dict with pixel-space xyxy boxes for the (resized) image."""
+        """Label dict with pixel-space xyxy boxes (and keypoints or polygons)
+        for the (resized) image."""
         im, ori_shape, resized = self.load_image(i)
         lb = self.labels[i]
         h, w = resized
@@ -144,6 +177,14 @@ class YOLODataset:
         else:
             boxes = np.zeros((0, 4), np.float32)
         out["bboxes"] = boxes.astype(np.float32)
+        if "keypoints_n" in lb:
+            k = lb["keypoints_n"].copy()
+            if len(k):
+                k[..., 0] *= w
+                k[..., 1] *= h
+            out["keypoints"] = k
+        if "segments_n" in lb:
+            out["segments"] = [s * np.array([w, h], np.float32) for s in lb["segments_n"]]
         return out
 
     # -- pipeline -------------------------------------------------------------

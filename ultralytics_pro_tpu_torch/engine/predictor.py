@@ -1,12 +1,20 @@
 """Streaming predictor: images -> letterbox -> device function -> Results.
 
 Counterpart of `ultralytics_pro_tpu/engine/predictor.py` (`BasePredictor:26`,
-`DetectionPredictor:219`). The jitted `run` of the JAX package (`_build_jit:45`)
-is a plain device function here: uint8 BGR batch -> RGB/255 -> forward ->
-fused single-label decode -> NMS (kernel K1 on the card), the branch
-`:136-148` takes for a plain Detect head, in full f32 with TF32 off
-(`utils.full_f32`), as the JAX package computes it. Letterboxing runs on the
-model's device.
+`DetectionPredictor:219`, `SegmentationPredictor:223`, `PosePredictor:283`).
+The jitted `run` of the JAX package (`_build_jit:45`) is a plain device
+function here, in full f32 with TF32 off (`utils.full_f32`), as the JAX
+package computes it: uint8 BGR batch -> RGB/255 -> forward -> NMS (kernel K1
+on the card). For a plain Detect head it takes the fused single-label decode
+(the branch `:136-148` takes); for Segment and Pose the generic decode and
+`non_max_suppression` with the head's extra columns as its payload (`:149-159`):
+32 mask coefficients a candidate, or the decoded keypoints. Letterboxing runs
+on the model's device.
+
+Segment's postprocess combines the coefficients with the prototypes, cuts the
+letterbox pad off, resizes to the original image and crops by the boxes on
+the model's device (the JAX postprocess runs them through `jnp`); only the
+boolean masks come to the host. Pose rescales its keypoints on the host.
 
 Sources are HWC uint8 BGR numpy arrays, or a list of them. Reading image
 files needs OpenCV and waits for a later slice.
@@ -21,9 +29,10 @@ import torch
 
 from ultralytics_pro_tpu_torch.data.augment import LetterBox
 from ultralytics_pro_tpu_torch.engine.results import Results
-from ultralytics_pro_tpu_torch.nn.modules.head import Detect, decode_single_label
+from ultralytics_pro_tpu_torch.nn.modules.head import Detect, Pose, Segment, decode_single_label
 from ultralytics_pro_tpu_torch.ops.boxes import scale_boxes
-from ultralytics_pro_tpu_torch.ops.nms import non_max_suppression_fused
+from ultralytics_pro_tpu_torch.ops.masks import process_mask_native
+from ultralytics_pro_tpu_torch.ops.nms import non_max_suppression, non_max_suppression_fused
 from ultralytics_pro_tpu_torch.utils import Profile, full_f32
 
 
@@ -32,10 +41,25 @@ def _to_host(out):
     return {k: v.cpu() for k, v in out.items()} if isinstance(out, dict) else out.cpu()
 
 
+def rgb01(img_u8: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, 3) uint8 BGR -> (B, 3, H, W) f32 RGB in [0, 1], the device
+    functions' first step."""
+    x = img_u8.flip(-1) if img_u8.shape[-1] == 3 else img_u8
+    return x.permute(0, 3, 1, 2).float().contiguous() / 255.0
+
+
+def _detections(out, i: int, n: int, batch_shape, orig_shape) -> torch.Tensor:
+    """Image i's first n detections as (n, 6) rows, boxes rescaled to the
+    original image: x1, y1, x2, y2, conf, cls."""
+    boxes = scale_boxes(batch_shape, out["boxes"][i][:n], orig_shape)
+    return torch.cat([boxes, out["scores"][i][:n, None], out["cls"][i][:n, None].float()], 1)
+
+
 class BasePredictor:
     """Single-model streaming inference on the model's device."""
 
     head_types = (Detect,)  # the heads whose outputs this predictor's run and postprocess read
+    outputs_to_host = True  # False: postprocess takes run's outputs on the device
 
     def __init__(self, model, args: Dict | None = None):
         """model: a DetectionModel already on its device."""
@@ -50,7 +74,7 @@ class BasePredictor:
         if self.args.get("augment"):
             raise NotImplementedError("test-time augmentation is not implemented in "
                                       "ultralytics_pro_tpu_torch")
-        if not isinstance(model.model[-1], self.head_types):
+        if type(model.model[-1]) not in self.head_types:
             wanted = " or ".join(t.__name__ for t in self.head_types)
             raise NotImplementedError(f"{type(self).__name__} needs a {wanted} head, "
                                       f"got {type(model.model[-1]).__name__}")
@@ -67,15 +91,25 @@ class BasePredictor:
         """The device function: (B, H, W, 3) uint8 BGR on the model's device ->
         dict of (B, max_det) 'boxes' xyxy, 'scores', 'cls', 'valid'. Runs in
         full f32 (`utils.full_f32`)."""
-        x = img_u8.flip(-1) if img_u8.shape[-1] == 3 else img_u8
-        x = x.permute(0, 3, 1, 2).float().contiguous() / 255.0
         head = self.model.model[-1]
         with full_f32():
-            raw = self.model(x, decode=False)
+            raw = self.model(rgb01(img_u8), decode=False)
             boxes, conf, cls = decode_single_label(raw, head.stride.tolist(), head.nc, head.reg_max)
             return non_max_suppression_fused(boxes, conf, cls, conf_thres=self.conf,
                                              iou_thres=self.iou, max_det=self.max_det,
                                              agnostic=self.agnostic, classes=self.classes_mask)
+
+    def _run_generic(self, img_u8: torch.Tensor):
+        """The generic decode, then NMS with the columns after the class
+        scores as each candidate's 'extra' payload. Returns (NMS dict, the
+        head's aux dict)."""
+        nc = self.model.nc
+        with full_f32():
+            y, aux = self.model(rgb01(img_u8))
+            out = non_max_suppression(y[..., :4], y[..., 4:4 + nc], extra=y[..., 4 + nc:],
+                                      conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,
+                                      agnostic=self.agnostic, classes=self.classes_mask)
+        return out, aux
 
     def preprocess(self, imgs: List[np.ndarray]) -> torch.Tensor:
         """Letterbox each image on the device; returns the (B, H, W, C) uint8 batch."""
@@ -104,7 +138,9 @@ class BasePredictor:
             with profilers[0]:
                 batch = self.preprocess([im0])
             with profilers[1]:
-                out = _to_host(self.run(batch))
+                out = self.run(batch)
+                if self.outputs_to_host:
+                    out = _to_host(out)
             with profilers[2]:
                 results = self.postprocess(out, tuple(batch.shape[1:3]), [im0], [path])
             r = results[0]
@@ -116,13 +152,76 @@ class BasePredictor:
         """Valid detections, rescaled to each original image, as Results."""
         results = []
         for i, im0 in enumerate(im0s):
-            n = int(out["valid"][i].sum())
-            boxes = scale_boxes(batch_shape, out["boxes"][i][:n], im0.shape[:2])
-            data = torch.cat([boxes, out["scores"][i][:n, None],
-                              out["cls"][i][:n, None].float()], 1)
+            data = _detections(out, i, int(out["valid"][i].sum()), batch_shape, im0.shape[:2])
             results.append(Results(im0, paths[i], self.model.names, boxes=data.numpy()))
         return results
 
 
 class DetectionPredictor(BasePredictor):
     pass
+
+
+class SegmentationPredictor(BasePredictor):
+    """Boxes and instance masks; `run` adds 'extra' (B, max_det, nm) mask
+    coefficients and 'protos' (B, nm, H/4, W/4)."""
+
+    head_types = (Segment,)
+    outputs_to_host = False
+
+    @torch.no_grad()
+    def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out, aux = self._run_generic(img_u8)
+        out["protos"] = aux["protos"]
+        return out
+
+    @torch.no_grad()
+    def postprocess(self, out: Dict[str, torch.Tensor], batch_shape, im0s, paths) -> List[Results]:
+        """Masks (n, h0, w0) bool in each original image, made on the device
+        from the boxes rescaled there; the rest as the detect postprocess."""
+        results = []
+        counts = out["valid"].sum(1).tolist()
+        for i, im0 in enumerate(im0s):
+            n = int(counts[i])
+            data = _detections(out, i, n, batch_shape, im0.shape[:2])
+            masks = None
+            if n:
+                with full_f32():
+                    masks = process_mask_native(out["protos"][i], out["extra"][i][:n], data[:, :4],
+                                                im0.shape[:2]) > 0.5
+                masks = masks.cpu().numpy()
+            results.append(Results(im0, paths[i], self.model.names, boxes=data.cpu().numpy(), masks=masks))
+        return results
+
+
+class PosePredictor(BasePredictor):
+    """Boxes and keypoints; `run` adds 'extra' (B, max_det, nk) keypoints,
+    decoded in the letterboxed image's pixels."""
+
+    head_types = (Pose,)
+
+    @torch.no_grad()
+    def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self._run_generic(img_u8)[0]
+
+    def postprocess(self, out: Dict[str, torch.Tensor], batch_shape, im0s, paths) -> List[Results]:
+        """Keypoints (n, K, 2|3) in each original image: the letterbox pad taken
+        off and the gain divided out, on the host in numpy, as the JAX
+        postprocess does (no clipping)."""
+        results = []
+        h1, w1 = batch_shape
+        for i, im0 in enumerate(im0s):
+            n = int(out["valid"][i].sum())
+            data = _detections(out, i, n, batch_shape, im0.shape[:2]).numpy()
+            kpts = None
+            if n:
+                k = out["extra"][i][:n].numpy()
+                nk = k.shape[-1] // 3 if k.shape[-1] % 3 == 0 else k.shape[-1] // 2
+                k = k.reshape(n, nk, k.shape[-1] // nk).copy()
+                gain = min(h1 / im0.shape[0], w1 / im0.shape[1])
+                pad_w = round((w1 - im0.shape[1] * gain) / 2 - 0.1)
+                pad_h = round((h1 - im0.shape[0] * gain) / 2 - 0.1)
+                k[..., 0] = (k[..., 0] - pad_w) / gain
+                k[..., 1] = (k[..., 1] - pad_h) / gain
+                kpts = k
+            results.append(Results(im0, paths[i], self.model.names, boxes=data, keypoints=kpts))
+        return results

@@ -1,8 +1,11 @@
-"""Boxes-only prediction results, numpy-backed.
+"""Prediction results, numpy-backed: boxes, instance masks and keypoints.
 
-Counterpart of `ultralytics_pro_tpu/engine/results.py` (`Boxes:41`,
-`Results:167`) for detection: the same accessors (.xyxy/.xywh/.xyxyn/.xywhn/
-.conf/.cls). Drawing and saving need OpenCV and wait for a later slice.
+Counterpart of `ultralytics_pro_tpu/engine/results.py` (`BaseTensor:23`,
+`Boxes:41`, `Masks:82`, `Keypoints:103`, `Results:167`) for detect, segment
+and pose: the same accessors (.xyxy/.xywh/.xyxyn/.xywhn/.conf/.cls, the
+keypoints' .xy/.xyn/.conf, len and indexing). `Masks.xy` (polygon contours,
+`cv2.findContours`) raises NotImplementedError, and drawing and saving need
+OpenCV too; they wait for a later slice.
 """
 
 from __future__ import annotations
@@ -12,8 +15,8 @@ import numpy as np
 from ultralytics_pro_tpu_torch.utils import SimpleClass
 
 
-class Boxes(SimpleClass):
-    """Detection boxes: data (n, 6) = x1, y1, x2, y2, conf, cls."""
+class BaseTensor(SimpleClass):
+    """A numpy array with the reference's .cpu()/.numpy() surface."""
 
     def __init__(self, data, orig_shape):
         self.data = np.asarray(data)
@@ -29,7 +32,11 @@ class Boxes(SimpleClass):
         return len(self.data)
 
     def __getitem__(self, idx):
-        return Boxes(self.data[idx], self.orig_shape)
+        return self.__class__(self.data[idx], self.orig_shape)
+
+
+class Boxes(BaseTensor):
+    """Detection boxes: data (n, 6) = x1, y1, x2, y2, conf, cls."""
 
     @property
     def xyxy(self):
@@ -60,15 +67,47 @@ class Boxes(SimpleClass):
         return self.xywh / np.array([w, h, w, h])
 
 
-class Results(SimpleClass):
-    """One image's detections."""
+class Masks(BaseTensor):
+    """Instance masks: data (n, H, W) bool, in the original image's pixels."""
 
-    def __init__(self, orig_img, path, names, boxes=None, speed=None):
+    @property
+    def xy(self):
+        raise NotImplementedError("Masks.xy (polygon contours) needs cv2.findContours, which "
+                                  "ultralytics_pro_tpu_torch does not use; read Masks.data")
+
+    @property
+    def xyn(self):
+        return self.xy
+
+
+class Keypoints(BaseTensor):
+    """Keypoints: data (n, K, 3) (x, y, visibility) or (n, K, 2), in the original image's pixels."""
+
+    @property
+    def xy(self):
+        return self.data[..., :2]
+
+    @property
+    def xyn(self):
+        h, w = self.orig_shape
+        return self.xy / np.array([w, h])
+
+    @property
+    def conf(self):
+        return self.data[..., 2] if self.data.shape[-1] == 3 else None
+
+
+class Results(SimpleClass):
+    """One image's detections, with its masks or keypoints where the task has them."""
+
+    def __init__(self, orig_img, path, names, boxes=None, masks=None, keypoints=None, speed=None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
         self.names = names
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
+        self.masks = Masks(masks, self.orig_shape) if masks is not None else None
+        self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None else None
         self.speed = speed or {"preprocess": None, "inference": None, "postprocess": None}
 
     def __len__(self):

@@ -1,11 +1,17 @@
-"""Validator: dataloader -> device function (forward + NMS) -> TP matching -> DetMetrics.
+"""Validator: dataloader -> device function (forward + NMS) -> TP matching -> metrics.
 
-Counterpart of `ultralytics_pro_tpu/engine/validator.py:DetectionValidator:25`.
-The jitted device function of the JAX package (`_build_jit:105`) is a plain
-device function here, `run(img_u8)`: uint8 BGR batch -> RGB/255 -> forward ->
-generic decode -> multi-label NMS (kernel K1 on the card), in full f32 with
-TF32 off (`utils.full_f32`). Matching in the original image frame and AP run
-on the host in numpy (`utils/metrics.py`). The three `Profile`s synchronise
+Counterpart of `ultralytics_pro_tpu/engine/validator.py` (`DetectionValidator:25`,
+`SegmentationValidator:216`, `PoseValidator:308`). The jitted device function
+of the JAX package (`_build_jit:105`) is a plain device function here,
+`run(img_u8)`: uint8 BGR batch -> RGB/255 -> forward -> generic decode ->
+multi-label NMS (kernel K1 on the card), in full f32 with TF32 off
+(`utils.full_f32`). Segment and pose pass the head's extra columns through
+NMS as each candidate's payload (mask coefficients, decoded keypoints).
+Matching and AP run on the host in numpy (`utils/metrics.py`): boxes in the
+original image frame for detect and segment, masks in the letterbox frame
+(the predicted masks made on the model's device by `process_mask`, only
+their > 0.5 bits brought back), and pose's boxes and OKS in the letterbox
+frame, as the JAX validators match them. The three `Profile`s synchronise
 the model's device: preprocess is the batch's copy to the device, inference
 the device function and the copy back, postprocess the matching.
 
@@ -20,20 +26,41 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ultralytics_pro_tpu_torch.nn.modules.head import Detect
+from ultralytics_pro_tpu_torch.engine.predictor import rgb01
+from ultralytics_pro_tpu_torch.nn.modules.head import Detect, Pose, Segment
 from ultralytics_pro_tpu_torch.ops.boxes import scale_boxes
+from ultralytics_pro_tpu_torch.ops.masks import process_mask
 from ultralytics_pro_tpu_torch.ops.nms import non_max_suppression
 from ultralytics_pro_tpu_torch.utils import LOGGER, Profile, full_f32
 from ultralytics_pro_tpu_torch.utils.metrics import (
     ConfusionMatrix,
     DetMetrics,
+    PoseMetrics,
+    SegmentMetrics,
     box_iou_np,
+    kpt_iou,
+    mask_iou_np,
     match_predictions,
 )
+
+# COCO's 17 keypoint sigmas; any other keypoint count weighs each 1/nk
+OKS_SIGMA = np.array([26, 25, 25, 35, 35, 79, 79, 72, 72, 62, 62, 107, 107, 87, 87, 89, 89],
+                     np.float32) / 1000.0
+
+
+def _gt_boxes(gt_n: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Normalised xywh ground truth -> pixel xyxy in the letterbox frame."""
+    if not len(gt_n):
+        return np.zeros((0, 4))
+    cx, cy, bw, bh = gt_n[:, 0] * w, gt_n[:, 1] * h, gt_n[:, 2] * w, gt_n[:, 3] * h
+    return np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], 1)
 
 
 class DetectionValidator:
     """Evaluate a detection model over a dataloader."""
+
+    head_type = Detect  # the head (or a subclass of it) whose outputs run reads
+    metrics_class = DetMetrics
 
     def __init__(self, args: Dict | None = None):
         self.args = dict(args or {})
@@ -63,29 +90,39 @@ class DetectionValidator:
     def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The device function: (B, H, W, 3) uint8 BGR on the model's device ->
         dict of (B, max_det) 'boxes' xyxy, 'scores', 'cls', 'valid'."""
-        x = img_u8.flip(-1) if img_u8.shape[-1] == 3 else img_u8
-        x = x.permute(0, 3, 1, 2).float().contiguous() / 255.0
+        return self._run(img_u8)[0]
+
+    def _run(self, img_u8: torch.Tensor, payload: bool = False):
+        """Forward and multi-label NMS, with the columns after the class scores
+        as 'extra' when payload. Returns (NMS dict, the head's second output)."""
+        nc = self.model.nc
         with full_f32():
-            y, _ = self.model(x)
-            return non_max_suppression(y[..., :4], y[..., 4:4 + self.model.nc], conf_thres=self.conf,
-                                       iou_thres=self.iou, max_det=self.max_det, multi_label=True)
+            y, aux = self.model(rgb01(img_u8))
+            out = non_max_suppression(y[..., :4], y[..., 4:4 + nc], extra=y[..., 4 + nc:] if payload else None,
+                                      conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,
+                                      multi_label=True)
+        return out, aux
+
+    def to_host(self, out: Dict[str, torch.Tensor], batch: Dict) -> Dict[str, np.ndarray]:
+        """run's outputs as host arrays."""
+        return {k: v.cpu().numpy() for k, v in out.items()}
 
     def __call__(self, model, dataloader, names: Optional[Dict] = None) -> DetMetrics:
-        """model: a DetectionModel on its device."""
-        if not isinstance(model.model[-1], Detect):
-            raise NotImplementedError(f"DetectionValidator needs a Detect head, got "
+        """model: a task model on its device whose head is a `head_type`."""
+        if not isinstance(model.model[-1], self.head_type):
+            raise NotImplementedError(f"{type(self).__name__} needs a {self.head_type.__name__} head, got "
                                       f"{type(model.model[-1]).__name__}")
         self.model = model
         device = next(model.parameters()).device
         names = names or model.names
-        metrics = DetMetrics(names)
+        metrics = self.metrics_class(names)
         confusion = ConfusionMatrix(nc=len(names))
         profilers = (Profile(device=device), Profile(device=device), Profile(device=device))
         for batch in dataloader:
             with profilers[0]:
                 img = torch.from_numpy(batch["img"]).to(device)
             with profilers[1]:
-                out = {k: v.cpu().numpy() for k, v in self.run(img).items()}
+                out = self.to_host(self.run(img), batch)
             with profilers[2]:
                 self.update_metrics(out, batch, metrics, confusion)
 
@@ -114,11 +151,8 @@ class DetectionValidator:
                 pred_cls = np.zeros_like(pred_cls)
 
             gmask = batch["mask_gt"][i]
-            gt_n = batch["bboxes"][i][gmask]  # normalized xywh in letterbox frame
+            gt_boxes = _gt_boxes(batch["bboxes"][i][gmask], h, w)  # normalized xywh in letterbox frame
             gt_cls = batch["cls"][i][gmask]
-            # to pixel xyxy
-            cx, cy, bw, bh = gt_n[:, 0] * w, gt_n[:, 1] * h, gt_n[:, 2] * w, gt_n[:, 3] * h
-            gt_boxes = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], 1) if len(gt_n) else np.zeros((0, 4))
 
             # evaluate in the original image frame: scale_boxes clips to the
             # original bounds, which letterbox-frame matching would miss
@@ -133,3 +167,117 @@ class DetectionValidator:
     def print_results(self, metrics: DetMetrics, names):
         mp, mr, map50, map5095 = metrics.mean_results()
         LOGGER.info(f"{'all':>12}  P {mp:.3f}  R {mr:.3f}  mAP50 {map50:.3f}  mAP50-95 {map5095:.3f}")
+
+
+class SegmentationValidator(DetectionValidator):
+    """Box and mask matching; SegmentMetrics."""
+
+    head_type = Segment
+    metrics_class = SegmentMetrics
+
+    @torch.no_grad()
+    def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """As DetectionValidator.run, plus 'extra' (B, max_det, nm) mask
+        coefficients and 'protos' (B, nm, H/4, W/4)."""
+        out, aux = self._run(img_u8, payload=True)
+        out["protos"] = aux["protos"]
+        return out
+
+    @torch.no_grad()
+    def to_host(self, out: Dict[str, torch.Tensor], batch: Dict) -> Dict:
+        """run's outputs on the host, the prototypes and coefficients replaced
+        by 'pred_masks': each image's (n, H/4, W/4) > 0.5 masks, made on the
+        device by `process_mask` (boxes scaled to the prototype grid, edges
+        rounded)."""
+        shape = batch["img"].shape[1:3]
+        counts = out["valid"].sum(1).tolist()
+        masks = []
+        with full_f32():
+            for i, n in enumerate(counts):
+                n = int(n)
+                m = process_mask(out["protos"][i], out["extra"][i][:n], out["boxes"][i][:n], shape) > 0.5
+                masks.append(m.cpu().numpy())
+        host = {k: v.cpu().numpy() for k, v in out.items() if k not in ("protos", "extra")}
+        host["pred_masks"] = masks
+        return host
+
+    def update_metrics(self, out, batch, metrics, confusion):
+        b = out["boxes"].shape[0] - int(batch.get("pad_count", 0))
+        h, w = batch["img"].shape[1:3]
+        ori_shapes = batch.get("ori_shapes") or [None] * b
+        ratio_pads = batch.get("ratio_pads") or [None] * b
+        for i in range(b):
+            n = int(out["valid"][i].sum())
+            pred_boxes = out["boxes"][i][:n]
+            pred_conf = out["scores"][i][:n]
+            pred_cls = out["cls"][i][:n].astype(np.float32)
+
+            gmask = batch["mask_gt"][i]
+            gt_boxes = _gt_boxes(batch["bboxes"][i][gmask], h, w)
+            gt_cls = batch["cls"][i][gmask]
+
+            # boxes matched in the original frame; masks stay in the letterbox
+            # frame, where the prototypes and the ground-truth masks both live
+            box_p, box_g = pred_boxes, gt_boxes
+            if ori_shapes[i] is not None:
+                box_p = self._to_original_frame(pred_boxes, (h, w), ori_shapes[i], ratio_pads[i])
+                box_g = self._to_original_frame(gt_boxes, (h, w), ori_shapes[i], ratio_pads[i])
+            iou = box_iou_np(box_g, box_p) if n and len(box_g) else np.zeros((len(box_g), n))
+            tp = match_predictions(pred_cls, gt_cls, iou)
+
+            tp_m = np.zeros_like(tp)
+            if n and len(gt_boxes) and "masks" in batch:
+                pm = out["pred_masks"][i]  # (n, mh, mw)
+                gm = batch["masks"][i][gmask] > 0.5  # (m, mh, mw)
+                miou = mask_iou_np(gm.reshape(len(gm), -1).astype(np.float32),
+                                   pm.reshape(n, -1).astype(np.float32))
+                tp_m = match_predictions(pred_cls, gt_cls, miou)
+            metrics.update_stats(tp, pred_conf, pred_cls, gt_cls, tp_m=tp_m)
+
+    def print_results(self, metrics, names):
+        _, _, map50, map5095 = metrics.box.mean_results()
+        sm = metrics.seg.mean_results()
+        LOGGER.info(f"{'all':>12}  box mAP50 {map50:.3f} mAP {map5095:.3f} | mask mAP50 {sm[2]:.3f} mAP {sm[3]:.3f}")
+
+
+class PoseValidator(DetectionValidator):
+    """Box and OKS keypoint matching, both in the letterbox frame; PoseMetrics."""
+
+    head_type = Pose
+    metrics_class = PoseMetrics
+
+    @torch.no_grad()
+    def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """As DetectionValidator.run, plus 'extra' (B, max_det, nk) decoded keypoints."""
+        return self._run(img_u8, payload=True)[0]
+
+    def update_metrics(self, out, batch, metrics, confusion):
+        b = out["boxes"].shape[0] - int(batch.get("pad_count", 0))
+        h, w = batch["img"].shape[1:3]
+        for i in range(b):
+            n = int(out["valid"][i].sum())
+            pred_boxes = out["boxes"][i][:n]
+            pred_conf = out["scores"][i][:n]
+            pred_cls = out["cls"][i][:n].astype(np.float32)
+            gmask = batch["mask_gt"][i]
+            gt_boxes = _gt_boxes(batch["bboxes"][i][gmask], h, w)
+            gt_cls = batch["cls"][i][gmask]
+
+            iou = box_iou_np(gt_boxes, pred_boxes) if n and len(gt_boxes) else np.zeros((len(gt_boxes), n))
+            tp = match_predictions(pred_cls, gt_cls, iou)
+            tp_p = np.zeros_like(tp)
+            if n and len(gt_boxes) and "keypoints" in batch:
+                k3 = batch["keypoints"][i][gmask].copy()  # (m, K, 3) normalized
+                k3[..., 0] *= w
+                k3[..., 1] *= h
+                nk = k3.shape[1]
+                pk = out["extra"][i][:n].reshape(n, nk, -1)
+                sigma = OKS_SIGMA if nk == 17 else np.ones(nk, np.float32) / nk
+                area = (gt_boxes[:, 2] - gt_boxes[:, 0]) * (gt_boxes[:, 3] - gt_boxes[:, 1]) * 0.53
+                tp_p = match_predictions(pred_cls, gt_cls, kpt_iou(k3, pk[..., :2], area, sigma))
+            metrics.update_stats(tp, pred_conf, pred_cls, gt_cls, tp_p=tp_p)
+
+    def print_results(self, metrics, names):
+        _, _, map50, _ = metrics.box.mean_results()
+        pm = metrics.pose.mean_results()
+        LOGGER.info(f"{'all':>12}  box mAP50 {map50:.3f} | pose mAP50 {pm[2]:.3f}")

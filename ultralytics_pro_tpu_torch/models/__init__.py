@@ -1,14 +1,30 @@
 """Task bindings: the predictor, validator and trainer for a model
-(detection, and RT-DETR's NMS-free predictor)."""
+(detect, segment and pose, and RT-DETR's NMS-free predictor).
 
-from ultralytics_pro_tpu_torch.engine.predictor import DetectionPredictor
+Segment and pose have no trainer yet: their entries raise
+NotImplementedError naming the loss that is still to port."""
+
+from ultralytics_pro_tpu_torch.engine.predictor import DetectionPredictor, PosePredictor, SegmentationPredictor
 from ultralytics_pro_tpu_torch.engine.trainer import DetectionTrainer
-from ultralytics_pro_tpu_torch.engine.validator import DetectionValidator
+from ultralytics_pro_tpu_torch.engine.validator import DetectionValidator, PoseValidator, SegmentationValidator
 from ultralytics_pro_tpu_torch.models.rtdetr import RTDETR, RTDETRPredictor
 from ultralytics_pro_tpu_torch.nn.modules.head import RTDETRDecoder
 
+
+def _unported_trainer(task: str, loss: str):
+    def trainer(*args, **kwargs):
+        raise NotImplementedError(
+            f"training a {task} model is not implemented in ultralytics_pro_tpu_torch yet: it needs "
+            f"the JAX package's utils/loss.py:{loss} (ROADMAP.md queue 1 item 5)")
+    return trainer
+
+
 task_map = {"detect": {"predictor": DetectionPredictor, "validator": DetectionValidator,
                        "trainer": DetectionTrainer},
+            "segment": {"predictor": SegmentationPredictor, "validator": SegmentationValidator,
+                        "trainer": _unported_trainer("segment", "v8SegmentationLoss")},
+            "pose": {"predictor": PosePredictor, "validator": PoseValidator,
+                     "trainer": _unported_trainer("pose", "v8PoseLoss")},
             "rtdetr": {"predictor": RTDETRPredictor}}
 
 

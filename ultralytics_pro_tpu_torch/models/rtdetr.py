@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ultralytics_pro_tpu_torch.engine.model import Model
-from ultralytics_pro_tpu_torch.engine.predictor import BasePredictor
+from ultralytics_pro_tpu_torch.engine.predictor import BasePredictor, rgb01
 from ultralytics_pro_tpu_torch.engine.results import Results
 from ultralytics_pro_tpu_torch.nn.modules.head import RTDETRDecoder
 from ultralytics_pro_tpu_torch.utils import full_f32
@@ -36,10 +36,8 @@ class RTDETRPredictor(BasePredictor):
         """The device function: (B, H, W, 3) uint8 BGR on the model's device ->
         (B, nq, 4 + nc) normalised cxcywh boxes and sigmoid scores. Runs in
         full f32 (`utils.full_f32`)."""
-        x = img_u8.flip(-1) if img_u8.shape[-1] == 3 else img_u8
-        x = x.permute(0, 3, 1, 2).float().contiguous() / 255.0
         with full_f32():
-            y, _ = self.model(x, aux=False)  # predict reads y alone
+            y, _ = self.model(rgb01(img_u8), aux=False)  # predict reads y alone
         return y
 
     def postprocess(self, y: torch.Tensor, batch_shape, im0s, paths) -> List[Results]:

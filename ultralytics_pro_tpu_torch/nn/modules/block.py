@@ -1,7 +1,7 @@
 """YOLOv8 blocks, NCHW, with the reference's torch module names.
 
 Counterpart of `ultralytics_pro_tpu/nn/modules/block.py` (`Bottleneck:32`,
-`C2f:86`, `SPPF:173`, `DFL:251`, and RT-DETR's `HGStem:413`, `HGBlock:437`,
+`C2f:86`, `SPPF:173`, `DFL:251`, `Proto:270`, and RT-DETR's `HGStem:413`, `HGBlock:437`,
 `RepC3:505`).
 """
 
@@ -87,6 +87,21 @@ class SPPF(nn.Module):
         for _ in range(3):
             y.append(self.m(y[-1]))
         return self.cv2(torch.cat(y, 1))
+
+
+class Proto(nn.Module):
+    """Segmentation mask prototypes: Conv 3x3, a stride-2 2x2 transposed conv
+    (with bias) that doubles the map, Conv 3x3, Conv 1x1 to c2 channels."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = Conv(c1, c_, 3)
+        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.cv2 = Conv(c_, c_, 3)
+        self.cv3 = Conv(c_, c2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(self.cv2(self.upsample(self.cv1(x))))
 
 
 class HGStem(nn.Module):

@@ -1,13 +1,17 @@
-"""The anchor-free Detect head and its decodes, and the RT-DETR decoder head.
+"""The anchor-free Detect head and its decodes, the Segment and Pose heads,
+and the RT-DETR decoder head.
 
 Counterpart of `ultralytics_pro_tpu/nn/modules/head.py` (`Detect:48`,
-`_decode:87`, `decode_single_label:127`, `RTDETRDecoder:440`). Module names
-follow the torch reference (`cv2.i.0.conv.weight`, `cv3.i.2.bias`,
-`dfl.conv.weight`, `decoder.layers.i.cross_attn.value_proj.weight`).
+`_decode:87`, `decode_single_label:127`, `Segment:170`, `Pose:222`,
+`RTDETRDecoder:440`). Module names follow the torch reference
+(`cv2.i.0.conv.weight`, `cv3.i.2.bias`, `dfl.conv.weight`, `cv4.i.2.bias`,
+`proto.upsample.weight`, `decoder.layers.i.cross_attn.value_proj.weight`).
 
 Raw per-level maps are NCHW (B, 4*reg_max + nc, H, W). Decoded outputs are
 anchor-major like the JAX package's: (B, A, 4 + nc), anchors ordered level by
-level, then row by row.
+level, then row by row; Segment appends nm mask coefficients and Pose the
+decoded keypoints to each anchor's row. Segment's prototypes stay NCHW
+(B, nm, H/4, W/4), where the JAX package's are channel-last.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import math
 import torch
 from torch import nn
 
-from ultralytics_pro_tpu_torch.nn.modules.block import DFL, dfl_expectation
+from ultralytics_pro_tpu_torch.nn.modules.block import DFL, Proto, dfl_expectation
 from ultralytics_pro_tpu_torch.nn.modules.conv import BN_EPS, BN_MOMENTUM, BatchNorm2d, Conv
 from ultralytics_pro_tpu_torch.nn.modules.transformer import LN_EPS, MLP, DeformableTransformerDecoderLayer
 from ultralytics_pro_tpu_torch.ops.anchors import dist2bbox, make_anchors
@@ -74,6 +78,71 @@ class Detect(nn.Module):
         if not decode:
             return raw
         return self.decode(raw), raw
+
+
+def _branches(ch, mid: int, out: int) -> nn.ModuleList:
+    """One extra branch per level (the JAX `_branch`, legacy form): Conv 3x3,
+    Conv 3x3, 1x1 conv with bias."""
+    return nn.ModuleList(nn.Sequential(Conv(x, mid, 3), Conv(mid, mid, 3), nn.Conv2d(mid, out, 1)) for x in ch)
+
+
+def _per_anchor(branches, feats) -> torch.Tensor:
+    """Every level's branch output, anchor-major: (B, A, out)."""
+    return torch.cat([m(x).flatten(2) for m, x in zip(branches, feats)], 2).transpose(1, 2)
+
+
+class Segment(Detect):
+    """Detect plus nm mask coefficients per anchor (`cv4`) and the prototype
+    masks (`proto`) on the first level's map.
+
+    Eval: (y (B, A, 4 + nc + nm), {'feats': raw, 'mc': (B, A, nm), 'protos':
+    (B, nm, H/4, W/4)}); with decode=False (and in train mode) the dict alone.
+    """
+
+    def __init__(self, nc: int = 80, ch=(), nm: int = 32, npr: int = 256, reg_max: int = 16):
+        super().__init__(nc, ch, reg_max)
+        self.nm, self.npr = nm, npr
+        self.proto = Proto(ch[0], npr, nm)
+        self.cv4 = _branches(ch, max(ch[0] // 4, nm), nm)
+
+    def forward(self, feats, decode: bool = True):
+        aux = {"feats": self.raw(feats), "mc": _per_anchor(self.cv4, feats), "protos": self.proto(feats[0])}
+        if not decode:
+            return aux
+        return torch.cat([self.decode(aux["feats"]), aux["mc"]], -1), aux
+
+
+class Pose(Detect):
+    """Detect plus kpt_shape[0] keypoints of kpt_shape[1] values per anchor (`cv4`).
+
+    Eval: (y (B, A, 4 + nc + nk), {'feats': raw, 'kpt': (B, A, nk) raw}), the
+    keypoints of y decoded in pixels (`kpts_decode`); with decode=False (and
+    in train mode) the dict alone.
+    """
+
+    def __init__(self, nc: int = 80, ch=(), kpt_shape=(17, 3), reg_max: int = 16):
+        super().__init__(nc, ch, reg_max)
+        self.kpt_shape = tuple(kpt_shape)
+        self.nk = self.kpt_shape[0] * self.kpt_shape[1]
+        self.cv4 = _branches(ch, max(ch[0] // 4, self.nk), self.nk)
+
+    def forward(self, feats, decode: bool = True):
+        aux = {"feats": self.raw(feats), "kpt": _per_anchor(self.cv4, feats)}
+        if not decode:
+            return aux
+        anchors, stride_t = make_anchors([tuple(f.shape[2:]) for f in feats], self.stride.tolist(),
+                                         device=feats[0].device)
+        return torch.cat([self.decode(aux["feats"]), self.kpts_decode(aux["kpt"], anchors, stride_t)], -1), aux
+
+    def kpts_decode(self, kpt: torch.Tensor, anchors: torch.Tensor, stride_t: torch.Tensor) -> torch.Tensor:
+        """(B, A, nk) raw keypoints -> pixels: xy as (2k + anchor - 0.5) * stride,
+        the visibility through a sigmoid when kpt_shape[1] is 3."""
+        b, a, _ = kpt.shape
+        k = kpt.float().reshape(b, a, *self.kpt_shape)
+        xy = (k[..., :2] * 2.0 + (anchors[None, :, None, :] - 0.5)) * stride_t[None, :, None, :]
+        if self.kpt_shape[1] == 3:
+            xy = torch.cat([xy, k[..., 2:3].sigmoid()], -1)
+        return xy.reshape(b, a, -1)
 
 
 def decode_single_label(raw, strides, nc: int, reg_max: int = 16):

@@ -1,13 +1,17 @@
-"""Model YAML -> torch modules: parse_model, BaseModel, DetectionModel.
+"""Model YAML -> torch modules: parse_model, BaseModel and the task models.
 
 Counterpart of `ultralytics_pro_tpu/nn/tasks.py` (`parse_model:1126`,
 `YOLOModule._forward:1230`, `yaml_model_load:1311`, `split_scale:1328`,
 `find_model_yaml:1347`, `BaseModel:1361`, `DetectionModel:1491`,
-`model_class_for:1610`, `guess_model_task:1624`) for the YOLOv8 module set
-(Conv, C2f, SPPF, nn.Upsample, Concat, Detect) and RT-DETR's (DWConv,
+`SegmentationModel:1495`, `PoseModel:1499`, `model_class_for:1610`,
+`guess_model_task:1624`) for the YOLOv8 module set (Conv, C2f, SPPF,
+nn.Upsample, Concat, Detect, Segment, Pose) and RT-DETR's (DWConv,
 HGStem, HGBlock, RepC3, AIFI, RTDETRDecoder; builders at `:85`, `:260-263`,
-`:441-447`). Any other module raises NotImplementedError naming it, and the
-detect heads of the v5 and v10 YAMLs name their ROADMAP queue item too.
+`:441-447`). Segment's args are [nc, nm, npr] with npr width-scaled, Pose's
+[nc, kpt_shape] with the YAML's top-level `kpt_shape` substituted, as the
+JAX package's `parse_model` reads them (`:206-212`, `:1179-1181`). Any other module raises
+NotImplementedError naming it, and the detect heads of the v5 and v10 YAMLs
+name their ROADMAP queue item too.
 
 In train mode (`model.train()`) a Detect model returns the head's raw
 per-level maps, NCHW, as the JAX head returns `{"feats": raw}` when
@@ -29,12 +33,13 @@ from torch import nn
 
 from ultralytics_pro_tpu_torch.nn.modules.block import SPPF, C2f, HGBlock, HGStem, RepC3
 from ultralytics_pro_tpu_torch.nn.modules.conv import Concat, Conv, DWConv
-from ultralytics_pro_tpu_torch.nn.modules.head import Detect, RTDETRDecoder
+from ultralytics_pro_tpu_torch.nn.modules.head import Detect, Pose, RTDETRDecoder, Segment
 from ultralytics_pro_tpu_torch.nn.modules.transformer import AIFI, MSDeformAttn, MultiheadAttention
 from ultralytics_pro_tpu_torch.utils import LOGGER, PKG_ROOT, miniyaml
 
 SCALED = {"Conv": Conv, "DWConv": DWConv, "C2f": C2f, "SPPF": SPPF, "RepC3": RepC3}  # c2 is width-scaled
-MODULES = (*SCALED, "HGStem", "HGBlock", "AIFI", "nn.Upsample", "Concat", "Detect", "RTDETRDecoder")
+HEADS = {"Detect": Detect, "Segment": Segment, "Pose": Pose}
+MODULES = (*SCALED, "HGStem", "HGBlock", "AIFI", "nn.Upsample", "Concat", *HEADS, "RTDETRDecoder")
 QUEUED = {  # heads of YAMLs the JAX package trains, and where the port takes them up
     "AnchorDetect": "ROADMAP.md queue 1 item 9 (the v5 YAMLs, with v5AnchorLoss)",
     "v10Detect": "ROADMAP.md queue 1 item 9 (v10, with E2EDetectLoss)",
@@ -81,7 +86,8 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
                     f"module '{m_name}' (layer {i}) is not implemented in ultralytics_pro_tpu_torch; "
                     f"implemented: {sorted(MODULES)}")
             n = max(round(n * depth), 1) if n > 1 else n
-            lit = {"None": None, "True": True, "False": False, "nc": nc}
+            lit = {"None": None, "True": True, "False": False, "nc": nc,
+                   "kpt_shape": list(d.get("kpt_shape", (17, 3)))}
             args = [lit.get(a, a) if isinstance(a, str) else a for a in args]
             c1 = chs[f] if isinstance(f, int) else None
             if m_name in SCALED:
@@ -104,9 +110,15 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
                 c2, m = c1, nn.Upsample
             elif m_name == "Concat":
                 c2, m = sum(chs[x] for x in f), Concat
-            elif m_name == "Detect":
-                c2, m = None, Detect
-                args = [args[0], [chs[x] for x in f]]
+            elif m_name in HEADS:
+                c2, m = None, HEADS[m_name]
+                extra = []
+                if m_name == "Segment":  # [nc, nm, npr], npr width-scaled
+                    npr = args[2] if len(args) > 2 else 256
+                    extra = [args[1] if len(args) > 1 else 32, make_divisible(min(npr, max_channels) * width, 8)]
+                elif m_name == "Pose":  # [nc, kpt_shape]
+                    extra = [tuple(args[1] if len(args) > 1 else (17, 3))]
+                args = [args[0], [chs[x] for x in f], *extra]
             else:  # RTDETRDecoder [nc, hd, nq, ndl], as the JAX builder reads them (tasks.py:195)
                 c2, m = None, RTDETRDecoder
                 args = [args[0], [chs[x] for x in f], *args[1:4]]
@@ -178,7 +190,8 @@ def guess_model_task(cfg) -> str:
 
 
 def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
-    """lecun-normal over the fan-in of weight[0], truncated at 2 sigma (flax's default)."""
+    """lecun-normal over the fan-in of weight[0], truncated at 2 sigma (flax's
+    default; for a transposed conv, weight[0] is one input channel's taps)."""
     std = math.sqrt(1.0 / weight[0].numel()) / 0.87962566103423978
     with torch.no_grad():
         w = torch.empty(weight.shape).normal_(generator=generator)
@@ -194,7 +207,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     zero, BatchNorm and LayerNorm at identity, embeddings normal(1.0); then
     MSDeformAttn's own offset and attention init."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.Linear)) and m.weight.requires_grad:
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) and m.weight.requires_grad:
             _lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
@@ -260,8 +273,9 @@ class BaseModel(nn.Module):
     def forward(self, x: torch.Tensor, decode: bool = True, aux: bool = True):
         """x (B, C, H, W) float. For a Detect model: (decoded (B, A, 4+nc), raw
         per-level maps), or the raw maps alone when decode=False or in train
-        mode. For an
-        RT-DETR model: (y (B, nq, 4+nc), aux), aux None when aux=False, see
+        mode; Segment and Pose models give their head's (y, dict), or the
+        dict alone (`Segment.forward`, `Pose.forward`). For an RT-DETR model:
+        (y (B, nq, 4+nc), aux), aux None when aux=False, see
         `RTDETRDecoder.forward`."""
         return self._run(x, decode=decode, aux=aux)
 
@@ -270,11 +284,19 @@ class DetectionModel(BaseModel):
     task = "detect"
 
 
-TASK2MODEL = {"detect": DetectionModel}
+class SegmentationModel(DetectionModel):
+    task = "segment"
+
+
+class PoseModel(DetectionModel):
+    task = "pose"
+
+
+TASK2MODEL = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel}
 
 
 def model_class_for(task: str):
-    """The model class for a task; only detection is ported."""
+    """The model class for a task: detect, segment and pose are ported."""
     if task not in TASK2MODEL:
         raise NotImplementedError(f"task '{task}' is not implemented in ultralytics_pro_tpu_torch; "
                                   f"implemented: {sorted(TASK2MODEL)}")

@@ -1,10 +1,14 @@
-"""Detection metrics: TP matching, the AP family, the confusion matrix.
+"""Detection, segment and pose metrics: TP matching, the AP family, the
+confusion matrix, mask IoU and keypoint OKS.
 
 A numpy copy of `ultralytics_pro_tpu/utils/metrics.py` (`box_iou_np:20`,
 `match_predictions:35`, `smooth:63`, `compute_ap:71`, `ap_per_class:81`,
-`Metric:130`, `DetMetrics:195`, `ConfusionMatrix:350`), which the port may
-not import. The Segment, Pose, OBB and Classify metrics and `plot_curves`
-are left for the slices that port those tasks and plots.
+`Metric:130`, `DetMetrics:195`, `SegmentMetrics:253`, `PoseMetrics:290`,
+`ConfusionMatrix:350`, `mask_iou_np:405`) and of
+`ultralytics_pro_tpu/ops/iou.py:kpt_iou:115`, which the port may not import.
+`kpt_iou` computes in the inputs' f32 as the JAX function does. The OBB and
+Classify metrics and `plot_curves` are left for the slices that port those
+tasks and plots.
 
 Metrics run on the host in numpy: the device hands over fixed-shape
 detections, and everything after is Python.
@@ -228,6 +232,87 @@ class DetMetrics:
     def results_dict(self):
         keys = ["metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)", "metrics/mAP50-95(B)"]
         return dict(zip(keys, self.mean_results())) | {"fitness": self.fitness}
+
+
+class SegmentMetrics(DetMetrics):
+    """Box and mask metrics."""
+
+    def __init__(self, names=None):
+        super().__init__(names)
+        self.seg = Metric()
+        self.seg_stats: Dict[str, List] = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
+
+    def update_stats(self, tp, conf, pred_cls, target_cls, tp_m=None):
+        super().update_stats(tp, conf, pred_cls, target_cls)
+        if tp_m is not None:
+            for k, v in zip(("tp", "conf", "pred_cls", "target_cls"), (tp_m, conf, pred_cls, target_cls)):
+                self.seg_stats[k].append(v)
+
+    def process(self):
+        super().process()
+        stats = {k: np.concatenate(v, 0) if v else np.zeros((0,)) for k, v in self.seg_stats.items()}
+        if len(stats.get("tp", [])) and stats["tp"].size:
+            self.seg.update(ap_per_class(stats["tp"], stats["conf"], stats["pred_cls"], stats["target_cls"]))
+        return self
+
+    @property
+    def fitness(self):
+        return self.box.fitness() + self.seg.fitness()
+
+    @property
+    def results_dict(self):
+        d = super().results_dict
+        keys = ["metrics/precision(M)", "metrics/recall(M)", "metrics/mAP50(M)", "metrics/mAP50-95(M)"]
+        d.update(dict(zip(keys, self.seg.mean_results())))
+        d["fitness"] = self.fitness
+        return d
+
+
+class PoseMetrics(DetMetrics):
+    """Box and keypoint (OKS) metrics. Its results_dict holds the box keys
+    only, as the JAX class's does; the pose numbers are on `.pose`."""
+
+    def __init__(self, names=None):
+        super().__init__(names)
+        self.pose = Metric()
+        self.pose_stats: Dict[str, List] = {"tp": [], "conf": [], "pred_cls": [], "target_cls": []}
+
+    def update_stats(self, tp, conf, pred_cls, target_cls, tp_p=None):
+        super().update_stats(tp, conf, pred_cls, target_cls)
+        if tp_p is not None:
+            for k, v in zip(("tp", "conf", "pred_cls", "target_cls"), (tp_p, conf, pred_cls, target_cls)):
+                self.pose_stats[k].append(v)
+
+    def process(self):
+        super().process()
+        stats = {k: np.concatenate(v, 0) if v else np.zeros((0,)) for k, v in self.pose_stats.items()}
+        if len(stats.get("tp", [])) and stats["tp"].size:
+            self.pose.update(ap_per_class(stats["tp"], stats["conf"], stats["pred_cls"], stats["target_cls"]))
+        return self
+
+    @property
+    def fitness(self):
+        return self.box.fitness() + self.pose.fitness()
+
+
+def mask_iou_np(mask1: np.ndarray, mask2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """Pairwise IoU of flattened binary masks: (N, HW) x (M, HW) -> (N, M)."""
+    inter = mask1 @ mask2.T
+    union = mask1.sum(-1)[:, None] + mask2.sum(-1)[None, :] - inter
+    return inter / (union + eps)
+
+
+def kpt_iou(kpt1: np.ndarray, kpt2: np.ndarray, area: np.ndarray, sigma, eps: float = 1e-7) -> np.ndarray:
+    """Object keypoint similarity: ground truth (N, K, 3), predictions (M, K, 2|3),
+    ground-truth areas (N,) -> (N, M): the mean of exp(-d^2 / (2 sigma)^2 /
+    (area + eps) / 2) over each ground truth's visible keypoints."""
+    f32 = np.float32
+    kpt1, kpt2, area = kpt1.astype(f32), kpt2.astype(f32), np.asarray(area, f32)
+    d = (kpt1[:, None, :, 0] - kpt2[None, :, :, 0]) ** 2 + (kpt1[:, None, :, 1] - kpt2[None, :, :, 1]) ** 2
+    sigma = np.asarray(sigma, f32)
+    kpt_mask = kpt1[..., 2] != 0
+    e = d / ((2 * sigma) ** 2) / (area[:, None, None] + f32(eps)) / 2
+    return (np.exp(-e) * kpt_mask[:, None, :]).sum(-1) / (kpt_mask.sum(-1)[:, None].astype(f32) + f32(eps))
 
 
 class ConfusionMatrix:

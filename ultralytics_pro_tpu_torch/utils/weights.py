@@ -11,6 +11,13 @@ HWIO conv kernels become OIHW, dense kernels are transposed, `scale` ->
 token `layers_N` is the model's layer `model.N`; a nested one (an MLP's
 `layers_0`) is `layers.0`.
 
+Segment's `proto.upsample` is a transposed conv. flax keeps its kernel as
+(kh, kw, out, in) under `transpose_kernel=True`, and the JAX package loads a
+torch `ConvTranspose2d` weight (in, out, kh, kw) through the same
+OIHW -> HWIO transpose as a conv (`torch_import.py:13-15`), so the one 4-D
+rule carries it both ways: HWIO's last axis becomes torch's first, which for
+this kernel is its input channels (`_to_torch_array`).
+
 RT-DETR adds two kinds of names:
 - flax attention (`ma/query|key|value|out`, kernels (C, nh, hd) and
   (nh, hd, C)) <-> `nn.MultiheadAttention`'s `in_proj_weight` (3C, C) and
@@ -126,7 +133,7 @@ def _to_torch_array(w: np.ndarray, leaf: str, attention_part: str = "") -> np.nd
     if attention_part in MHA_PARTS:
         return w.reshape(-1)  # bias (nh, hd) -> rows of in_proj_bias
     if leaf == "kernel" and w.ndim == 4:
-        return w.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        return w.transpose(3, 2, 0, 1)  # HWIO -> OIHW; a transposed conv's (kh, kw, out, in) -> (in, out, kh, kw)
     if leaf == "kernel" and w.ndim == 2:
         return w.transpose(1, 0)
     return w
