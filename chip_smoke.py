@@ -118,6 +118,30 @@ exits non-zero):
           sort and K1 from one profiled call, and K1 on one batch's captured
           rows (bit for bit, timed, bound) with the payload's gather equal to
           the plain path's
+  obb_fixture  accuracy of the OBB task on the card: the reference-trained
+          yolov8n-obb (val_parity_obb_model.npz, nc 3) through YOLO(...).val
+          on tests/fixtures/torch_val_synth_obb at 160 px, batch 8, conf
+          0.001, iou 0.7, on the card and on the CPU; fails if a box mAP50 or
+          mAP50-95 of the card is more than TASK_FIXTURE_TOL from the CPU's
+          or 0.005 from val_parity_obb_ref.json's; K1 is not launched, the
+          rotated NMS once a batch
+  obb     YOLO("yolov8s-obb.yaml") (nc 15, DOTA's), seeded weights, predict
+          on the 4 images at 1024 px (A = 21,504 anchors) with conf 1e-6, so
+          each image keeps 300 rboxes of K = 4096 candidates: 1-300 finite
+          rboxes an image with (n, 4, 2) corners; warm latency per image over
+          TASK_CALLS calls, the idle share and launches an image from one
+          profiled window, the rotated NMS's device ms and launches a call
+          from that window (the kernels launched inside its
+          record_function, category rotated_nms) and on one image's decoded
+          outputs alone, the device function's images/s at batch 16; card
+          against CPU on one image: decoded outputs within OBB_PARITY_TOL,
+          and the rotated NMS on the CPU's outputs keeping the same
+          candidates on both devices (rboxes, scores, cls, valid equal)
+  obb_val yolov8s-obb val at 1024 on the OBB set copied 8 times (128 images,
+          batch 16, conf 1e-6): images/s, idle share and launches from one
+          profiled call, the rotated NMS's device ms a batch there, and on
+          one batch's decoded outputs alone its device ms, launches and peak
+          memory
   kernels the per-kernel summary line
 The last line is {"ok": true, "device": {...}}.
 """
@@ -175,20 +199,31 @@ OPTIMIZER_KERNELS = ("multi_tensor_apply", "foreach")
 TRAIN_PARITY_TOL = {"loss": 1e-4, "params": 1e-4, "ema": 1e-4, "batch_stats": 1e-4, "momentum_buffer": 2e-3}
 TRAIN_PARITY_IMAGES = 8
 TRAIN_IMGSZ, TRAIN_BATCH, TRAIN_EPOCHS = 640, 16, 2
-TASK_FIXTURE_TOL = 1e-4  # card vs CPU, each mAP on the segment and pose fixture sets
+TASK_FIXTURE_TOL = 1e-4  # card vs CPU, each mAP on the segment, pose and obb fixture sets
 TASK_CALLS = 50  # timed warm predict calls of yolov8s-seg and yolov8s-pose
 TASK_PROFILED_CALLS = 5
 MASK_TOL, MASK_EDGE_SHARE = 1e-5, 1e-3  # mask step, card vs CPU: probabilities, and > 0.5 bits that flip
 # the other tasks: the reference-trained fixture model and set, the served
-# model, and the mAPs against the reference's keys
+# model, the mAPs against the reference's keys, and the K1 launches and
+# rotated-NMS calls of the fixture val (16 images, batch 8)
 TASKS = {
     "segment": dict(stem="val_parity_segment", fixture_yaml="yolov8n-seg.yaml", set="torch_val_synth_segment",
                     served="yolov8s-seg", maps=(("box.map50", "metrics/mAP50(B)"), ("box.map", "metrics/mAP50-95(B)"),
-                                                ("seg.map50", "metrics/mAP50(M)"), ("seg.map", "metrics/mAP50-95(M)"))),
+                                                ("seg.map50", "metrics/mAP50(M)"), ("seg.map", "metrics/mAP50-95(M)")),
+                    fixture_k1=2, fixture_rotated=0),
     "pose": dict(stem="val_parity_pose", fixture_yaml="yolov8n-pose.yaml", set="torch_val_synth_pose",
                  served="yolov8s-pose", maps=(("box.map50", "metrics/mAP50(B)"), ("box.map", "metrics/mAP50-95(B)"),
-                                              ("pose.map50", "metrics/mAP50(P)"), ("pose.map", "metrics/mAP50-95(P)"))),
+                                              ("pose.map50", "metrics/mAP50(P)"), ("pose.map", "metrics/mAP50-95(P)")),
+                 fixture_k1=2, fixture_rotated=0),
+    "obb": dict(stem="val_parity_obb", fixture_yaml="yolov8n-obb.yaml", set="torch_val_synth_obb",
+                served="yolov8s-obb", maps=(("box.map50", "metrics/mAP50(B)"), ("box.map", "metrics/mAP50-95(B)")),
+                fixture_k1=0, fixture_rotated=2),
 }
+OBB_IMGSZ = 1024  # yolov8s-obb's DOTAv1 size: A = 21,504 anchors, K = 4096 candidates an image
+OBB_MAX_NMS = 4096
+# card vs CPU, yolov8s-obb's decoded outputs on one image at 1024 px
+OBB_PARITY_TOL = {"xywh_px": 2e-3, "scores": 1e-4, "angle_rad": 1e-4}
+ROTATED_NMS_SCOPE = "nms_rotated"  # ops/nms.py's record_function around non_max_suppression_rotated
 
 
 def emit(phase: str, **fields) -> None:
@@ -228,8 +263,13 @@ def seeded_images():
     return [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in IMAGE_SHAPES]
 
 
-def category(name: str) -> str:
-    """Coarse kernel class (CONV_KERNELS and MATMUL_KERNELS say how)."""
+def category(name: str, scope: str | None = None) -> str:
+    """Coarse kernel class (CONV_KERNELS and MATMUL_KERNELS say how). A
+    kernel that an op inside the rotated NMS's record_function launched
+    (scope ROTATED_NMS_SCOPE, see scoped_kernels) is rotated_nms: plain
+    PyTorch, its kernels have no names of their own."""
+    if scope == ROTATED_NMS_SCOPE:
+        return "rotated_nms"
     n = name.lower()
     if "greedy_nms" in n:
         return "k1_greedy_nms"
@@ -254,13 +294,37 @@ def category(name: str) -> str:
     return "other_elementwise_reduce"
 
 
-def profile_window(fn, reps: int, warmup: int = 2, ops=(), top: int = 12) -> dict:
+def scoped_kernels(prof, scope: str) -> dict:
+    """{category: [device ms, launches]} of the kernels launched by ops that
+    ran inside record_function(scope), over the whole trace: each CPU op's
+    kernels as the profiler links them, the op kept when scope is among its
+    ancestors."""
+    out = {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CPU or not getattr(ev, "kernels", None):
+            continue
+        p = ev
+        while p is not None and p.name != scope:
+            p = p.cpu_parent
+        if p is None:
+            continue
+        for k in ev.kernels:
+            acc = out.setdefault(category(k.name), [0.0, 0])
+            acc[0] += k.duration / 1e3
+            acc[1] += 1
+    return out
+
+
+def profile_window(fn, reps: int, warmup: int = 2, ops=(), top: int = 12, scope: str | None = None) -> dict:
     """Trace reps warm calls of fn with torch.profiler. Device busy ms per call
     is the sum of the kernels' device times (one stream, so they do not
     overlap); the profiler adds host time, so the window's own wall time and
     idle share read high. device_busy_ms_per_call is None if the trace holds
     no device time. For each torch op named in ops (e.g. "aten::sort"), the
-    device time of the kernels it launched and its calls, per call of fn."""
+    device time of the kernels it launched and its calls, per call of fn.
+    With scope, the kernels launched inside record_function(scope) move from
+    their own categories to category(_, scope), and 'scope' holds their
+    device ms and launches per call of fn."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
@@ -278,13 +342,28 @@ def profile_window(fn, reps: int, warmup: int = 2, ops=(), top: int = 12) -> dic
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+        if dev_us <= 0 or ev.device_type != torch.autograd.DeviceType.CUDA or ev.key == scope:
+            continue  # (a range's own device-side span is no kernel)
         cat = category(ev.key)
         by_cat[cat] = by_cat.get(cat, 0.0) + dev_us / 1e3 / reps
         kernels.append((dev_us / 1e3 / reps, ev.count / reps, ev.key[:90]))
         if "compare_scalar" in ev.key:
             compares += ev.count / reps
+    scoped = None
+    if scope:
+        inside = scoped_kernels(prof, scope)
+        scoped = {"name": scope, "device_ms_per_call": None, "launches_per_call": 0}  # none linked
+    if scope and inside:
+        for cat, (ms, _) in inside.items():
+            left = by_cat.get(cat, 0.0) - ms / reps
+            if left > 1e-9:
+                by_cat[cat] = left
+            else:  # every kernel of the class ran inside the scope
+                by_cat.pop(cat, None)
+        by_cat[category("", scope)] = sum(ms for ms, _ in inside.values()) / reps
+        scoped = {"name": scope, "device_ms_per_call": by_cat[category("", scope)],
+                  "launches_per_call": sum(n for _, n in inside.values()) / reps,
+                  "device_ms_by_category": {c: ms / reps for c, (ms, _) in inside.items()}}
     busy = sum(by_cat.values()) or None
     kernels.sort(reverse=True)
     op_times = {}
@@ -299,7 +378,7 @@ def profile_window(fn, reps: int, warmup: int = 2, ops=(), top: int = 12) -> dic
             "profiled_idle_share": None if busy is None else max(0.0, 1 - busy / wall_ms),
             "device_ms_by_category": by_cat,
             "kernel_launches_per_call": sum(k[1] for k in kernels),
-            "compare_scalar_launches_per_call": compares,
+            "compare_scalar_launches_per_call": compares, "scope": scoped,
             "top_kernels": [{"ms": k[0], "per_call": k[1], "name": k[2]} for k in kernels[:top]]}
 
 
@@ -435,6 +514,32 @@ def capture_k1(ops_nms):
         yield cap
     finally:
         ops_nms.greedy_nms, ops_nms._suppress_and_gather = greedy_nms, gather
+
+
+@contextlib.contextmanager
+def capture_rotated(*modules):
+    """Counts the calls of `non_max_suppression_rotated` that the given
+    modules (the predictor's, the validator's) make inside the block, and
+    records the first call's inputs: yields a dict with 'calls' and, once a
+    call has been made, 'args' (rboxes, scores) and 'kwargs'."""
+    cap = {"calls": 0}
+    fns = [m.non_max_suppression_rotated for m in modules]
+
+    def counted(fn):
+        def nms(rboxes, scores, **kw):
+            cap["calls"] += 1
+            if "args" not in cap:
+                cap["args"], cap["kwargs"] = (rboxes.clone(), scores.clone()), kw
+            return fn(rboxes, scores, **kw)
+        return nms
+
+    for m, fn in zip(modules, fns):
+        m.non_max_suppression_rotated = counted(fn)
+    try:
+        yield cap
+    finally:
+        for m, fn in zip(modules, fns):
+            m.non_max_suppression_rotated = fn
 
 
 def gather_mismatch(ops_nms, nms_cuda, cap) -> int:
@@ -801,9 +906,9 @@ def val_fixture(YOLO, yaml_model_load, nms_cuda, tmp: Path, card: str, smi: str)
                 card_minus_cpu=card_minus_cpu, tolerance=VAL_FIXTURE_TOL, card=card, nvidia_smi=smi)
 
 
-def val_set_640(root: Path, src: str = "torch_val_synth") -> Path:
+def val_set_640(root: Path, src: str = "torch_val_synth", nc: int = 80) -> Path:
     """The val phases' data: a fixture set's images and labels VAL_COPIES
-    times under new names (labels' classes 0-2 of 80 names)."""
+    times under new names (labels' classes 0-2 of nc names)."""
     src = FIXTURES / src
     for sub in ("images", "labels"):
         (root / sub / "val").mkdir(parents=True)
@@ -811,7 +916,7 @@ def val_set_640(root: Path, src: str = "torch_val_synth") -> Path:
         for png in sorted((src / "images" / "val").glob("*.png")):
             shutil.copy(png, root / "images" / "val" / f"copy{c}_{png.name}")
             shutil.copy(src / "labels" / "val" / f"{png.stem}.txt", root / "labels" / "val" / f"copy{c}_{png.stem}.txt")
-    names = "".join(f"  {i}: class{i}\n" for i in range(80))
+    names = "".join(f"  {i}: class{i}\n" for i in range(nc))
     (root / "data.yaml").write_text("val: images/val\nnames:\n" + names)
     return root / "data.yaml"
 
@@ -1122,7 +1227,10 @@ def metric(m, attr: str) -> float:
 def task_fixture(YOLO, yaml_model_load, nms_cuda, task: str, tmp: Path, card: str, smi: str) -> dict:
     """The reference-trained fixture model of a task on its committed set, on
     the card and on the CPU; raises beyond TASK_FIXTURE_TOL (card vs CPU) or
-    VAL_FIXTURE_TOL (card vs the reference)."""
+    VAL_FIXTURE_TOL (card vs the reference), or when the card's val does not
+    launch K1 or call the rotated NMS as often as the task's spec says."""
+    from ultralytics_pro_tpu_torch.engine import validator as eng_val
+
     spec = TASKS[task]
     ref = json.loads((FIXTURES / f"{spec['stem']}_ref.json").read_text())
     data = shutil.copytree(FIXTURES / spec["set"], tmp / f"{task}_fixture_set") / "data.yaml"
@@ -1133,9 +1241,10 @@ def task_fixture(YOLO, yaml_model_load, nms_cuda, task: str, tmp: Path, card: st
         model = parity_yolov8n(YOLO, yaml_model_load, ref, device, spec["stem"], spec["fixture_yaml"])
         nms_cuda.launches = 0
         t0 = time.perf_counter()
-        m = model.val(data=str(data), **kw)
+        with capture_rotated(eng_val) as rot:
+            m = model.val(data=str(data), **kw)
         runs[device] = {**{a: metric(m, a) for a, _ in spec["maps"]}, "seconds": time.perf_counter() - t0,
-                        "k1_launches": nms_cuda.launches}
+                        "k1_launches": nms_cuda.launches, "rotated_nms_calls": rot["calls"]}
     want = {a: ref["results"][key] for a, key in spec["maps"]}
     card_minus_cpu = {a: runs["cuda"][a] - runs["cpu"][a] for a in want}
     card_minus_ref = {a: runs["cuda"][a] - want[a] for a in want}
@@ -1144,8 +1253,10 @@ def task_fixture(YOLO, yaml_model_load, nms_cuda, task: str, tmp: Path, card: st
     if bad:
         raise AssertionError(f"{task} fixture mAPs (card - CPU, card - reference) beyond "
                              f"({TASK_FIXTURE_TOL}, {VAL_FIXTURE_TOL}): {bad}")
-    if runs["cuda"]["k1_launches"] != 2:
-        raise AssertionError(f"K1 launched {runs['cuda']['k1_launches']} times for 2 batches")
+    counts = (runs["cuda"]["k1_launches"], runs["cuda"]["rotated_nms_calls"])
+    if counts != (spec["fixture_k1"], spec["fixture_rotated"]):
+        raise AssertionError(f"{task}: K1 launched and the rotated NMS called {counts} times for 2 batches, "
+                             f"want {(spec['fixture_k1'], spec['fixture_rotated'])}")
     return dict(model=f"{spec['fixture_yaml']} ({spec['stem']}_model.npz)", data=f"tests/fixtures/{spec['set']}",
                 val_args=kw, card_run=runs["cuda"], cpu_run=runs["cpu"], reference=want,
                 card_minus_cpu=card_minus_cpu, card_minus_reference=card_minus_ref,
@@ -1259,6 +1370,171 @@ def task_predict(YOLO, nms_cuda, ops_nms, task: str, card: str, smi: str) -> dic
     return info
 
 
+def check_obb_results(results) -> list:
+    """Each image's oriented boxes finite and in number 1-300, with (n, 4, 2)
+    corners; returns the counts."""
+    dets = []
+    for r in results:
+        n = len(r.obb) if r.obb is not None else 0
+        if not 0 < n <= 300 or not np.isfinite(r.obb.data).all() or r.obb.xyxyxyxy.shape != (n, 4, 2):
+            raise AssertionError(f"obb: {n} rboxes, finite {np.isfinite(r.obb.data).all() if n else None}")
+        dets.append(n)
+    return dets
+
+
+def obb_decoded(model, img_u8):
+    """yolov8s-obb's decoded rows of a letterboxed uint8 batch, as the
+    predictor's and validator's run split them: (rboxes (B, A, 5), scores (B, A, nc))."""
+    from ultralytics_pro_tpu_torch.engine.predictor import rgb01
+    from ultralytics_pro_tpu_torch.utils import full_f32
+
+    nc = model.model.nc
+    with torch.no_grad(), full_f32():
+        y, _ = model.model(rgb01(img_u8))
+    return torch.cat([y[..., :4], y[..., 4 + nc:5 + nc]], -1), y[..., 4:4 + nc]
+
+
+def rotated_nms_alone(ops_nms, rboxes, scores, iou: float) -> dict:
+    """The rotated NMS on one set of decoded rows, alone: device ms by CUDA
+    events (the launches queued behind a sleep kernel), busy ms and launches
+    from a profiled window, and peak memory above what was allocated before."""
+    kw = dict(conf_thres=CONF, iou_thres=iou, max_det=300, max_nms=OBB_MAX_NMS)
+    fn = lambda: ops_nms.non_max_suppression_rotated(rboxes, scores, **kw)  # noqa: E731
+    ms = cuda_ms(fn, iters=3)
+    prof = profile_window(fn, reps=3, scope=ROTATED_NMS_SCOPE)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return {"B": rboxes.shape[0], "A": rboxes.shape[1], "K": min(OBB_MAX_NMS, rboxes.shape[1]),
+            "kept": out["valid"].sum(1).tolist(), "cuda_event_ms": ms,
+            "device_busy_ms": prof["device_busy_ms_per_call"], "launches": prof["kernel_launches_per_call"],
+            "device_ms_by_category": prof["scope"] and prof["scope"].get("device_ms_by_category"),
+            "peak_memory_bytes": peak, "top_kernels": prof["top_kernels"][:6]}
+
+
+def obb_parity(YOLO, ops_nms, model, img_u8) -> dict:
+    """One image's decoded outputs on the card and on the CPU (same weights):
+    largest differences of xywh, scores and angle, within OBB_PARITY_TOL; and
+    the rotated NMS on the CPU's outputs on both devices: the same
+    candidates kept (rboxes, scores, cls and valid equal)."""
+    cpu = YOLO(model.model.yaml, device="cpu")
+    cpu.model.load_state_dict({k: v.cpu() for k, v in model.model.state_dict().items()})
+    nc = model.model.nc
+    rb_c, sc_c = obb_decoded(model, img_u8)
+    rb_h, sc_h = obb_decoded(cpu, img_u8.cpu())
+    diff = {"xywh_px": float((rb_c[..., :4].cpu() - rb_h[..., :4]).abs().max()),
+            "scores": float((sc_c.cpu() - sc_h).abs().max()),
+            "angle_rad": float((rb_c[..., 4].cpu() - rb_h[..., 4]).abs().max())}
+    bad = {k: v for k, v in diff.items() if not v <= OBB_PARITY_TOL[k]}
+    kw = dict(conf_thres=CONF, iou_thres=0.7, max_det=300, max_nms=OBB_MAX_NMS)
+    on_card = ops_nms.non_max_suppression_rotated(rb_h.cuda(), sc_h.cuda(), **kw)
+    on_cpu = ops_nms.non_max_suppression_rotated(rb_h, sc_h, **kw)
+    differ = {k: int((on_card[k].cpu() != on_cpu[k]).sum()) for k in on_cpu}
+    if bad or any(differ.values()):
+        raise AssertionError(f"obb card vs CPU: decoded outputs beyond {OBB_PARITY_TOL}: {bad}; "
+                             f"NMS entries that differ: {differ}")
+    return {"nc": nc, "max_abs_diff": diff, "tolerance": OBB_PARITY_TOL, "nms_entries_that_differ": differ,
+            "kept": int(on_cpu["valid"].sum())}
+
+
+def obb_predict(YOLO, nms_cuda, ops_nms, card: str, smi: str) -> dict:
+    """yolov8s-obb predict at 1024 on the 4 seeded images (phase obb)."""
+    from ultralytics_pro_tpu_torch.engine import predictor as eng_pred
+
+    imgs = seeded_images()
+    kw = dict(imgsz=OBB_IMGSZ, conf=CONF)
+    model = YOLO("yolov8s-obb.yaml", device="cuda", seed=0)
+    n_params = sum(p.numel() for p in model.model.parameters())
+    model.predict(imgs[:1], **kw)  # first call: cuDNN and allocator set-up
+    torch.cuda.synchronize()
+
+    nms_cuda.launches = 0
+    with capture_rotated(eng_pred) as rot:
+        results = model.predict(imgs, **kw)
+    torch.cuda.synchronize()
+    rb0, sc0 = rot["args"]
+    if nms_cuda.launches or rot["calls"] != len(imgs) or rb0.shape[1] < OBB_MAX_NMS:
+        raise AssertionError(f"obb predict: K1 launched {nms_cuda.launches} times, the rotated NMS called "
+                             f"{rot['calls']} times on {tuple(rb0.shape)} rows, for {len(imgs)} images")
+    dets = check_obb_results(results)
+
+    per_image = []
+    for _ in range(TASK_CALLS):
+        t0 = time.perf_counter()
+        model.predict(imgs, **kw)
+        per_image.append((time.perf_counter() - t0) * 1e3 / len(imgs))
+    q = np.percentile(per_image, [0, 10, 50, 90, 100])
+    prof = profile_window(lambda: model.predict(imgs, **kw), TASK_PROFILED_CALLS, scope=ROTATED_NMS_SCOPE)
+    call_ms = q[2] * len(imgs)
+    busy = prof["device_busy_ms_per_call"]
+    nms_ms = prof["scope"]["device_ms_per_call"]
+
+    pred = model.predictor
+    batch = pred.preprocess(imgs)
+    ms16 = cuda_ms(lambda: pred.run(batch.repeat(4, 1, 1, 1)), iters=3)
+    return dict(model="yolov8s-obb", parameters=n_params, nc=model.model.nc, imgsz=OBB_IMGSZ,
+                anchors=int(rb0.shape[1]), max_nms=OBB_MAX_NMS, images=[list(sh) for sh in IMAGE_SHAPES], conf=CONF,
+                k1_launches=nms_cuda.launches, rotated_nms_calls=rot["calls"], rboxes=dets,
+                predict_calls=TASK_CALLS,
+                predict_ms_per_image={"median": q[2], "p10": q[1], "p90": q[3], "min": q[0], "max": q[4]},
+                predict_median_ms_per_call=call_ms,
+                device_idle_share=None if busy is None else max(0.0, 1 - busy / call_ms),
+                kernel_launches_per_image=prof["kernel_launches_per_call"] / len(imgs),
+                rotated_nms_profiled_ms_per_call=None if nms_ms is None else nms_ms / len(imgs),
+                rotated_nms_profiled_launches_per_call=prof["scope"]["launches_per_call"] / len(imgs),
+                rotated_nms_share_of_busy=None if nms_ms is None or not busy else nms_ms / busy,
+                rotated_nms_alone_one_image=rotated_nms_alone(ops_nms, rb0, sc0, pred.iou),
+                predict_profile=prof, device_fn_batch16_ms=ms16, device_fn_batch16_images_per_s=16 * 1e3 / ms16,
+                card_vs_cpu_one_image=obb_parity(YOLO, ops_nms, model, batch[:1]), card=card, nvidia_smi=smi)
+
+
+def obb_val(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
+    """yolov8s-obb val at 1024 on 128 images of the OBB set (phase obb_val)."""
+    from ultralytics_pro_tpu_torch.engine import validator as eng_val
+
+    data = val_set_640(tmp / "obb_1024", "torch_val_synth_obb", nc=15)
+    kw = dict(data=str(data), imgsz=OBB_IMGSZ, batch=VAL_BATCH, conf=CONF, iou=0.7, max_det=300)
+    model = YOLO("yolov8s-obb.yaml", device="cuda", seed=0)
+    with capture_rotated(eng_val) as rot:  # warm-up call: cuDNN, allocator, and one batch's rows
+        model.val(**kw)
+    rb, sc = rot["args"]
+    if tuple(rb.shape[:2]) != (VAL_BATCH, 21504):
+        raise AssertionError(f"rotated NMS rows {tuple(rb.shape)}, want ({VAL_BATCH}, 21504, 5)")
+
+    n_images, n_batches = VAL_COPIES * 16, VAL_COPIES * 16 // VAL_BATCH
+    nms_cuda.launches = 0
+    with capture_rotated(eng_val) as rot:
+        t0 = time.perf_counter()
+        metrics = model.val(**kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    confs = metrics.stats["conf"]
+    kept = [len(c) for c in confs]
+    if nms_cuda.launches or rot["calls"] != n_batches or len(confs) != n_images or any(
+            not 0 < len(c) <= 300 or not np.isfinite(c).all() or c.min() <= CONF for c in confs):
+        raise AssertionError(f"obb val: K1 launched {nms_cuda.launches} times, the rotated NMS called {rot['calls']} "
+                             f"times for {n_batches} batches; kept {kept} for {n_images} images")
+    prof = profile_window(lambda: model.val(**kw), reps=1, warmup=0, scope=ROTATED_NMS_SCOPE)
+    busy = prof["device_busy_ms_per_call"]
+    nms_ms = prof["scope"]["device_ms_per_call"]
+    return dict(model="yolov8s-obb", nc=15, imgsz=OBB_IMGSZ, images=n_images, batch=VAL_BATCH, conf=CONF, iou=0.7,
+                max_det=300, k1_launches=nms_cuda.launches, rotated_nms_calls=rot["calls"],
+                kept_per_image={"min": min(kept), "median": float(np.median(kept)), "max": max(kept)},
+                val_seconds=wall, images_per_s=n_images / wall,
+                ms_per_image={k: v * 1e3 / n_images for k, v in metrics.speed.items()},
+                map50=float(metrics.box.map50), device_busy_ms=busy,
+                device_idle_share=None if busy is None else max(0.0, 1 - busy / (wall * 1e3)),
+                kernel_launches=prof["kernel_launches_per_call"],
+                rotated_nms_profiled_ms_per_batch=None if nms_ms is None else nms_ms / n_batches,
+                rotated_nms_profiled_launches_per_batch=prof["scope"]["launches_per_call"] / n_batches,
+                rotated_nms_share_of_busy=None if nms_ms is None or not busy else nms_ms / busy,
+                rotated_nms_alone_one_batch=rotated_nms_alone(ops_nms, rb, sc, 0.7),
+                val_profile=prof, card=card, nvidia_smi=smi)
+
+
 def tf32_seen(model, call) -> dict:
     """torch's TF32 flags (cudnn, cuda matmul) as found, inside model's forward
     during call(), and after it."""
@@ -1356,7 +1632,7 @@ def main() -> int:
     emit("val_k1", **vk1, seconds=time.perf_counter() - t)
 
     with tempfile.TemporaryDirectory() as tmp:
-        for task, phase in (("segment", "seg_fixture"), ("pose", "pose_fixture")):
+        for task, phase in (("segment", "seg_fixture"), ("pose", "pose_fixture"), ("obb", "obb_fixture")):
             t = time.perf_counter()
             info = task_fixture(YOLO, yaml_model_load, nms_cuda, task, Path(tmp), card, smi)
             emit(phase, **info, seconds=time.perf_counter() - t)
@@ -1370,6 +1646,13 @@ def main() -> int:
         seg_val, cap = val_path(YOLO, nms_cuda, ops_nms, Path(tmp), card, smi, "yolov8s-seg", "torch_val_synth_segment")
         seg_val["k1_on_batch_rows"] = captured_k1(ops_nms, nms_cuda, cap, card, smi)
         emit("seg_val", **seg_val, seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    info = obb_predict(YOLO, nms_cuda, ops_nms, card, smi)
+    emit("obb", **info, seconds=time.perf_counter() - t)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        info = obb_val(YOLO, nms_cuda, ops_nms, Path(tmp), card, smi)
+        emit("obb_val", **info, seconds=time.perf_counter() - t)
 
     with tempfile.TemporaryDirectory() as tmp:
         t = time.perf_counter()

@@ -1,7 +1,8 @@
 """The port on a CUDA card: kernels K1 and K2 against their plain versions,
 predict (yolov8n, and rtdetr-l through K2) in full f32, detect, segment and
-pose val on the committed fixture sets against val on the CPU, and K1 on
-segment and pose rows with their payload.
+pose val on the committed fixture sets against val on the CPU, K1 on
+segment and pose rows with their payload, and the OBB task's rotated NMS
+(plain PyTorch) on the card against the CPU.
 
 These tests need a card and nvcc, and import neither JAX nor the JAX package
 nor `tests/conftest.py` (which imports JAX), so they run on a machine that has
@@ -303,3 +304,33 @@ def test_task_val_on_card_matches_cpu_and_k1_carries_the_payload(tf32_on, tmp_pa
             assert cap["gather_out"]["extra"].shape[-1] == (32 if task == "segment" else 15)
             assert gather_mismatch(ops_nms, nms_cuda, cap) == 0
     assert np.abs(np.subtract(maps["cuda"], maps["cpu"])).max() <= TASK_FIXTURE_TOL, maps
+
+
+def rotated_nms_rows(seed, b=2, a=5000, nc=15):
+    """Seeded (B, A, 5) xywhr boxes in clusters, so that suppression happens,
+    and (B, A, nc) scores: K = 4096 candidates a row at conf 0.25."""
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(0, 1000, (b, a // 6, 2))
+    pick = rng.integers(0, centres.shape[1], (b, a))
+    xy = np.take_along_axis(centres, pick[..., None], 1) + rng.normal(0, 8, (b, a, 2))
+    wh = rng.uniform(8, 80, (b, a, 2))
+    ang = rng.uniform(-np.pi / 4, 3 * np.pi / 4, (b, a, 1))
+    rb = np.concatenate([xy, wh, ang], -1).astype(np.float32)
+    return rb, rng.uniform(0, 1, (b, a, nc)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("agnostic", [False, True], ids=["per_class", "agnostic"])
+def test_rotated_nms_on_card_keeps_what_the_cpu_keeps(card, agnostic):
+    """non_max_suppression_rotated at K = 4096 on the card and on the CPU: the
+    same candidates kept (their rboxes gathered bit for bit), valid flags,
+    cls and scores equal."""
+    from ultralytics_pro_tpu_torch.ops.nms import non_max_suppression_rotated
+
+    rb, scores = rotated_nms_rows(0)
+    kw = dict(conf_thres=0.25, iou_thres=0.45, max_det=300, agnostic=agnostic)
+    got = non_max_suppression_rotated(torch.from_numpy(rb).cuda(), torch.from_numpy(scores).cuda(), **kw)
+    want = non_max_suppression_rotated(torch.from_numpy(rb), torch.from_numpy(scores), **kw)
+    assert int(want["valid"].sum()) > 300
+    for k in ("valid", "cls", "scores", "rboxes"):
+        assert torch.equal(got[k].cpu(), want[k]), k

@@ -2,8 +2,9 @@
 
 In a subprocess whose `sys.meta_path` refuses jax, flax, yaml, cv2 and
 ultralytics_pro_tpu, every module of ultralytics_pro_tpu_torch and
-chip_smoke.py must import, a short training run goes through, and segment
-val (polygon fill and mask shrink included) and pose predict run; with PIL
+chip_smoke.py must import, a short training run goes through, segment val
+(polygon fill and mask shrink included) and pose predict run, and obb val
+(minAreaRect, the rotated NMS, probiou matching) and predict run; with PIL
 refused as well, they import and `imread` still reads a PNG, equal to cv2's
 reading. An AST scan of the same
 files must find no import of the first names.
@@ -115,6 +116,28 @@ def test_port_serves_segment_and_pose_with_jax_yaml_cv2_blocked(tmp_path):
     out = subprocess.run([sys.executable, "-c", _blocker(BLOCKED + ("PIL",), then)], capture_output=True,
                          text=True, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
+
+
+def test_port_serves_obb_with_jax_yaml_cv2_blocked(tmp_path):
+    """OBB val on its fixture set (labels through min_area_rect, the rotated
+    letterbox and collate, the rotated NMS, probiou matching, DOTA files) and
+    predict run in the blocking process, with PIL refused too."""
+    import shutil
+
+    data = shutil.copytree(REPO / "tests" / "fixtures" / "torch_val_synth_obb", tmp_path / "obb")
+    then = ("import numpy as np\n"
+            "from ultralytics_pro_tpu_torch import YOLO\n"
+            "import ultralytics_pro_tpu_torch.data.geometry\n"
+            f"m = YOLO('yolov8n-obb.yaml', device='cpu').val(data={str(data / 'data.yaml')!r}, imgsz=64, batch=8, "
+            f"conf=1e-6, save_json=True, save_dir={str(tmp_path)!r})\n"
+            "assert m.box.map50 >= 0\n"
+            "img = np.zeros((48, 64, 3), np.uint8)\n"
+            "r = YOLO('yolov8n-obb.yaml', device='cpu').predict([img], imgsz=64, conf=1e-6)[0]\n"
+            "assert r.obb.xyxyxyxy.shape[1:] == (4, 2)")
+    out = subprocess.run([sys.executable, "-c", _blocker(BLOCKED + ("PIL",), then)], capture_output=True,
+                         text=True, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert len(list((tmp_path / "predictions_dota").glob("Task1_*.txt"))) > 0
 
 
 def test_no_blocked_import_in_sources():

@@ -377,7 +377,7 @@ def test_loader_pads_the_last_batch_in_order(fixture_copy):
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(rect=True), "rect"), (dict(augment=True), "augment"), (dict(cache="ram"), "cache"),
-    (dict(task="obb"), "obb"), (dict(task="classify"), "classify"), (dict(data={"channels": 1}), "channels"),
+    (dict(task="classify"), "classify"), (dict(data={"channels": 1}), "channels"),
 ])
 def test_dataset_refuses_what_it_does_not_port(fixture_copy, kwargs, match):
     with pytest.raises(NotImplementedError, match=match):

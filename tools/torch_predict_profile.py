@@ -1,6 +1,9 @@
 """Where the port's predict time goes on one CUDA card.
 
-    python3 tools/torch_predict_profile.py [--model yolov8s|yolov8s-seg|yolov8s-pose|rtdetr-l] [--reps 5]
+    python3 tools/torch_predict_profile.py [--model yolov8s|yolov8s-seg|yolov8s-pose|yolov8s-obb|rtdetr-l]
+                                           [--imgsz 640] [--reps 5]
+
+(yolov8s-obb at its DOTAv1 size: --model yolov8s-obb --imgsz 1024)
 
 Runs YOLO("<model>.yaml", device="cuda") or RTDETR("rtdetr-l.yaml",
 device="cuda") (seeded random weights, in the predictors' full f32 with TF32
@@ -13,7 +16,9 @@ the copy of the masks to the host). Each is traced with torch.profiler over
 `--reps` warm repetitions. Prints one JSON line per workload: wall ms per
 call, device busy ms (sum of kernel times on the one stream), idle share and
 kernel launches, device ms by category (chip_smoke.category: convolution,
-matmul, batchnorm, layernorm, K1, K2, sort, memcpy, other) and the top
+matmul, batchnorm, layernorm, K1, K2, the rotated NMS's kernels, sort,
+memcpy, other; for yolov8s-obb also the rotated NMS's ms and launches as
+'scope') and the top
 kernels by device time. The profiler adds host time, so wall ms and idle
 share read high here; chip_smoke.py's phases `main` and `rtdetr` set the busy
 time against unprofiled wall times.
@@ -30,12 +35,14 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import CONF, nvidia_smi, profile_window, seeded_images  # noqa: E402
+from chip_smoke import CONF, ROTATED_NMS_SCOPE, nvidia_smi, profile_window, seeded_images  # noqa: E402
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("yolov8s", "yolov8s-seg", "yolov8s-pose", "rtdetr-l"), default="yolov8s")
+    ap.add_argument("--model", choices=("yolov8s", "yolov8s-seg", "yolov8s-pose", "yolov8s-obb", "rtdetr-l"),
+                    default="yolov8s")
+    ap.add_argument("--imgsz", type=int, default=640)
     ap.add_argument("--reps", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -46,9 +53,9 @@ def main() -> int:
     smi = nvidia_smi()
     imgs = seeded_images()
     if args.model == "rtdetr-l":
-        model, kw = RTDETR("rtdetr-l.yaml", device="cuda", seed=0), {}
+        model, kw = RTDETR("rtdetr-l.yaml", device="cuda", seed=0), {"imgsz": args.imgsz}
     else:
-        model, kw = YOLO(f"{args.model}.yaml", device="cuda", seed=0), {"conf": CONF}
+        model, kw = YOLO(f"{args.model}.yaml", device="cuda", seed=0), {"conf": CONF, "imgsz": args.imgsz}
     model.predict(imgs, **kw)
     pred = model.predictor
     batch = pred.preprocess(imgs)
@@ -63,7 +70,8 @@ def main() -> int:
         workloads.append(("postprocess_4_images", lambda: [pred.postprocess(o, shape, [im], ["x"])
                                                            for o, im in zip(outs, imgs)]))
     for name, fn in workloads:
-        print(json.dumps({"model": args.model, "workload": name, "card": smi, **profile_window(fn, args.reps)}),
+        prof = profile_window(fn, args.reps, scope=ROTATED_NMS_SCOPE if args.model.endswith("obb") else None)
+        print(json.dumps({"model": args.model, "imgsz": args.imgsz, "workload": name, "card": smi, **prof}),
               flush=True)
     return 0
 

@@ -1,5 +1,6 @@
-"""Data of the port: image reading, transforms, polygon rasterising, the detect,
-segment and pose datasets and the loader."""
+"""Data of the port: image reading, transforms, polygon rasterising, the
+minimum-area rectangle of OBB labels, the detect, segment, pose and obb
+datasets and the loader."""
 
 from ultralytics_pro_tpu_torch.data.augment import Compose, LetterBox, resize_area, resize_bilinear
 from ultralytics_pro_tpu_torch.data.build import DataLoader, collate_detect

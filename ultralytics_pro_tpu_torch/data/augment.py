@@ -17,8 +17,9 @@ Counterparts of `ultralytics_pro_tpu/data/augment.py` (`LetterBox:27`,
 `LetterBox` pads centred with the rounding of `augment.py:48-71`. Called on
 an image it returns the letterboxed HWC uint8 tensor (the predictor's form);
 called on a label dict it letterboxes `img` (a numpy array), shifts and
-scales `bboxes` (pixel xyxy), `keypoints` (invisible ones stay at 0) and
-`segments`, and composes `ratio_pad`, as `:88-117` does.
+scales `bboxes` (pixel xyxy, or rotated xywhr: all four of cx, cy, w, h
+scaled, the centre alone shifted), `keypoints` (invisible ones stay at 0)
+and `segments`, and composes `ratio_pad`, as `:88-117` does.
 """
 
 from __future__ import annotations
@@ -118,8 +119,8 @@ class LetterBox:
         return self._pad(img, pads)
 
     def letterbox_labels(self, labels: Dict) -> Dict:
-        """The label-dict form (augment.py:41-119, axis-aligned boxes): `img`
-        (HWC uint8 numpy) letterboxed, `bboxes` (n, 4) pixel xyxy, `keypoints`
+        """The label-dict form (augment.py:41-119): `img` (HWC uint8 numpy)
+        letterboxed, `bboxes` (n, 4) pixel xyxy or (n, 5) xywhr, `keypoints`
         (n, K, 2|3) and `segments` (a list of (k, 2)) scaled and shifted,
         `ratio_pad` ((gain_h, gain_w), (left, top)) composed with the
         dataset's pre-resize gain, `resized_shape` the letterboxed (h, w)."""
@@ -138,9 +139,15 @@ class LetterBox:
         else:
             labels["ratio_pad"] = ((r, r), (left, top))
         if "bboxes" in labels and len(labels["bboxes"]):
-            b = labels["bboxes"] * r
-            b[:, [0, 2]] += left
-            b[:, [1, 3]] += top
+            b = labels["bboxes"].copy()
+            if b.shape[1] == 5:  # rotated xywhr: scale the sizes too, shift the centre only
+                b[:, :4] *= r
+                b[:, 0] += left
+                b[:, 1] += top
+            else:
+                b = b * r
+                b[:, [0, 2]] += left
+                b[:, [1, 3]] += top
             labels["bboxes"] = b
         if labels.get("keypoints") is not None and len(labels["keypoints"]):
             k = labels["keypoints"].copy()

@@ -1,9 +1,10 @@
 """Batches for train and val: fixed-shape padded label arrays, read by a thread pool.
 
-Counterpart of `ultralytics_pro_tpu/data/build.py` (`collate_detect:23`,
-axis-aligned boxes, and `DataLoader:121`): the collate stacks images and pads
-labels to `max_gt` slots (img (B, S, S, 3) uint8 BGR, cls (B, G), bboxes
-(B, G, 4) normalised xywh, mask_gt (B, G)), with pose's keypoints (B, G, K, 3)
+Counterpart of `ultralytics_pro_tpu/data/build.py` (`collate_detect:23` and
+`DataLoader:121`): the collate stacks images and pads labels to `max_gt`
+slots (img (B, S, S, 3) uint8 BGR, cls (B, G), bboxes (B, G, 4) normalised
+xywh, or obb's (B, G, 5) xywhr with cx, w by the width and cy, h by the
+height and the angle as it is, mask_gt (B, G)), with pose's keypoints (B, G, K, 3)
 normalised and segment's instance masks (B, G, S/mask_ratio, S/mask_ratio):
 each polygon filled at the full size and shrunk as cv2 does it
 (`data/rasterize.py`), overlaps given to the smaller instance and the
@@ -28,13 +29,20 @@ from ultralytics_pro_tpu_torch.data.rasterize import fill_poly, resize_linear_u8
 
 def collate_detect(samples, max_gt: int = 128, mask_ratio: int = 4) -> Dict[str, np.ndarray]:
     """Stack label dicts into a fixed-shape batch. Boxes (pixel xyxy) are
-    renormalised to the letterboxed image as xywh; keypoints (pose) are
-    normalised, segments become masks at 1/mask_ratio (segment)."""
+    renormalised to the letterboxed image as xywh, rotated ones (pixel
+    xywhr) keep their form; keypoints (pose) are normalised, segments become
+    masks at 1/mask_ratio (segment).
+
+    The boxes are rotated when any sample's are (n, 5), an image without
+    objects too. The JAX collate asks only samples[0], and only when it
+    has objects (`build.py:34`): a batch whose first image has none gets its
+    rotated boxes read as xyxy there (ROADMAP.md section 3)."""
     b = len(samples)
     imgs = np.stack([s["img"] for s in samples])  # (B, H, W, 3) uint8 BGR
     h, w = imgs.shape[1:3]
+    rotated = any(np.shape(s.get("bboxes", ()))[1:] == (5,) for s in samples)
     cls = np.zeros((b, max_gt), np.float32)
-    bboxes = np.zeros((b, max_gt, 4), np.float32)
+    bboxes = np.zeros((b, max_gt, 5 if rotated else 4), np.float32)
     mask = np.zeros((b, max_gt), bool)
     kpts = masks = None
     if samples[0].get("keypoints") is not None:
@@ -48,10 +56,13 @@ def collate_detect(samples, max_gt: int = 128, mask_ratio: int = 4) -> Dict[str,
         if not n:
             continue
         bx = s["bboxes"][:n]
-        bboxes[i, :n, 0] = (bx[:, 0] + bx[:, 2]) / 2 / w
-        bboxes[i, :n, 1] = (bx[:, 1] + bx[:, 3]) / 2 / h
-        bboxes[i, :n, 2] = (bx[:, 2] - bx[:, 0]) / w
-        bboxes[i, :n, 3] = (bx[:, 3] - bx[:, 1]) / h
+        if rotated:
+            bboxes[i, :n] = bx / np.array([w, h, w, h, 1], np.float32)
+        else:
+            bboxes[i, :n, 0] = (bx[:, 0] + bx[:, 2]) / 2 / w
+            bboxes[i, :n, 1] = (bx[:, 1] + bx[:, 3]) / 2 / h
+            bboxes[i, :n, 2] = (bx[:, 2] - bx[:, 0]) / w
+            bboxes[i, :n, 3] = (bx[:, 3] - bx[:, 1]) / h
         cls[i, :n] = s["cls"][:n]
         mask[i, :n] = True
         if kpts is not None and len(s.get("keypoints", [])):

@@ -1,22 +1,26 @@
-"""YOLO-format detect, segment and pose datasets, for val and for train without
-augmentation.
+"""YOLO-format detect, segment, pose and obb datasets, for val and for train
+without augmentation.
 
 Counterpart of `ultralytics_pro_tpu/data/dataset.py` (`YOLODataset:34`):
 image scan (`get_img_files:140`, `IMG_FORMATS:25`), label paths
 (`img2label_paths:28`) and labels (`_parse_labels:207`: detect boxes,
 segment polygons with their bounding boxes, pose boxes with `kpt_shape`
-keypoints from the dataset YAML, a missing visibility written as 2), the
+keypoints from the dataset YAML, a missing visibility written as 2, obb's
+four corners), the
 long-side resize on load (`_read_resized:295` and `load_image:332` in one:
 area averaging to shrink, bilinear to grow), `get_image_and_label:344`, and
 the non-augment transforms (`build_transforms:386`) behind `__getitem__:414`.
-Images are read by `data/image_io.imread`, not OpenCV.
+Images are read by `data/image_io.imread`, not OpenCV. An obb label's
+corners become (cx, cy, w, h, rad) in the resized image's pixels through
+`data/geometry.poly2xywhr`, the copy of `_poly2xywhr:276` and of the
+`cv2.minAreaRect` it calls (`:360`).
 
 With `augment=False` (the JAX package's default, `cfg/default.yaml:66`)
 train images go through the same transforms as val, as in the JAX dataset.
 Labels are parsed on every construction: the port writes no `.cache` beside
 the labels. Rectangular batches, image caches, augmentation (the JAX
 `v8_transforms`: Mosaic, RandomPerspective, RandomHSV, flips, MixUp),
-channel counts other than 3 and the obb and classify tasks raise
+channel counts other than 3 and the classify task raise
 NotImplementedError; the class filter and `fraction` of the JAX dataset are
 left out.
 """
@@ -31,10 +35,11 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ultralytics_pro_tpu_torch.data.augment import Compose, LetterBox, resize_area, resize_bilinear
+from ultralytics_pro_tpu_torch.data.geometry import poly2xywhr
 from ultralytics_pro_tpu_torch.data.image_io import imread
 
 IMG_FORMATS = {"bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp", "pfm"}
-TASKS = ("detect", "segment", "pose")
+TASKS = ("detect", "segment", "pose", "obb")
 
 
 def img2label_paths(img_paths: List[str]) -> List[str]:
@@ -51,7 +56,7 @@ def _poly2xywh(pts: np.ndarray) -> np.ndarray:
 
 
 class YOLODataset:
-    """Detect, segment or pose dataset over YOLO-format labels (no augmentation)."""
+    """Detect, segment, pose or obb dataset over YOLO-format labels (no augmentation)."""
 
     def __init__(self, img_path, imgsz: int = 640, augment: bool = False, rect: bool = False,
                  single_cls: bool = False, data: Optional[Dict] = None, task: str = "detect",
@@ -113,7 +118,7 @@ class YOLODataset:
         """Labels by task, normalised; a missing file is an image without
         objects. detect: `cls cx cy w h`; segment: `cls x1 y1 x2 y2 ...` (a
         polygon, boxed by its extent); pose: `cls cx cy w h` and kpt_shape[0]
-        keypoints of kpt_shape[1] values."""
+        keypoints of kpt_shape[1] values; obb: `cls x1 y1 x2 y2 x3 y3 x4 y4`."""
         kpt_shape = tuple(self.data.get("kpt_shape", (17, 3)))
         labels = []
         for im_file, lb_file in zip(self.im_files, label_files):
@@ -136,6 +141,9 @@ class YOLODataset:
                 entry["cls"] = np.array([x[0] for x in v], np.float32)
                 entry["bboxes_n"] = np.array([x[1:5] for x in v], np.float32).reshape(-1, 4)
                 entry["keypoints_n"] = np.stack(kpts) if kpts else np.zeros((0, k, 3), np.float32)
+            elif self.task == "obb":
+                entry["cls"] = np.array([float(r[0]) for r in rows], np.float32)
+                entry["corners_n"] = np.array([r[1:9] for r in rows], np.float32).reshape(-1, 4, 2)
             else:
                 lb = np.array(rows, np.float32) if rows else np.zeros((0, 5), np.float32)
                 entry["cls"], entry["bboxes_n"] = lb[:, 0], lb[:, 1:5]
@@ -156,12 +164,11 @@ class YOLODataset:
         return im, (h0, w0), im.shape[:2]
 
     def get_image_and_label(self, i: int) -> Dict:
-        """Label dict with pixel-space xyxy boxes (and keypoints or polygons)
-        for the (resized) image."""
+        """Label dict with pixel-space xyxy boxes (and keypoints or polygons),
+        or obb's (n, 5) xywhr boxes, for the (resized) image."""
         im, ori_shape, resized = self.load_image(i)
         lb = self.labels[i]
         h, w = resized
-        n = lb["bboxes_n"]
         out = {
             "img": im,
             "cls": lb["cls"].copy(),
@@ -171,6 +178,11 @@ class YOLODataset:
             # the full pre-resize gain; LetterBox composes its own ratio and pads on top
             "ratio_pad": (resized[0] / ori_shape[0], resized[1] / ori_shape[1]),
         }
+        if self.task == "obb":  # corners in the resized image's pixels, so the angles are undistorted
+            scale = np.array([w, h], np.float32)
+            out["bboxes"] = np.array([poly2xywhr(c * scale) for c in lb["corners_n"]], np.float32).reshape(-1, 5)
+            return out
+        n = lb["bboxes_n"]
         if len(n):
             cx, cy, bw, bh = n[:, 0] * w, n[:, 1] * h, n[:, 2] * w, n[:, 3] * h
             boxes = np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], 1)

@@ -3,7 +3,7 @@ and `.train(data=...)`.
 
 Counterpart of `ultralytics_pro_tpu/engine/model.py` (`Model:27`, `_new:44`,
 `_load:52`, `predict:77`, `val:138` and `train:172` for detect, predict and
-val for segment and pose (their train raises, naming the loss to port),
+val for segment, pose and obb (their train raises, naming the loss to port),
 `_quick_val:286`, `YOLO:341`). The model lives on `device`, which defaults
 to the card and raises when there is none; pass device="cpu" for the CPU.
 Training runs on that device. Weights are initialised from a
@@ -28,7 +28,7 @@ from ultralytics_pro_tpu_torch.utils import LOGGER, select_device
 
 class Model:
     """Unified YOLO-style model facade: predict, val and train for detect,
-    predict and val for segment and pose, in this port."""
+    predict and val for segment, pose and obb, in this port."""
 
     def __init__(self, model: Union[str, Path, dict] = "yolov8n.yaml", task: Optional[str] = None,
                  device="cuda", seed: int = 0, verbose: bool = False):
@@ -98,7 +98,7 @@ class Model:
 
     def val(self, data=None, **kwargs):
         """Evaluate on a dataset's `split` (default val); returns the task's
-        metrics (DetMetrics, SegmentMetrics or PoseMetrics)."""
+        metrics (DetMetrics, SegmentMetrics, PoseMetrics or OBBMetrics)."""
         from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset
         from ultralytics_pro_tpu_torch.models import task_map  # models/ imports this module
 

@@ -1,7 +1,8 @@
 """Streaming predictor: images -> letterbox -> device function -> Results.
 
 Counterpart of `ultralytics_pro_tpu/engine/predictor.py` (`BasePredictor:26`,
-`DetectionPredictor:219`, `SegmentationPredictor:223`, `PosePredictor:283`).
+`DetectionPredictor:219`, `SegmentationPredictor:223`, `PosePredictor:283`,
+`OBBPredictor:314`).
 The jitted `run` of the JAX package (`_build_jit:45`) is a plain device
 function here, in full f32 with TF32 off (`utils.full_f32`), as the JAX
 package computes it: uint8 BGR batch -> RGB/255 -> forward -> NMS (kernel K1
@@ -29,10 +30,10 @@ import torch
 
 from ultralytics_pro_tpu_torch.data.augment import LetterBox
 from ultralytics_pro_tpu_torch.engine.results import Results
-from ultralytics_pro_tpu_torch.nn.modules.head import Detect, Pose, Segment, decode_single_label
+from ultralytics_pro_tpu_torch.nn.modules.head import OBB, Detect, Pose, Segment, decode_single_label
 from ultralytics_pro_tpu_torch.ops.boxes import scale_boxes
 from ultralytics_pro_tpu_torch.ops.masks import process_mask_native
-from ultralytics_pro_tpu_torch.ops.nms import non_max_suppression, non_max_suppression_fused
+from ultralytics_pro_tpu_torch.ops.nms import non_max_suppression, non_max_suppression_fused, non_max_suppression_rotated
 from ultralytics_pro_tpu_torch.utils import Profile, full_f32
 
 
@@ -53,6 +54,14 @@ def _detections(out, i: int, n: int, batch_shape, orig_shape) -> torch.Tensor:
     original image: x1, y1, x2, y2, conf, cls."""
     boxes = scale_boxes(batch_shape, out["boxes"][i][:n], orig_shape)
     return torch.cat([boxes, out["scores"][i][:n, None], out["cls"][i][:n, None].float()], 1)
+
+
+def letterbox_pad(batch_shape, orig_shape):
+    """(gain, pad_w, pad_h) of the letterbox from orig_shape (h, w) to
+    batch_shape (h, w), the pad rounded as `round(x / 2 - 0.1)`."""
+    h1, w1 = batch_shape
+    gain = min(h1 / orig_shape[0], w1 / orig_shape[1])
+    return gain, round((w1 - orig_shape[1] * gain) / 2 - 0.1), round((h1 - orig_shape[0] * gain) / 2 - 0.1)
 
 
 class BasePredictor:
@@ -208,7 +217,6 @@ class PosePredictor(BasePredictor):
         off and the gain divided out, on the host in numpy, as the JAX
         postprocess does (no clipping)."""
         results = []
-        h1, w1 = batch_shape
         for i, im0 in enumerate(im0s):
             n = int(out["valid"][i].sum())
             data = _detections(out, i, n, batch_shape, im0.shape[:2]).numpy()
@@ -217,11 +225,42 @@ class PosePredictor(BasePredictor):
                 k = out["extra"][i][:n].numpy()
                 nk = k.shape[-1] // 3 if k.shape[-1] % 3 == 0 else k.shape[-1] // 2
                 k = k.reshape(n, nk, k.shape[-1] // nk).copy()
-                gain = min(h1 / im0.shape[0], w1 / im0.shape[1])
-                pad_w = round((w1 - im0.shape[1] * gain) / 2 - 0.1)
-                pad_h = round((h1 - im0.shape[0] * gain) / 2 - 0.1)
+                gain, pad_w, pad_h = letterbox_pad(batch_shape, im0.shape[:2])
                 k[..., 0] = (k[..., 0] - pad_w) / gain
                 k[..., 1] = (k[..., 1] - pad_h) / gain
                 kpts = k
             results.append(Results(im0, paths[i], self.model.names, boxes=data, keypoints=kpts))
+        return results
+
+
+class OBBPredictor(BasePredictor):
+    """Oriented boxes; `run` returns the rotated NMS's (B, max_det) 'rboxes'
+    xywhr, 'scores', 'cls' and 'valid'. Like the JAX predictor it takes
+    neither `classes` nor `agnostic_nms`."""
+
+    head_types = (OBB,)
+
+    @torch.no_grad()
+    def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        nc = self.model.nc
+        with full_f32():
+            y, _ = self.model(rgb01(img_u8))
+            rb = torch.cat([y[..., :4], y[..., 4 + nc:5 + nc]], -1)
+            return non_max_suppression_rotated(rb, y[..., 4:4 + nc], conf_thres=self.conf, iou_thres=self.iou,
+                                               max_det=self.max_det)
+
+    def postprocess(self, out: Dict[str, torch.Tensor], batch_shape, im0s, paths) -> List[Results]:
+        """Each image's valid rboxes in its original pixels: the centre
+        unpadded and divided by the gain, the sizes divided by it, no clip."""
+        results = []
+        for i, im0 in enumerate(im0s):
+            n = int(out["valid"][i].sum())
+            rb = out["rboxes"][i][:n].numpy().copy()
+            gain, pad_w, pad_h = letterbox_pad(batch_shape, im0.shape[:2])
+            rb[:, 0] = (rb[:, 0] - pad_w) / gain
+            rb[:, 1] = (rb[:, 1] - pad_h) / gain
+            rb[:, 2:4] /= gain
+            data = np.concatenate([rb, out["scores"][i][:n, None].numpy(),
+                                   out["cls"][i][:n, None].numpy().astype(np.float32)], 1)
+            results.append(Results(im0, paths[i], self.model.names, obb=data))
         return results

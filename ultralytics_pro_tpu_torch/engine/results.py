@@ -1,9 +1,11 @@
-"""Prediction results, numpy-backed: boxes, instance masks and keypoints.
+"""Prediction results, numpy-backed: boxes, instance masks, keypoints and
+oriented boxes.
 
 Counterpart of `ultralytics_pro_tpu/engine/results.py` (`BaseTensor:23`,
-`Boxes:41`, `Masks:82`, `Keypoints:103`, `Results:167`) for detect, segment
-and pose: the same accessors (.xyxy/.xywh/.xyxyn/.xywhn/.conf/.cls, the
-keypoints' .xy/.xyn/.conf, len and indexing). `Masks.xy` (polygon contours,
+`Boxes:41`, `Masks:82`, `Keypoints:103`, `OBB:140`, `Results:167`) for detect,
+segment, pose and obb: the same accessors (.xyxy/.xywh/.xyxyn/.xywhn/.conf/.cls,
+the keypoints' .xy/.xyn/.conf, the oriented boxes' .xywhr/.xyxyxyxy/.xyxy,
+len and indexing). `Masks.xy` (polygon contours,
 `cv2.findContours`) raises NotImplementedError, and drawing and saving need
 OpenCV too; they wait for a later slice.
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ultralytics_pro_tpu_torch.ops.boxes import xywhr2xyxyxyxy
 from ultralytics_pro_tpu_torch.utils import SimpleClass
 
 
@@ -97,10 +100,38 @@ class Keypoints(BaseTensor):
         return self.data[..., 2] if self.data.shape[-1] == 3 else None
 
 
-class Results(SimpleClass):
-    """One image's detections, with its masks or keypoints where the task has them."""
+class OBB(BaseTensor):
+    """Oriented boxes: data (n, 7) = cx, cy, w, h, rad, conf, cls, in the original image's pixels."""
 
-    def __init__(self, orig_img, path, names, boxes=None, masks=None, keypoints=None, speed=None):
+    @property
+    def xywhr(self):
+        return self.data[:, :5]
+
+    @property
+    def conf(self):
+        return self.data[:, -2]
+
+    @property
+    def cls(self):
+        return self.data[:, -1]
+
+    @property
+    def xyxyxyxy(self):
+        """(n, 4, 2) corners."""
+        return xywhr2xyxyxyxy(np.ascontiguousarray(self.xywhr))
+
+    @property
+    def xyxy(self):
+        """(n, 4) axis-aligned extent of the corners."""
+        pts = self.xyxyxyxy
+        return np.concatenate([pts.min(1), pts.max(1)], axis=-1)
+
+
+class Results(SimpleClass):
+    """One image's detections, with its masks or keypoints where the task has
+    them; an obb task's oriented boxes are on `obb`, and `boxes` is None."""
+
+    def __init__(self, orig_img, path, names, boxes=None, masks=None, keypoints=None, obb=None, speed=None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
@@ -108,7 +139,11 @@ class Results(SimpleClass):
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None else None
+        self.obb = OBB(obb, self.orig_shape) if obb is not None else None
         self.speed = speed or {"preprocess": None, "inference": None, "postprocess": None}
 
     def __len__(self):
-        return len(self.boxes) if self.boxes is not None else 0
+        for v in (self.boxes, self.masks, self.keypoints, self.obb):
+            if v is not None:
+                return len(v)
+        return 0

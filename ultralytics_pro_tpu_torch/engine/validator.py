@@ -1,7 +1,7 @@
 """Validator: dataloader -> device function (forward + NMS) -> TP matching -> metrics.
 
 Counterpart of `ultralytics_pro_tpu/engine/validator.py` (`DetectionValidator:25`,
-`SegmentationValidator:216`, `PoseValidator:308`). The jitted device function
+`SegmentationValidator:216`, `PoseValidator:308`, `OBBValidator:388`). The jitted device function
 of the JAX package (`_build_jit:105`) is a plain device function here,
 `run(img_u8)`: uint8 BGR batch -> RGB/255 -> forward -> generic decode ->
 multi-label NMS (kernel K1 on the card), in full f32 with TF32 off
@@ -11,30 +11,37 @@ Matching and AP run on the host in numpy (`utils/metrics.py`): boxes in the
 original image frame for detect and segment, masks in the letterbox frame
 (the predicted masks made on the model's device by `process_mask`, only
 their > 0.5 bits brought back), and pose's boxes and OKS in the letterbox
-frame, as the JAX validators match them. The three `Profile`s synchronise
+frame, as the JAX validators match them. OBB's device function ends in the
+rotated NMS (`ops.nms.non_max_suppression_rotated`) and its rboxes are
+matched by `batch_probiou` in the letterbox frame; with `save_json` it
+writes DOTA Task1 files (`save_dota:431`). The three `Profile`s synchronise
 the model's device: preprocess is the batch's copy to the device, inference
 the device function and the copy back, postprocess the matching.
 
-`save_json` (and so `coco_evaluate`) and `plots` raise NotImplementedError;
-the v10Detect end-to-end branch waits for that head.
+`save_json` (and so `coco_evaluate`) and `plots` raise NotImplementedError,
+but for OBB's `save_json`; the v10Detect end-to-end branch waits for that head.
 """
 
 from __future__ import annotations
 
+from collections import defaultdict
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
 from ultralytics_pro_tpu_torch.engine.predictor import rgb01
-from ultralytics_pro_tpu_torch.nn.modules.head import Detect, Pose, Segment
-from ultralytics_pro_tpu_torch.ops.boxes import scale_boxes
+from ultralytics_pro_tpu_torch.nn.modules.head import OBB, Detect, Pose, Segment
+from ultralytics_pro_tpu_torch.ops.boxes import scale_boxes, xywhr2xyxyxyxy
+from ultralytics_pro_tpu_torch.ops.iou import batch_probiou
 from ultralytics_pro_tpu_torch.ops.masks import process_mask
-from ultralytics_pro_tpu_torch.ops.nms import non_max_suppression
+from ultralytics_pro_tpu_torch.ops.nms import non_max_suppression, non_max_suppression_rotated
 from ultralytics_pro_tpu_torch.utils import LOGGER, Profile, full_f32
 from ultralytics_pro_tpu_torch.utils.metrics import (
     ConfusionMatrix,
     DetMetrics,
+    OBBMetrics,
     PoseMetrics,
     SegmentMetrics,
     box_iou_np,
@@ -61,6 +68,7 @@ class DetectionValidator:
 
     head_type = Detect  # the head (or a subclass of it) whose outputs run reads
     metrics_class = DetMetrics
+    ported_flags = ()  # of save_json and plots, those this validator honours
 
     def __init__(self, args: Dict | None = None):
         self.args = dict(args or {})
@@ -69,7 +77,7 @@ class DetectionValidator:
         self.max_det = int(self.args.get("max_det", 300))
         self.single_cls = bool(self.args.get("single_cls", False))
         for key in ("save_json", "plots"):
-            if self.args.get(key):
+            if self.args.get(key) and key not in self.ported_flags:
                 raise NotImplementedError(f"val with {key}=True is not implemented in "
                                           f"ultralytics_pro_tpu_torch yet; pass {key}=False")
         self.model = None
@@ -281,3 +289,89 @@ class PoseValidator(DetectionValidator):
         _, _, map50, _ = metrics.box.mean_results()
         pm = metrics.pose.mean_results()
         LOGGER.info(f"{'all':>12}  box mAP50 {map50:.3f} | pose mAP50 {pm[2]:.3f}")
+
+
+class OBBValidator(DetectionValidator):
+    """Rotated boxes matched by probiou in the letterbox frame; OBBMetrics.
+    With save_json, DOTA Task1 files under `save_dir`/predictions_dota."""
+
+    head_type = OBB
+    metrics_class = OBBMetrics
+    ported_flags = ("save_json",)
+
+    def __init__(self, args: Dict | None = None):
+        super().__init__(args)
+        self.dota = None  # with save_json, (image file, rboxes, conf, cls) of each image
+
+    @torch.no_grad()
+    def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The device function: forward, then the rotated NMS -> dict of
+        (B, max_det) 'rboxes' xywhr, 'scores', 'cls', 'valid'."""
+        nc = self.model.nc
+        with full_f32():
+            y, _ = self.model(rgb01(img_u8))
+            rb = torch.cat([y[..., :4], y[..., 4 + nc:5 + nc]], -1)
+            return non_max_suppression_rotated(rb, y[..., 4:4 + nc], conf_thres=self.conf, iou_thres=self.iou,
+                                               max_det=self.max_det)
+
+    def __call__(self, model, dataloader, names: Optional[Dict] = None) -> OBBMetrics:
+        self.dota = [] if self.args.get("save_json") else None
+        metrics = super().__call__(model, dataloader, names)
+        if self.dota is not None:
+            self.save_dota(self.args.get("save_dir", "."), names or model.names)
+        return metrics
+
+    def update_metrics(self, out, batch, metrics, confusion):
+        b = out["rboxes"].shape[0] - int(batch.get("pad_count", 0))
+        h, w = batch["img"].shape[1:3]
+        for i in range(b):
+            n = int(out["valid"][i].sum())
+            pred_rb = out["rboxes"][i][:n]
+            pred_conf = out["scores"][i][:n]
+            pred_cls = out["cls"][i][:n].astype(np.float32)
+            gmask = batch["mask_gt"][i]
+            gt_rb = batch["bboxes"][i][gmask].copy()  # (m, 5) normalised xywh, the angle in radians
+            gt_cls = batch["cls"][i][gmask]
+            if len(gt_rb):
+                gt_rb[:, :4] *= np.array([w, h, w, h], np.float32)
+            iou = (batch_probiou(torch.from_numpy(gt_rb), torch.from_numpy(pred_rb)).numpy()
+                   if n and len(gt_rb) else np.zeros((len(gt_rb), n)))
+            metrics.update_stats(match_predictions(pred_cls, gt_cls, iou), pred_conf, pred_cls, gt_cls)
+            if self.dota is not None:
+                self.dota.append(self._original_frame_rboxes(pred_rb, batch, i, h, w) + (pred_conf, pred_cls))
+
+    @staticmethod
+    def _original_frame_rboxes(pred_rb, batch, i: int, h: int, w: int):
+        """(image file, rboxes in the original image's pixels): centres
+        unpadded by the unrounded pad and divided by the gain, sizes divided
+        by it."""
+        im_files = batch.get("im_files") or [""] * (i + 1)
+        ori_shapes = batch.get("ori_shapes") or [None] * (i + 1)
+        rb = pred_rb.copy()
+        ori = ori_shapes[i] if i < len(ori_shapes) else None
+        if ori is not None and len(rb):
+            h0, w0 = ori
+            r = min(h / h0, w / w0)
+            dw, dh = (w - w0 * r) / 2, (h - h0 * r) / 2
+            rb[:, 0] = (rb[:, 0] - dw) / r
+            rb[:, 1] = (rb[:, 1] - dh) / r
+            rb[:, 2:4] /= r
+        return im_files[i] if i < len(im_files) else "", rb
+
+    def save_dota(self, save_dir, names) -> Path:
+        """DOTA Task1 files, one per class (`Task1_<name>.txt`), each row
+        `image_id conf x1 y1 x2 y2 x3 y3 x4 y4`; returns their directory."""
+        per_class = defaultdict(list)
+        for im_file, rb, conf, cls in self.dota:
+            if not len(rb):
+                continue
+            polys = xywhr2xyxyxyxy(np.ascontiguousarray(rb)).reshape(len(rb), 8)
+            stem = Path(im_file).stem if im_file else "image"
+            for p8, cf, c in zip(polys, conf, cls):
+                name = str(names.get(int(c), int(c))).replace(" ", "-")
+                per_class[name].append(f"{stem} {cf:.4f} " + " ".join(f"{v:.2f}" for v in p8))
+        out = Path(save_dir) / "predictions_dota"
+        out.mkdir(parents=True, exist_ok=True)
+        for name, rows in per_class.items():
+            (out / f"Task1_{name}.txt").write_text("\n".join(rows) + "\n")
+        return out

@@ -1,12 +1,22 @@
 """Task bindings: the predictor, validator and trainer for a model
-(detect, segment and pose, and RT-DETR's NMS-free predictor).
+(detect, segment, pose and obb, and RT-DETR's NMS-free predictor).
 
-Segment and pose have no trainer yet: their entries raise
+Segment, pose and obb have no trainer yet: their entries raise
 NotImplementedError naming the loss that is still to port."""
 
-from ultralytics_pro_tpu_torch.engine.predictor import DetectionPredictor, PosePredictor, SegmentationPredictor
+from ultralytics_pro_tpu_torch.engine.predictor import (
+    DetectionPredictor,
+    OBBPredictor,
+    PosePredictor,
+    SegmentationPredictor,
+)
 from ultralytics_pro_tpu_torch.engine.trainer import DetectionTrainer
-from ultralytics_pro_tpu_torch.engine.validator import DetectionValidator, PoseValidator, SegmentationValidator
+from ultralytics_pro_tpu_torch.engine.validator import (
+    DetectionValidator,
+    OBBValidator,
+    PoseValidator,
+    SegmentationValidator,
+)
 from ultralytics_pro_tpu_torch.models.rtdetr import RTDETR, RTDETRPredictor
 from ultralytics_pro_tpu_torch.nn.modules.head import RTDETRDecoder
 
@@ -25,6 +35,8 @@ task_map = {"detect": {"predictor": DetectionPredictor, "validator": DetectionVa
                         "trainer": _unported_trainer("segment", "v8SegmentationLoss")},
             "pose": {"predictor": PosePredictor, "validator": PoseValidator,
                      "trainer": _unported_trainer("pose", "v8PoseLoss")},
+            "obb": {"predictor": OBBPredictor, "validator": OBBValidator,
+                    "trainer": _unported_trainer("obb", "v8OBBLoss")},
             "rtdetr": {"predictor": RTDETRPredictor}}
 
 

@@ -2,7 +2,7 @@
 
 from ultralytics_pro_tpu_torch.nn.modules.block import DFL, SPPF, Bottleneck, C2f, HGBlock, HGStem, Proto, RepC3
 from ultralytics_pro_tpu_torch.nn.modules.conv import Concat, Conv, DWConv, LightConv, RepConv, autopad
-from ultralytics_pro_tpu_torch.nn.modules.head import Detect, Pose, RTDETRDecoder, Segment, decode_single_label
+from ultralytics_pro_tpu_torch.nn.modules.head import OBB, Detect, Pose, RTDETRDecoder, Segment, decode_single_label
 from ultralytics_pro_tpu_torch.nn.modules.transformer import (
     AIFI,
     MLP,
@@ -14,6 +14,6 @@ from ultralytics_pro_tpu_torch.nn.modules.transformer import (
 
 __all__ = ["AIFI", "C2f", "Bottleneck", "Concat", "Conv", "DFL", "DWConv",
            "DeformableTransformerDecoderLayer", "Detect", "HGBlock", "HGStem", "LightConv", "MLP",
-           "MSDeformAttn", "MultiheadAttention", "Pose", "Proto", "RTDETRDecoder", "RepC3", "RepConv",
+           "MSDeformAttn", "MultiheadAttention", "OBB", "Pose", "Proto", "RTDETRDecoder", "RepC3", "RepConv",
            "SPPF", "Segment",
            "TransformerEncoderLayer", "autopad", "decode_single_label"]

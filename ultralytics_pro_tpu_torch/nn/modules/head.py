@@ -1,16 +1,17 @@
-"""The anchor-free Detect head and its decodes, the Segment and Pose heads,
-and the RT-DETR decoder head.
+"""The anchor-free Detect head and its decodes, the Segment, OBB and Pose
+heads, and the RT-DETR decoder head.
 
 Counterpart of `ultralytics_pro_tpu/nn/modules/head.py` (`Detect:48`,
-`_decode:87`, `decode_single_label:127`, `Segment:170`, `Pose:222`,
-`RTDETRDecoder:440`). Module names follow the torch reference
+`_decode:87`, `decode_single_label:127`, `Segment:170`, `OBB:193`,
+`Pose:222`, `RTDETRDecoder:440`). Module names follow the torch reference
 (`cv2.i.0.conv.weight`, `cv3.i.2.bias`, `dfl.conv.weight`, `cv4.i.2.bias`,
 `proto.upsample.weight`, `decoder.layers.i.cross_attn.value_proj.weight`).
 
 Raw per-level maps are NCHW (B, 4*reg_max + nc, H, W). Decoded outputs are
 anchor-major like the JAX package's: (B, A, 4 + nc), anchors ordered level by
 level, then row by row; Segment appends nm mask coefficients and Pose the
-decoded keypoints to each anchor's row. Segment's prototypes stay NCHW
+decoded keypoints to each anchor's row. OBB's rows are (B, A, 4 + nc + 1):
+rotated (cx, cy, w, h), the class scores, then the angle in radians. Segment's prototypes stay NCHW
 (B, nm, H/4, W/4), where the JAX package's are channel-last.
 """
 
@@ -24,7 +25,7 @@ from torch import nn
 from ultralytics_pro_tpu_torch.nn.modules.block import DFL, Proto, dfl_expectation
 from ultralytics_pro_tpu_torch.nn.modules.conv import BN_EPS, BN_MOMENTUM, BatchNorm2d, Conv
 from ultralytics_pro_tpu_torch.nn.modules.transformer import LN_EPS, MLP, DeformableTransformerDecoderLayer
-from ultralytics_pro_tpu_torch.ops.anchors import dist2bbox, make_anchors
+from ultralytics_pro_tpu_torch.ops.anchors import dist2bbox, dist2rbox, make_anchors
 from ultralytics_pro_tpu_torch.ops.nms import _topk
 
 
@@ -110,6 +111,38 @@ class Segment(Detect):
         if not decode:
             return aux
         return torch.cat([self.decode(aux["feats"]), aux["mc"]], -1), aux
+
+
+class OBB(Detect):
+    """Detect plus ne rotation angles per anchor (`cv4`), (sigmoid - 0.25) * pi,
+    in [-pi/4, 3pi/4).
+
+    Eval: (y (B, A, 4 + nc + ne), {'feats': raw, 'angle': (B, A, ne)}), the
+    boxes decoded by `dist2rbox` with the first angle; with decode=False (and
+    in train mode) the dict alone.
+    """
+
+    def __init__(self, nc: int = 80, ch=(), ne: int = 1, reg_max: int = 16):
+        super().__init__(nc, ch, reg_max)
+        self.ne = ne
+        self.cv4 = _branches(ch, max(ch[0] // 4, ne), ne)
+
+    def forward(self, feats, decode: bool = True):
+        angle = (_per_anchor(self.cv4, feats).float().sigmoid() - 0.25) * math.pi
+        aux = {"feats": self.raw(feats), "angle": angle}
+        if not decode:
+            return aux
+        return self.decode_rotated(aux["feats"], angle), aux
+
+    def decode_rotated(self, raw, angle: torch.Tensor) -> torch.Tensor:
+        """(B, A, 4 + nc + ne): rotated xywh pixel boxes, sigmoid class scores, angles."""
+        anchors, stride_t = make_anchors([tuple(r.shape[2:]) for r in raw], self.stride.tolist(),
+                                         device=raw[0].device)
+        per_anchor = lambda maps: torch.cat([m.flatten(2) for m in maps], 2).transpose(1, 2)  # noqa: E731
+        dist = per_anchor([self.dfl(r[:, :4 * self.reg_max].float()) for r in raw])
+        cls = per_anchor([r[:, 4 * self.reg_max:].float() for r in raw]).sigmoid()
+        dbox = dist2rbox(dist, angle[..., :1], anchors[None]) * stride_t[None]
+        return torch.cat([dbox, cls, angle], -1)
 
 
 class Pose(Detect):

@@ -3,13 +3,14 @@
 Counterpart of `ultralytics_pro_tpu/nn/tasks.py` (`parse_model:1126`,
 `YOLOModule._forward:1230`, `yaml_model_load:1311`, `split_scale:1328`,
 `find_model_yaml:1347`, `BaseModel:1361`, `DetectionModel:1491`,
-`SegmentationModel:1495`, `PoseModel:1499`, `model_class_for:1610`,
-`guess_model_task:1624`) for the YOLOv8 module set (Conv, C2f, SPPF,
-nn.Upsample, Concat, Detect, Segment, Pose) and RT-DETR's (DWConv,
-HGStem, HGBlock, RepC3, AIFI, RTDETRDecoder; builders at `:85`, `:260-263`,
-`:441-447`). Segment's args are [nc, nm, npr] with npr width-scaled, Pose's
-[nc, kpt_shape] with the YAML's top-level `kpt_shape` substituted, as the
-JAX package's `parse_model` reads them (`:206-212`, `:1179-1181`). Any other module raises
+`SegmentationModel:1495`, `PoseModel:1499`, `OBBModel:1503`,
+`model_class_for:1610`, `guess_model_task:1624`) for the YOLOv8 module set
+(Conv, C2f, SPPF, nn.Upsample, Concat, Detect, Segment, OBB, Pose) and
+RT-DETR's (DWConv, HGStem, HGBlock, RepC3, AIFI, RTDETRDecoder; builders at
+`:85`, `:260-263`, `:441-447`). Segment's args are [nc, nm, npr] with npr
+width-scaled, OBB's [nc, ne], Pose's [nc, kpt_shape] with the YAML's
+top-level `kpt_shape` substituted, as the JAX package's `parse_model` reads
+them (`:206-212`, `:1179-1181`). Any other module raises
 NotImplementedError naming it, and the detect heads of the v5 and v10 YAMLs
 name their ROADMAP queue item too.
 
@@ -33,12 +34,12 @@ from torch import nn
 
 from ultralytics_pro_tpu_torch.nn.modules.block import SPPF, C2f, HGBlock, HGStem, RepC3
 from ultralytics_pro_tpu_torch.nn.modules.conv import Concat, Conv, DWConv
-from ultralytics_pro_tpu_torch.nn.modules.head import Detect, Pose, RTDETRDecoder, Segment
+from ultralytics_pro_tpu_torch.nn.modules.head import OBB, Detect, Pose, RTDETRDecoder, Segment
 from ultralytics_pro_tpu_torch.nn.modules.transformer import AIFI, MSDeformAttn, MultiheadAttention
 from ultralytics_pro_tpu_torch.utils import LOGGER, PKG_ROOT, miniyaml
 
 SCALED = {"Conv": Conv, "DWConv": DWConv, "C2f": C2f, "SPPF": SPPF, "RepC3": RepC3}  # c2 is width-scaled
-HEADS = {"Detect": Detect, "Segment": Segment, "Pose": Pose}
+HEADS = {"Detect": Detect, "Segment": Segment, "OBB": OBB, "Pose": Pose}
 MODULES = (*SCALED, "HGStem", "HGBlock", "AIFI", "nn.Upsample", "Concat", *HEADS, "RTDETRDecoder")
 QUEUED = {  # heads of YAMLs the JAX package trains, and where the port takes them up
     "AnchorDetect": "ROADMAP.md queue 1 item 9 (the v5 YAMLs, with v5AnchorLoss)",
@@ -116,6 +117,8 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
                 if m_name == "Segment":  # [nc, nm, npr], npr width-scaled
                     npr = args[2] if len(args) > 2 else 256
                     extra = [args[1] if len(args) > 1 else 32, make_divisible(min(npr, max_channels) * width, 8)]
+                elif m_name == "OBB":  # [nc, ne]
+                    extra = [args[1] if len(args) > 1 else 1]
                 elif m_name == "Pose":  # [nc, kpt_shape]
                     extra = [tuple(args[1] if len(args) > 1 else (17, 3))]
                 args = [args[0], [chs[x] for x in f], *extra]
@@ -273,8 +276,8 @@ class BaseModel(nn.Module):
     def forward(self, x: torch.Tensor, decode: bool = True, aux: bool = True):
         """x (B, C, H, W) float. For a Detect model: (decoded (B, A, 4+nc), raw
         per-level maps), or the raw maps alone when decode=False or in train
-        mode; Segment and Pose models give their head's (y, dict), or the
-        dict alone (`Segment.forward`, `Pose.forward`). For an RT-DETR model:
+        mode; Segment, OBB and Pose models give their head's (y, dict), or
+        the dict alone (`Segment.forward`, `OBB.forward`, `Pose.forward`). For an RT-DETR model:
         (y (B, nq, 4+nc), aux), aux None when aux=False, see
         `RTDETRDecoder.forward`."""
         return self._run(x, decode=decode, aux=aux)
@@ -292,11 +295,15 @@ class PoseModel(DetectionModel):
     task = "pose"
 
 
-TASK2MODEL = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel}
+class OBBModel(DetectionModel):
+    task = "obb"
+
+
+TASK2MODEL = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel, "obb": OBBModel}
 
 
 def model_class_for(task: str):
-    """The model class for a task: detect, segment and pose are ported."""
+    """The model class for a task: detect, segment, pose and obb are ported."""
     if task not in TASK2MODEL:
         raise NotImplementedError(f"task '{task}' is not implemented in ultralytics_pro_tpu_torch; "
                                   f"implemented: {sorted(TASK2MODEL)}")

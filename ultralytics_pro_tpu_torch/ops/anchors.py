@@ -1,7 +1,7 @@
 """Anchor-free geometry: grid anchor centres and distances to boxes.
 
 Counterpart of `ultralytics_pro_tpu/ops/anchors.py` (`make_anchors:13`,
-`dist2bbox:34`, `bbox2dist:46`).
+`dist2bbox:34`, `bbox2dist:46`, `dist2rbox:56`).
 """
 
 from __future__ import annotations
@@ -42,3 +42,14 @@ def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: float) -
     reg_max = 16)."""
     x1y1, x2y2 = bbox.chunk(2, -1)
     return torch.cat([anchor_points - x1y1, x2y2 - anchor_points], -1).clamp(0, reg_max - 0.01)
+
+
+def dist2rbox(pred_dist: torch.Tensor, pred_angle: torch.Tensor, anchor_points: torch.Tensor,
+              dim: int = -1) -> torch.Tensor:
+    """(l, t, r, b) distances and an angle -> rotated (cx, cy, w, h): the
+    offset midpoint (r - l, b - t) / 2 turned by the angle, added to the anchor."""
+    lt, rb = pred_dist.chunk(2, dim)
+    cos, sin = torch.cos(pred_angle), torch.sin(pred_angle)
+    xf, yf = ((rb - lt) / 2).chunk(2, dim)
+    x, y = xf * cos - yf * sin, xf * sin + yf * cos
+    return torch.cat([torch.cat([x, y], dim) + anchor_points, lt + rb], dim)

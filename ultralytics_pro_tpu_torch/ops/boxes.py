@@ -1,12 +1,14 @@
 """Box coordinate conversions and rescaling, on tensors.
 
 Counterpart of `ultralytics_pro_tpu/ops/boxes.py` (`xywh2xyxy:19`,
-`clip_boxes:74`, `scale_boxes:85`), with the same operation order so results
-agree to the last bit on the CPU. Boxes are (..., 4) or wider.
+`clip_boxes:74`, `scale_boxes:85`, `xywhr2xyxyxyxy:109`), with the same
+operation order so results agree to the last bit on the CPU. Boxes are
+(..., 4) or wider; rotated boxes are (..., 5) xywhr, the angle in radians.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -51,3 +53,17 @@ def scale_boxes(img1_shape, boxes: torch.Tensor, img0_shape, ratio_pad=None,
     if not xywh:
         boxes = clip_boxes(boxes, img0_shape)
     return boxes
+
+
+def xywhr2xyxyxyxy(x):
+    """Rotated (cx, cy, w, h, rad) -> the 4 corners (..., 4, 2): centre plus
+    and minus the half-width and half-height vectors. A numpy array in gives
+    a numpy array out."""
+    if isinstance(x, np.ndarray):
+        return xywhr2xyxyxyxy(torch.from_numpy(x)).numpy()
+    ctr = x[..., :2]
+    w, h, angle = x[..., 2:3], x[..., 3:4], x[..., 4:5]
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    vec1 = torch.cat([w / 2 * cos, w / 2 * sin], -1)
+    vec2 = torch.cat([-h / 2 * sin, h / 2 * cos], -1)
+    return torch.stack([ctr + vec1 + vec2, ctr + vec1 - vec2, ctr - vec1 - vec2, ctr - vec1 + vec2], -2)

@@ -1,8 +1,11 @@
-"""Elementwise IoU of axis-aligned boxes, with the GIoU, DIoU and CIoU forms.
+"""Elementwise IoU of axis-aligned boxes, with the GIoU, DIoU and CIoU forms,
+and the probabilistic IoU of rotated boxes.
 
-Counterpart of `ultralytics_pro_tpu/ops/iou.py:bbox_iou:27`, the same
-formula term by term. CIoU's `alpha` is taken without gradient (`:63`
-`stop_gradient`; here `.detach()`).
+Counterpart of `ultralytics_pro_tpu/ops/iou.py` (`bbox_iou:27`,
+`_get_covariance_matrix:71`, `probiou:81`, `batch_probiou:110`), the same
+formulas term by term. CIoU's `alpha` is taken without gradient (`:63`
+`stop_gradient`; here `.detach()`). `probiou` is the non-CIoU form; its CIoU
+term belongs to the rotated-box loss, which is not ported yet.
 """
 
 from __future__ import annotations
@@ -46,3 +49,38 @@ def bbox_iou(box1: torch.Tensor, box2: torch.Tensor, xywh: bool = True, GIoU: bo
         c_area = cw * ch + eps
         return iou - (c_area - union) / c_area
     return iou
+
+
+def _get_covariance_matrix(boxes: torch.Tensor):
+    """The Gaussian covariance terms (a, b, c) of (..., 5) xywhr boxes, each (...)."""
+    a, b, angle = boxes[..., 2] ** 2 / 12, boxes[..., 3] ** 2 / 12, boxes[..., 4]
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    cos2, sin2 = cos**2, sin**2
+    return a * cos2 + b * sin2, a * sin2 + b * cos2, (a - b) * cos * sin
+
+
+def probiou(obb1: torch.Tensor, obb2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Probabilistic IoU (1 - Hellinger distance of the boxes' Gaussians) of
+    broadcasting (..., 5) xywhr boxes -> (...). The covariance terms are
+    taken on each input's own shape before the pairwise terms broadcast."""
+    x1, y1 = obb1[..., 0], obb1[..., 1]
+    x2, y2 = obb2[..., 0], obb2[..., 1]
+    a1, b1, c1 = _get_covariance_matrix(obb1)
+    a2, b2, c2 = _get_covariance_matrix(obb2)
+
+    denom = (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / denom * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / denom * 0.5
+    t3 = torch.log(
+        ((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2)
+        / (4 * torch.sqrt((a1 * b1 - c1**2).clamp(min=0) * (a2 * b2 - c2**2).clamp(min=0)) + eps)
+        + eps
+    ) * 0.5
+    bd = (t1 + t2 + t3).clamp(eps, 100.0)
+    hd = torch.sqrt(1.0 - torch.exp(-bd) + eps)
+    return 1 - hd
+
+
+def batch_probiou(obb1: torch.Tensor, obb2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Pairwise probiou: (N, 5) x (M, 5) -> (N, M)."""
+    return probiou(obb1[:, None, :], obb2[None, :, :], eps=eps)

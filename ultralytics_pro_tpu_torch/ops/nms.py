@@ -11,6 +11,12 @@ The greedy loop is kernel K1 (`kernels/nms_cuda.py:greedy_nms`): the CUDA
 kernel for tensors on the card, its plain version for tensors on the CPU.
 The candidates that `_topk` selects are already sorted by score, so they go
 to K1 as `presorted` rows; `nms_indices` lets K1 sort its row.
+
+`non_max_suppression_rotated` (`:264`, the OBB task's NMS) is plain PyTorch
+on the model's device, as the JAX function is plain XLA: the `probiou` of
+every pair of the K candidates in one batched pass (row j with j as `obb1`,
+as the JAX loop computes it), then its `max_det` greedy steps, each a max,
+a row gather and a masked fill on the device with no host sync.
 """
 
 from __future__ import annotations
@@ -19,6 +25,9 @@ import torch
 
 from ultralytics_pro_tpu_torch.kernels.nms_cuda import greedy_nms
 from ultralytics_pro_tpu_torch.ops.boxes import xywh2xyxy
+from ultralytics_pro_tpu_torch.ops.iou import probiou
+
+ROTATED_PAIRS = 1 << 26  # probiou pairs a pass: (rows, K, K) f32 temporaries of 256 MB
 
 
 def _topk(masked: torch.Tensor, k: int):
@@ -108,6 +117,69 @@ def non_max_suppression_fused(boxes: torch.Tensor, conf: torch.Tensor, cls: torc
     cls_idx = torch.gather(cls, 1, anchor_idx)
     return _suppress_and_gather(cand_boxes, top_scores, cls_idx, anchor_idx, extra, iou_thres,
                                 max_det, max_wh, agnostic)
+
+
+def _suppression_matrix(cand: torch.Tensor, iou_thres: float) -> torch.Tensor:
+    """(B, K, 5) xywhr -> (B, K, K) bool, [b, j, k] = probiou(cand[b, j],
+    cand[b, k]) > iou_thres, over as many rows a pass as ROTATED_PAIRS allows."""
+    b, k, _ = cand.shape
+    sup = torch.empty((b, k, k), dtype=torch.bool, device=cand.device)
+    step = max(1, ROTATED_PAIRS // (k * k))
+    for lo in range(0, b, step):
+        c = cand[lo:lo + step]
+        torch.gt(probiou(c[:, :, None], c[:, None, :]), iou_thres, out=sup[lo:lo + step])
+    return sup
+
+
+def non_max_suppression_rotated(rboxes: torch.Tensor, scores: torch.Tensor, conf_thres: float = 0.25,
+                                iou_thres: float = 0.45, max_det: int = 300, max_nms: int = 4096,
+                                max_wh: float = 7680.0, agnostic: bool = False):
+    """Batched rotated NMS with fixed output shapes, greedy on `probiou`.
+
+    Candidates are the top-k of the best-class scores (-1 below conf_thres)
+    capped at max_nms; their centres are offset by cls * max_wh unless
+    agnostic. Each of exactly max_det steps takes the first maximum of the
+    scores left, records it (valid if its score is > 0) and sets to -1 every
+    candidate whose probiou with it exceeds iou_thres, itself included.
+    A slot past the last valid one holds candidate 0 with score 0 and cls 0.
+
+    Args:
+        rboxes: (B, A, 5) xywhr boxes in pixels.
+        scores: (B, A, nc) class scores (post-sigmoid).
+
+    Returns:
+        dict with 'rboxes' (B, max_det, 5), 'scores' (B, max_det), 'cls'
+        (B, max_det) int32 and 'valid' (B, max_det) bool.
+    """
+    with torch.profiler.record_function("nms_rotated"):
+        b, a, _ = scores.shape
+        conf, cls_all = scores.max(-1)
+        masked = torch.where(conf > conf_thres, conf, -1.0)
+        top_scores, anchor_idx = _topk(masked, min(max_nms, a))
+        cand = torch.gather(rboxes, 1, anchor_idx[..., None].expand(-1, -1, 5))
+        cls_idx = torch.gather(cls_all, 1, anchor_idx).to(torch.int32)
+        cand_sup = cand
+        if not agnostic:
+            off = cls_idx.to(cand.dtype)[..., None] * max_wh
+            cand_sup = torch.cat([cand[..., :2] + off, cand[..., 2:]], -1)
+        sup = _suppression_matrix(cand_sup, iou_thres)
+
+        k = top_scores.shape[1]
+        s = top_scores.clone()
+        picks, picked = [], []
+        for _ in range(max_det):
+            v, j = s.max(-1)  # the first maximum, as argmax takes it
+            picks.append(v)
+            picked.append(j)
+            s.masked_fill_(torch.gather(sup, 1, j.view(b, 1, 1).expand(b, 1, k)).view(b, k), -1.0)
+        keep = torch.stack(picked, 1)
+        valid = torch.stack(picks, 1) > 0
+        return {
+            "rboxes": torch.gather(cand, 1, keep[..., None].expand(-1, -1, 5)),
+            "scores": torch.where(valid, torch.gather(top_scores, 1, keep), 0.0),
+            "cls": torch.where(valid, torch.gather(cls_idx, 1, keep), 0),
+            "valid": valid,
+        }
 
 
 def nms_indices(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float = 0.45,

@@ -295,6 +295,10 @@ class PoseMetrics(DetMetrics):
         return self.box.fitness() + self.pose.fitness()
 
 
+class OBBMetrics(DetMetrics):
+    """Rotated-box metrics: DetMetrics, the validator matching by probiou."""
+
+
 def mask_iou_np(mask1: np.ndarray, mask2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
     """Pairwise IoU of flattened binary masks: (N, HW) x (M, HW) -> (N, M)."""
     inter = mask1 @ mask2.T

@@ -11,6 +11,9 @@ HWIO conv kernels become OIHW, dense kernels are transposed, `scale` ->
 token `layers_N` is the model's layer `model.N`; a nested one (an MLP's
 `layers_0`) is `layers.0`.
 
+The extra branch of Segment, Pose and OBB heads (`cv4_i_j` in flax,
+`cv4.i.j` here) takes the generic rule.
+
 Segment's `proto.upsample` is a transposed conv. flax keeps its kernel as
 (kh, kw, out, in) under `transpose_kernel=True`, and the JAX package loads a
 torch `ConvTranspose2d` weight (in, out, kh, kw) through the same
