@@ -91,6 +91,22 @@ exits non-zero):
           launch there, and K1 on one batch of those rows captured from one
           more val call, bit for bit against its plain version, timed, with
           its bound; fails on a non-finite loss or a None fitness
+  seg_train_parity, pose_train_parity, obb_train_parity  train_parity for
+          the other tasks, with the epoch-end val: the reference-trained
+          yolov8n-seg, yolov8n-pose ([5, 3]) and yolov8n-obb on 8 images of
+          their fixture sets, one step at 160 px, batch 8, nbs 8, on the card
+          and on the CPU, within TRAIN_PARITY_TOL; K1's launches in the card's
+          val (one) or the rotated NMS's calls (obb, one); for segment and
+          pose K1's rows captured there (candidates clear conf: the weights
+          are trained) bit for bit against the plain version, timed, with
+          the bound, and K1's device ms a launch from a profiled val
+  seg_train, pose_train, obb_train  phase train for the other tasks:
+          yolov8s-seg (80 classes) and yolov8s-pose (rebuilt at the set's nc
+          3 and [5, 3]) at 640, yolov8s-obb (nc 15) at 1024, batch 16, the
+          JAX defaults, 2 epochs on 128 images of the task's set with val:
+          the same numbers as train (the criterion alone is the task's, its
+          device ms by category too), K1's launches in the vals or the
+          rotated NMS's calls, and the NMS's device ms a val batch
   seg_fixture, pose_fixture  accuracy of the other tasks on the card: the
           reference-trained yolov8n-seg and yolov8n-pose
           (val_parity_{segment,pose}_model.npz, nc 3, pose's kpt_shape [5, 3])
@@ -1002,11 +1018,13 @@ def captured_k1(ops_nms, nms_cuda, cap, card: str, smi: str) -> dict:
     return info
 
 
-def fixture_train_set(root: Path, n_images: int = 0) -> Path:
-    """The fixture's images and labels (the first n_images of them, or all)
-    under root/images/train, with a data YAML whose train and val are both
-    that directory, and the fixture's 3 class names."""
-    src = FIXTURES / "torch_val_synth"
+def fixture_train_set(root: Path, n_images: int = 0, src: str = "torch_val_synth") -> Path:
+    """A fixture set's images and labels (the first n_images of them, or
+    all) under root/images/train, with a data YAML whose train and val are
+    both that directory, the set's 3 class names, and the pose set's
+    kpt_shape [5, 3]."""
+    kpt = "kpt_shape: [5, 3]\n" if src.endswith("_pose") else ""
+    src = FIXTURES / src
     pngs = sorted((src / "images" / "val").glob("*.png"))
     for sub in ("images", "labels"):
         (root / sub / "train").mkdir(parents=True)
@@ -1014,7 +1032,7 @@ def fixture_train_set(root: Path, n_images: int = 0) -> Path:
         shutil.copy(png, root / "images" / "train")
         shutil.copy(src / "labels" / "val" / f"{png.stem}.txt", root / "labels" / "train")
     names = "".join(f"  {i}: shape{i}\n" for i in range(3))
-    (root / "data.yaml").write_text("train: images/train\nval: images/train\nnames:\n" + names)
+    (root / "data.yaml").write_text("train: images/train\nval: images/train\n" + kpt + "names:\n" + names)
     return root / "data.yaml"
 
 
@@ -1033,24 +1051,26 @@ def max_rel_tree_diff(got: dict, want: dict):
     return max((float(np.abs(got[k] - w).max() / max(np.abs(w).max(), 1e-12)), k) for k, w in want.items())
 
 
-def train_one_step(YOLO, yaml_model_load, load_pickle, data: Path, project: Path, device: str):
-    """One optimizer step of the reference-trained yolov8n through
-    YOLO(...).train: 8 images, batch 8, nbs 8, no warmup. Returns the loss
-    parts, the last.ckpt dict and the optimizer steps taken."""
-    ref = json.loads((FIXTURES / "val_parity_ref.json").read_text())
-    model = parity_yolov8n(YOLO, yaml_model_load, ref, device)
+def train_one_step(YOLO, yaml_model_load, load_pickle, data: Path, project: Path, device: str,
+                   task: str = "detect", val: bool = False):
+    """One optimizer step of a task's reference-trained yolov8n through
+    YOLO(...).train: 8 images, batch 8, nbs 8, no warmup, the epoch-end val
+    when val. Returns the loss parts, the last.ckpt dict, the optimizer steps
+    taken and the facade."""
+    stem, model_yaml = (TASKS[task]["stem"], TASKS[task]["fixture_yaml"]) if task in TASKS else \
+        ("val_parity", "yolov8n.yaml")
+    ref = json.loads((FIXTURES / f"{stem}_ref.json").read_text())
+    model = parity_yolov8n(YOLO, yaml_model_load, ref, device, stem, model_yaml)
     model.train(data=str(data), epochs=1, imgsz=160, batch=TRAIN_PARITY_IMAGES, nbs=TRAIN_PARITY_IMAGES,
-                warmup_epochs=0.0, val=False, workers=4, max_gt=32, project=str(project))
+                warmup_epochs=0.0, val=val, workers=4, max_gt=32, project=str(project))
     tr = model.trainer
-    return tr.loss_history[0], load_pickle(tr.wdir / "last.ckpt"), tr.opt_steps
+    return tr.loss_history[0], load_pickle(tr.wdir / "last.ckpt"), tr.opt_steps, model
 
 
-def train_parity_diffs(YOLO, yaml_model_load, load_pickle, root: Path) -> dict:
-    """The one-step run on the card and on the CPU, and their largest
-    relative differences; raises beyond TRAIN_PARITY_TOL."""
-    data = fixture_train_set(root / "set", TRAIN_PARITY_IMAGES)
-    (lc, cc, sc), (lh, ch, sh) = (train_one_step(YOLO, yaml_model_load, load_pickle, data, root / d, d)
-                                  for d in ("cuda", "cpu"))
+def one_step_diffs(card_run, cpu_run) -> dict:
+    """The largest relative differences of two train_one_step runs; raises
+    beyond TRAIN_PARITY_TOL."""
+    (lc, cc, sc, _), (lh, ch, sh, _) = card_run, cpu_run
     if sc != sh or sc != 1:
         raise AssertionError(f"optimizer steps: card {sc}, CPU {sh}, want 1")
     diffs = {f"loss_{k}": abs(lc[k] - lh[k]) / abs(lh[k]) for k in lh}
@@ -1064,11 +1084,59 @@ def train_parity_diffs(YOLO, yaml_model_load, load_pickle, root: Path) -> dict:
             "ema_updates": [cc["ema_updates"], ch["ema_updates"]]}
 
 
+def train_parity_diffs(YOLO, yaml_model_load, load_pickle, root: Path) -> dict:
+    """The one-step run on the card and on the CPU, and their largest
+    relative differences; raises beyond TRAIN_PARITY_TOL."""
+    data = fixture_train_set(root / "set", TRAIN_PARITY_IMAGES)
+    return one_step_diffs(*(train_one_step(YOLO, yaml_model_load, load_pickle, data, root / d, d)
+                            for d in ("cuda", "cpu")))
+
+
 def train_parity(YOLO, yaml_model_load, load_pickle, tmp: Path, card: str, smi: str) -> dict:
     info = train_parity_diffs(YOLO, yaml_model_load, load_pickle, tmp / "train_parity")
     return dict(model="yolov8n (val_parity_model.npz)", images=TRAIN_PARITY_IMAGES, imgsz=160,
                 batch=TRAIN_PARITY_IMAGES, nbs=TRAIN_PARITY_IMAGES, warmup_epochs=0.0, **info,
                 cpu_threads=torch.get_num_threads(), card=card, nvidia_smi=smi)
+
+
+def task_train_parity(YOLO, yaml_model_load, load_pickle, nms_cuda, ops_nms, task: str, tmp: Path, card: str,
+                      smi: str) -> dict:
+    """train_parity for segment, pose or obb, with the epoch-end val: one
+    step of the task's reference-trained yolov8n on 8 of its fixture images
+    on the card and on the CPU, held within TRAIN_PARITY_TOL. K1's launches
+    (segment, pose: one a val) or the rotated NMS's calls (obb) are read
+    around the card's run; segment's and pose's first K1 rows there are
+    captured and held bit for bit to the plain version, timed, with the
+    bound (captured_k1), and K1's device ms a launch read from a profile of
+    one more val call of the trained model."""
+    from ultralytics_pro_tpu_torch.engine import validator as eng_val
+
+    spec = TASKS[task]
+    root = tmp / f"{task}_train_parity"
+    data = fixture_train_set(root / "set", TRAIN_PARITY_IMAGES, spec["set"])
+    nms_cuda.launches = 0
+    with capture_k1(ops_nms) as cap, capture_rotated(eng_val) as rot:
+        card_run = train_one_step(YOLO, yaml_model_load, load_pickle, data, root / "cuda", "cuda", task, val=True)
+    launches, rotated = nms_cuda.launches, rot["calls"]
+    cpu_run = train_one_step(YOLO, yaml_model_load, load_pickle, data, root / "cpu", "cpu", task, val=True)
+    info = one_step_diffs(card_run, cpu_run)
+    want = (0, 1) if task == "obb" else (1, 0)  # one val batch of 8 images
+    if (launches, rotated) != want:
+        raise AssertionError(f"{task} train val: K1 launched {launches} times, the rotated NMS called {rotated} "
+                             f"times; want {want}")
+    fitness = [run[3].trainer.last_fitness for run in (card_run, cpu_run)]
+    if any(f is None for f in fitness):
+        raise AssertionError(f"{task} train val gave fitness {fitness}")
+    info.update(model=f"{spec['fixture_yaml'][:-5]} ({spec['stem']}_model.npz)", images=TRAIN_PARITY_IMAGES,
+                imgsz=160, batch=TRAIN_PARITY_IMAGES, nbs=TRAIN_PARITY_IMAGES, warmup_epochs=0.0,
+                fitness_card_cpu=fitness, k1_launches=launches, rotated_nms_calls=rotated,
+                cpu_threads=torch.get_num_threads(), card=card, nvidia_smi=smi)
+    if task != "obb":
+        tr = card_run[3].trainer
+        vprof = profile_window(lambda: tr.val_fn(tr.model), reps=1, warmup=1)
+        info["k1_profiled_ms_per_launch"] = vprof["device_ms_by_category"].get("k1_greedy_nms", 0.0)
+        info["k1_on_val_rows"] = captured_k1(ops_nms, nms_cuda, cap, card, smi)
+    return info
 
 
 def results_csv(save_dir: Path):
@@ -1135,38 +1203,80 @@ def conv_flops_per_image(model, imgsz: int) -> float:
     return sum(flops)
 
 
-def train_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
-    """yolov8s train at 640 (JAX defaults: nbs 64, warmup 3 epochs, val) on
-    128 images. K1's rows of the epoch-end val are captured from one more
-    val call on the trained model and held to the plain version (val_k1)."""
-    from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset, check_det_dataset
-    from ultralytics_pro_tpu_torch.utils import full_f32
+def detached(x, grad: bool = False):
+    """A model's train-mode output (a list of maps, or a dict of them and
+    tensors) detached; as new leaves that require grad with grad=True."""
+    if isinstance(x, dict):
+        return {k: detached(v, grad) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [detached(v, grad) for v in x]
+    return x.detach().clone().requires_grad_(True) if grad else x.detach()
 
-    data = val_set_640(tmp / "train640_set")
-    data.write_text(data.read_text().replace("val: images/val", "train: images/val\nval: images/val"))
-    model = YOLO("yolov8s.yaml", device="cuda", seed=0)
+
+def train_run(YOLO, nms_cuda, tmp: Path, task: str = "detect") -> tuple:
+    """Two epochs of the task's served model at full width (yolov8s,
+    yolov8s-seg and yolov8s-pose at 640, yolov8s-obb at 1024), batch 16
+    and the JAX defaults otherwise (nbs 64, warmup 3 epochs, val=True), on
+    128 images of the task's fixture set (train = val; 80 class names for
+    detect and segment, DOTA's 15 for obb, the set's 3 and [5, 3] keypoints
+    for pose); the model is rebuilt at the set's nc (and pose's shape). K1's
+    launches (or the rotated NMS's calls, obb) are counted over the run;
+    raises unless there is one a val batch, on a non-finite loss or a None
+    fitness. Returns the trainer, its data YAML and the run's numbers."""
+    from ultralytics_pro_tpu_torch.engine import validator as eng_val
+
+    served, src, nc, imgsz = {"detect": ("yolov8s", "torch_val_synth", 80, TRAIN_IMGSZ),
+                              "segment": ("yolov8s-seg", "torch_val_synth_segment", 80, TRAIN_IMGSZ),
+                              "pose": ("yolov8s-pose", "torch_val_synth_pose", 3, TRAIN_IMGSZ),
+                              "obb": ("yolov8s-obb", "torch_val_synth_obb", 15, OBB_IMGSZ)}[task]
+    data = val_set_640(tmp / f"train_{task}_set", src, nc=nc)
+    kpt = "kpt_shape: [5, 3]\n" if task == "pose" else ""
+    data.write_text(data.read_text().replace("val: images/val", "train: images/val\nval: images/val\n" + kpt))
+    model = YOLO(f"{served}.yaml", device="cuda", seed=0)
     torch.cuda.reset_peak_memory_stats()
     nms_cuda.launches = 0
     t0 = time.perf_counter()
-    model.train(data=str(data), epochs=TRAIN_EPOCHS, imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH,
-                project=str(tmp / "train640"))
-    torch.cuda.synchronize()
+    with capture_rotated(eng_val) as rot:
+        model.train(data=str(data), epochs=TRAIN_EPOCHS, imgsz=imgsz, batch=TRAIN_BATCH,
+                    project=str(tmp / f"train_{task}"))
+        torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated()
-    k1_launches = nms_cuda.launches
     tr = model.trainer
     nb = VAL_COPIES * 16 // TRAIN_BATCH
     if not all(np.isfinite(v) for e in tr.loss_history for v in e.values()) or len(tr.loss_history) != TRAIN_EPOCHS:
         raise AssertionError(f"loss history {tr.loss_history}")
-    fits = fitness_values(tr.save_dir, TRAIN_EPOCHS)
-    if k1_launches != TRAIN_EPOCHS * nb:
-        raise AssertionError(f"K1 launched {k1_launches} times in {TRAIN_EPOCHS} vals of {nb} batches")
+    counts = {"k1_launches": nms_cuda.launches, "rotated_nms_calls": rot["calls"]}
+    want = {"k1_launches": 0 if task == "obb" else TRAIN_EPOCHS * nb,
+            "rotated_nms_calls": TRAIN_EPOCHS * nb if task == "obb" else 0}
+    if counts != want:
+        raise AssertionError(f"{task} train: {counts} in {TRAIN_EPOCHS} vals of {nb} batches, want {want}")
+    head = tr.model.model[-1]
+    return tr, data, dict(model=served, nc=tr.model.nc, kpt_shape=getattr(head, "kpt_shape", None), imgsz=imgsz,
+                          batch=TRAIN_BATCH, nbs=tr.nbs, accumulate=tr.accumulate, warmup_epochs=tr.warmup_epochs,
+                          epochs=TRAIN_EPOCHS, images=VAL_COPIES * 16, micro_batches_per_epoch=nb,
+                          opt_steps=tr.opt_steps, train_seconds=seconds,
+                          epoch_train_seconds=tr.epoch_train_seconds,
+                          train_images_per_s_epoch2=nb * TRAIN_BATCH / tr.epoch_train_seconds[-1],
+                          wall_ms_per_micro_batch_epoch2=tr.epoch_train_seconds[-1] * 1e3 / nb,
+                          max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          loss_history=tr.loss_history, fitness_per_epoch=fitness_values(tr.save_dir, TRAIN_EPOCHS),
+                          **counts)
 
-    # one micro-batch of the train set on the trained model (its parameters
-    # change; nothing below is checked against the run above)
+
+def micro_batch_measures(tr, data: Path, imgsz: int) -> dict:
+    """On the trained model (its parameters change; nothing here is checked
+    against the run): the device ms of a micro-batch's forward, loss and
+    backward (CUDA events), one profiled micro-batch with its optimizer step
+    as the loop runs it (idle share against the epoch's wall ms a
+    micro-batch, device ms by category, launches), the criterion alone
+    (assignment and loss, forward and backward to the head's outputs) in a
+    profile, and the model's conv FLOPs a step against the f32 peak."""
+    from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset, check_det_dataset
+    from ultralytics_pro_tpu_torch.utils import full_f32
+
     d = check_det_dataset(str(data))
-    host = next(iter(DataLoader(YOLODataset(d["train"], imgsz=TRAIN_IMGSZ, data=d), batch_size=TRAIN_BATCH,
-                                workers=8, max_gt=128)))
+    host = next(iter(DataLoader(YOLODataset(d["train"], imgsz=imgsz, data=d, task=tr.model.task),
+                                batch_size=TRAIN_BATCH, workers=8, max_gt=128)))
     dev = tr.put_batch(host)
     lrs, mom = [tr.lr0] * 3, tr.momentum
     tr.model.train()
@@ -1178,43 +1288,62 @@ def train_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
 
     prof = profile_window(loop_micro, reps=3, top=25)
     with torch.no_grad(), full_f32():
-        maps = [f.detach() for f in tr.model(dev["img"])]
+        out = detached(tr.model(dev["img"]))
 
-    def loss_and_tal():  # the criterion (TAL included) and its backward to the head's maps
-        feats = [f.clone().requires_grad_(True) for f in maps]
+    def criterion():  # the criterion (assignment included) and its backward to the head's outputs
         with full_f32():
-            total, _ = tr.criterion(feats, dev, dev["img"].shape[2:])
+            total, _ = tr.criterion(detached(out, grad=True), dev, dev["img"].shape[2:])
             total.backward()
 
-    lprof = profile_window(loss_and_tal, reps=3)  # device time: its ~470 small launches pace CUDA events
+    lprof = profile_window(criterion, reps=3)  # device time: its many small launches pace CUDA events
     tr.model.eval()
-    vprof = profile_window(lambda: tr.val_fn(tr.model), reps=1, warmup=0)
-    with capture_k1(ops_nms) as cap:
-        tr.val_fn(tr.model)
-    k1_rows = val_k1(nms_cuda, cap["rows"], card, smi)
-    flops_fwd = conv_flops_per_image(tr.model, TRAIN_IMGSZ)
+    flops_fwd = conv_flops_per_image(tr.model, imgsz)
     step_flops = 3 * flops_fwd * TRAIN_BATCH
     bound_ms = step_flops / F32_FLOPS * 1e3
-    wall_micro_ms = tr.epoch_train_seconds[-1] * 1e3 / nb
     busy = prof["device_busy_ms_per_call"]
-    return dict(model="yolov8s", nc=80, imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, nbs=tr.nbs, accumulate=tr.accumulate,
-                warmup_epochs=tr.warmup_epochs, epochs=TRAIN_EPOCHS, images=VAL_COPIES * 16,
-                micro_batches_per_epoch=nb, opt_steps=tr.opt_steps, train_seconds=seconds,
-                epoch_train_seconds=tr.epoch_train_seconds,
-                train_images_per_s_epoch2=nb * TRAIN_BATCH / tr.epoch_train_seconds[-1],
-                wall_ms_per_micro_batch_epoch2=wall_micro_ms,
-                device_ms_per_micro_batch=ms_micro,
+    wall_micro_ms = tr.epoch_train_seconds[-1] * 1e3 / (VAL_COPIES * 16 // TRAIN_BATCH)
+    return dict(device_ms_per_micro_batch=ms_micro,
                 device_ms_per_optimizer_step=prof["device_ms_by_category"].get("optimizer", 0.0),
                 device_ms_loss_and_tal_with_backward=lprof["device_busy_ms_per_call"],
                 loss_and_tal_launches=lprof["kernel_launches_per_call"],
+                loss_and_tal_by_category=lprof["device_ms_by_category"],
                 conv_gflops_forward_per_image=flops_fwd / 1e9, step_tflops=step_flops / 1e12,
                 step_f32_bound_ms=bound_ms, step_flop_share=bound_ms / ms_micro,
                 device_idle_share_epoch2=None if busy is None else max(0.0, 1 - busy / wall_micro_ms),
-                micro_batch_profile=prof, max_memory_allocated_gb=peak / 1e9,
-                loss_history=tr.loss_history, fitness_per_epoch=fits, k1_launches=k1_launches,
-                k1_profiled_ms_per_launch=vprof["device_ms_by_category"].get("k1_greedy_nms", 0.0) / nb,
-                k1_on_val_rows=k1_rows,
+                micro_batch_profile=prof)
+
+
+def train_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
+    """yolov8s train at 640 (train_run, micro_batch_measures). K1's rows of
+    the epoch-end val are captured from one more val call on the trained
+    model and held to the plain version (val_k1)."""
+    tr, data, info = train_run(YOLO, nms_cuda, tmp)
+    info.update(micro_batch_measures(tr, data, TRAIN_IMGSZ))
+    nb = info["micro_batches_per_epoch"]
+    vprof = profile_window(lambda: tr.val_fn(tr.model), reps=1, warmup=0)
+    with capture_k1(ops_nms) as cap:
+        tr.val_fn(tr.model)
+    info.update(k1_profiled_ms_per_launch=vprof["device_ms_by_category"].get("k1_greedy_nms", 0.0) / nb,
+                k1_on_val_rows=val_k1(nms_cuda, cap["rows"], card, smi),
                 val_device_busy_ms=vprof["device_busy_ms_per_call"], card=card, nvidia_smi=smi)
+    return info
+
+
+def task_train_path(YOLO, nms_cuda, task: str, tmp: Path, card: str, smi: str) -> dict:
+    """Phases seg_train, pose_train, obb_train: train_run and
+    micro_batch_measures for the task, and the device ms of one more
+    epoch-end val of the trained model (K1's, or the rotated NMS's, among it)."""
+    tr, data, info = train_run(YOLO, nms_cuda, tmp, task)
+    imgsz = info["imgsz"]
+    info.update(micro_batch_measures(tr, data, imgsz))
+    nb = info["micro_batches_per_epoch"]
+    vprof = profile_window(lambda: tr.val_fn(tr.model), reps=1, warmup=0,
+                           scope=ROTATED_NMS_SCOPE if task == "obb" else None)
+    nms = category("", ROTATED_NMS_SCOPE) if task == "obb" else "k1_greedy_nms"
+    info.update(val_device_busy_ms=vprof["device_busy_ms_per_call"],
+                nms_profiled_ms_per_val_batch=vprof["device_ms_by_category"].get(nms, 0.0) / nb,
+                card=card, nvidia_smi=smi)
+    return info
 
 
 def metric(m, attr: str) -> float:
@@ -1665,11 +1794,25 @@ def main() -> int:
         train = train_path(YOLO, nms_cuda, ops_nms, Path(tmp), card, smi)
         emit("train", **train, seconds=time.perf_counter() - t)
 
+    task_train = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for task, short in (("segment", "seg"), ("pose", "pose"), ("obb", "obb")):
+            t = time.perf_counter()
+            task_train[f"{short}_parity"] = info = task_train_parity(YOLO, yaml_model_load, load_pickle, nms_cuda,
+                                                                     ops_nms, task, Path(tmp), card, smi)
+            emit(f"{short}_train_parity", **info, seconds=time.perf_counter() - t)
+        for task, short in (("segment", "seg"), ("pose", "pose"), ("obb", "obb")):
+            t = time.perf_counter()
+            task_train[short] = info = task_train_path(YOLO, nms_cuda, task, Path(tmp), card, smi)
+            emit(f"{short}_train", **info, seconds=time.perf_counter() - t)
+
     pred, val_size = k1
     tk1 = train["k1_on_val_rows"]
     task_k1 = {"seg_predict": (task_runs["segment"], task_runs["segment"]["k1_on_batch_rows"]),
                "pose_predict": (task_runs["pose"], task_runs["pose"]["k1_on_batch_rows"]),
-               "seg_val": (seg_val, seg_val["k1_on_batch_rows"])}
+               "seg_val": (seg_val, seg_val["k1_on_batch_rows"]),
+               "seg_train": (task_train["seg_parity"], task_train["seg_parity"]["k1_on_val_rows"]),
+               "pose_train": (task_train["pose_parity"], task_train["pose_parity"]["k1_on_val_rows"])}
     captured = (vk1, tk1, *(rows for _, rows in task_k1.values()))
     kernels = [{
         "name": "greedy_nms", "route": "cuda",
@@ -1699,6 +1842,9 @@ def main() -> int:
            for key in ("B", "K", "payload_width", "ms", "plain_ms", "bound_ms", "bound_by", "scanned_per_row")},
         **{f"{name}_path_launches": run["k1_launches"] for name, (run, _) in task_k1.items()},
         **{f"{name}_path_profiled_ms": run["k1_profiled_ms_per_launch"] for name, (run, _) in task_k1.items()},
+        **{f"{short}_train_full_width_launches": task_train[short]["k1_launches"] for short in ("seg", "pose")},
+        **{f"{short}_train_full_width_profiled_ms": task_train[short]["nms_profiled_ms_per_val_batch"]
+           for short in ("seg", "pose")},
     }, {
         "name": "msda_sample_fused", "route": "cuda",
         "source": "ultralytics_pro_tpu_torch/csrc/msda_sample.cu",

@@ -1,8 +1,9 @@
 """The port on a CUDA card: kernels K1 and K2 against their plain versions,
 predict (yolov8n, and rtdetr-l through K2) in full f32, detect, segment and
 pose val on the committed fixture sets against val on the CPU, K1 on
-segment and pose rows with their payload, and the OBB task's rotated NMS
-(plain PyTorch) on the card against the CPU.
+segment and pose rows with their payload, the OBB task's rotated NMS
+(plain PyTorch) on the card against the CPU, and the segment, pose and OBB
+criteria, forward and backward, on the card against the CPU.
 
 These tests need a card and nvcc, and import neither JAX nor the JAX package
 nor `tests/conftest.py` (which imports JAX), so they run on a machine that has
@@ -11,7 +12,8 @@ the card but no JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Without a card they skip (the `card` fixture decides, never an import).
-`k1_inputs` also feeds the CPU tests of test_torch_nms.py.
+`k1_inputs` also feeds the CPU tests of test_torch_nms.py, and
+`task_loss_inputs` and `port_criterion` those of test_torch_task_loss.py.
 """
 
 import json
@@ -84,6 +86,113 @@ def k1_inputs(seed, b=5, k=256):
         j = np.argsort(-scores[4], kind="stable")[19]
         boxes[4, j, 2] = boxes[4, j, 0]  # zero width
     return boxes, scores.astype(np.float32)
+
+
+LOSS_NC, LOSS_IMGSZ, LOSS_STRIDES = 3, 64, (8, 16, 32)
+LOSS_RTOL, LOSS_GRAD_TOL = 1e-5, 1e-4  # loss parts relative; gradients against each tensor's largest
+
+
+def task_loss_inputs(task: str, seed: int, kpt_shape=(17, 3), b: int = 3, g: int = 6, nm: int = 32,
+                     empty: bool = False):
+    """Seeded head outputs and a padded batch for a task's criterion at 64 px
+    (levels 8, 4 and 2: A = 84 anchors), nc 3, numpy f32. preds: 'feats'
+    (per level (B, 64 + nc, h, h), NCHW), and segment's 'mc' (B, A, nm) and
+    'protos' (B, nm, 16, 16), pose's 'kpt' (B, A, K * ndim) raw, or obb's
+    'angle' (B, A, 1) in [-pi/4, 3pi/4). The batch has unused slots, image 1
+    has no object (every image with empty=True), obb's first box is 1.5 px
+    wide and centred on an anchor, pose's keypoints have invisible ones (0, 0, 0) and segment's masks
+    are 0/1 blobs inside their boxes."""
+    rng = np.random.default_rng(seed)
+    feats = [rng.normal(0, 2, (b, 64 + LOSS_NC, h, h)).astype(np.float32) for h in (8, 4, 2)]
+    a = sum(h * h for h in (8, 4, 2))
+    mask = rng.uniform(size=(b, g)) < 0.7
+    mask[0, 0] = True
+    mask[1] = False
+    if empty:
+        mask[:] = False
+    cls = (rng.integers(0, LOSS_NC, (b, g)) * mask).astype(np.float32)
+    xywh = np.concatenate([rng.uniform(0.25, 0.75, (b, g, 2)), rng.uniform(0.1, 0.5, (b, g, 2))], -1)
+    preds = {"feats": feats}
+    batch = {"cls": cls, "mask_gt": mask}
+    if task == "obb":
+        xywhr = np.concatenate([xywh, rng.uniform(-np.pi / 4, 3 * np.pi / 4, (b, g, 1))], -1)
+        xywhr[0, 0, :3] = 28 / LOSS_IMGSZ, 28 / LOSS_IMGSZ, 1.5 / LOSS_IMGSZ  # under 2 px, on an anchor
+        batch["bboxes"] = (xywhr * mask[..., None]).astype(np.float32)
+        logits = rng.normal(0, 1, (b, a, 1))
+        preds["angle"] = ((1 / (1 + np.exp(-logits)) - 0.25) * np.pi).astype(np.float32)
+        return preds, batch
+    batch["bboxes"] = (xywh * mask[..., None]).astype(np.float32)
+    if task == "segment":
+        preds["mc"] = rng.normal(0, 1, (b, a, nm)).astype(np.float32)
+        preds["protos"] = rng.normal(0, 1, (b, nm, 16, 16)).astype(np.float32)
+        grid = (np.arange(16) + 0.5) / 16
+        lo, hi = (xywh[..., :2] - xywh[..., 2:] / 2)[..., None], (xywh[..., :2] + xywh[..., 2:] / 2)[..., None]
+        in_x = (grid > lo[..., 0, :]) & (grid < hi[..., 0, :])  # (B, G, 16) columns
+        in_y = (grid > lo[..., 1, :]) & (grid < hi[..., 1, :])  # rows
+        inside = in_y[..., :, None] & in_x[..., None, :]
+        blobs = inside & (rng.uniform(size=(b, g, 16, 16)) < 0.8) & mask[..., None, None]
+        batch["masks"] = blobs.astype(np.float32)
+    elif task == "pose":
+        k, nd = kpt_shape
+        preds["kpt"] = rng.normal(0, 1, (b, a, k * nd)).astype(np.float32)
+        xy = xywh[..., None, :2] + (rng.uniform(-0.5, 0.5, (b, g, k, 2)) * xywh[..., None, 2:])
+        kp = np.concatenate([xy, rng.integers(0, 3, (b, g, k, 1))], -1) if nd == 3 else xy
+        if nd == 3:
+            kp[kp[..., 2] == 0] = 0.0  # invisible: (0, 0, 0), as the labels give them
+        batch["keypoints"] = (kp * mask[..., None, None]).astype(np.float32)
+    return preds, batch
+
+
+def port_criterion(task: str, kpt_shape=(17, 3), overlap_mask: bool = True, hyp=None):
+    """The port's criterion of a task at task_loss_inputs' nc and strides."""
+    from ultralytics_pro_tpu_torch.utils import loss
+
+    kw = {"nc": LOSS_NC, "reg_max": 16, "strides": LOSS_STRIDES, "hyp": hyp}
+    if task == "segment":
+        return loss.v8SegmentationLoss(**kw, overlap_mask=overlap_mask)
+    if task == "pose":
+        return loss.v8PoseLoss(**kw, kpt_shape=kpt_shape)
+    return loss.v8OBBLoss(**kw)
+
+
+def port_loss_and_grads(criterion, preds, batch, device: str = "cpu"):
+    """The criterion's parts and total, and the gradient of the total with
+    respect to each head output (feats as a list), on a device; numpy out."""
+    from ultralytics_pro_tpu_torch.utils import full_f32
+
+    leaves = {k: ([torch.tensor(f, device=device, requires_grad=True) for f in v] if k == "feats"
+                  else torch.tensor(v, device=device, requires_grad=True)) for k, v in preds.items()}
+    with full_f32():
+        total, parts = criterion(leaves, {k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                                 (LOSS_IMGSZ, LOSS_IMGSZ))
+        total.backward()
+    grads = {k: ([f.grad.cpu().numpy() for f in v] if k == "feats" else v.grad.cpu().numpy())
+             for k, v in leaves.items()}
+    return float(total.detach()), {k: float(v.detach()) for k, v in parts.items()}, grads
+
+
+def assert_grads_close(got: dict, want: dict):
+    for k in want:
+        for g, w in zip(*((v if k == "feats" else [v]) for v in (got[k], want[k]))):
+            np.testing.assert_allclose(g, w, rtol=0, atol=LOSS_GRAD_TOL * max(np.abs(w).max(), 1e-12), err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["segment", "pose", "obb"])
+def test_task_criterion_on_card_matches_cpu(card, task):
+    """Each task's criterion on a seeded batch, forward and backward, on the
+    card and on the CPU: parts within 1e-5 relative, gradients with respect
+    to the head's outputs within 1e-4 of each tensor's largest (the CPU tests'
+    tolerances against the JAX criteria)."""
+    preds, batch = task_loss_inputs(task, seed=11)
+    criterion = port_criterion(task)
+    ct, cparts, cgrads = port_loss_and_grads(criterion, preds, batch, "cuda")
+    ht, hparts, hgrads = port_loss_and_grads(criterion, preds, batch, "cpu")
+    assert cparts.keys() == hparts.keys()
+    for k in hparts:
+        assert cparts[k] == pytest.approx(hparts[k], rel=LOSS_RTOL), k
+    assert ct == pytest.approx(ht, rel=LOSS_RTOL)
+    assert_grads_close(cgrads, hgrads)
 
 
 @pytest.mark.cuda

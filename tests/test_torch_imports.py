@@ -15,6 +15,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "ultralytics_pro_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "flax", "yaml", "cv2", "ultralytics_pro_tpu")
@@ -95,6 +97,31 @@ def test_port_trains_with_jax_yaml_cv2_blocked(tmp_path):
             "YOLO(str(m.trainer.wdir / 'last.ckpt'), device='cpu')")
     out = subprocess.run([sys.executable, "-c", _blocker(BLOCKED, then)], capture_output=True, text=True,
                          cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+
+
+@pytest.mark.parametrize("task", ["segment", "pose", "obb"])
+def test_port_trains_the_tasks_with_jax_yaml_cv2_blocked(tmp_path, task):
+    """Segment, pose and OBB training (the task's collate, criterion and
+    assigner, the pose head rebuilt at the set's [5, 3], the epoch-end val)
+    run in the blocking process, with PIL refused too, and load what they
+    wrote."""
+    import shutil
+
+    data = shutil.copytree(REPO / "tests" / "fixtures" / f"torch_val_synth_{task}", tmp_path / "set")
+    kpt = "kpt_shape: [5, 3]\n" if task == "pose" else ""
+    (data / "train.yaml").write_text("train: images/val\nval: images/val\n" + kpt + "names:\n  0: a\n  1: b\n  2: c\n")
+    yaml = {"segment": "yolov8n-seg.yaml", "pose": "yolov8n-pose.yaml", "obb": "yolov8n-obb.yaml"}[task]
+    then = ("import torch\n"
+            "torch.set_num_threads(2)\n"
+            "from ultralytics_pro_tpu_torch import YOLO\n"
+            f"m = YOLO({yaml!r}, device='cpu')\n"
+            f"m.train(data={str(data / 'train.yaml')!r}, epochs=1, imgsz=32, batch=8, nbs=8, workers=2, "
+            f"max_gt=16, warmup_epochs=0.0, conf=1e-6, project={str(tmp_path / 'runs')!r})\n"
+            "assert m.trainer.last_fitness is not None\n"
+            "YOLO(str(m.trainer.wdir / 'last.ckpt'), device='cpu')")
+    out = subprocess.run([sys.executable, "-c", _blocker(BLOCKED + ("PIL",), then)], capture_output=True,
+                         text=True, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
 
 

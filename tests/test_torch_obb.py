@@ -514,12 +514,6 @@ def test_results_obb_surface():
     assert np.isfinite(r.obb.data).all()
 
 
-def test_obb_train_raises_naming_the_loss(fixture_copy):
-    data = fixture_copy / "train.yaml"
-    data.write_text("train: images/val\nval: images/val\nnames:\n  0: a\n  1: b\n  2: c\n")
-    with pytest.raises(NotImplementedError, match="v8OBBLoss"):
-        YOLO("yolov8n-obb.yaml", device="cpu").train(data=str(data), epochs=1, imgsz=64, batch=4)
-
 
 if __name__ == "__main__":
     target = Path(FIXTURES) / "torch_val_synth_obb"

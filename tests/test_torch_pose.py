@@ -245,10 +245,3 @@ def test_results_keypoints_surface():
     np.testing.assert_allclose(k.xyn, k.data[..., :2] / np.array([70, 90]))
     np.testing.assert_array_equal(k.conf, k.data[..., 2])
     assert k[:1].data.shape == (1, 17, 3)
-
-
-def test_pose_train_raises_naming_the_loss(fixture_copy):
-    data = fixture_copy / "train.yaml"
-    data.write_text("train: images/val\nval: images/val\nkpt_shape: [5, 3]\nnames:\n  0: a\n  1: b\n  2: c\n")
-    with pytest.raises(NotImplementedError, match="v8PoseLoss"):
-        YOLO("yolov8n-pose.yaml", device="cpu").train(data=str(data), epochs=1, imgsz=64, batch=4)

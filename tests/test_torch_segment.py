@@ -482,13 +482,6 @@ def test_results_masks_surface():
         r.masks.xy
 
 
-def test_segment_train_raises_naming_the_loss(fixture_copy):
-    data = fixture_copy / "train.yaml"
-    data.write_text("train: images/val\nval: images/val\nnames:\n  0: a\n  1: b\n  2: c\n")
-    with pytest.raises(NotImplementedError, match="v8SegmentationLoss"):
-        YOLO("yolov8n-seg.yaml", device="cpu").train(data=str(data), epochs=1, imgsz=64, batch=4)
-
-
 if __name__ == "__main__":
     ROOT = Path(FIXTURES)
     for stem in ("segment", "pose"):

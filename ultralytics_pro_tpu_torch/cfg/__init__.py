@@ -52,5 +52,8 @@ DEFAULT_CFG_DICT = {
     "box": 7.5,
     "cls": 0.5,
     "dfl": 1.5,
+    "pose": 12.0,
+    "kobj": 1.0,
+    "overlap_mask": True,  # read by nothing: the collate always gives overlaps to the smaller instance
     "nbs": 64,
 }

@@ -2,20 +2,24 @@
 and `.train(data=...)`.
 
 Counterpart of `ultralytics_pro_tpu/engine/model.py` (`Model:27`, `_new:44`,
-`_load:52`, `predict:77`, `val:138` and `train:172` for detect, predict and
-val for segment, pose and obb (their train raises, naming the loss to port),
-`_quick_val:286`, `YOLO:341`). The model lives on `device`, which defaults
-to the card and raises when there is none; pass device="cpu" for the CPU.
-Training runs on that device. Weights are initialised from a
-`torch.Generator` seeded with `seed`, loaded from a torch-reference state
-dict (`load_state_dict`), or read from a checkpoint of either package
-(`YOLO("best.ckpt")`: its EMA parameters where it has them, and its BN
-statistics). The checkpoint's `train_args` stay in `ckpt`; unlike the JAX
-facade the port does not apply them as defaults.
+`_load:52`, `_merged_args:72`, `predict:77`, `val:138`, `train:172`,
+`_quick_val:286`, `YOLO:341`) for detect, segment, pose and obb. The model
+lives on `device`, which defaults to the card and raises when there is none;
+pass device="cpu" for the CPU. Training runs on that device. Weights are
+initialised from a `torch.Generator` seeded with `seed`, loaded from a
+torch-reference state dict (`load_state_dict`), or read from a checkpoint of
+either package (`YOLO("best.ckpt")`: its EMA parameters where it has them,
+and its BN statistics). As in the JAX facade, the checkpoint's `train_args`
+(less `save_dir`) become `overrides`, the defaults of every later predict,
+val and train under the caller's arguments: a model trained at imgsz=96
+predicts and validates at 96, and `val()` without `data` takes the training
+set's YAML. `plots` is left out of them too: the port draws no plots, and a
+JAX checkpoint carries that package's default, True.
 """
 
 from __future__ import annotations
 
+import copy
 from pathlib import Path
 from typing import Mapping, Optional, Union
 
@@ -28,7 +32,7 @@ from ultralytics_pro_tpu_torch.utils import LOGGER, select_device
 
 class Model:
     """Unified YOLO-style model facade: predict, val and train for detect,
-    predict and val for segment, pose and obb, in this port."""
+    segment, pose and obb."""
 
     def __init__(self, model: Union[str, Path, dict] = "yolov8n.yaml", task: Optional[str] = None,
                  device="cuda", seed: int = 0, verbose: bool = False):
@@ -37,6 +41,7 @@ class Model:
         self.predictor = None
         self.trainer = None
         self.ckpt = None
+        self.overrides = {}
         if str(model).endswith((".ckpt", ".pkl")):
             self._load(str(model), task)
         else:
@@ -66,9 +71,18 @@ class Model:
         self.model = self._build(d)
         self.load_state_dict(jax_to_torch_state_dict({"params": ckpt.get("ema") or ckpt["params"],
                                                       "batch_stats": ckpt["batch_stats"]}))
+        self.overrides = dict(ckpt.get("train_args") or {})
+        for key in ("save_dir", "plots"):
+            self.overrides.pop(key, None)
+
+    def _merged_args(self, **kwargs) -> dict:
+        """The defaults, then the checkpoint's overrides, then the caller's arguments."""
+        args = {**DEFAULT_CFG_DICT, **self.overrides, **kwargs}
+        args.pop("mode", None)
+        return args
 
     def predict(self, source=None, stream: bool = False, **kwargs):
-        args = {**DEFAULT_CFG_DICT, **kwargs}
+        args = self._merged_args(**kwargs)
         args["conf"] = args.get("conf") or 0.25
         from ultralytics_pro_tpu_torch.models import predictor_for  # models/ imports this module
 
@@ -102,7 +116,7 @@ class Model:
         from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset
         from ultralytics_pro_tpu_torch.models import task_map  # models/ imports this module
 
-        args = {**DEFAULT_CFG_DICT, **kwargs}
+        args = self._merged_args(**kwargs)
         d = self._dataset(data, args)
         self.model.names = d["names"]
         imgsz, batch = int(args["imgsz"]), int(args["batch"])
@@ -114,18 +128,31 @@ class Model:
         return validator(self.model, loader, names=d["names"])
 
     def train(self, data=None, **kwargs):
-        """Train on a detection dataset's train split on the model's device,
-        validating the EMA parameters on its val split after every epoch
-        (val=True); the EMA parameters are left on the model. Returns None,
+        """Train on a dataset's train split on the model's device, validating
+        the EMA parameters on its val split after every epoch (val=True); the
+        EMA parameters are left on the model. The model is rebuilt at the
+        dataset's nc, and a pose model at its kpt_shape where the head's
+        differs. `data` is kept in the checkpoints' `train_args` (the JAX
+        trainer leaves it out), so `YOLO(ckpt).val()` finds it. Returns None,
         as the JAX facade does: results are on `self.trainer` and in its
         save_dir (results.csv, weights/last.ckpt and best.ckpt)."""
         from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset
         from ultralytics_pro_tpu_torch.models import task_map  # models/ imports this module
 
-        args = {**DEFAULT_CFG_DICT, **kwargs}
+        args = self._merged_args(**kwargs)
+        if data is not None:
+            args["data"] = data
         d = self._dataset(data, args)
-        if d["nc"] != self.model.nc:
-            self.model = self._build(self.model.yaml, nc=d["nc"])
+        y = copy.deepcopy(self.model.yaml)
+        rebuild = d["nc"] != self.model.nc
+        if self.task == "pose" and d.get("kpt_shape") and \
+                tuple(self.model.model[-1].kpt_shape) != tuple(d["kpt_shape"]):
+            for row in y.get("head", []):  # the Pose row takes the dataset's shape, so checkpoints carry it
+                if row[2] == "Pose":
+                    row[3] = [row[3][0], list(d["kpt_shape"])]
+            rebuild = True
+        if rebuild:
+            self.model = self._build(y, nc=d["nc"])
         self.model.names = d["names"]
         train_set = YOLODataset(d["train"], imgsz=int(args["imgsz"]), augment=bool(args["augment"]),
                                 data=d, task=self.task, cache=args.get("cache") or None)

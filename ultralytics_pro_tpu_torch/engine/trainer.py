@@ -1,10 +1,12 @@
-"""Trainer: the detect training loop on one device.
+"""Trainer: the training loop on one device, for detect, segment, pose and obb.
 
 Counterpart of `ultralytics_pro_tpu/engine/trainer.py` (`param_group:35`,
 `EarlyStopping:52`, `BaseTrainer:73` with `lr_lambda:135`, the step of
 `build_train_step:146`, `train:241`, `save_checkpoint:433`,
-`resume_from:500`, `save_pickle:508`, `load_pickle:517`, and
-`DetectionTrainer:522`), with the JAX step's semantics kept exactly:
+`resume_from:500`, `save_pickle:508`, `load_pickle:517`,
+`DetectionTrainer:522`, `SegmentationTrainer:620`, `PoseTrainer:659` and
+`OBBTrainer:676`), with the JAX step's semantics kept exactly (the task
+trainers differ only in their criterion):
 
 - a micro-batch's forward, loss and backward add its gradients to the
   parameters' `.grad`; the optimizer applies only on the micro-batches where
@@ -88,7 +90,7 @@ class EarlyStopping:
 class BaseTrainer(CallbackMixin):
     """Task-agnostic training loop; subclasses provide the criterion.
 
-    model: the port's DetectionModel, on the device it trains on."""
+    model: the port's DetectionModel (or a task's), on the device it trains on."""
 
     def __init__(self, model: nn.Module, args: Dict):
         for key, where in QUEUED_ARGS.items():
@@ -171,11 +173,13 @@ class BaseTrainer(CallbackMixin):
     # -- the step -------------------------------------------------------------
     def put_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """Host batch -> tensors on the model's device; img as (B, 3, H, W)
-        RGB floats in [0, 1] (the JAX loss_fn's flip and scale)."""
+        RGB floats in [0, 1] (the JAX loss_fn's flip and scale); segment's
+        masks and pose's keypoints where the batch has them."""
         img = torch.from_numpy(batch["img"]).to(self.device)
         out = {"img": img.flip(-1).permute(0, 3, 1, 2).float() / 255.0}
-        for k in ("cls", "bboxes", "mask_gt"):
-            out[k] = torch.from_numpy(np.asarray(batch[k])).to(self.device)
+        for k in ("cls", "bboxes", "mask_gt", "masks", "keypoints"):
+            if k in batch:
+                out[k] = torch.from_numpy(np.asarray(batch[k])).to(self.device)
         return out
 
     def step(self, batch: Dict[str, torch.Tensor], lr_by_group, momentum: float, do_step: bool):
@@ -394,13 +398,49 @@ def load_pickle(path):
 class DetectionTrainer(BaseTrainer):
     """Detect-task trainer: v8DetectionLoss with the box, cls and dfl gains."""
 
+    loss_name = "v8DetectionLoss"
+
+    def gains(self) -> Dict[str, float]:
+        return {"box": self.args.get("box", 7.5), "cls": self.args.get("cls", 0.5), "dfl": self.args.get("dfl", 1.5)}
+
     def build_criterion(self):
-        from ultralytics_pro_tpu_torch.utils.loss import v8DetectionLoss
+        from ultralytics_pro_tpu_torch.utils import loss
 
         head = self.model.model[-1]
         if not isinstance(head, Detect):
             raise NotImplementedError(f"training a {type(head).__name__} head is not implemented in "
                                       "ultralytics_pro_tpu_torch yet (RT-DETR: ROADMAP.md queue 1 item 4)")
-        return v8DetectionLoss(nc=self.model.nc, reg_max=head.reg_max, strides=self.model.stride.tolist(),
-                               hyp={"box": self.args.get("box", 7.5), "cls": self.args.get("cls", 0.5),
-                                    "dfl": self.args.get("dfl", 1.5)})
+        return getattr(loss, self.loss_name)(nc=self.model.nc, reg_max=head.reg_max,
+                                             strides=self.model.stride.tolist(), hyp=self.gains(),
+                                             **self.criterion_kwargs(head))
+
+    def criterion_kwargs(self, head) -> Dict:
+        return {}
+
+
+class SegmentationTrainer(DetectionTrainer):
+    """Segment-task trainer: v8SegmentationLoss (the mask part takes the box gain)."""
+
+    loss_name = "v8SegmentationLoss"
+
+    def criterion_kwargs(self, head) -> Dict:
+        return {"overlap_mask": self.args.get("overlap_mask", True)}
+
+
+class PoseTrainer(DetectionTrainer):
+    """Pose-task trainer: v8PoseLoss at the Pose head's kpt_shape, with the
+    pose and kobj gains besides detect's."""
+
+    loss_name = "v8PoseLoss"
+
+    def gains(self) -> Dict[str, float]:
+        return {**super().gains(), "pose": self.args.get("pose", 12.0), "kobj": self.args.get("kobj", 1.0)}
+
+    def criterion_kwargs(self, head) -> Dict:
+        return {"kpt_shape": head.kpt_shape}
+
+
+class OBBTrainer(DetectionTrainer):
+    """OBB-task trainer: v8OBBLoss (the rotated assigner, probiou)."""
+
+    loss_name = "v8OBBLoss"

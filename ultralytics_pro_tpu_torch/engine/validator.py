@@ -39,6 +39,7 @@ from ultralytics_pro_tpu_torch.ops.masks import process_mask
 from ultralytics_pro_tpu_torch.ops.nms import non_max_suppression, non_max_suppression_rotated
 from ultralytics_pro_tpu_torch.utils import LOGGER, Profile, full_f32
 from ultralytics_pro_tpu_torch.utils.metrics import (
+    OKS_SIGMA,
     ConfusionMatrix,
     DetMetrics,
     OBBMetrics,
@@ -49,10 +50,6 @@ from ultralytics_pro_tpu_torch.utils.metrics import (
     mask_iou_np,
     match_predictions,
 )
-
-# COCO's 17 keypoint sigmas; any other keypoint count weighs each 1/nk
-OKS_SIGMA = np.array([26, 25, 25, 35, 35, 79, 79, 72, 72, 62, 62, 107, 107, 87, 87, 89, 89],
-                     np.float32) / 1000.0
 
 
 def _gt_boxes(gt_n: np.ndarray, h: int, w: int) -> np.ndarray:

@@ -1,25 +1,36 @@
-"""The YOLOv8 detection loss: task-aligned assignment, BCE on classes,
-CIoU and distribution focal loss on boxes.
+"""The YOLOv8 training criteria: task-aligned assignment, BCE on classes,
+CIoU and distribution focal loss on boxes, and the segment, pose and OBB
+terms on top.
 
 Counterpart of `ultralytics_pro_tpu/utils/loss.py` (`bce_logits:27`,
-`df_loss:76`, `v8DetectionLoss:94`). Batches carry padded ground truth:
-cls (B, G), bboxes (B, G, 4) normalised xywh, mask_gt (B, G). The head's
-maps come NCHW, one per level, and flatten anchor-major (level, row, column)
-as the JAX package's NHWC maps do. The two-bin select of the DFL is a
-`gather` here (a one-hot product there, for the TPU).
+`df_loss:76`, `v8DetectionLoss:94`, `v8SegmentationLoss:190`,
+`v8PoseLoss:270` with `OKS_SIGMA:265`, `v8OBBLoss:375`). Batches carry padded
+ground truth: cls (B, G), bboxes (B, G, 4) normalised xywh (obb: (B, G, 5)
+xywhr), mask_gt (B, G), and segment's masks (B, G, H/4, W/4) or pose's
+keypoints (B, G, K, 3) normalised. The head's maps come NCHW, one per level,
+and flatten anchor-major (level, row, column) as the JAX package's NHWC maps
+do; segment's prototypes are NCHW (B, nm, H/4, W/4) where the JAX package's
+are channel-last. The two-bin select of the DFL and the selections of a
+target's keypoints and mask are gathers here (one-hot products there, for
+the TPU). The mask loss is computed for the foreground anchors only, image
+by image: the JAX criterion forms every anchor's (H/4 x W/4) logits and
+weights the background's by 0, which is the same sum, and at 640 px, batch
+16, would take 13.8 GB a tensor.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ultralytics_pro_tpu_torch.ops.anchors import bbox2dist, dist2bbox, make_anchors
+from ultralytics_pro_tpu_torch.ops.anchors import bbox2dist, dist2bbox, dist2rbox, make_anchors
 from ultralytics_pro_tpu_torch.ops.boxes import xywh2xyxy
-from ultralytics_pro_tpu_torch.ops.iou import bbox_iou
-from ultralytics_pro_tpu_torch.utils.tal import TaskAlignedAssigner
+from ultralytics_pro_tpu_torch.ops.iou import bbox_iou, probiou
+from ultralytics_pro_tpu_torch.ops.masks import crop_mask
+from ultralytics_pro_tpu_torch.utils.metrics import OKS_SIGMA
+from ultralytics_pro_tpu_torch.utils.tal import AssignResult, RotatedTaskAlignedAssigner, TaskAlignedAssigner
 
 
 def bce_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -40,6 +51,14 @@ def df_loss(pred_dist: torch.Tensor, target: torch.Tensor, reg_max: int) -> torc
     ce_l = -logp.gather(-1, tl[..., None])[..., 0]
     ce_r = -logp.gather(-1, tr.clamp(max=reg_max - 1)[..., None])[..., 0]
     return (ce_l * wl + ce_r * wr).mean(-1, keepdim=True)
+
+
+class DetectTerms(NamedTuple):
+    """What the detect part of a criterion leaves for the task's own terms."""
+    anchor_points: torch.Tensor  # (A, 2) grid units
+    stride_tensor: torch.Tensor  # (A, 1)
+    assign: AssignResult  # in pixels
+    parts: Dict[str, torch.Tensor]  # box, cls, dfl, before their gains
 
 
 class v8DetectionLoss:
@@ -64,12 +83,16 @@ class v8DetectionLoss:
         flat = torch.cat([f.reshape(b, no, -1) for f in feats], 2).transpose(1, 2)
         return flat.split((4 * self.reg_max, self.nc), -1)
 
+    def dfl_expectation(self, pred_dist: torch.Tensor) -> torch.Tensor:
+        """(B, A, 4*reg_max) logits -> (B, A, 4) expected distances."""
+        b, a, _ = pred_dist.shape
+        bins = torch.arange(self.reg_max, dtype=pred_dist.dtype, device=pred_dist.device)
+        return pred_dist.reshape(b, a, 4, self.reg_max).softmax(-1) @ bins
+
     def bbox_decode(self, anchor_points: torch.Tensor, pred_dist: torch.Tensor) -> torch.Tensor:
         """(A, 2), (B, A, 4*reg_max) -> (B, A, 4) xyxy in grid units."""
         if self.use_dfl:
-            b, a, _ = pred_dist.shape
-            bins = torch.arange(self.reg_max, dtype=pred_dist.dtype, device=pred_dist.device)
-            pred_dist = pred_dist.reshape(b, a, 4, self.reg_max).softmax(-1) @ bins
+            pred_dist = self.dfl_expectation(pred_dist)
         return dist2bbox(pred_dist, anchor_points, xywh=False)
 
     @staticmethod
@@ -79,7 +102,9 @@ class v8DetectionLoss:
         scale = torch.tensor([w, h, w, h], dtype=torch.float32, device=batch["bboxes"].device)
         return batch["cls"].long(), xywh2xyxy(batch["bboxes"] * scale), batch["mask_gt"].bool()
 
-    def __call__(self, feats: List[torch.Tensor], batch: Dict, imgsz_hw) -> Tuple[torch.Tensor, Dict]:
+    def detect_terms(self, feats: List[torch.Tensor], batch: Dict, imgsz_hw) -> DetectTerms:
+        """The assignment and the box, cls and dfl terms, shared by the detect,
+        segment and pose criteria."""
         pred_distri, pred_scores = self.flatten_preds(feats)
         anchor_points, stride_tensor = make_anchors([f.shape[2:] for f in feats], self.strides, 0.5,
                                                     device=feats[0].device)
@@ -96,9 +121,16 @@ class v8DetectionLoss:
         loss_box, loss_dfl = self.bbox_loss(pred_distri, pred_bboxes, anchor_points,
                                             assign.target_bboxes / stride_tensor, target_scores,
                                             target_scores_sum, assign.fg_mask)
-        parts = {"box": loss_box * self.box_gain, "cls": loss_cls * self.cls_gain,
-                 "dfl": loss_dfl * self.dfl_gain}
-        return sum(parts.values()) * pred_scores.shape[0], parts
+        return DetectTerms(anchor_points, stride_tensor, assign, {"box": loss_box, "cls": loss_cls, "dfl": loss_dfl})
+
+    def total(self, parts: Dict[str, torch.Tensor], batch_size: int) -> Tuple[torch.Tensor, Dict]:
+        """The gained parts' sum times the batch size, and the parts."""
+        return sum(parts.values()) * batch_size, parts
+
+    def __call__(self, feats: List[torch.Tensor], batch: Dict, imgsz_hw) -> Tuple[torch.Tensor, Dict]:
+        t = self.detect_terms(feats, batch, imgsz_hw)
+        return self.total({"box": t.parts["box"] * self.box_gain, "cls": t.parts["cls"] * self.cls_gain,
+                           "dfl": t.parts["dfl"] * self.dfl_gain}, feats[0].shape[0])
 
     def bbox_loss(self, pred_dist, pred_bboxes, anchor_points, target_bboxes, target_scores,
                   target_scores_sum, fg_mask):
@@ -108,7 +140,154 @@ class v8DetectionLoss:
         loss_iou = ((1.0 - iou) * weight).sum() / target_scores_sum
         if not self.use_dfl:
             return loss_iou, torch.zeros((), device=pred_dist.device)
-        target_ltrb = bbox2dist(anchor_points, target_bboxes, self.reg_max)  # (B, A, 4)
+        return loss_iou, self.dfl_term(pred_dist, anchor_points, target_bboxes, weight, target_scores_sum)
+
+    def dfl_term(self, pred_dist, anchor_points, target_xyxy, weight, target_scores_sum):
+        """DFL to the distances of the target boxes (xyxy, grid units) from the anchors."""
+        target_ltrb = bbox2dist(anchor_points, target_xyxy, self.reg_max)  # (B, A, 4)
         b, a, _ = target_ltrb.shape
         dfl = df_loss(pred_dist.reshape(b, a, 4, self.reg_max), target_ltrb, self.reg_max)[..., 0]
-        return loss_iou, (dfl * weight).sum() / target_scores_sum
+        return (dfl * weight).sum() / target_scores_sum
+
+
+class v8SegmentationLoss(v8DetectionLoss):
+    """Detect's terms plus a per-anchor mask BCE: each foreground anchor's
+    logits (its coefficients times its image's prototypes) against its box's
+    GT mask, cropped to that box on the mask grid and divided by the box's
+    area there; the sum over the foreground anchors divided by their count,
+    and weighted by the box gain (the JAX criterion's choice).
+
+    `overlap_mask` is stored and read by nothing, as in the JAX criterion:
+    the collate always gives overlapping pixels to the smaller instance."""
+
+    def __init__(self, *args, overlap_mask: bool = True, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.overlap = overlap_mask
+
+    def __call__(self, preds: Dict, batch: Dict, imgsz_hw) -> Tuple[torch.Tensor, Dict]:
+        t = self.detect_terms(preds["feats"], batch, imgsz_hw)
+        loss_seg = self.mask_loss(preds["mc"], preds["protos"], batch["masks"], t.assign, imgsz_hw)
+        return self.total({"box": t.parts["box"] * self.box_gain, "seg": loss_seg * self.box_gain,
+                           "cls": t.parts["cls"] * self.cls_gain, "dfl": t.parts["dfl"] * self.dfl_gain},
+                          preds["mc"].shape[0])
+
+    @staticmethod
+    def mask_loss(mc, protos, gt_masks, assign: AssignResult, imgsz_hw) -> torch.Tensor:
+        """mc (B, A, nm), protos (B, nm, mh, mw), gt_masks (B, G, mh, mw)."""
+        b, nm, mh, mw = protos.shape
+        h, w = imgsz_hw
+        scale = torch.tensor([mw / w, mh / h, mw / w, mh / h], dtype=torch.float32, device=protos.device)
+        tb_mask = assign.target_bboxes * scale  # (B, A, 4) on the mask grid
+        area = ((tb_mask[..., 2] - tb_mask[..., 0]) * (tb_mask[..., 3] - tb_mask[..., 1])).clamp(min=1.0)
+        fg_mask = assign.fg_mask
+        counts = fg_mask.sum(1).tolist()  # one host sync a batch, for the per-image row counts
+        anchors = fg_mask.nonzero()[:, 1].split(counts)
+        total = (mc.sum() + protos.sum()) * 0.0  # every head parameter gets a gradient, as with jax.grad
+        for i, a in enumerate(anchors):
+            if not len(a):
+                continue
+            pred = (mc[i, a] @ protos[i].reshape(nm, -1)).reshape(-1, mh, mw)  # (n, mh, mw) logits
+            target = gt_masks[i, assign.target_gt_idx[i, a]]
+            loss = crop_mask(bce_logits(pred, target), tb_mask[i, a])
+            total = total + (loss.sum((1, 2)) / area[i, a]).sum()
+        return total / fg_mask.sum().clamp(min=1)
+
+
+class v8PoseLoss(v8DetectionLoss):
+    """Detect's terms plus the keypoints': an OKS-shaped location loss over
+    the visible keypoints of each foreground anchor's box (sigmas from
+    OKS_SIGMA for 17x3 keypoints, else 1/K), scaled by K over the visible
+    count, and for 3-wide keypoints a BCE of the visibility logit against
+    the GT's visibility. Gains `pose` (12.0) and `kobj` (1.0)."""
+
+    def __init__(self, *args, kpt_shape=(17, 3), **kwargs):
+        super().__init__(*args, **kwargs)
+        hyp = kwargs.get("hyp") or {}
+        self.kpt_shape = tuple(kpt_shape)
+        self.pose_gain = hyp.get("pose", 12.0)
+        self.kobj_gain = hyp.get("kobj", 1.0)
+        k = self.kpt_shape[0]
+        self.sigmas = torch.from_numpy(OKS_SIGMA) if self.kpt_shape == (17, 3) else torch.ones(k) / k
+
+    @staticmethod
+    def kpts_decode(anchor_points: torch.Tensor, pred_kpts: torch.Tensor) -> torch.Tensor:
+        """(A, 2), (B, A, K, ndim) -> grid-unit keypoints, the rest as it is."""
+        xy = pred_kpts[..., :2] * 2.0 + (anchor_points[None, :, None, :] - 0.5)
+        return torch.cat([xy, pred_kpts[..., 2:]], -1)
+
+    def __call__(self, preds: Dict, batch: Dict, imgsz_hw) -> Tuple[torch.Tensor, Dict]:
+        t = self.detect_terms(preds["feats"], batch, imgsz_hw)
+        b, a = preds["kpt"].shape[:2]
+        k, nd = self.kpt_shape
+        pred_kpts = self.kpts_decode(t.anchor_points, preds["kpt"].reshape(b, a, k, nd))
+        fg_mask = t.assign.fg_mask
+
+        h, w = imgsz_hw
+        gt_kpts = batch["keypoints"]  # (B, G, K, ndim) normalised
+        gt_kpts = torch.cat([gt_kpts[..., :2] * torch.tensor([w, h], dtype=torch.float32, device=gt_kpts.device),
+                             gt_kpts[..., 2:]], -1)
+        idx = t.assign.target_gt_idx[:, :, None, None].expand(-1, -1, k, gt_kpts.shape[-1])
+        sel = gt_kpts.gather(1, idx)  # (B, A, K, ndim): each anchor's box's keypoints
+        sel = torch.cat([sel[..., :2] / t.stride_tensor[None, :, None, :], sel[..., 2:]], -1)
+
+        tb = t.assign.target_bboxes / t.stride_tensor
+        area = ((tb[..., 2] - tb[..., 0]) * (tb[..., 3] - tb[..., 1]))[..., None]  # (B, A, 1) grid units
+        d = (pred_kpts[..., 0] - sel[..., 0]) ** 2 + (pred_kpts[..., 1] - sel[..., 1]) ** 2
+        kpt_mask = (sel[..., 2] != 0) if nd == 3 else torch.ones_like(sel[..., 0], dtype=torch.bool)
+        kpt_loss_factor = k / (kpt_mask.sum(-1, keepdim=True) + 1e-9)  # (B, A, 1)
+        e = d / ((2 * self.sigmas.to(d.device)) ** 2) / (area + 1e-9) / 2
+        per_elem = kpt_loss_factor * (1 - torch.exp(-e)) * kpt_mask
+        n_fg = fg_mask.sum().clamp(min=1)
+        loss_pose = (per_elem * fg_mask[..., None]).sum() / (n_fg * k)
+        if nd == 3:
+            kobj = bce_logits(pred_kpts[..., 2], kpt_mask.float())
+            loss_kobj = (kobj * fg_mask[..., None]).sum() / (n_fg * k)
+        else:
+            loss_kobj = torch.zeros((), device=d.device)
+        return self.total({"box": t.parts["box"] * self.box_gain, "pose": loss_pose * self.pose_gain,
+                           "kobj": loss_kobj * self.kobj_gain, "cls": t.parts["cls"] * self.cls_gain,
+                           "dfl": t.parts["dfl"] * self.dfl_gain}, b)
+
+
+class v8OBBLoss(v8DetectionLoss):
+    """Rotated boxes: the rotated assigner (probiou, corner test) in pixels,
+    BCE on classes, 1 - probiou (clamped at 0) on the boxes, and DFL to the
+    axis-aligned distances of the target's (x, y, w, h). GTs under 2 px wide
+    or high drop out before the assignment. Unlike the JAX criterion, an
+    image without objects gives finite gradients."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.assigner = RotatedTaskAlignedAssigner(topk=10, num_classes=self.nc, alpha=0.5, beta=6.0)
+
+    def __call__(self, preds: Dict, batch: Dict, imgsz_hw) -> Tuple[torch.Tensor, Dict]:
+        feats, pred_angle = preds["feats"], preds["angle"]  # angle (B, A, 1), in radians
+        pred_distri, pred_scores = self.flatten_preds(feats)
+        anchor_points, stride_tensor = make_anchors([f.shape[2:] for f in feats], self.strides, 0.5,
+                                                    device=feats[0].device)
+        h, w = imgsz_hw
+        scale = torch.tensor([w, h, w, h, 1.0], dtype=torch.float32, device=pred_angle.device)
+        gt_rboxes = batch["bboxes"] * scale  # (B, G, 5) xywhr pixels
+        mask_gt = batch["mask_gt"].bool() & (gt_rboxes[..., 2] >= 2.0) & (gt_rboxes[..., 3] >= 2.0)
+
+        dist = self.dfl_expectation(pred_distri)
+        pred_rboxes = torch.cat([dist2rbox(dist, pred_angle, anchor_points[None]), pred_angle], -1)  # grid units
+        pd_pixel = torch.cat([pred_rboxes[..., :4] * stride_tensor, pred_rboxes[..., 4:5]], -1)
+        assign = self.assigner(pred_scores.detach().sigmoid(), pd_pixel.detach(), anchor_points * stride_tensor,
+                               batch["cls"].long(), gt_rboxes, mask_gt)
+        target_scores = assign.target_scores
+        target_scores_sum = target_scores.sum().clamp(min=1.0)
+        loss_cls = bce_logits(pred_scores, target_scores).sum() / target_scores_sum
+
+        tb = assign.target_bboxes
+        tb = torch.cat([tb[..., :4] / stride_tensor, tb[..., 4:5]], -1)
+        weight = target_scores.sum(-1) * assign.fg_mask
+        # a background anchor's target may be an empty slot's zero box, whose
+        # probiou has an infinite derivative (sqrt at 0): 0 weight times that
+        # is NaN. It takes its own prediction there instead, which leaves the
+        # loss as it is and its gradient 0 (the JAX criterion gives NaN).
+        iou = probiou(pred_rboxes, torch.where(assign.fg_mask[..., None], tb, pred_rboxes.detach())).clamp(min=0)
+        loss_iou = ((1.0 - iou) * weight).sum() / target_scores_sum
+        loss_dfl = self.dfl_term(pred_distri, anchor_points, xywh2xyxy(tb[..., :4]), weight, target_scores_sum)
+        return self.total({"box": loss_iou * self.box_gain, "cls": loss_cls * self.cls_gain,
+                           "dfl": loss_dfl * self.dfl_gain}, pred_scores.shape[0])

@@ -306,6 +306,12 @@ def mask_iou_np(mask1: np.ndarray, mask2: np.ndarray, eps: float = 1e-7) -> np.n
     return inter / (union + eps)
 
 
+# COCO's 17 keypoint sigmas (the validator's OKS and the pose loss); any
+# other keypoint count weighs each 1/nk
+OKS_SIGMA = np.array([26, 25, 25, 35, 35, 79, 79, 72, 72, 62, 62, 107, 107, 87, 87, 89, 89],
+                     np.float32) / 1000.0
+
+
 def kpt_iou(kpt1: np.ndarray, kpt2: np.ndarray, area: np.ndarray, sigma, eps: float = 1e-7) -> np.ndarray:
     """Object keypoint similarity: ground truth (N, K, 3), predictions (M, K, 2|3),
     ground-truth areas (N,) -> (N, M): the mean of exp(-d^2 / (2 sigma)^2 /

@@ -1,11 +1,14 @@
 """Task-aligned assigner: which anchors learn which ground-truth box.
 
-Counterpart of `ultralytics_pro_tpu/utils/tal.py:TaskAlignedAssigner:45`,
-dense over a padded (B, G) ground-truth axis as there: align metric
-score^alpha * CIoU^beta, candidates strictly inside a box, the top-k anchors
-per box (ties to the lowest index, as `lax.top_k` and the JAX package's
-argmax passes give them), an anchor claimed by several boxes kept by the
-box it overlaps most, target scores normalised per box.
+Counterpart of `ultralytics_pro_tpu/utils/tal.py` (`TaskAlignedAssigner:45`,
+`RotatedTaskAlignedAssigner:156`), dense over a padded (B, G) ground-truth
+axis as there: align metric score^alpha * CIoU^beta, candidates strictly
+inside a box, the top-k anchors per box (ties to the lowest index, as
+`lax.top_k` and the JAX package's argmax passes give them), an anchor
+claimed by several boxes kept by the box it overlaps most, target scores
+normalised per box. The rotated form
+takes probiou for the overlap and tests anchors against the boxes' corners;
+its boxes are (B, G, 5) xywhr and its targets keep the angle.
 
 The JAX module expresses its gathers as one-hot matmuls, which only serve
 the TPU; here they are `torch.gather`. All coordinates are in the same units
@@ -18,12 +21,13 @@ from typing import NamedTuple
 
 import torch
 
-from ultralytics_pro_tpu_torch.ops.iou import bbox_iou
+from ultralytics_pro_tpu_torch.ops.boxes import xywhr2xyxyxyxy
+from ultralytics_pro_tpu_torch.ops.iou import bbox_iou, probiou
 
 
 class AssignResult(NamedTuple):
     target_labels: torch.Tensor  # (B, A) int64
-    target_bboxes: torch.Tensor  # (B, A, 4)
+    target_bboxes: torch.Tensor  # (B, A, 4), or (B, A, 5) xywhr from the rotated assigner
     target_scores: torch.Tensor  # (B, A, nc)
     fg_mask: torch.Tensor  # (B, A) bool
     target_gt_idx: torch.Tensor  # (B, A) int64
@@ -82,8 +86,9 @@ class TaskAlignedAssigner:
         return mask_pos.argmax(-2), mask_pos.sum(-2), mask_pos
 
     def get_targets(self, gt_labels, gt_bboxes, target_gt_idx, fg_mask):
-        """Each anchor's box, label and one-hot class target (zero off the foreground)."""
-        target_bboxes = gt_bboxes.gather(1, target_gt_idx[..., None].expand(-1, -1, 4))
+        """Each anchor's box (all of its columns), label and one-hot class
+        target (zero off the foreground)."""
+        target_bboxes = gt_bboxes.gather(1, target_gt_idx[..., None].expand(-1, -1, gt_bboxes.shape[-1]))
         target_labels = gt_labels.clamp(min=0).gather(1, target_gt_idx)
         target_scores = torch.zeros((*target_labels.shape, self.num_classes), dtype=gt_bboxes.dtype,
                                     device=gt_bboxes.device)
@@ -93,8 +98,9 @@ class TaskAlignedAssigner:
 
     @torch.no_grad()
     def __call__(self, pd_scores, pd_bboxes, anc_points, gt_labels, gt_bboxes, mask_gt) -> AssignResult:
-        """pd_scores (B, A, nc) after the sigmoid; pd_bboxes (B, A, 4) xyxy;
-        anc_points (A, 2); gt_labels (B, G) int; gt_bboxes (B, G, 4) xyxy;
+        """pd_scores (B, A, nc) after the sigmoid; pd_bboxes (B, A, 4) xyxy
+        (xywhr (B, A, 5) for the rotated form); anc_points (A, 2); gt_labels
+        (B, G) int; gt_bboxes (B, G, 4) xyxy (xywhr (B, G, 5));
         mask_gt (B, G) bool, False for padded slots."""
         gt_labels = gt_labels.long()
         mask_gt_b = mask_gt.bool()[:, :, None]  # (B, G, 1)
@@ -115,3 +121,25 @@ class TaskAlignedAssigner:
         norm_align_metric = (align_metric * pos_overlaps / (pos_align_metrics + self.eps)).amax(-2)[..., None]
         return AssignResult(target_labels, target_bboxes, target_scores * norm_align_metric,
                             fg_mask.bool(), target_gt_idx)
+
+
+class RotatedTaskAlignedAssigner(TaskAlignedAssigner):
+    """The assigner for rotated boxes: probiou as the overlap, and an anchor
+    is a candidate when it lies in the box's rectangle (edges included)."""
+
+    def iou_calculation(self, gt_bboxes, pd_bboxes):
+        """(B, G, 1, 5) x (B, 1, A, 5) -> (B, G, A) probiou clamped at 0."""
+        return probiou(gt_bboxes, pd_bboxes).clamp(min=0)
+
+    def select_candidates_in_gts(self, xy_centers, gt_bboxes):
+        """(A, 2), (B, G, 5) -> (B, G, A): the anchor's offset from corner a,
+        projected on the sides ab and ad, lies within their lengths."""
+        corners = xywhr2xyxyxyxy(gt_bboxes)  # (B, G, 4, 2)
+        a, b, _, d = corners.unbind(-2)
+        ab, ad = b - a, d - a  # (B, G, 2)
+        ap = xy_centers[None, None] - a[..., None, :]  # (B, G, A, 2)
+        norm_ab = (ab * ab).sum(-1)[..., None]
+        norm_ad = (ad * ad).sum(-1)[..., None]
+        ap_dot_ab = (ap * ab[..., None, :]).sum(-1)
+        ap_dot_ad = (ap * ad[..., None, :]).sum(-1)
+        return (ap_dot_ab >= 0) & (ap_dot_ab <= norm_ab) & (ap_dot_ad >= 0) & (ap_dot_ad <= norm_ad)
