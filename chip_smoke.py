@@ -158,6 +158,33 @@ exits non-zero):
           profiled call, the rotated NMS's device ms a batch there, and on
           one batch's decoded outputs alone its device ms, launches and peak
           memory
+  rtdetr_val  RTDETR("rtdetr-l.yaml").val at 640, seeded weights, 80
+          classes, on the detect fixture images copied 8 times (128 images,
+          batch 16, conf 0.001): images/s, K2's launches read around the call
+          (48, 6 a batch), the idle share, the device ms a batch by kernel
+          class and K2's ms a launch from one profiled call; K2 on one val
+          batch's captured inputs against its plain version, timed, with its
+          bound and embedding_bag's time on the same corner rows; card
+          against CPU on the first 16 images (mAPs within RTDETR_VAL_TOL,
+          kept queries and boxes where the images' top-k rows agree)
+  cls     YOLO("yolov8s-cls.yaml") (nc 1000), seeded weights, predict at 224
+          on the 4 images: warm latency an image over CLS_CALLS calls, the
+          idle share from a profiled window, the device function's images/s
+          at batch 16, its probabilities on the card against the CPU's on the
+          same resized batch within CLS_TOL
+  cls_fixture  the JAX-trained yolov8n-cls (val_parity_cls_model.npz, nc 3)
+          through YOLO(...).val on tests/fixtures/torch_cls_synth at 64 px,
+          batch 16, on the card and on the CPU: top1 and top5 equal to each
+          other and to val_parity_cls_ref.json's
+  cls_val yolov8s-cls val at 224 on the fixture's val images 8 times over
+          (128 images, batch 16): images/s, idle share
+  cls_train_parity  one optimizer step of the fixture yolov8n-cls on 8
+          images at 64 px, batch 8, nbs 8, with the epoch-end val, on the card
+          and on the CPU, within TRAIN_PARITY_TOL and the same fitness
+  cls_train  yolov8s-cls at 224 rebuilt at nc 3, batch 16, the JAX defaults,
+          2 epochs on 128 images: the numbers of phase train (images/s, device
+          ms a micro-batch, idle share, the criterion's ms and launches, the
+          FLOP share)
   kernels the per-kernel summary line
 The last line is {"ok": true, "device": {...}}.
 """
@@ -240,6 +267,17 @@ OBB_MAX_NMS = 4096
 # card vs CPU, yolov8s-obb's decoded outputs on one image at 1024 px
 OBB_PARITY_TOL = {"xywh_px": 2e-3, "scores": 1e-4, "angle_rad": 1e-4}
 ROTATED_NMS_SCOPE = "nms_rotated"  # ops/nms.py's record_function around non_max_suppression_rotated
+RTDETR_VAL_CONF = 0.001  # the val default; random rtdetr-l scores sit near sigmoid(-4.6) = 0.01
+# card vs CPU, rtdetr-l val on the first 16 images: boxes in letterbox pixels
+# where the image's top-k rows agree, and the mAPs. The boxes' aim was 1e-3
+# px; the card's f32 differs from the CPU's by 1.22e-3 px there (2e-6 of the
+# 640 px frame after 6 decoder layers), so the bound is OBB_PARITY_TOL's
+RTDETR_VAL_TOL = {"boxes_px": 2e-3, "map": 1e-4}
+CLS_IMGSZ = 224  # yolov8s-cls's ImageNet size
+CLS_CALLS = 100  # timed warm predict calls of yolov8s-cls
+CLS_PROFILED_CALLS = 10
+CLS_TOL = 1e-5  # card vs CPU, yolov8s-cls probabilities
+CLS_SET = "torch_cls_synth"  # the classify fixture set: 3 classes, 24 train and 16 val PNGs of 80 x 64
 
 
 def emit(phase: str, **fields) -> None:
@@ -754,6 +792,16 @@ def k2_check(msda_cuda, name: str, b: int, q: int, nh: int, hd: int, shapes, see
              lo: float = -0.1, hi: float = 1.1) -> dict:
     shapes = list(shapes)
     value, locs, attn = k2_inputs(np.random.default_rng(seed), b, q, nh, hd, shapes, lo=lo, hi=hi)
+    return {**k2_measure(msda_cuda, name, value, shapes, locs, attn), "locations": [lo, hi]}
+
+
+def k2_measure(msda_cuda, name: str, value, shapes, locs, attn) -> dict:
+    """K2 on these inputs (on the card) against its plain version on the card
+    and on the CPU, within 1e-5; its time, the plain version's, the bound and
+    embedding_bag's time on the same corner rows."""
+    shapes = [tuple(int(v) for v in s) for s in shapes]
+    b, q, nh = locs.shape[:3]
+    hd = value.shape[-1]
     out = msda_cuda.msda_sample_fused(value, shapes, locs, attn)
     torch.cuda.synchronize()
     ref = msda_cuda.msda_sample_fused_plain(value, shapes, locs, attn)
@@ -777,7 +825,7 @@ def k2_check(msda_cuda, name: str, b: int, q: int, nh: int, hd: int, shapes, see
     ops = 2 * hd * int(inside.sum())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
     info = {"size": name, "B": b, "nh": nh, "V": v, "hd": hd, "Q": q, "S": idx.shape[-1],
-            "locations": [lo, hi], "corners_outside": int((~inside).sum()), "max_abs_err": max_abs_err,
+            "corners_outside": int((~inside).sum()), "max_abs_err": max_abs_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations", "bytes": nbytes,
             "distinct_value_rows": rows, "ops": ops}
@@ -922,13 +970,13 @@ def val_fixture(YOLO, yaml_model_load, nms_cuda, tmp: Path, card: str, smi: str)
                 card_minus_cpu=card_minus_cpu, tolerance=VAL_FIXTURE_TOL, card=card, nvidia_smi=smi)
 
 
-def val_set_640(root: Path, src: str = "torch_val_synth", nc: int = 80) -> Path:
-    """The val phases' data: a fixture set's images and labels VAL_COPIES
+def val_set_640(root: Path, src: str = "torch_val_synth", nc: int = 80, copies: int = VAL_COPIES) -> Path:
+    """The val phases' data: a fixture set's images and labels `copies`
     times under new names (labels' classes 0-2 of nc names)."""
     src = FIXTURES / src
     for sub in ("images", "labels"):
         (root / sub / "val").mkdir(parents=True)
-    for c in range(VAL_COPIES):
+    for c in range(copies):
         for png in sorted((src / "images" / "val").glob("*.png")):
             shutil.copy(png, root / "images" / "val" / f"copy{c}_{png.name}")
             shutil.copy(src / "labels" / "val" / f"{png.stem}.txt", root / "labels" / "val" / f"copy{c}_{png.stem}.txt")
@@ -1263,7 +1311,16 @@ def train_run(YOLO, nms_cuda, tmp: Path, task: str = "detect") -> tuple:
                           **counts)
 
 
-def micro_batch_measures(tr, data: Path, imgsz: int) -> dict:
+def det_host_batch(tr, data: Path, imgsz: int) -> dict:
+    """The first batch of TRAIN_BATCH images of a detection train set, as the loader collates it."""
+    from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset, check_det_dataset
+
+    d = check_det_dataset(str(data))
+    return next(iter(DataLoader(YOLODataset(d["train"], imgsz=imgsz, data=d, task=tr.model.task),
+                                batch_size=TRAIN_BATCH, workers=8, max_gt=128)))
+
+
+def micro_batch_measures(tr, host: dict, imgsz: int) -> dict:
     """On the trained model (its parameters change; nothing here is checked
     against the run): the device ms of a micro-batch's forward, loss and
     backward (CUDA events), one profiled micro-batch with its optimizer step
@@ -1271,12 +1328,8 @@ def micro_batch_measures(tr, data: Path, imgsz: int) -> dict:
     micro-batch, device ms by category, launches), the criterion alone
     (assignment and loss, forward and backward to the head's outputs) in a
     profile, and the model's conv FLOPs a step against the f32 peak."""
-    from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset, check_det_dataset
     from ultralytics_pro_tpu_torch.utils import full_f32
 
-    d = check_det_dataset(str(data))
-    host = next(iter(DataLoader(YOLODataset(d["train"], imgsz=imgsz, data=d, task=tr.model.task),
-                                batch_size=TRAIN_BATCH, workers=8, max_gt=128)))
     dev = tr.put_batch(host)
     lrs, mom = [tr.lr0] * 3, tr.momentum
     tr.model.train()
@@ -1318,7 +1371,7 @@ def train_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
     the epoch-end val are captured from one more val call on the trained
     model and held to the plain version (val_k1)."""
     tr, data, info = train_run(YOLO, nms_cuda, tmp)
-    info.update(micro_batch_measures(tr, data, TRAIN_IMGSZ))
+    info.update(micro_batch_measures(tr, det_host_batch(tr, data, TRAIN_IMGSZ), TRAIN_IMGSZ))
     nb = info["micro_batches_per_epoch"]
     vprof = profile_window(lambda: tr.val_fn(tr.model), reps=1, warmup=0)
     with capture_k1(ops_nms) as cap:
@@ -1335,7 +1388,7 @@ def task_train_path(YOLO, nms_cuda, task: str, tmp: Path, card: str, smi: str) -
     epoch-end val of the trained model (K1's, or the rotated NMS's, among it)."""
     tr, data, info = train_run(YOLO, nms_cuda, tmp, task)
     imgsz = info["imgsz"]
-    info.update(micro_batch_measures(tr, data, imgsz))
+    info.update(micro_batch_measures(tr, det_host_batch(tr, data, imgsz), imgsz))
     nb = info["micro_batches_per_epoch"]
     vprof = profile_window(lambda: tr.val_fn(tr.model), reps=1, warmup=0,
                            scope=ROTATED_NMS_SCOPE if task == "obb" else None)
@@ -1664,6 +1717,326 @@ def obb_val(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
                 val_profile=prof, card=card, nvidia_smi=smi)
 
 
+@contextlib.contextmanager
+def capture_k2(transformer):
+    """Records the inputs of the first K2 call that MSDeformAttn makes inside
+    the block (value, shapes, locs, attn, as clones); yields a dict that holds
+    'args' once a call has been made."""
+    cap, fused = {}, transformer.msda_sample_fused
+
+    def k2(value, shapes, locs, attn):
+        if "args" not in cap:
+            cap["args"] = (value.clone(), list(shapes), locs.clone(), attn.clone())
+        return fused(value, shapes, locs, attn)
+
+    transformer.msda_sample_fused = k2
+    try:
+        yield cap
+    finally:
+        transformer.msda_sample_fused = fused
+
+
+def rtdetr_val_parity(RTDETR, full_f32, model, data16: Path, kw: dict) -> dict:
+    """rtdetr-l val of the first 16 images on the card and on the CPU (the
+    same seeded weights): mAP50 and mAP50-95 within RTDETR_VAL_TOL; then that
+    batch, as the loader gives it, through both models with aux. In the
+    images whose 300 top-k query indices all agree, the same queries clear
+    conf and their boxes agree within RTDETR_VAL_TOL px. Where an index
+    differs (a near-tie: the CPU's encoder scores of the two anchors within
+    PARITY_TOL), the decoder's self-attention sees another query set, so
+    that image's queries are reported and not bounded: their largest box
+    difference where the index agrees, and how many queries clear conf at a
+    differing index."""
+    from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset, check_det_dataset
+    from ultralytics_pro_tpu_torch.engine.predictor import rgb01
+
+    cpu_model = RTDETR("rtdetr-l.yaml", device="cpu", seed=0)
+    for (k, a), b in zip(model.model.state_dict().items(), cpu_model.model.state_dict().values()):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"seeded weights differ between devices at {k}")
+    maps = {}
+    for device, m in (("cuda", model), ("cpu", cpu_model)):
+        t0 = time.perf_counter()
+        r = m.val(data=str(data16), **kw)
+        maps[device] = {"map50": float(r.box.map50), "map50_95": float(r.box.map),
+                        "kept": sum(len(c) for c in r.stats["conf"]), "seconds": time.perf_counter() - t0}
+    map_diff = max(abs(maps["cuda"][k] - maps["cpu"][k]) for k in ("map50", "map50_95"))
+
+    d = check_det_dataset(str(data16))
+    img = next(iter(DataLoader(YOLODataset(d["val"], imgsz=kw["imgsz"], data=d), batch_size=16, workers=8)))["img"]
+    x = rgb01(torch.from_numpy(img))
+    with torch.no_grad(), full_f32():
+        y_gpu, aux_gpu = model.model(x.cuda())
+        y_cpu, aux_cpu = cpu_model.model(x)
+    y_gpu = y_gpu.cpu()
+    same = aux_gpu["topk_index"].cpu() == aux_cpu["topk_index"]
+    kept_gpu, kept_cpu = y_gpu[..., 4:].amax(-1) > kw["conf"], y_cpu[..., 4:].amax(-1) > kw["conf"]
+    rows = same.all(1, keepdim=True).expand_as(same)  # images whose whole top-k row agrees
+    kept_mismatch = int(((kept_gpu != kept_cpu) & rows).sum())
+    h, w = x.shape[2:]
+    scale = torch.tensor([w, h, w, h], dtype=torch.float32)
+    err = ((y_gpu[..., :4] - y_cpu[..., :4]).abs() * scale).amax(-1)
+    kept = kept_gpu | kept_cpu
+    if not bool((rows & kept).any()):
+        raise AssertionError(f"rtdetr-l val card vs CPU: no image keeps a query with its whole top-k row agreeing "
+                             f"({int((~same).sum())} indices differ)")
+    box_err = float(err[rows & kept].max())
+    other = same & ~rows & kept
+    box_err_other = float(err[other].max()) if bool(other.any()) else None
+    conf_err = float((y_gpu[..., 4:] - y_cpu[..., 4:]).abs().amax(-1)[rows].max())
+    best = aux_cpu["enc_scores_dense"].amax(-1)
+    gaps = (best.gather(1, aux_gpu["topk_index"].cpu()) - best.gather(1, aux_cpu["topk_index"]))[~same]
+    n_diff = int((~same).sum())
+    gap = float(gaps.abs().max()) if n_diff else 0.0
+    if kept_mismatch or not box_err <= RTDETR_VAL_TOL["boxes_px"] or not map_diff <= RTDETR_VAL_TOL["map"] \
+            or not gap <= PARITY_TOL:
+        raise AssertionError(f"rtdetr-l val card vs CPU, images whose top-k rows agree: {kept_mismatch} kept flags "
+                             f"differ, boxes {box_err} px; "
+                             f"mAPs {map_diff}, {n_diff} top-k indices differ (largest score gap {gap}); "
+                             f"tolerances {RTDETR_VAL_TOL}, near-tie {PARITY_TOL}")
+    return dict(images=16, card_val=maps["cuda"], cpu_val=maps["cpu"], max_abs_map_diff=map_diff,
+                queries=int(same.numel()), kept_card=int(kept_gpu.sum()), kept_cpu=int(kept_cpu.sum()),
+                images_whose_topk_rows_agree=int(same.all(1).sum()),
+                kept_mismatch_in_those_images=kept_mismatch, max_abs_box_err_px_in_those_images=box_err,
+                max_abs_score_err_in_those_images=conf_err,
+                max_abs_box_err_px_where_index_agrees_in_other_images=box_err_other,
+                kept_mismatch_where_index_agrees_in_other_images=int(((kept_gpu != kept_cpu) & same & ~rows).sum()),
+                topk_index_mismatch=n_diff,
+                kept_at_index_mismatch=int(((kept_gpu | kept_cpu) & ~same).sum()),
+                max_abs_score_gap_at_mismatch=gap if n_diff else None, tolerance=RTDETR_VAL_TOL,
+                near_tie_tolerance=PARITY_TOL, cpu_threads=torch.get_num_threads())
+
+
+def rtdetr_val(RTDETR, msda_cuda, full_f32, tmp: Path, card: str, smi: str) -> dict:
+    """rtdetr-l val at 640 on 128 images of the detect fixture set (batch 16,
+    conf 0.001, seeded weights, 80 classes): images/s, K2's launches (6 a
+    batch) read around the call, the idle share, the device ms a batch by
+    kernel class and K2's ms a launch from one profiled call; K2 on one
+    batch's captured inputs against its plain version (k2_measure); card
+    against CPU on the first 16 images (rtdetr_val_parity)."""
+    from ultralytics_pro_tpu_torch.nn.modules import transformer
+
+    data = val_set_640(tmp / "rtdetr_val_set")
+    kw = dict(imgsz=VAL_IMGSZ, batch=VAL_BATCH, conf=RTDETR_VAL_CONF)
+    model = RTDETR("rtdetr-l.yaml", device="cuda", seed=0)
+    with capture_k2(transformer) as cap:  # warm-up call: cuDNN, cuBLAS, allocator, and K2's first inputs
+        model.val(data=str(data), **kw)
+    n_images = VAL_COPIES * 16
+    n_batches = n_images // VAL_BATCH
+    msda_cuda.launches = 0
+    t0 = time.perf_counter()
+    metrics = model.val(data=str(data), **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = msda_cuda.launches
+    if launches != 6 * n_batches:
+        raise AssertionError(f"K2 launched {launches} times for {n_batches} val batches (6 decoder layers each)")
+    confs = metrics.stats["conf"]
+    kept = [len(c) for c in confs]
+    if len(confs) != n_images or any(not 0 < len(c) <= 300 or not np.isfinite(c).all() or c.min() <= RTDETR_VAL_CONF
+                                     for c in confs):
+        raise AssertionError(f"rtdetr-l val kept {kept} queries for {n_images} images, want 1-300 above conf")
+    prof = profile_window(lambda: model.val(data=str(data), **kw), reps=1, warmup=0)
+    busy = prof["device_busy_ms_per_call"]
+    k2_ms = prof["device_ms_by_category"].get("k2_msda_sample", 0.0)
+    data16 = val_set_640(tmp / "rtdetr_val_16", copies=1)
+    info = dict(model="rtdetr-l", nc=80, imgsz=VAL_IMGSZ, images=n_images, batch=VAL_BATCH, conf=RTDETR_VAL_CONF,
+                k2_launches=launches, kept_per_image={"min": min(kept), "median": float(np.median(kept)),
+                                                      "max": max(kept)},
+                val_seconds=wall, images_per_s=n_images / wall,
+                ms_per_image={k: v * 1e3 / n_images for k, v in metrics.speed.items()},
+                map50=float(metrics.box.map50), device_busy_ms=busy,
+                device_idle_share=None if busy is None else max(0.0, 1 - busy / (wall * 1e3)),
+                device_ms_per_batch_by_category={k: v / n_batches for k, v in prof["device_ms_by_category"].items()},
+                kernel_launches_per_batch=prof["kernel_launches_per_call"] / n_batches,
+                k2_profiled_ms_per_launch=k2_ms / launches,
+                k2_on_val_inputs=k2_measure(msda_cuda, "val_path", *cap["args"]),
+                parity=rtdetr_val_parity(RTDETR, full_f32, model, data16, kw),
+                val_profile=prof, card=card, nvidia_smi=smi)
+    return info
+
+
+def cls_set(root: Path, copies: int, train_per_class=None) -> Path:
+    """A classify set under root from the fixture's PNGs: val/ holds its 16
+    val images `copies` times; train/ holds the same when train_per_class is
+    None, else the first train_per_class[c] val images of class c (images
+    the fixture model was not trained on, so the step's gradient is not
+    near zero)."""
+    src = FIXTURES / CLS_SET
+    for c, cls_dir in enumerate(sorted(p for p in (src / "val").iterdir() if p.is_dir())):
+        for split in ("val", "train"):
+            (root / split / cls_dir.name).mkdir(parents=True)
+        for k in range(copies):
+            for png in sorted(cls_dir.glob("*.png")):
+                shutil.copy(png, root / "val" / cls_dir.name / f"copy{k}_{png.name}")
+                if train_per_class is None:
+                    shutil.copy(png, root / "train" / cls_dir.name / f"copy{k}_{png.name}")
+        if train_per_class is not None:
+            for png in sorted(cls_dir.glob("*.png"))[:train_per_class[c]]:
+                shutil.copy(png, root / "train" / cls_dir.name)
+    return root
+
+
+def cls_fixture_model(YOLO, yaml_model_load, device: str):
+    """The JAX-trained yolov8n-cls of val_parity_cls_model.npz (nc 3)."""
+    y = yaml_model_load("yolov8n-cls.yaml")
+    y["nc"] = 3
+    model = YOLO(y, device=device)
+    with np.load(FIXTURES / "val_parity_cls_model.npz") as fx:
+        model.load_state_dict({k[4:]: fx[k] for k in fx.files if k.startswith("sd::")})
+    return model
+
+
+def cls_predict(YOLO, card: str, smi: str) -> dict:
+    """yolov8s-cls (nc 1000) predict at 224 on the 4 seeded images: warm
+    latency an image over CLS_CALLS calls, the idle share from one profiled
+    window, the device function's images/s at batch 16; the card's
+    probabilities on its own resized batch against the CPU's forward of the
+    same batch within CLS_TOL, and how far the two devices' resizes differ."""
+    imgs = seeded_images()
+    model = YOLO("yolov8s-cls.yaml", device="cuda", seed=0)
+    kw = dict(imgsz=CLS_IMGSZ)
+    model.predict(imgs[:1], **kw)  # first call: cuDNN and allocator set-up
+    results = model.predict(imgs, **kw)
+    for r in results:
+        p = r.probs.data
+        if p.shape != (1000,) or not np.isfinite(p).all() or abs(float(p.sum()) - 1) > 1e-4:
+            raise AssertionError(f"probabilities {p.shape}, finite {np.isfinite(p).all()}, sum {p.sum()}")
+    per_image = []
+    for _ in range(CLS_CALLS):
+        t0 = time.perf_counter()
+        model.predict(imgs, **kw)
+        per_image.append((time.perf_counter() - t0) * 1e3 / len(imgs))
+    q = np.percentile(per_image, [0, 10, 50, 90, 100])
+    prof = profile_window(lambda: model.predict(imgs, **kw), CLS_PROFILED_CALLS)
+    call_ms = q[2] * len(imgs)
+    busy = prof["device_busy_ms_per_call"]
+    pred = model.predictor
+    batch = pred.preprocess(imgs)
+    ms16 = cuda_ms(lambda: pred.run(batch.repeat(4, 1, 1, 1)), iters=10)
+
+    cpu_model = YOLO("yolov8s-cls.yaml", device="cpu", seed=0)
+    for (k, a), b in zip(model.model.state_dict().items(), cpu_model.model.state_dict().values()):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"seeded weights differ between devices at {k}")
+    cpu_pred = type(pred)(cpu_model.model, pred.args)
+    resize_diff = int((cpu_pred.preprocess(imgs).int() - batch.cpu().int()).abs().max())
+    with torch.no_grad():
+        p_gpu, p_cpu = pred.run(batch).cpu(), cpu_pred.run(batch.cpu())
+    err = float((p_gpu - p_cpu).abs().max())
+    top1_same = bool((p_gpu.argmax(-1) == p_cpu.argmax(-1)).all())
+    if not err <= CLS_TOL:
+        raise AssertionError(f"yolov8s-cls card vs CPU probabilities differ by {err} (tolerance {CLS_TOL})")
+    return dict(model="yolov8s-cls", nc=1000, imgsz=CLS_IMGSZ, images=[list(s) for s in IMAGE_SHAPES],
+                parameters=sum(p.numel() for p in model.model.parameters()), predict_calls=CLS_CALLS,
+                predict_ms_per_image={"median": q[2], "p10": q[1], "p90": q[3], "min": q[0], "max": q[4]},
+                predict_median_ms_per_call=call_ms,
+                device_idle_share=None if busy is None else max(0.0, 1 - busy / call_ms),
+                kernel_launches_per_image=prof["kernel_launches_per_call"] / len(imgs), predict_profile=prof,
+                device_fn_batch16_ms=ms16, device_fn_batch16_images_per_s=16 * 1e3 / ms16,
+                max_abs_prob_err_card_vs_cpu=err, top1_same=top1_same, tolerance=CLS_TOL,
+                resize_max_grey_level_diff_card_vs_cpu=resize_diff, card=card, nvidia_smi=smi)
+
+
+def cls_fixture(YOLO, yaml_model_load, card: str, smi: str) -> dict:
+    """The fixture yolov8n-cls on its 16 val images at 64 px, batch 16, on
+    the card and on the CPU: top1 and top5 equal to each other and to the
+    JAX validator's (val_parity_cls_ref.json)."""
+    ref = json.loads((FIXTURES / "val_parity_cls_ref.json").read_text())
+    runs = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        m = cls_fixture_model(YOLO, yaml_model_load, device).val(data=str(FIXTURES / CLS_SET), **ref["val_args"])
+        runs[device] = {"top1": m.top1, "top5": m.top5, "seconds": time.perf_counter() - t0}
+    want = ref["results"]
+    if any(runs[d][k] != want[k] for d in runs for k in ("top1", "top5")):
+        raise AssertionError(f"classify fixture: card {runs['cuda']}, CPU {runs['cpu']}, JAX reference {want}")
+    return dict(model="yolov8n-cls (val_parity_cls_model.npz)", data=f"tests/fixtures/{CLS_SET}",
+                val_args=ref["val_args"], card_run=runs["cuda"], cpu_run=runs["cpu"], reference=want,
+                card=card, nvidia_smi=smi)
+
+
+def cls_val(YOLO, tmp: Path, card: str, smi: str) -> dict:
+    """yolov8s-cls (nc 1000, seeded) val at 224 on the fixture's val images 8
+    times over (128 images, batch 16): images/s of a warm call, the idle
+    share and the device ms by kernel class from one profiled call."""
+    root = cls_set(tmp / "cls_val_set", VAL_COPIES)
+    kw = dict(data=str(root), imgsz=CLS_IMGSZ, batch=VAL_BATCH)
+    model = YOLO("yolov8s-cls.yaml", device="cuda", seed=0)
+    model.val(**kw)  # warm-up
+    n_images = VAL_COPIES * 16
+    t0 = time.perf_counter()
+    m = model.val(**kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if len(np.concatenate(m._correct)) != n_images:
+        raise AssertionError(f"classify val scored {len(np.concatenate(m._correct))} images, want {n_images}")
+    prof = profile_window(lambda: model.val(**kw), reps=1, warmup=0)
+    busy = prof["device_busy_ms_per_call"]
+    return dict(model="yolov8s-cls", nc=1000, imgsz=CLS_IMGSZ, images=n_images, batch=VAL_BATCH,
+                val_seconds=wall, images_per_s=n_images / wall,
+                ms_per_image={k: v * 1e3 / n_images for k, v in m.speed.items()}, top1=m.top1, top5=m.top5,
+                device_busy_ms=busy, device_idle_share=None if busy is None else max(0.0, 1 - busy / (wall * 1e3)),
+                val_profile=prof, card=card, nvidia_smi=smi)
+
+
+def cls_train_parity(YOLO, yaml_model_load, load_pickle, tmp: Path, card: str, smi: str) -> dict:
+    """One optimizer step of the fixture yolov8n-cls on 8 of its val images
+    (3, 3 and 2 of the classes) at 64 px, batch 8, nbs 8, no warmup, with the
+    epoch-end val on the fixture's val images, on the card and on the CPU;
+    within TRAIN_PARITY_TOL, the same fitness."""
+    root = cls_set(tmp / "cls_train_parity_set", 1, train_per_class=(3, 3, 2))
+    runs = []
+    for device in ("cuda", "cpu"):
+        model = cls_fixture_model(YOLO, yaml_model_load, device)
+        model.train(data=str(root), epochs=1, imgsz=64, batch=TRAIN_PARITY_IMAGES, nbs=TRAIN_PARITY_IMAGES,
+                    warmup_epochs=0.0, workers=4, project=str(tmp / f"cls_train_parity_{device}"))
+        tr = model.trainer
+        runs.append((tr.loss_history[0], load_pickle(tr.wdir / "last.ckpt"), tr.opt_steps, model))
+    info = one_step_diffs(*runs)
+    fitness = [run[3].trainer.last_fitness for run in runs]
+    if fitness[0] is None or fitness[0] != fitness[1]:
+        raise AssertionError(f"classify train val gave fitness {fitness} (card, CPU)")
+    info.update(model="yolov8n-cls (val_parity_cls_model.npz)", images=TRAIN_PARITY_IMAGES, imgsz=64,
+                batch=TRAIN_PARITY_IMAGES, nbs=TRAIN_PARITY_IMAGES, warmup_epochs=0.0, fitness_card_cpu=fitness,
+                cpu_threads=torch.get_num_threads(), card=card, nvidia_smi=smi)
+    return info
+
+
+def cls_train(YOLO, tmp: Path, card: str, smi: str) -> dict:
+    """yolov8s-cls at 224, rebuilt at the set's nc 3, batch 16 and the JAX
+    defaults otherwise (nbs 64, warmup 3 epochs, val), 2 epochs on 128
+    images (train = val): images/s in epoch 2, the micro-batch's device ms,
+    idle share, the criterion's ms and launches and the FLOP share
+    (micro_batch_measures)."""
+    from ultralytics_pro_tpu_torch.data import ClassificationDataset, DataLoader, collate_classify
+
+    root = cls_set(tmp / "cls_train_set", VAL_COPIES)
+    model = YOLO("yolov8s-cls.yaml", device="cuda", seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.train(data=str(root), epochs=TRAIN_EPOCHS, imgsz=CLS_IMGSZ, batch=TRAIN_BATCH,
+                project=str(tmp / "cls_train"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    tr = model.trainer
+    nb = VAL_COPIES * 16 // TRAIN_BATCH
+    if not all(np.isfinite(v) for e in tr.loss_history for v in e.values()) or len(tr.loss_history) != TRAIN_EPOCHS:
+        raise AssertionError(f"loss history {tr.loss_history}")
+    host = next(iter(DataLoader(ClassificationDataset(root / "train", imgsz=CLS_IMGSZ), batch_size=TRAIN_BATCH,
+                                workers=8, collate_fn=collate_classify)))
+    info = dict(model="yolov8s-cls", nc=tr.model.nc, imgsz=CLS_IMGSZ, batch=TRAIN_BATCH, nbs=tr.nbs,
+                accumulate=tr.accumulate, warmup_epochs=tr.warmup_epochs, epochs=TRAIN_EPOCHS, images=nb * TRAIN_BATCH,
+                micro_batches_per_epoch=nb, opt_steps=tr.opt_steps, train_seconds=seconds,
+                epoch_train_seconds=tr.epoch_train_seconds,
+                train_images_per_s_epoch2=nb * TRAIN_BATCH / tr.epoch_train_seconds[-1],
+                wall_ms_per_micro_batch_epoch2=tr.epoch_train_seconds[-1] * 1e3 / nb,
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9, loss_history=tr.loss_history,
+                fitness_per_epoch=fitness_values(tr.save_dir, TRAIN_EPOCHS))
+    info.update(micro_batch_measures(tr, host, CLS_IMGSZ), card=card, nvidia_smi=smi)
+    return info
+
+
 def tf32_seen(model, call) -> dict:
     """torch's TF32 flags (cudnn, cuda matmul) as found, inside model's forward
     during call(), and after it."""
@@ -1748,6 +2121,10 @@ def main() -> int:
     info = rtdetr_parity(RTDETR, full_f32, model, batch)
     emit("rtdetr_parity", **info, seconds=time.perf_counter() - t)
     del model
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        rt_val = rtdetr_val(RTDETR, msda_cuda, full_f32, Path(tmp), card, smi)
+        emit("rtdetr_val", **rt_val, seconds=time.perf_counter() - t)
 
     with tempfile.TemporaryDirectory() as tmp:
         t = time.perf_counter()
@@ -1806,6 +2183,18 @@ def main() -> int:
             task_train[short] = info = task_train_path(YOLO, nms_cuda, task, Path(tmp), card, smi)
             emit(f"{short}_train", **info, seconds=time.perf_counter() - t)
 
+    t = time.perf_counter()
+    emit("cls", **cls_predict(YOLO, card, smi), seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    emit("cls_fixture", **cls_fixture(YOLO, yaml_model_load, card, smi), seconds=time.perf_counter() - t)
+    with tempfile.TemporaryDirectory() as tmp:
+        for phase, fn in (("cls_val", lambda: cls_val(YOLO, Path(tmp), card, smi)),
+                          ("cls_train_parity", lambda: cls_train_parity(YOLO, yaml_model_load, load_pickle, Path(tmp),
+                                                                        card, smi)),
+                          ("cls_train", lambda: cls_train(YOLO, Path(tmp), card, smi))):
+            t = time.perf_counter()
+            emit(phase, **fn(), seconds=time.perf_counter() - t)
+
     pred, val_size = k1
     tk1 = train["k1_on_val_rows"]
     task_k1 = {"seg_predict": (task_runs["segment"], task_runs["segment"]["k1_on_batch_rows"]),
@@ -1850,12 +2239,16 @@ def main() -> int:
         "source": "ultralytics_pro_tpu_torch/csrc/msda_sample.cu",
         "replaces": "ultralytics_pro_tpu/kernels/msda_pallas.py:52",
         "tpu_kernel": "ultralytics_pro_tpu/kernels/msda_pallas.py:msda_sample_pallas (with msda_flatten_coords:83)",
-        "launches": k2_launches, "max_abs_err": max(c["max_abs_err"] for c in k2),
+        "launches": k2_launches, "max_abs_err": max(c["max_abs_err"] for c in (*k2, rt_val["k2_on_val_inputs"])),
         "ms": k2[0]["ms"], "plain_ms": k2[0]["plain_ms"], "bound_ms": k2[0]["bound_ms"],
         "bound_by": k2[0]["bound_by"], "library_ms": k2[0]["library_ms"],  # F.embedding_bag, gather part
         "main_path_profiled_ms": k2_path_ms,
         "batch16_ms": k2[1]["ms"], "batch16_plain_ms": k2[1]["plain_ms"],
         "batch16_bound_ms": k2[1]["bound_ms"], "batch16_library_ms": k2[1]["library_ms"],
+        "val_path_launches": rt_val["k2_launches"], "val_path_profiled_ms": rt_val["k2_profiled_ms_per_launch"],
+        "val_path_max_abs_err": rt_val["k2_on_val_inputs"]["max_abs_err"],
+        **{f"val_path_{key}": rt_val["k2_on_val_inputs"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
     }]
     emit("total", seconds=time.perf_counter() - t_all)
     print(smi, flush=True)

@@ -2,8 +2,9 @@
 predict (yolov8n, and rtdetr-l through K2) in full f32, detect, segment and
 pose val on the committed fixture sets against val on the CPU, K1 on
 segment and pose rows with their payload, the OBB task's rotated NMS
-(plain PyTorch) on the card against the CPU, and the segment, pose and OBB
-criteria, forward and backward, on the card against the CPU.
+(plain PyTorch) on the card against the CPU, the segment, pose and OBB
+criteria, forward and backward, on the card against the CPU, classify
+predict and val and rtdetr-l val (K2 on the val path) against the CPU.
 
 These tests need a card and nvcc, and import neither JAX nor the JAX package
 nor `tests/conftest.py` (which imports JAX), so they run on a machine that has
@@ -24,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import cls_fixture_model
 from ultralytics_pro_tpu_torch import RTDETR, YOLO
 from ultralytics_pro_tpu_torch.kernels import msda_cuda, nms_cuda
 from ultralytics_pro_tpu_torch.nn.tasks import yaml_model_load
@@ -443,3 +445,47 @@ def test_rotated_nms_on_card_keeps_what_the_cpu_keeps(card, agnostic):
     assert int(want["valid"].sum()) > 300
     for k in ("valid", "cls", "scores", "rboxes"):
         assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.cuda
+def test_classify_predict_and_val_on_card_match_cpu(tf32_on):
+    """The fixture yolov8n-cls on the card and the CPU: predict's
+    probabilities on 4 seeded images within 1e-5 and in full f32; val's top1
+    and top5 on the fixture set at 64 px equal, and equal to the JAX
+    validator's (val_parity_cls_ref.json)."""
+    ref = json.loads((FIXTURES / "val_parity_cls_ref.json").read_text())
+    imgs = [np.random.default_rng(i).integers(0, 256, (64, 64, 3), dtype=np.uint8) for i in range(4)]
+    probs, accs = {}, {}
+    for device in ("cuda", "cpu"):
+        model = cls_fixture_model(YOLO, yaml_model_load, device)
+        seen = []
+        model.model.register_forward_pre_hook(lambda *_: seen.append(_tf32()))
+        probs[device] = np.stack([r.probs.data for r in model.predict(imgs, imgsz=64)])
+        m = model.val(data=str(FIXTURES / "torch_cls_synth"), **ref["val_args"])
+        accs[device] = (m.top1, m.top5)
+        if device == "cuda":
+            assert seen == [(False, False)] * 5
+    np.testing.assert_allclose(probs["cuda"], probs["cpu"], atol=1e-5, rtol=0)
+    assert accs["cuda"] == accs["cpu"] == (ref["results"]["top1"], ref["results"]["top5"])
+
+
+@pytest.mark.cuda
+def test_rtdetr_val_on_card_matches_cpu_and_runs_k2(tf32_on, tmp_path):
+    """RTDETR("rtdetr-l.yaml").val on the fixture set at 64 px, batch 6 (the
+    last batch padded by 2): 84 anchors, so every query is kept on both
+    devices and only near-ties may reorder them. K2 launched 6 times a batch;
+    each image's confidences (sorted) within 1e-4; mAP50 and mAP50-95 within
+    1e-4; 16 images scored."""
+    data = shutil.copytree(FIXTURES / "torch_val_synth", tmp_path / "set") / "data.yaml"
+    runs = {}
+    for device in ("cuda", "cpu"):
+        before = msda_cuda.launches
+        runs[device] = RTDETR("rtdetr-l.yaml", device=device).val(data=str(data), imgsz=64, batch=6)
+        if device == "cuda":
+            assert msda_cuda.launches == before + 6 * 3
+    card, cpu = runs["cuda"], runs["cpu"]
+    assert len(card.stats["conf"]) == len(cpu.stats["conf"]) == 16
+    for g, w in zip(card.stats["conf"], cpu.stats["conf"]):
+        assert len(g) == len(w) > 0
+        np.testing.assert_allclose(np.sort(g), np.sort(w), atol=1e-4, rtol=0)
+    assert abs(card.box.map50 - cpu.box.map50) <= 1e-4 and abs(card.box.map - cpu.box.map) <= 1e-4

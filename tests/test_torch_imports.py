@@ -2,7 +2,8 @@
 
 In a subprocess whose `sys.meta_path` refuses jax, flax, yaml, cv2 and
 ultralytics_pro_tpu, every module of ultralytics_pro_tpu_torch and
-chip_smoke.py must import, a short training run goes through, segment val
+chip_smoke.py must import, a short training run goes through (with
+classify predict, val and training and a narrow RT-DETR's val), segment val
 (polygon fill and mask shrink included) and pose predict run, and obb val
 (minAreaRect, the rotated NMS, probiou matching) and predict run; with PIL
 refused as well, they import and `imread` still reads a PNG, equal to cv2's
@@ -84,17 +85,33 @@ def test_port_imports_and_reads_png_with_pil_blocked_too(tmp_path):
 def test_port_trains_with_jax_yaml_cv2_blocked(tmp_path):
     """The train path (dataset, loader, model, TAL, loss, SGD, EMA, epoch-end
     val on K1's plain version, checkpoint) runs in the blocking process and
-    loads what it wrote."""
+    loads what it wrote; so do classify predict, val and one train epoch on
+    the classify fixture set (its PNG class folders), and the narrow
+    RT-DETR's val on the detect set (K2's plain version)."""
     import shutil
 
+    from tests.test_torch_rtdetr import NARROW
+
     data = shutil.copytree(REPO / "tests" / "fixtures" / "torch_val_synth", tmp_path / "set")
+    cls_set = REPO / "tests" / "fixtures" / "torch_cls_synth"
     (data / "train.yaml").write_text("train: images/val\nval: images/val\nnames:\n  0: a\n  1: b\n  2: c\n")
     then = ("from ultralytics_pro_tpu_torch import YOLO\n"
             "m = YOLO('yolov8n.yaml', device='cpu')\n"
             f"m.train(data={str(data / 'train.yaml')!r}, epochs=1, imgsz=32, batch=8, nbs=8, workers=2, "
             f"max_gt=16, warmup_epochs=0.0, project={str(tmp_path / 'runs')!r})\n"
             "assert m.trainer.last_fitness is not None\n"
-            "YOLO(str(m.trainer.wdir / 'last.ckpt'), device='cpu')")
+            "YOLO(str(m.trainer.wdir / 'last.ckpt'), device='cpu')\n"
+            "import numpy as np\n"
+            "from ultralytics_pro_tpu_torch import RTDETR\n"
+            "c = YOLO('yolov8n-cls.yaml', device='cpu')\n"
+            "assert c.predict([np.zeros((40, 48, 3), np.uint8)], imgsz=32)[0].probs.data.shape == (1000,)\n"
+            f"assert 0 <= c.val(data={str(cls_set)!r}, imgsz=32, batch=16).top1 <= 1\n"
+            f"c.train(data={str(cls_set)!r}, epochs=1, imgsz=32, batch=8, nbs=8, workers=2, warmup_epochs=0.0, "
+            f"project={str(tmp_path / 'cls_runs')!r})\n"
+            "assert c.model.nc == 3 and c.trainer.last_fitness is not None\n"
+            "YOLO(str(c.trainer.wdir / 'last.ckpt'), device='cpu')\n"
+            f"r = RTDETR({NARROW!r}, device='cpu').val(data={str(data / 'data.yaml')!r}, imgsz=64, batch=16)\n"
+            "assert len(r.stats['conf']) == 16")
     out = subprocess.run([sys.executable, "-c", _blocker(BLOCKED, then)], capture_output=True, text=True,
                          cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]

@@ -15,10 +15,14 @@ makes invalid all get the same encoder row, so their scores tie exactly and
 `lax.top_k` puts the lower index first.
 """
 
+import shutil
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
+from tests.conftest import FIXTURES
 from tests.test_torch_modules import nchw, randomize, to_nhwc, torch_threads  # noqa: F401 (autouse fixture)
 from ultralytics_pro_tpu_torch import RTDETR
 from ultralytics_pro_tpu_torch.nn.modules import (
@@ -392,10 +396,67 @@ def test_narrow_rtdetr_predict_matches_jax(narrow_pair):
         np.testing.assert_allclose(gd[:, 4], rd[:, 4], atol=ATOL_MODEL, rtol=0)
 
 
+@pytest.fixture(scope="module")
+def narrow_vals(narrow_pair, tmp_path_factory):
+    """RTDETR(NARROW).val in both packages on a copy of the detect fixture set
+    (the JAX loader writes a label cache) at 64 px, conf 0.001, on the same
+    pixels (cv2's INTER_AREA in the port's loader, tests/test_torch_train.py):
+    {(package, batch): DetMetrics} for batch 16 (no pad) and 6 (the last
+    batch padded by 2 copies), and the port's at batch 16 with single_cls."""
+    from tests.test_torch_train import same_images_as_jax
+    from ultralytics_pro_tpu.models.rtdetr import RTDETR as JRTDETR
+
+    _, _, variables, tm = narrow_pair
+    root = tmp_path_factory.mktemp("rtdetr_val") / "set"
+    data = str(shutil.copytree(Path(FIXTURES) / "torch_val_synth", root) / "data.yaml")
+    jr = JRTDETR(dict(NARROW))
+    jr.model.variables = variables
+    tr = RTDETR(dict(NARROW), device="cpu")
+    tr.model.load_state_dict(tm.state_dict())
+    out = {}
+    with same_images_as_jax():
+        for batch in (16, 6):
+            out["port", batch] = tr.val(data=data, imgsz=64, batch=batch)
+            out["jax", batch] = jr.val(data=data, imgsz=64, batch=batch)
+        out["port", "single_cls"] = tr.val(data=data, imgsz=64, batch=16, single_cls=True)
+    return out
+
+
+def test_narrow_rtdetr_val_matches_jax(narrow_vals):
+    """Batch 16: every image keeps the same queries (conf within 1e-4), with
+    the same classes and true positives; mAP50 and mAP50-95 within 1e-4."""
+    got, want = narrow_vals["port", 16], narrow_vals["jax", 16]
+    assert len(got.stats["conf"]) == len(want.stats["conf"]) == 16
+    assert sum(len(c) for c in got.stats["conf"]) > 0
+    for key in ("conf", "pred_cls", "tp", "target_cls"):
+        for g, w in zip(got.stats[key], want.stats[key]):
+            assert np.shape(g) == np.shape(w), key
+            np.testing.assert_allclose(np.asarray(g, np.float64), np.asarray(w, np.float64), atol=ATOL_MODEL, rtol=0)
+    assert got.box.map50 == pytest.approx(float(want.box.map50), abs=1e-4)
+    assert got.box.map == pytest.approx(float(want.box.map), abs=1e-4)
+
+
+def test_narrow_rtdetr_val_departs_from_jax_on_pad_and_single_cls(narrow_vals):
+    """Two departures from the JAX RTDETRValidator, as the port's
+    DetectionValidator has them (ROADMAP.md section 3): at batch 6 the port
+    scores 16 images, the same as at batch 16, where the JAX one scores the
+    2 copies of the last image again (18); under single_cls the port's
+    dataset zeroes the ground truth's classes and its validator the
+    predictions'."""
+    port16, port6, jax6 = narrow_vals["port", 16], narrow_vals["port", 6], narrow_vals["jax", 6]
+    assert len(port6.stats["conf"]) == 16 and len(jax6.stats["conf"]) == 18
+    for g, w in zip(port6.stats["conf"], port16.stats["conf"]):
+        np.testing.assert_array_equal(g, w)
+    assert (port6.box.map50, port6.box.map) == (port16.box.map50, port16.box.map)
+    one = narrow_vals["port", "single_cls"]
+    assert not np.concatenate(one.stats["pred_cls"]).any() and not np.concatenate(one.stats["target_cls"]).any()
+    assert sum(map(len, one.stats["conf"])) == sum(map(len, port16.stats["conf"]))
+
+
 def test_rtdetr_entry_points():
     """RTDETR defaults to device='cuda' and raises without a card; with
-    device='cpu' it builds rtdetr-l at full width and depth; val and train
-    name the later slice."""
+    device='cpu' it builds rtdetr-l at full width and depth; val asks for
+    data, and train names its later slice (queue 1 item 4b)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; this checks the no-card behaviour")
     with pytest.raises(RuntimeError, match="cuda"):
@@ -403,9 +464,10 @@ def test_rtdetr_entry_points():
     m = RTDETR("rtdetr-l.yaml", device="cpu")
     assert sum(p.numel() for p in m.model.parameters()) == 32_970_732
     assert len(m.model.model[-1].decoder.layers) == 6
-    for fn in (m.val, m.train):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            fn()
+    with pytest.raises(ValueError, match="data="):
+        m.val()
+    with pytest.raises(NotImplementedError, match="later slice .*4b"):
+        m.train()
     with pytest.raises(ValueError, match="RTDETRDecoder"):
         RTDETR("yolov8n.yaml", device="cpu")
 

@@ -441,8 +441,10 @@ def test_val_refuses_what_it_does_not_port(fixture_copy):
             model.val(data=data, imgsz=64, **kwargs)
     with pytest.raises(ValueError, match="data="):
         model.val()
-    with pytest.raises(NotImplementedError, match="RTDETR.val"):
-        RTDETR("rtdetr-l.yaml", device="cpu").val(data=data)
+    detr = RTDETR("rtdetr-l.yaml", device="cpu")  # its val is ported; its validator refuses the same flags
+    for key in ("plots", "save_json"):
+        with pytest.raises(NotImplementedError, match=key):
+            detr.val(data=data, imgsz=64, **{key: True})
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """Letterbox and the long-side resizes, in torch and numpy.
 
 Counterparts of `ultralytics_pro_tpu/data/augment.py` (`LetterBox:27`,
-`Compose:424`) and of the two `cv2.resize` calls of the val path:
+`Compose:424`, `classify_transforms:554`) and of the two `cv2.resize` calls
+of the val path:
 
 - `resize_bilinear` is `cv2.resize(..., INTER_LINEAR)` (`augment.py:68`,
   and `dataset.py:327` when an image grows): `F.interpolate` bilinear with
@@ -74,6 +75,24 @@ def resize_area(img: np.ndarray, size) -> np.ndarray:
     out = wy @ (rows @ wx.T)  # (C, h, w), f32
     out = out.round().clamp(0, 255).to(torch.uint8).permute(1, 2, 0)
     return out.reshape((h, w) + img.shape[2:]).numpy()
+
+
+def classify_transforms(size: int = 224):
+    """The classify val pipeline: resize the short side to `size` (the other
+    side to Python's `round` of its scaled length) with `resize_bilinear`,
+    then crop the centre `size` x `size`. HWC uint8 numpy in and out."""
+
+    def tf(im: np.ndarray) -> np.ndarray:
+        h, w = im.shape[:2]
+        r = size / min(h, w)
+        new = (round(w * r), round(h * r))
+        if new != (w, h):
+            im = resize_bilinear(im, new).numpy()
+        h, w = im.shape[:2]
+        y0, x0 = (h - size) // 2, (w - size) // 2
+        return im[y0:y0 + size, x0:x0 + size]
+
+    return tf
 
 
 class LetterBox:

@@ -1,9 +1,10 @@
 """Batches for train and val: fixed-shape padded label arrays, read by a thread pool.
 
-Counterpart of `ultralytics_pro_tpu/data/build.py` (`collate_detect:23` and
-`DataLoader:121`): the collate stacks images and pads labels to `max_gt`
-slots (img (B, S, S, 3) uint8 BGR, cls (B, G), bboxes (B, G, 4) normalised
-xywh, or obb's (B, G, 5) xywhr with cx, w by the width and cy, h by the
+Counterpart of `ultralytics_pro_tpu/data/build.py` (`collate_detect:23`,
+`collate_classify:114` and `DataLoader:121`). Classify's collate stacks
+the images and their int64 classes. The detect collate stacks images and
+pads labels to `max_gt` slots (img (B, S, S, 3) uint8 BGR, cls (B, G),
+bboxes (B, G, 4) normalised xywh, or obb's (B, G, 5) xywhr with cx, w by the width and cy, h by the
 height and the angle as it is, mask_gt (B, G)), with pose's keypoints (B, G, K, 3)
 normalised and segment's instance masks (B, G, S/mask_ratio, S/mask_ratio):
 each polygon filled at the full size and shrunk as cv2 does it
@@ -18,9 +19,10 @@ passes.
 
 from __future__ import annotations
 
+import functools
 import random
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 
@@ -103,20 +105,27 @@ def collate_detect(samples, max_gt: int = 128, mask_ratio: int = 4) -> Dict[str,
     return out
 
 
+def collate_classify(samples) -> Dict[str, np.ndarray]:
+    """img (B, S, S, 3) uint8 BGR and cls (B,) int64."""
+    return {"img": np.stack([s["img"] for s in samples]),
+            "cls": np.array([s["cls"] for s in samples], np.int64)}
+
+
 class DataLoader:
     """Iterable over the dataset's samples in batches of batch_size read by a
     thread pool. With shuffle, each pass takes the order
     `random.Random(epoch)` gives and `epoch` then counts up; with
     drop_last a last partial batch is dropped, else it is padded by repeating
     its last sample, and its `pad_count` says how many repeats the validator
-    skips."""
+    skips. `collate_fn` takes the list of samples (default: collate_detect
+    at `max_gt` slots)."""
 
     def __init__(self, dataset, batch_size: int = 16, workers: int = 8, max_gt: int = 128,
-                 shuffle: bool = False, drop_last: bool = False):
+                 shuffle: bool = False, drop_last: bool = False, collate_fn: Optional[Callable] = None):
         self.dataset = dataset
+        self.collate_fn = collate_fn or functools.partial(collate_detect, max_gt=max_gt)
         self.batch_size = batch_size
         self.workers = max(1, workers)
-        self.max_gt = max_gt
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.epoch = 0
@@ -152,7 +161,7 @@ class DataLoader:
         self.epoch += 1
 
     def _assemble(self, futures, pad: int = 0):
-        batch = collate_detect([f.result() for f in futures], max_gt=self.max_gt)
+        batch = self.collate_fn([f.result() for f in futures])
         batch["pad_count"] = pad
         return batch
 

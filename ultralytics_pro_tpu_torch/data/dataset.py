@@ -1,5 +1,5 @@
-"""YOLO-format detect, segment, pose and obb datasets, for val and for train
-without augmentation.
+"""YOLO-format detect, segment, pose and obb datasets, and the folder-per-class
+classify dataset, for val and for train without augmentation.
 
 Counterpart of `ultralytics_pro_tpu/data/dataset.py` (`YOLODataset:34`):
 image scan (`get_img_files:140`, `IMG_FORMATS:25`), label paths
@@ -9,7 +9,11 @@ keypoints from the dataset YAML, a missing visibility written as 2, obb's
 four corners), the
 long-side resize on load (`_read_resized:295` and `load_image:332` in one:
 area averaging to shrink, bilinear to grow), `get_image_and_label:344`, and
-the non-augment transforms (`build_transforms:386`) behind `__getitem__:414`.
+the non-augment transforms (`build_transforms:386`) behind `__getitem__:414`;
+and `ClassificationDataset:422`: sorted class folders, the files inside
+each sorted, through `classify_transforms` (short side to imgsz, centre
+crop). Images are read by `data/image_io.imread`: PNG natively, other formats
+(the JPEG of ImageNet or imagenette) only where PIL imports.
 Images are read by `data/image_io.imread`, not OpenCV. An obb label's
 corners become (cx, cy, w, h, rad) in the resized image's pixels through
 `data/geometry.poly2xywhr`, the copy of `_poly2xywhr:276` and of the
@@ -20,8 +24,9 @@ train images go through the same transforms as val, as in the JAX dataset.
 Labels are parsed on every construction: the port writes no `.cache` beside
 the labels. Rectangular batches, image caches, augmentation (the JAX
 `v8_transforms`: Mosaic, RandomPerspective, RandomHSV, flips, MixUp),
-channel counts other than 3 and the classify task raise
-NotImplementedError; the class filter and `fraction` of the JAX dataset are
+channel counts other than 3 and `ClassificationDataset(augment=True)`
+(RandAugment through cv2) raise NotImplementedError; the class filter and
+`fraction` of the JAX dataset are
 left out.
 """
 
@@ -34,7 +39,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ultralytics_pro_tpu_torch.data.augment import Compose, LetterBox, resize_area, resize_bilinear
+from ultralytics_pro_tpu_torch.data.augment import Compose, LetterBox, classify_transforms, resize_area, resize_bilinear
 from ultralytics_pro_tpu_torch.data.geometry import poly2xywhr
 from ultralytics_pro_tpu_torch.data.image_io import imread
 
@@ -66,6 +71,9 @@ class YOLODataset:
                 "YOLODataset(augment=True) is not implemented in ultralytics_pro_tpu_torch yet: the "
                 "train augmentations (the JAX package's data/augment.py v8_transforms) need cv2-free "
                 "forms, ROADMAP.md queue 1 (train augmentations); train with augment=False, the default")
+        if task == "classify":
+            raise NotImplementedError("YOLODataset(task='classify'): a classify set is a folder per class, "
+                                      "read by ClassificationDataset (data/dataset.py) after check_cls_dataset")
         unported = {"rect=True": rect, f"cache={cache!r}": cache, f"task={task!r}": task not in TASKS}
         for what, asked in unported.items():
             if asked:
@@ -208,3 +216,31 @@ class YOLODataset:
 
     def __getitem__(self, i: int) -> Dict:
         return self.transforms(self.get_image_and_label(i))
+
+
+class ClassificationDataset:
+    """Folder-per-class dataset: root/<class>/<images>, the classes and the
+    files inside each sorted. Items are {"img": (imgsz, imgsz, 3) uint8 BGR,
+    "cls": class index}."""
+
+    def __init__(self, root, imgsz: int = 224, augment: bool = False):
+        if augment:
+            raise NotImplementedError(
+                "ClassificationDataset(augment=True) is not implemented in ultralytics_pro_tpu_torch yet: "
+                "classify_augmentations (RandomResizedCrop, flips, RandAugment through cv2, RandomErasing) "
+                "comes with the train augmentations, ROADMAP.md queue 1 item 2a; train with augment=False, "
+                "the default")
+        self.root = Path(root)
+        self.tf = classify_transforms(imgsz)
+        classes = sorted(d.name for d in self.root.iterdir() if d.is_dir())
+        self.samples = [(str(f), i) for i, c in enumerate(classes) for f in sorted((self.root / c).rglob("*.*"))
+                        if f.suffix[1:].lower() in IMG_FORMATS]
+        if not self.samples:
+            raise FileNotFoundError(f"No images found under {root}")
+
+    def __len__(self):
+        return len(self.samples)
+
+    def __getitem__(self, i: int) -> Dict:
+        path, cls = self.samples[i]
+        return {"img": np.ascontiguousarray(self.tf(imread(path))), "cls": cls}

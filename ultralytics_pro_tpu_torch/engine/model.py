@@ -3,7 +3,8 @@ and `.train(data=...)`.
 
 Counterpart of `ultralytics_pro_tpu/engine/model.py` (`Model:27`, `_new:44`,
 `_load:52`, `_merged_args:72`, `predict:77`, `val:138`, `train:172`,
-`_quick_val:286`, `YOLO:341`) for detect, segment, pose and obb. The model
+`_train_classify:247`, `_quick_val:286`, `YOLO:341`) for detect, segment,
+pose, obb and classify. The model
 lives on `device`, which defaults to the card and raises when there is none;
 pass device="cpu" for the CPU. Training runs on that device. Weights are
 initialised from a `torch.Generator` seeded with `seed`, loaded from a
@@ -15,6 +16,11 @@ val and train under the caller's arguments: a model trained at imgsz=96
 predicts and validates at 96, and `val()` without `data` takes the training
 set's YAML. `plots` is left out of them too: the port draws no plots, and a
 JAX checkpoint carries that package's default, True.
+
+Classify takes a folder-per-class dataset (`check_cls_dataset`): val reads
+its val folder, train rebuilds the model at its nc, trains at the merged
+`imgsz` (the JAX facade's too: 640 unless given) and validates each epoch
+with fitness (top1 + top5) / 2.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from ultralytics_pro_tpu_torch.utils import LOGGER, select_device
 
 class Model:
     """Unified YOLO-style model facade: predict, val and train for detect,
-    segment, pose and obb."""
+    segment, pose, obb and classify."""
 
     def __init__(self, model: Union[str, Path, dict] = "yolov8n.yaml", task: Optional[str] = None,
                  device="cuda", seed: int = 0, verbose: bool = False):
@@ -97,12 +103,15 @@ class Model:
         return self.model.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()},
                                           strict=strict)
 
-    @staticmethod
-    def _dataset(data, args) -> dict:
-        from ultralytics_pro_tpu_torch.data import check_det_dataset
+    def _dataset(self, data, args) -> dict:
+        """The dataset dict of `data` (or the merged args' `data`): a classify
+        folder or YAML for a classify model, else a detection YAML or dict."""
+        from ultralytics_pro_tpu_torch.data import check_cls_dataset, check_det_dataset
 
         if (data or args.get("data")) is None:
             raise ValueError("val and train need data=<dataset yaml or dict>; the port bundles no datasets")
+        if self.task == "classify":
+            return check_cls_dataset(data or args.get("data"))
         d = check_det_dataset(data or args.get("data"))
         ch = int(d.get("channels", 3) or 3)
         if ch != 3:
@@ -111,13 +120,16 @@ class Model:
         return d
 
     def val(self, data=None, **kwargs):
-        """Evaluate on a dataset's `split` (default val); returns the task's
-        metrics (DetMetrics, SegmentMetrics, PoseMetrics or OBBMetrics)."""
+        """Evaluate on a dataset's `split` (default val; a classify set's val
+        folder); returns the task's metrics (DetMetrics, SegmentMetrics,
+        PoseMetrics, OBBMetrics or ClassifyMetrics)."""
         from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset
         from ultralytics_pro_tpu_torch.models import task_map  # models/ imports this module
 
         args = self._merged_args(**kwargs)
         d = self._dataset(data, args)
+        if self.task == "classify":
+            return Model._classify_val(self.model, d, args)
         self.model.names = d["names"]
         imgsz, batch = int(args["imgsz"]), int(args["batch"])
         dataset = YOLODataset(d[args["split"]], imgsz=imgsz, augment=False, data=d, task=self.task,
@@ -143,6 +155,8 @@ class Model:
         if data is not None:
             args["data"] = data
         d = self._dataset(data, args)
+        if self.task == "classify":
+            return self._train_classify(d, args)
         y = copy.deepcopy(self.model.yaml)
         rebuild = d["nc"] != self.model.nc
         if self.task == "pose" and d.get("kpt_shape") and \
@@ -172,6 +186,43 @@ class Model:
                     return None
 
         self.trainer.train(train_loader, val_fn=val_fn)
+
+    def _train_classify(self, d: dict, args: dict):
+        """Classify training: the model rebuilt at the set's nc, the train
+        folder shuffled without augmentation (the default; augment=True
+        raises), the epoch-end val on the val folder."""
+        from ultralytics_pro_tpu_torch.data import ClassificationDataset, DataLoader, collate_classify
+        from ultralytics_pro_tpu_torch.models import task_map  # models/ imports this module
+
+        if d["nc"] != self.model.nc:
+            self.model = self._build(copy.deepcopy(self.model.yaml), nc=d["nc"])
+        self.model.names = d["names"]
+        train_set = ClassificationDataset(d["train"], imgsz=int(args["imgsz"]), augment=bool(args["augment"]))
+        loader = DataLoader(train_set, batch_size=int(args["batch"]), shuffle=True, drop_last=True,
+                            workers=int(args["workers"]), collate_fn=collate_classify)
+        self.trainer = task_map["classify"]["trainer"](self.model, args)
+
+        val_fn = None
+        if args.get("val", True) and d.get("val"):
+            def val_fn(model):
+                try:
+                    return Model._classify_val(model, d, args).fitness
+                except Exception:  # as the detect branch: training goes on, the cause logged
+                    LOGGER.exception("val failed; training goes on with fitness None")
+                    return None
+
+        self.trainer.train(loader, val_fn=val_fn)
+
+    @staticmethod
+    def _classify_val(model, d: dict, args: dict):
+        """A classify set's val folder through ClassificationValidator."""
+        from ultralytics_pro_tpu_torch.data import ClassificationDataset, DataLoader, collate_classify
+        from ultralytics_pro_tpu_torch.models import task_map  # models/ imports this module
+
+        dataset = ClassificationDataset(d["val"], imgsz=int(args["imgsz"]))
+        loader = DataLoader(dataset, batch_size=int(args["batch"]), workers=int(args["workers"]),
+                            collate_fn=collate_classify)
+        return task_map["classify"]["validator"](args)(model, loader, names=d["names"])
 
     @staticmethod
     def _quick_val(model, d: dict, args: dict, task: str):

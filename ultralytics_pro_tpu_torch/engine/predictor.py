@@ -1,8 +1,8 @@
 """Streaming predictor: images -> letterbox -> device function -> Results.
 
 Counterpart of `ultralytics_pro_tpu/engine/predictor.py` (`BasePredictor:26`,
-`DetectionPredictor:219`, `SegmentationPredictor:223`, `PosePredictor:283`,
-`OBBPredictor:314`).
+`DetectionPredictor:219`, `SegmentationPredictor:223`,
+`ClassificationPredictor:251`, `PosePredictor:283`, `OBBPredictor:314`).
 The jitted `run` of the JAX package (`_build_jit:45`) is a plain device
 function here, in full f32 with TF32 off (`utils.full_f32`), as the JAX
 package computes it: uint8 BGR batch -> RGB/255 -> forward -> NMS (kernel K1
@@ -17,6 +17,11 @@ letterbox pad off, resizes to the original image and crops by the boxes on
 the model's device (the JAX postprocess runs them through `jnp`); only the
 boolean masks come to the host. Pose rescales its keypoints on the host.
 
+Classify resizes each image to an imgsz square with `resize_bilinear` on
+the model's device (the JAX package's cv2 INTER_LINEAR, within a grey
+level), runs RGB/255 and the forward in full f32, and brings only the
+(B, nc) probabilities to the host.
+
 Sources are HWC uint8 BGR numpy arrays, or a list of them. Reading image
 files needs OpenCV and waits for a later slice.
 """
@@ -28,9 +33,9 @@ from typing import Dict, Iterator, List
 import numpy as np
 import torch
 
-from ultralytics_pro_tpu_torch.data.augment import LetterBox
+from ultralytics_pro_tpu_torch.data.augment import LetterBox, resize_bilinear
 from ultralytics_pro_tpu_torch.engine.results import Results
-from ultralytics_pro_tpu_torch.nn.modules.head import OBB, Detect, Pose, Segment, decode_single_label
+from ultralytics_pro_tpu_torch.nn.modules.head import OBB, Classify, Detect, Pose, Segment, decode_single_label
 from ultralytics_pro_tpu_torch.ops.boxes import scale_boxes
 from ultralytics_pro_tpu_torch.ops.masks import process_mask_native
 from ultralytics_pro_tpu_torch.ops.nms import non_max_suppression, non_max_suppression_fused, non_max_suppression_rotated
@@ -200,6 +205,26 @@ class SegmentationPredictor(BasePredictor):
                 masks = masks.cpu().numpy()
             results.append(Results(im0, paths[i], self.model.names, boxes=data.cpu().numpy(), masks=masks))
         return results
+
+
+class ClassificationPredictor(BasePredictor):
+    """Class probabilities; `run` returns (B, nc) softmax rows."""
+
+    head_types = (Classify,)
+
+    @torch.no_grad()
+    def run(self, img_u8: torch.Tensor) -> torch.Tensor:
+        with full_f32():
+            return self.model(rgb01(img_u8))
+
+    def preprocess(self, imgs: List[np.ndarray]) -> torch.Tensor:
+        """Each image resized to an imgsz square on the device; the (B, S, S, C) uint8 batch."""
+        size = (self.imgsz, self.imgsz)
+        return torch.stack([resize_bilinear(torch.from_numpy(np.ascontiguousarray(im)).to(self.device), size)
+                            for im in imgs])
+
+    def postprocess(self, out: torch.Tensor, batch_shape, im0s, paths) -> List[Results]:
+        return [Results(im0, paths[i], self.model.names, probs=out[i].numpy()) for i, im0 in enumerate(im0s)]
 
 
 class PosePredictor(BasePredictor):

@@ -1,11 +1,14 @@
-"""Prediction results, numpy-backed: boxes, instance masks, keypoints and
-oriented boxes.
+"""Prediction results, numpy-backed: boxes, instance masks, keypoints,
+oriented boxes and class probabilities.
 
 Counterpart of `ultralytics_pro_tpu/engine/results.py` (`BaseTensor:23`,
-`Boxes:41`, `Masks:82`, `Keypoints:103`, `OBB:140`, `Results:167`) for detect,
-segment, pose and obb: the same accessors (.xyxy/.xywh/.xyxyn/.xywhn/.conf/.cls,
-the keypoints' .xy/.xyn/.conf, the oriented boxes' .xywhr/.xyxyxyxy/.xyxy,
-len and indexing). `Masks.xy` (polygon contours,
+`Boxes:41`, `Masks:82`, `Keypoints:103`, `Probs:120`, `OBB:140`, `Results:167`)
+for detect, segment, pose, obb and classify: the same accessors
+(.xyxy/.xywh/.xyxyn/.xywhn/.conf/.cls, the keypoints' .xy/.xyn/.conf, the
+oriented boxes' .xywhr/.xyxyxyxy/.xyxy, the probabilities'
+.top1/.top5/.top1conf/.top5conf, len and indexing). `Probs.top5` orders by a
+stable descending sort, ties to the lower class, where the JAX one reverses
+an ascending argsort (ties to the higher). `Masks.xy` (polygon contours,
 `cv2.findContours`) raises NotImplementedError, and drawing and saving need
 OpenCV too; they wait for a later slice.
 """
@@ -100,6 +103,26 @@ class Keypoints(BaseTensor):
         return self.data[..., 2] if self.data.shape[-1] == 3 else None
 
 
+class Probs(BaseTensor):
+    """Classification probabilities: data (nc,)."""
+
+    @property
+    def top1(self) -> int:
+        return int(self.data.argmax())
+
+    @property
+    def top5(self) -> list:
+        return np.argsort(-self.data, kind="stable")[:5].tolist()
+
+    @property
+    def top1conf(self) -> float:
+        return float(self.data.max())
+
+    @property
+    def top5conf(self):
+        return self.data[self.top5]
+
+
 class OBB(BaseTensor):
     """Oriented boxes: data (n, 7) = cx, cy, w, h, rad, conf, cls, in the original image's pixels."""
 
@@ -129,9 +152,11 @@ class OBB(BaseTensor):
 
 class Results(SimpleClass):
     """One image's detections, with its masks or keypoints where the task has
-    them; an obb task's oriented boxes are on `obb`, and `boxes` is None."""
+    them; an obb task's oriented boxes are on `obb`, and a classify task's
+    probabilities on `probs`, with `boxes` None."""
 
-    def __init__(self, orig_img, path, names, boxes=None, masks=None, keypoints=None, obb=None, speed=None):
+    def __init__(self, orig_img, path, names, boxes=None, masks=None, probs=None, keypoints=None, obb=None,
+                 speed=None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
@@ -140,6 +165,7 @@ class Results(SimpleClass):
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None else None
         self.obb = OBB(obb, self.orig_shape) if obb is not None else None
+        self.probs = Probs(probs, self.orig_shape) if probs is not None else None
         self.speed = speed or {"preprocess": None, "inference": None, "postprocess": None}
 
     def __len__(self):

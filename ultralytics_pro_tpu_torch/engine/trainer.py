@@ -1,12 +1,13 @@
-"""Trainer: the training loop on one device, for detect, segment, pose and obb.
+"""Trainer: the training loop on one device, for detect, segment, pose, obb and classify.
 
 Counterpart of `ultralytics_pro_tpu/engine/trainer.py` (`param_group:35`,
 `EarlyStopping:52`, `BaseTrainer:73` with `lr_lambda:135`, the step of
 `build_train_step:146`, `train:241`, `save_checkpoint:433`,
 `resume_from:500`, `save_pickle:508`, `load_pickle:517`,
-`DetectionTrainer:522`, `SegmentationTrainer:620`, `PoseTrainer:659` and
-`OBBTrainer:676`), with the JAX step's semantics kept exactly (the task
-trainers differ only in their criterion):
+`DetectionTrainer:522`, `SegmentationTrainer:620`, `_ClassifyCriterion:632`,
+`ClassificationTrainer:645`, `PoseTrainer:659` and `OBBTrainer:676`), with
+the JAX step's semantics kept exactly (the task trainers differ only in
+their criterion, and classify's batch holds only the images and classes):
 
 - a micro-batch's forward, loss and backward add its gradients to the
   parameters' `.grad`; the optimizer applies only on the micro-batches where
@@ -60,8 +61,8 @@ QUEUED_ARGS = {  # train arguments of the JAX trainer that the port takes up lat
 
 
 def param_group(module: nn.Module, leaf: str) -> int:
-    """0: conv weights (decayed), 1: BN weights, 2: biases, as the JAX
-    package groups flax's `kernel`, `scale` and `bias` leaves."""
+    """0: conv and linear weights (decayed), 1: BN weights, 2: biases, as
+    the JAX package groups flax's `kernel`, `scale` and `bias` leaves."""
     if leaf == "bias":
         return 2
     return 1 if isinstance(module, nn.BatchNorm2d) else 0
@@ -444,3 +445,24 @@ class OBBTrainer(DetectionTrainer):
     """OBB-task trainer: v8OBBLoss (the rotated assigner, probiou)."""
 
     loss_name = "v8OBBLoss"
+
+
+class _ClassifyCriterion:
+    """Cross-entropy of (B, nc) logits against batch['cls']: the mean NLL of
+    the log-softmax, times B, with the part 'cls' (the mean)."""
+
+    def __call__(self, preds: torch.Tensor, batch: Dict[str, torch.Tensor], imgsz_hw):
+        nll = -preds.log_softmax(-1).gather(-1, batch["cls"].long()[:, None]).mean()
+        return nll * preds.shape[0], {"cls": nll}
+
+
+class ClassificationTrainer(BaseTrainer):
+    """Classify-task trainer: _ClassifyCriterion; batches of images and classes."""
+
+    def build_criterion(self):
+        return _ClassifyCriterion()
+
+    def put_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        img = torch.from_numpy(batch["img"]).to(self.device)
+        return {"img": img.flip(-1).permute(0, 3, 1, 2).float() / 255.0,
+                "cls": torch.from_numpy(np.asarray(batch["cls"])).to(self.device)}

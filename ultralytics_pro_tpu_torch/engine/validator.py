@@ -1,7 +1,8 @@
 """Validator: dataloader -> device function (forward + NMS) -> TP matching -> metrics.
 
 Counterpart of `ultralytics_pro_tpu/engine/validator.py` (`DetectionValidator:25`,
-`SegmentationValidator:216`, `PoseValidator:308`, `OBBValidator:388`). The jitted device function
+`SegmentationValidator:216`, `PoseValidator:308`, `OBBValidator:388`,
+`ClassificationValidator:497`). The jitted device function
 of the JAX package (`_build_jit:105`) is a plain device function here,
 `run(img_u8)`: uint8 BGR batch -> RGB/255 -> forward -> generic decode ->
 multi-label NMS (kernel K1 on the card), in full f32 with TF32 off
@@ -14,7 +15,11 @@ their > 0.5 bits brought back), and pose's boxes and OKS in the letterbox
 frame, as the JAX validators match them. OBB's device function ends in the
 rotated NMS (`ops.nms.non_max_suppression_rotated`) and its rboxes are
 matched by `batch_probiou` in the letterbox frame; with `save_json` it
-writes DOTA Task1 files (`save_dota:431`). The three `Profile`s synchronise
+writes DOTA Task1 files (`save_dota:431`). Classify's device function is
+RGB/255 and the forward; its (B, nc) probabilities come to the host, where
+a stable descending sort gives each image's top 5. Every validator skips
+the `pad_count` copies that fill a short last batch (the JAX
+ClassificationValidator scores them again). The three `Profile`s synchronise
 the model's device: preprocess is the batch's copy to the device, inference
 the device function and the copy back, postprocess the matching.
 
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 
 from ultralytics_pro_tpu_torch.engine.predictor import rgb01
-from ultralytics_pro_tpu_torch.nn.modules.head import OBB, Detect, Pose, Segment
+from ultralytics_pro_tpu_torch.nn.modules.head import OBB, Classify, Detect, Pose, Segment
 from ultralytics_pro_tpu_torch.ops.boxes import scale_boxes, xywhr2xyxyxyxy
 from ultralytics_pro_tpu_torch.ops.iou import batch_probiou
 from ultralytics_pro_tpu_torch.ops.masks import process_mask
@@ -40,6 +45,7 @@ from ultralytics_pro_tpu_torch.ops.nms import non_max_suppression, non_max_suppr
 from ultralytics_pro_tpu_torch.utils import LOGGER, Profile, full_f32
 from ultralytics_pro_tpu_torch.utils.metrics import (
     OKS_SIGMA,
+    ClassifyMetrics,
     ConfusionMatrix,
     DetMetrics,
     OBBMetrics,
@@ -52,11 +58,11 @@ from ultralytics_pro_tpu_torch.utils.metrics import (
 )
 
 
-def _gt_boxes(gt_n: np.ndarray, h: int, w: int) -> np.ndarray:
-    """Normalised xywh ground truth -> pixel xyxy in the letterbox frame."""
-    if not len(gt_n):
+def xywhn_to_xyxy_px(xywhn: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Normalised xywh boxes (n, 4) -> pixel xyxy in an (h, w) frame (the letterbox's)."""
+    if not len(xywhn):
         return np.zeros((0, 4))
-    cx, cy, bw, bh = gt_n[:, 0] * w, gt_n[:, 1] * h, gt_n[:, 2] * w, gt_n[:, 3] * h
+    cx, cy, bw, bh = xywhn[:, 0] * w, xywhn[:, 1] * h, xywhn[:, 2] * w, xywhn[:, 3] * h
     return np.stack([cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2], 1)
 
 
@@ -156,7 +162,7 @@ class DetectionValidator:
                 pred_cls = np.zeros_like(pred_cls)
 
             gmask = batch["mask_gt"][i]
-            gt_boxes = _gt_boxes(batch["bboxes"][i][gmask], h, w)  # normalized xywh in letterbox frame
+            gt_boxes = xywhn_to_xyxy_px(batch["bboxes"][i][gmask], h, w)  # normalized xywh in letterbox frame
             gt_cls = batch["cls"][i][gmask]
 
             # evaluate in the original image frame: scale_boxes clips to the
@@ -218,7 +224,7 @@ class SegmentationValidator(DetectionValidator):
             pred_cls = out["cls"][i][:n].astype(np.float32)
 
             gmask = batch["mask_gt"][i]
-            gt_boxes = _gt_boxes(batch["bboxes"][i][gmask], h, w)
+            gt_boxes = xywhn_to_xyxy_px(batch["bboxes"][i][gmask], h, w)
             gt_cls = batch["cls"][i][gmask]
 
             # boxes matched in the original frame; masks stay in the letterbox
@@ -265,7 +271,7 @@ class PoseValidator(DetectionValidator):
             pred_conf = out["scores"][i][:n]
             pred_cls = out["cls"][i][:n].astype(np.float32)
             gmask = batch["mask_gt"][i]
-            gt_boxes = _gt_boxes(batch["bboxes"][i][gmask], h, w)
+            gt_boxes = xywhn_to_xyxy_px(batch["bboxes"][i][gmask], h, w)
             gt_cls = batch["cls"][i][gmask]
 
             iou = box_iou_np(gt_boxes, pred_boxes) if n and len(gt_boxes) else np.zeros((len(gt_boxes), n))
@@ -372,3 +378,24 @@ class OBBValidator(DetectionValidator):
         for name, rows in per_class.items():
             (out / f"Task1_{name}.txt").write_text("\n".join(rows) + "\n")
         return out
+
+
+class ClassificationValidator(DetectionValidator):
+    """Top-1 and top-5 accuracy; ClassifyMetrics."""
+
+    head_type = Classify
+    metrics_class = ClassifyMetrics
+
+    @torch.no_grad()
+    def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The device function: (B, H, W, 3) uint8 BGR -> {'probs': (B, nc)}."""
+        with full_f32():
+            return {"probs": self.model(rgb01(img_u8))}
+
+    def update_metrics(self, out, batch, metrics, confusion):
+        b = out["probs"].shape[0] - int(batch.get("pad_count", 0))
+        top5 = np.argsort(-out["probs"][:b], axis=-1, kind="stable")[:, :5]
+        metrics.update(batch["cls"][:b], top5)
+
+    def print_results(self, metrics, names):
+        LOGGER.info(f"top1 {metrics.top1:.3f}  top5 {metrics.top5:.3f}")

@@ -1,20 +1,29 @@
 """Task bindings: the predictor, validator and trainer for a model
-(detect, segment, pose and obb, and RT-DETR's NMS-free predictor)."""
+(detect, segment, pose, obb and classify, and RT-DETR's NMS-free predictor
+and validator)."""
 
 from ultralytics_pro_tpu_torch.engine.predictor import (
+    ClassificationPredictor,
     DetectionPredictor,
     OBBPredictor,
     PosePredictor,
     SegmentationPredictor,
 )
-from ultralytics_pro_tpu_torch.engine.trainer import DetectionTrainer, OBBTrainer, PoseTrainer, SegmentationTrainer
+from ultralytics_pro_tpu_torch.engine.trainer import (
+    ClassificationTrainer,
+    DetectionTrainer,
+    OBBTrainer,
+    PoseTrainer,
+    SegmentationTrainer,
+)
 from ultralytics_pro_tpu_torch.engine.validator import (
+    ClassificationValidator,
     DetectionValidator,
     OBBValidator,
     PoseValidator,
     SegmentationValidator,
 )
-from ultralytics_pro_tpu_torch.models.rtdetr import RTDETR, RTDETRPredictor
+from ultralytics_pro_tpu_torch.models.rtdetr import RTDETR, RTDETRPredictor, RTDETRValidator
 from ultralytics_pro_tpu_torch.nn.modules.head import RTDETRDecoder
 
 
@@ -26,7 +35,9 @@ task_map = {"detect": {"predictor": DetectionPredictor, "validator": DetectionVa
                      "trainer": PoseTrainer},
             "obb": {"predictor": OBBPredictor, "validator": OBBValidator,
                     "trainer": OBBTrainer},
-            "rtdetr": {"predictor": RTDETRPredictor}}
+            "classify": {"predictor": ClassificationPredictor, "validator": ClassificationValidator,
+                         "trainer": ClassificationTrainer},
+            "rtdetr": {"predictor": RTDETRPredictor, "validator": RTDETRValidator}}
 
 
 def predictor_for(model, task: str):
@@ -35,4 +46,4 @@ def predictor_for(model, task: str):
     return task_map["rtdetr" if isinstance(model.model[-1], RTDETRDecoder) else task]["predictor"]
 
 
-__all__ = ["RTDETR", "RTDETRPredictor", "predictor_for", "task_map"]
+__all__ = ["RTDETR", "RTDETRPredictor", "RTDETRValidator", "predictor_for", "task_map"]

@@ -1,17 +1,29 @@
-"""RT-DETR in the port: the NMS-free predictor and the facade (predict only).
+"""RT-DETR in the port: the NMS-free predictor and validator, and the facade
+(predict and val).
 
-Counterpart of `ultralytics_pro_tpu/models/rtdetr.py` (`RTDETRPredictor:93`,
-`RTDETR:134`). The device function `run` is the JAX package's jitted `run`:
+Counterpart of `ultralytics_pro_tpu/models/rtdetr.py` (`RTDETRValidator:46`,
+`RTDETRPredictor:93`, `RTDETR:134`). The predictor's device function `run` is
+the JAX package's jitted `run`:
 uint8 BGR batch -> RGB / 255 -> forward -> (B, nq, 4 + nc) normalised cxcywh
 boxes and scores, in full f32 with TF32 off (`utils.full_f32`); deformable
 attention runs on kernel K2 for tensors on the card. The postprocess is that
 of `:119-131`: conf = best score, cls = its class, keep conf > `conf`, then
 letterboxed pixels -> original pixels with the same gain and pad rounding.
+
+The validator's device function is the JAX validator's (`:49-62`): the same
+forward, then each query's best score as `conf`, its class and `valid = conf
+> 0`, with no NMS. Its `update_metrics` keeps `conf > self.conf` and matches
+in the letterbox frame (`:64-83`), where the port's DetectionValidator
+matches in the original frame. Two departures from the JAX validator, as
+the port's DetectionValidator has them: the `pad_count` copies that fill a
+short last batch are not scored (the JAX one scores them again), and under
+`single_cls` the predicted classes are zeroed too, since the port's dataset
+zeroes the ground truth's (ROADMAP.md section 3).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -19,11 +31,49 @@ import torch
 from ultralytics_pro_tpu_torch.engine.model import Model
 from ultralytics_pro_tpu_torch.engine.predictor import BasePredictor, rgb01
 from ultralytics_pro_tpu_torch.engine.results import Results
+from ultralytics_pro_tpu_torch.engine.validator import DetectionValidator, xywhn_to_xyxy_px
 from ultralytics_pro_tpu_torch.nn.modules.head import RTDETRDecoder
 from ultralytics_pro_tpu_torch.utils import full_f32
+from ultralytics_pro_tpu_torch.utils.metrics import box_iou_np, match_predictions
 
-_LATER = ("comes with a later slice of the port, after detect val and train (ROADMAP.md queue 1): "
+_LATER = ("comes with a later slice of the port (ROADMAP.md queue 1 item 4b, RT-DETR train): "
           "it needs the DETR loss, the Hungarian matcher, contrastive denoising and a K2 backward")
+
+
+class RTDETRValidator(DetectionValidator):
+    """No-NMS validation: each query's best class above `conf`, matched in the
+    letterbox frame."""
+
+    head_type = RTDETRDecoder
+
+    @torch.no_grad()
+    def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The device function: (B, H, W, 3) uint8 BGR on the model's device ->
+        dict of (B, nq) 'boxes' normalised cxcywh, 'scores' (the best class
+        score), 'cls' and 'valid' (score > 0). Runs in full f32."""
+        with full_f32():
+            y, _ = self.model(rgb01(img_u8), aux=False)
+            scores = y[..., 4:]
+            conf = scores.amax(-1)
+            return {"boxes": y[..., :4], "scores": conf, "cls": scores.argmax(-1).int(), "valid": conf > 0}
+
+    def update_metrics(self, out, batch, metrics, confusion):
+        b = out["boxes"].shape[0] - int(batch.get("pad_count", 0))
+        h, w = batch["img"].shape[1:3]
+        for i in range(b):
+            conf = out["scores"][i]
+            keep = conf > self.conf
+            n = int(keep.sum())
+            pred_boxes = xywhn_to_xyxy_px(out["boxes"][i][keep], h, w)
+            pred_conf = conf[keep]
+            pred_cls = out["cls"][i][keep].astype(np.float32)
+            if self.single_cls:
+                pred_cls = np.zeros_like(pred_cls)
+            gmask = batch["mask_gt"][i]
+            gt_boxes = xywhn_to_xyxy_px(batch["bboxes"][i][gmask], h, w)
+            gt_cls = batch["cls"][i][gmask]
+            iou = box_iou_np(gt_boxes, pred_boxes) if n and len(gt_boxes) else np.zeros((len(gt_boxes), n))
+            metrics.update_stats(match_predictions(pred_cls, gt_cls, iou), pred_conf, pred_cls, gt_cls)
 
 
 class RTDETRPredictor(BasePredictor):
@@ -64,7 +114,8 @@ class RTDETRPredictor(BasePredictor):
 
 
 class RTDETR(Model):
-    """RT-DETR entry point: `RTDETR("rtdetr-l.yaml", device="cuda").predict(images)`."""
+    """RT-DETR entry point: `RTDETR("rtdetr-l.yaml", device="cuda").predict(images)`
+    and `.val(data=...)`."""
 
     def __init__(self, model="rtdetr-l.yaml", device="cuda", seed: int = 0, verbose: bool = False):
         super().__init__(model, task="detect", device=device, seed=seed, verbose=verbose)
@@ -72,8 +123,21 @@ class RTDETR(Model):
             raise ValueError(f"RTDETR needs a model whose head is RTDETRDecoder, got "
                              f"{type(self.model.model[-1]).__name__}")
 
-    def val(self, *args, **kwargs):
-        raise NotImplementedError(f"RTDETR.val is not ported yet: the RT-DETR validator {_LATER}")
+    def val(self, data=None, **kwargs):
+        """RT-DETR val (the JAX facade's, `:155-170`): the dataset's `split`
+        without augmentation or rect batches, batch 16 by default, through
+        RTDETRValidator; the model keeps its nc and takes the data's names.
+        Returns DetMetrics."""
+        from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset
+
+        args = self._merged_args(**kwargs)
+        d = self._dataset(data, args)
+        self.model.names = d["names"]
+        dataset = YOLODataset(d[args["split"]], imgsz=int(args["imgsz"]), augment=False, data=d,
+                              single_cls=bool(args["single_cls"]))
+        loader = DataLoader(dataset, batch_size=int(args["batch"]), workers=int(args["workers"]),
+                            max_gt=int(args["max_gt"]))
+        return RTDETRValidator(args)(self.model, loader, names=d["names"])
 
     def train(self, *args, **kwargs):
         raise NotImplementedError(f"RTDETR.train is not ported yet: the RT-DETR trainer {_LATER}")

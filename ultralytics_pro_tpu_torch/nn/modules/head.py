@@ -1,11 +1,12 @@
 """The anchor-free Detect head and its decodes, the Segment, OBB and Pose
-heads, and the RT-DETR decoder head.
+heads, the Classify head, and the RT-DETR decoder head.
 
 Counterpart of `ultralytics_pro_tpu/nn/modules/head.py` (`Detect:48`,
 `_decode:87`, `decode_single_label:127`, `Segment:170`, `OBB:193`,
-`Pose:222`, `RTDETRDecoder:440`). Module names follow the torch reference
-(`cv2.i.0.conv.weight`, `cv3.i.2.bias`, `dfl.conv.weight`, `cv4.i.2.bias`,
-`proto.upsample.weight`, `decoder.layers.i.cross_attn.value_proj.weight`).
+`Pose:222`, `Classify:418`, `RTDETRDecoder:440`). Module names follow the
+torch reference (`cv2.i.0.conv.weight`, `cv3.i.2.bias`, `dfl.conv.weight`,
+`cv4.i.2.bias`, `proto.upsample.weight`, `conv.conv.weight`,
+`linear.weight`, `decoder.layers.i.cross_attn.value_proj.weight`).
 
 Raw per-level maps are NCHW (B, 4*reg_max + nc, H, W). Decoded outputs are
 anchor-major like the JAX package's: (B, A, 4 + nc), anchors ordered level by
@@ -176,6 +177,24 @@ class Pose(Detect):
         if self.kpt_shape[1] == 3:
             xy = torch.cat([xy, k[..., 2:3].sigmoid()], -1)
         return xy.reshape(b, a, -1)
+
+
+class Classify(nn.Module):
+    """Image classification head: a Conv to 1280 channels, the global mean,
+    then a Linear to c2 classes; logits in train mode, their softmax in eval
+    mode. Several inputs are concatenated along the channels first."""
+
+    def __init__(self, c1: int, c2: int = 1000, k=1, s=1, p=None, g: int = 1):
+        super().__init__()
+        c_ = 1280
+        self.conv = Conv(c1, c_, k, s, p, g)
+        self.linear = nn.Linear(c_, c2)
+
+    def forward(self, x) -> torch.Tensor:
+        if isinstance(x, (list, tuple)):
+            x = torch.cat(x, 1)
+        logits = self.linear(self.conv(x).mean((2, 3)))
+        return logits if self.training else logits.softmax(-1)
 
 
 def decode_single_label(raw, strides, nc: int, reg_max: int = 16):

@@ -4,8 +4,9 @@ Counterpart of `ultralytics_pro_tpu/nn/tasks.py` (`parse_model:1126`,
 `YOLOModule._forward:1230`, `yaml_model_load:1311`, `split_scale:1328`,
 `find_model_yaml:1347`, `BaseModel:1361`, `DetectionModel:1491`,
 `SegmentationModel:1495`, `PoseModel:1499`, `OBBModel:1503`,
-`model_class_for:1610`, `guess_model_task:1624`) for the YOLOv8 module set
-(Conv, C2f, SPPF, nn.Upsample, Concat, Detect, Segment, OBB, Pose) and
+`ClassificationModel:1507`, `model_class_for:1610`, `guess_model_task:1624`)
+for the YOLOv8 module set (Conv, C2f, SPPF, nn.Upsample, Concat, Detect,
+Segment, OBB, Pose, Classify) and
 RT-DETR's (DWConv, HGStem, HGBlock, RepC3, AIFI, RTDETRDecoder; builders at
 `:85`, `:260-263`, `:441-447`). Segment's args are [nc, nm, npr] with npr
 width-scaled, OBB's [nc, ne], Pose's [nc, kpt_shape] with the YAML's
@@ -16,7 +17,9 @@ name their ROADMAP queue item too.
 
 In train mode (`model.train()`) a Detect model returns the head's raw
 per-level maps, NCHW, as the JAX head returns `{"feats": raw}` when
-`train=True` (`nn/modules/head.py:120-123`).
+`train=True` (`nn/modules/head.py:120-123`). A classification model returns
+(B, nc) logits in train mode and their softmax in eval mode; it has no
+detect head, so no strides are probed.
 
 Models are nn.Modules in NCHW whose parameter names are the reference's
 (`model.N.cv1.conv.weight`). Weights are initialised from an explicit
@@ -34,13 +37,13 @@ from torch import nn
 
 from ultralytics_pro_tpu_torch.nn.modules.block import SPPF, C2f, HGBlock, HGStem, RepC3
 from ultralytics_pro_tpu_torch.nn.modules.conv import Concat, Conv, DWConv
-from ultralytics_pro_tpu_torch.nn.modules.head import OBB, Detect, Pose, RTDETRDecoder, Segment
+from ultralytics_pro_tpu_torch.nn.modules.head import OBB, Classify, Detect, Pose, RTDETRDecoder, Segment
 from ultralytics_pro_tpu_torch.nn.modules.transformer import AIFI, MSDeformAttn, MultiheadAttention
 from ultralytics_pro_tpu_torch.utils import LOGGER, PKG_ROOT, miniyaml
 
 SCALED = {"Conv": Conv, "DWConv": DWConv, "C2f": C2f, "SPPF": SPPF, "RepC3": RepC3}  # c2 is width-scaled
 HEADS = {"Detect": Detect, "Segment": Segment, "OBB": OBB, "Pose": Pose}
-MODULES = (*SCALED, "HGStem", "HGBlock", "AIFI", "nn.Upsample", "Concat", *HEADS, "RTDETRDecoder")
+MODULES = (*SCALED, "HGStem", "HGBlock", "AIFI", "nn.Upsample", "Concat", *HEADS, "Classify", "RTDETRDecoder")
 QUEUED = {  # heads of YAMLs the JAX package trains, and where the port takes them up
     "AnchorDetect": "ROADMAP.md queue 1 item 9 (the v5 YAMLs, with v5AnchorLoss)",
     "v10Detect": "ROADMAP.md queue 1 item 9 (v10, with E2EDetectLoss)",
@@ -122,6 +125,9 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
                 elif m_name == "Pose":  # [nc, kpt_shape]
                     extra = [tuple(args[1] if len(args) > 1 else (17, 3))]
                 args = [args[0], [chs[x] for x in f], *extra]
+            elif m_name == "Classify":  # [c2, k, s, p, g], the inputs' channels summed
+                c2, m = args[0], Classify
+                args = [c1 if c1 is not None else sum(chs[x] for x in f), *args]
             else:  # RTDETRDecoder [nc, hd, nq, ndl], as the JAX builder reads them (tasks.py:195)
                 c2, m = None, RTDETRDecoder
                 args = [args[0], [chs[x] for x in f], *args[1:4]]
@@ -279,7 +285,8 @@ class BaseModel(nn.Module):
         mode; Segment, OBB and Pose models give their head's (y, dict), or
         the dict alone (`Segment.forward`, `OBB.forward`, `Pose.forward`). For an RT-DETR model:
         (y (B, nq, 4+nc), aux), aux None when aux=False, see
-        `RTDETRDecoder.forward`."""
+        `RTDETRDecoder.forward`. For a classification model: (B, nc)
+        logits in train mode, their softmax in eval mode."""
         return self._run(x, decode=decode, aux=aux)
 
 
@@ -299,12 +306,18 @@ class OBBModel(DetectionModel):
     task = "obb"
 
 
-TASK2MODEL = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel, "obb": OBBModel}
+class ClassificationModel(BaseModel):
+    task = "classify"
+
+
+TASK2MODEL = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel, "obb": OBBModel,
+              "classify": ClassificationModel}
 
 
 def model_class_for(task: str):
-    """The model class for a task: detect, segment, pose and obb are ported."""
+    """The model class for a task: detect, segment, pose, obb and classify are ported."""
     if task not in TASK2MODEL:
         raise NotImplementedError(f"task '{task}' is not implemented in ultralytics_pro_tpu_torch; "
-                                  f"implemented: {sorted(TASK2MODEL)}")
+                                  f"implemented: {sorted(TASK2MODEL)} (every task of the JAX package; its "
+                                  "World and YOLOE model classes wait for ROADMAP.md queue 1 item 9)")
     return TASK2MODEL[task]

@@ -1,14 +1,15 @@
-"""Detection, segment and pose metrics: TP matching, the AP family, the
-confusion matrix, mask IoU and keypoint OKS.
+"""Detection, segment, pose and OBB metrics (TP matching, the AP family, the
+confusion matrix, mask IoU and keypoint OKS), and classification's top-1
+and top-5 accuracy.
 
 A numpy copy of `ultralytics_pro_tpu/utils/metrics.py` (`box_iou_np:20`,
 `match_predictions:35`, `smooth:63`, `compute_ap:71`, `ap_per_class:81`,
 `Metric:130`, `DetMetrics:195`, `SegmentMetrics:253`, `PoseMetrics:290`,
-`ConfusionMatrix:350`, `mask_iou_np:405`) and of
+`OBBMetrics:318`, `ClassifyMetrics:323`, `ConfusionMatrix:350`,
+`mask_iou_np:405`) and of
 `ultralytics_pro_tpu/ops/iou.py:kpt_iou:115`, which the port may not import.
-`kpt_iou` computes in the inputs' f32 as the JAX function does. The OBB and
-Classify metrics and `plot_curves` are left for the slices that port those
-tasks and plots.
+`kpt_iou` computes in the inputs' f32 as the JAX function does.
+`plot_curves` is left for the slice that ports plots.
 
 Metrics run on the host in numpy: the device hands over fixed-shape
 detections, and everything after is Python.
@@ -297,6 +298,35 @@ class PoseMetrics(DetMetrics):
 
 class OBBMetrics(DetMetrics):
     """Rotated-box metrics: DetMetrics, the validator matching by probiou."""
+
+
+class ClassifyMetrics:
+    """Top-1 and top-5 accuracy over the images seen; fitness is their mean.
+    `names` is taken for the validator's interface and not read."""
+
+    def __init__(self, names=None):
+        self.top1 = 0.0
+        self.top5 = 0.0
+        self._correct = []
+
+    def update(self, targets: np.ndarray, pred_top5: np.ndarray):
+        """targets (n,) class indices, pred_top5 (n, k<=5) best classes first."""
+        self._correct.append(pred_top5 == targets[:, None])
+
+    def process(self):
+        if self._correct:
+            c = np.concatenate(self._correct, 0)
+            self.top1 = float(c[:, 0].mean())
+            self.top5 = float(c.any(1).mean())
+        return self
+
+    @property
+    def fitness(self):
+        return (self.top1 + self.top5) / 2
+
+    @property
+    def results_dict(self):
+        return {"metrics/accuracy_top1": self.top1, "metrics/accuracy_top5": self.top5, "fitness": self.fitness}
 
 
 def mask_iou_np(mask1: np.ndarray, mask2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
