@@ -35,6 +35,14 @@ exits non-zero):
           and an edge case (hd=8, Q=37, locations outside [0, 1]); times,
           the bound, and embedding_bag on the equivalent corner rows as the
           yardstick of the gather part
+  k2_grad K2 under autograd (the forward kernel, then the backward kernel)
+          against the plain version's autograd on the card, each gradient
+          (value, locs, attn) within K2_GRAD_TOL of its largest magnitude,
+          at the train shape (B=16, Q=556: 256 denoising + 300 queries,
+          V=8400, 8 heads of 32, 3 levels x 4 points) and on an edge case
+          (hd=8, locations outside the maps, also against the CPU); the
+          backward's time, the plain backward's, the bound, and index_add_
+          of the same corner rows as the yardstick of its scatter
   rtdetr  RTDETR("rtdetr-l.yaml", device="cuda").predict(4 images) at 640 px,
           default conf 0.25, with K2's launches read around the call (6 per
           image); warm predict latency per image over 100 calls, the device
@@ -167,6 +175,26 @@ exits non-zero):
           bound and embedding_bag's time on the same corner rows; card
           against CPU on the first 16 images (mAPs within RTDETR_VAL_TOL,
           kept queries and boxes where the images' top-k rows agree)
+  rtdetr_train_parity  one optimizer step of seeded rtdetr-l (nc 3) on 8
+          fixture images at 160 px, batch 8, nbs 8, through
+          RTDETR(...).train on the CPU and on the card, the same denoising
+          noise (each trainer's generator from seed 0) and, replayed on the
+          card, the CPU run's top-k selection and matching: card against
+          CPU within RTDETR_TRAIN_PARITY_TOL (loss parts relative; params,
+          EMA and BN statistics against the tree's largest magnitude;
+          momentum buffers as relative L2 distances, the tree's and the
+          worst leaf's), and the card's own top-k indices and matched
+          queries that differ from the CPU's, reported with their gaps
+  rtdetr_train  RTDETR("rtdetr-l.yaml").train at 640, 80 classes, batch 16,
+          the JAX defaults, 2 epochs on the fixture images 8 times over (no
+          epoch-end val, as the JAX RT-DETR trainer): K2's forward and
+          backward launches read around the run (6 + 6 a micro-batch), the
+          matcher's host ms a step, train images/s in epoch 2, device ms a
+          micro-batch, the idle share, the criterion's device ms and
+          launches, K2's forward and backward ms a launch from the profile,
+          peak memory, and K2 on one micro-batch's captured inputs and
+          gradient, forward and backward, against the plain version, timed,
+          with their bounds
   cls     YOLO("yolov8s-cls.yaml") (nc 1000), seeded weights, predict at 224
           on the 4 images: warm latency an image over CLS_CALLS calls, the
           idle share from a profiled window, the device function's images/s
@@ -193,6 +221,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import shutil
 import subprocess
@@ -273,6 +302,27 @@ RTDETR_VAL_CONF = 0.001  # the val default; random rtdetr-l scores sit near sigm
 # px; the card's f32 differs from the CPU's by 1.22e-3 px there (2e-6 of the
 # 640 px frame after 6 decoder layers), so the bound is OBB_PARITY_TOL's
 RTDETR_VAL_TOL = {"boxes_px": 2e-3, "map": 1e-4}
+# K2's backward: every gradient against the plain version's autograd within
+# this share of its largest magnitude (grad_value is summed with atomics, in
+# no fixed order, so not bit for bit)
+K2_GRAD_TOL = 1e-5
+# rtdetr-l training at 640: the JAX defaults (max_gt 128, num_dn 100), so one
+# denoising group of 2 x 128 queries before the 300: K2 at Q = 556
+RTDETR_TRAIN_Q = 556
+RTDETR_PARITY_IMGSZ = 160
+# rtdetr_train_parity: card against CPU after one rtdetr-l step (rtdetr_step_diffs).
+# Loss parts, params, EMA and BN statistics at TRAIN_PARITY_TOL. The momentum
+# buffers (the step's gradient) cannot be held to its 2e-3: the step's
+# gradient is only piecewise smooth (sampling points crossing pixel edges,
+# ReLU kinks), so the float64 step itself moves by 0.028 (tree) and 0.044
+# (worst leaf) when its input moves by 1e-7, and the card's float32 step is
+# 0.028 and 0.069 from the CPU's (tools/torch_rtdetr_step_precision.py, in
+# PERF.md). The limits below are about 3x those readings: a missing,
+# sign-flipped or misplaced gradient fails them (a leaf at 1 or more), a 10%
+# fault in one of K2's gradients does not (0.1 at most), which the k2_grad
+# phase holds to K2_GRAD_TOL instead.
+RTDETR_TRAIN_PARITY_TOL = {**TRAIN_PARITY_TOL, "momentum_buffer": 0.1, "momentum_leaf": 0.2}
+MOMENTUM_LEAF_FLOOR = 1e-8  # rtdetr_step_diffs: leaves below this share of the largest norm hold rounding only
 CLS_IMGSZ = 224  # yolov8s-cls's ImageNet size
 CLS_CALLS = 100  # timed warm predict calls of yolov8s-cls
 CLS_PROFILED_CALLS = 10
@@ -327,6 +377,8 @@ def category(name: str, scope: str | None = None) -> str:
     n = name.lower()
     if "greedy_nms" in n:
         return "k1_greedy_nms"
+    if "msda_sample_fused_backward" in n:
+        return "k2_msda_backward"
     if "msda_sample" in n:
         return "k2_msda_sample"
     if any(s in n for s in OPTIMIZER_KERNELS):
@@ -1258,7 +1310,7 @@ def detached(x, grad: bool = False):
         return {k: detached(v, grad) for k, v in x.items()}
     if isinstance(x, (list, tuple)):
         return [detached(v, grad) for v in x]
-    return x.detach().clone().requires_grad_(True) if grad else x.detach()
+    return x.detach().clone().requires_grad_(True) if grad and x.is_floating_point() else x.detach()
 
 
 def train_run(YOLO, nms_cuda, tmp: Path, task: str = "detect") -> tuple:
@@ -1317,7 +1369,7 @@ def det_host_batch(tr, data: Path, imgsz: int) -> dict:
 
     d = check_det_dataset(str(data))
     return next(iter(DataLoader(YOLODataset(d["train"], imgsz=imgsz, data=d, task=tr.model.task),
-                                batch_size=TRAIN_BATCH, workers=8, max_gt=128)))
+                                batch_size=TRAIN_BATCH, workers=8, max_gt=int(tr.args.get("max_gt", 128)))))
 
 
 def micro_batch_measures(tr, host: dict, imgsz: int) -> dict:
@@ -1341,7 +1393,7 @@ def micro_batch_measures(tr, host: dict, imgsz: int) -> dict:
 
     prof = profile_window(loop_micro, reps=3, top=25)
     with torch.no_grad(), full_f32():
-        out = detached(tr.model(dev["img"]))
+        out = detached(tr.model_outputs(dev))
 
     def criterion():  # the criterion (assignment included) and its backward to the head's outputs
         with full_f32():
@@ -1856,6 +1908,321 @@ def rtdetr_val(RTDETR, msda_cuda, full_f32, tmp: Path, card: str, smi: str) -> d
     return info
 
 
+def k2_grad_measure(msda_cuda, name: str, value, shapes, locs, attn, grad_out, cpu: bool = False) -> dict:
+    """K2 forward and backward under autograd on these inputs (on the card)
+    against the plain version's autograd on the card (and on the CPU when
+    cpu): the forward within 1e-5, each gradient within K2_GRAD_TOL of its
+    largest magnitude; the backward's time (its wrapper: grad_value's
+    zero-fill and the kernel), the plain backward's, the bound, and
+    index_add_ on the same corner rows as the yardstick of the scatter."""
+    shapes = [tuple(int(v) for v in s) for s in shapes]
+    b, q, nh = locs.shape[:3]
+    v, hd = value.shape[1], value.shape[-1]
+    leaves = [t.detach().clone().requires_grad_(True) for t in (value, locs, attn)]
+    out = msda_cuda.msda_sample_fused(leaves[0], shapes, leaves[1], leaves[2])
+    out.backward(grad_out)
+    torch.cuda.synchronize()
+    fwd_err = float((out.detach() - msda_cuda.msda_sample_fused_plain(value, shapes, locs, attn)).abs().max())
+    refs = [msda_cuda.msda_sample_fused_backward_plain(value, shapes, locs, attn, grad_out)]
+    if cpu:
+        refs.append(msda_cuda.msda_sample_fused_backward_plain(value.cpu(), shapes, locs.cpu(), attn.cpu(),
+                                                               grad_out.cpu()))
+    grads = {}
+    for gname, got, ref in zip(("value", "locs", "attn"), (t.grad for t in leaves), zip(*refs)):
+        scale = float(ref[0].abs().max())
+        err = max(float((got.to(r.device) - r).abs().max()) for r in ref)
+        grads[gname] = {"max_abs_err": err, "largest": scale, "tolerance": K2_GRAD_TOL * scale}
+        if not (bool(torch.isfinite(got).all()) and err <= K2_GRAD_TOL * scale):
+            raise AssertionError(f"K2 backward {name}: grad {gname} max abs error {err} against the plain "
+                                 f"version's autograd, tolerance {K2_GRAD_TOL} x {scale}")
+    if not fwd_err <= 1e-5:
+        raise AssertionError(f"K2 forward {name}: max abs error {fwd_err} against the plain version")
+    ms = cuda_ms(lambda: msda_cuda._launch_backward(value, shapes, locs, attn, grad_out), iters=20)
+    plain_ms = cuda_ms(lambda: msda_cuda.msda_sample_fused_backward_plain(value, shapes, locs, attn, grad_out),
+                       iters=3)
+    # bound: grad_out, locs, attn and the distinct value rows that corners
+    # inside the maps touch read once; grad_value (zero-filled, then written),
+    # grad_locs and grad_attn written once; 4*hd operations a corner (its dot
+    # product and its scatter)
+    idx, w = msda_cuda.msda_flatten_coords(shapes, locs, attn)  # (B, nh, Q, S)
+    inside = w != 0
+    b_idx = torch.arange(b, device=idx.device).view(b, 1, 1, 1)
+    h_idx = torch.arange(nh, device=idx.device).view(1, nh, 1, 1)
+    flat = (b_idx * v + idx.long()) * nh + h_idx  # rows of value viewed as (B*V*nh, hd)
+    rows = int(torch.unique(flat[inside]).numel())
+    nbytes = (grad_out.numel() + 2 * locs.numel() + 2 * attn.numel() + value.numel()) * 4 + rows * hd * 4
+    ops = 4 * hd * int(inside.sum())
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    # the yardstick: one PyTorch call for the scatter part alone, grad_value
+    # from the corner rows and their weighted grad_out rows (made beforehand,
+    # not timed); no dot products, no grad_locs or grad_attn. The port never calls it.
+    g = grad_out.view(b, q, nh, hd).transpose(1, 2)  # (B, nh, Q, hd)
+    src = (w[..., None] * g[:, :, :, None, :]).reshape(-1, hd)
+    flat_rows = flat.reshape(-1)
+
+    def library():
+        return torch.zeros((b * v * nh, hd), device=value.device).index_add_(0, flat_rows, src)
+
+    lib_err = float((library().view_as(value) - leaves[0].grad).abs().max())
+    lib_ms = cuda_ms(library, iters=10)
+    return {"size": name, "B": b, "Q": q, "nh": nh, "hd": hd, "V": v, "S": idx.shape[-1],
+            "corners_outside": int((~inside).sum()), "forward_max_abs_err": fwd_err, "grads": grads,
+            "max_abs_err": max(x["max_abs_err"] for x in grads.values()),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations", "bytes": nbytes,
+            "grad_value_bytes": value.numel() * 4, "distinct_value_rows": rows, "ops": ops,
+            "library_ms": lib_ms, "library_max_abs_err": lib_err,
+            "library_covers": "index_add_ of the corner rows' weighted grad_out into a zeroed grad_value "
+                              "(the scatter part alone)"}
+
+
+def k2_grad_check(msda_cuda, name: str, b: int, q: int, nh: int, hd: int, shapes, seed: int, cpu: bool,
+                  lo: float = -0.1, hi: float = 1.1) -> dict:
+    rng = np.random.default_rng(seed)
+    value, locs, attn = k2_inputs(rng, b, q, nh, hd, list(shapes), lo=lo, hi=hi)
+    grad_out = torch.from_numpy(rng.normal(size=(b, q, nh * hd)).astype(np.float32)).cuda()
+    return {**k2_grad_measure(msda_cuda, name, value, shapes, locs, attn, grad_out, cpu=cpu), "locations": [lo, hi]}
+
+
+@contextlib.contextmanager
+def timed_matching(detr_loss):
+    """Within the block, every HungarianMatcher.solve call's host seconds (the
+    costs' copy and the assignments, after the device has finished the
+    step's forward) and its real ground truths."""
+    rec, solve = {"seconds": [], "matched": []}, detr_loss.HungarianMatcher.solve
+
+    def timed(cost, mask_gt):
+        if cost.is_cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = solve(cost, mask_gt)
+        rec["seconds"].append(time.perf_counter() - t0)
+        rec["matched"].append(int((mask_gt > 0).sum()))
+        return rows
+
+    detr_loss.HungarianMatcher.solve = staticmethod(timed)
+    try:
+        yield rec
+    finally:
+        detr_loss.HungarianMatcher.solve = staticmethod(solve)
+
+
+@contextlib.contextmanager
+def replayed_decisions(head, detr_loss, record: dict | None = None):
+    """The RT-DETR step's discrete decisions: the decoder's top-k query
+    selection (`head._topk`) and the matcher's assignment
+    (`HungarianMatcher.solve`). Yields {"own": every call's own decision (on
+    the host), "against_record": ...}. With a record (another run's "own"),
+    every call still takes its own decision, counts where it differs from
+    the recorded one and how far apart the two are on this run's own numbers
+    (the top-k scores of the two queries; the recorded assignment's cost
+    less this run's own, >= 0), and returns the recorded one: both runs
+    then go on from the same decisions."""
+    topk, solve = head._topk, detr_loss.HungarianMatcher.solve
+    mine = {"topk": [], "rows": []}  # this run's own decisions
+    seen = {"topk_differing": 0, "topk_score_gaps": [], "rows_differing": 0, "rows_matched": 0, "cost_gaps": []}
+
+    def picked(scores, k):
+        vals, idx = topk(scores, k)
+        if record is None:
+            mine["topk"].append(idx.cpu())
+            return vals, idx
+        want = record["topk"][len(mine["topk"])].to(idx.device)
+        mine["topk"].append(idx.cpu())
+        differ = idx != want
+        if bool(differ.any()):
+            seen["topk_differing"] += int(differ.sum())
+            seen["topk_score_gaps"].append(float((scores.gather(-1, idx) - scores.gather(-1, want))[differ].abs().max()))
+        return scores.gather(-1, want), want
+
+    def assigned(cost, mask_gt):
+        rows = solve(cost, mask_gt)
+        if record is None:
+            mine["rows"].append(rows.cpu())
+            return rows
+        want = record["rows"][len(mine["rows"])].to(rows.device)
+        mine["rows"].append(rows.cpu())
+        c, r, w, m = cost.cpu().numpy(), rows.cpu().numpy(), want.cpu().numpy(), mask_gt.cpu().numpy() > 0
+        for li, bi in np.ndindex(*r.shape[:2]):
+            g = np.flatnonzero(m[bi])
+            seen["rows_matched"] += len(g)
+            d = int((r[li, bi, g] != w[li, bi, g]).sum())
+            if d:
+                seen["rows_differing"] += d
+                seen["cost_gaps"].append(float(c[li, bi, w[li, bi, g], g].sum() - c[li, bi, r[li, bi, g], g].sum()))
+        return want
+
+    head._topk, detr_loss.HungarianMatcher.solve = picked, staticmethod(assigned)
+    try:
+        yield {"own": mine, "against_record": seen}
+    finally:
+        head._topk, detr_loss.HungarianMatcher.solve = topk, staticmethod(solve)
+
+
+def rtdetr_step_diffs(a, b) -> dict:
+    """Differences of two rtdetr_one_step runs, a against b: each loss part
+    relative; params, EMA and BN statistics as the largest |a - b| against
+    the tree's largest magnitude (a random-init tree holds tensors near 0),
+    with the tensor where it is; the momentum buffers (after one step, the
+    clipped gradient) as the whole tree's relative L2 distance
+    ("momentum_buffer") and the largest leaf's ("momentum_leaf"), over the
+    leaves whose norm in b is at least MOMENTUM_LEAF_FLOOR of the largest
+    leaf's. The leaves below it have a gradient that is 0 but for rounding:
+    attention's key biases (softmax ignores a shift of its logits) and five
+    norm biases whose shift the layers after them cancel."""
+    (la, ca), (lb, cb) = a, b
+    out = {f"loss_{k}": (abs(la[k] - lb[k]) / abs(lb[k]), k) for k in lb}
+    for key in ("params", "ema", "batch_stats"):
+        got, want = dict(tree_leaves(ca[key])), dict(tree_leaves(cb[key]))
+        top = max(float(np.abs(w).max()) for w in want.values())
+        out[key] = max((float(np.abs(got[k] - w).max()) / top, k) for k, w in want.items())
+    got, want = dict(tree_leaves(ca["momentum_buffer"])), dict(tree_leaves(cb["momentum_buffer"]))
+    norm = {k: float(np.linalg.norm(w)) for k, w in want.items()}
+    dist = {k: float(np.linalg.norm(got[k] - w)) for k, w in want.items()}
+    out["momentum_buffer"] = (float(np.sqrt(sum(d * d for d in dist.values()) / sum(n * n for n in norm.values()))),
+                              "tree")
+    top = max(norm.values())
+    out["momentum_leaf"] = max((dist[k] / norm[k], k) for k in want if norm[k] >= MOMENTUM_LEAF_FLOOR * top)
+    return out
+
+
+def rtdetr_one_step(RTDETR, load_pickle, head, detr_loss, cfg: dict, data: Path, project: Path, device: str,
+                    record: dict | None = None, dtype: torch.dtype = torch.float32):
+    """One optimizer step of seeded rtdetr-l (cfg) through RTDETR(...).train
+    at RTDETR_PARITY_IMGSZ on TRAIN_PARITY_IMAGES images, batch = nbs = 8,
+    no warmup, the JAX defaults otherwise (max_gt 32 here; num_dn 100: 3
+    denoising groups), the model in dtype, with record's discrete decisions
+    replayed (replayed_decisions). Returns ((loss parts, last.ckpt), this
+    run's decisions)."""
+    model = RTDETR(copy.deepcopy(cfg), device=device, seed=0)
+    model.model.to(dtype)
+    with replayed_decisions(head, detr_loss, record) as decided:
+        model.train(data=str(data), epochs=1, imgsz=RTDETR_PARITY_IMGSZ, batch=TRAIN_PARITY_IMAGES,
+                    nbs=TRAIN_PARITY_IMAGES, warmup_epochs=0.0, workers=4, max_gt=32, project=str(project))
+    tr = model.trainer
+    if tr.opt_steps != 1:
+        raise AssertionError(f"rtdetr-l one step on {device}: {tr.opt_steps} optimizer steps, want 1")
+    return (tr.loss_history[0], load_pickle(tr.wdir / "last.ckpt")), decided
+
+
+def rtdetr_train_parity(RTDETR, yaml_model_load, load_pickle, detr_loss, tmp: Path, card: str, smi: str) -> dict:
+    """rtdetr_one_step of seeded rtdetr-l at nc 3 on 8 fixture images at 160
+    px, on the CPU and on the card, from the same seeded weights and the
+    same denoising noise (each trainer's generator seeded from seed 0), the
+    card replaying the CPU run's top-k selection and matching (its own
+    decisions that differ are reported with their gaps). The card's step is
+    held to the CPU's within RTDETR_TRAIN_PARITY_TOL (rtdetr_step_diffs)."""
+    from ultralytics_pro_tpu_torch.nn.modules import head
+
+    data = fixture_train_set(tmp / "rtdetr_train_parity_set", TRAIN_PARITY_IMAGES)
+    cfg = {**yaml_model_load("rtdetr-l.yaml"), "nc": 3}
+    cpu, cpu_decided = rtdetr_one_step(RTDETR, load_pickle, head, detr_loss, cfg, data,
+                                       tmp / "rtdetr_train_parity_cpu", "cpu")
+    card_run, card_decided = rtdetr_one_step(RTDETR, load_pickle, head, detr_loss, cfg, data,
+                                             tmp / "rtdetr_train_parity_card", "cuda", record=cpu_decided["own"])
+    diffs = rtdetr_step_diffs(card_run, cpu)
+    bad = {k: v for k, v in diffs.items() if not v[0] <= RTDETR_TRAIN_PARITY_TOL["loss" if k.startswith("loss") else k]}
+    if bad:
+        raise AssertionError(f"rtdetr-l card vs CPU after one step beyond {RTDETR_TRAIN_PARITY_TOL}: {bad}; "
+                             f"all: {diffs}")
+    return dict(model="rtdetr-l (seeded, nc 3)", images=TRAIN_PARITY_IMAGES, imgsz=RTDETR_PARITY_IMGSZ,
+                batch=TRAIN_PARITY_IMAGES, nbs=TRAIN_PARITY_IMAGES, warmup_epochs=0.0, max_gt=32,
+                loss_card=card_run[0], loss_cpu=cpu[0], card_vs_cpu=diffs, tolerance=RTDETR_TRAIN_PARITY_TOL,
+                card_decisions_against_cpu=card_decided["against_record"],
+                ema_updates=[card_run[1]["ema_updates"], cpu[1]["ema_updates"]],
+                cpu_threads=torch.get_num_threads(), card=card, nvidia_smi=smi)
+
+
+@contextlib.contextmanager
+def capture_k2_grad(transformer):
+    """Records the inputs of the first K2 call that MSDeformAttn makes inside
+    the block, detached, and the gradient its output receives in the
+    backward; yields a dict that holds 'args' and 'grad_out' once a step has
+    run."""
+    cap, fused = {}, transformer.msda_sample_fused
+
+    def k2(value, shapes, locs, attn):
+        out = fused(value, shapes, locs, attn)
+        if "args" not in cap and out.requires_grad:
+            cap["args"] = (value.detach().clone(), list(shapes), locs.detach().clone(), attn.detach().clone())
+            out.register_hook(lambda g: cap.setdefault("grad_out", g.detach().clone()))
+        return out
+
+    transformer.msda_sample_fused = k2
+    try:
+        yield cap
+    finally:
+        transformer.msda_sample_fused = fused
+
+
+def rtdetr_train(RTDETR, msda_cuda, detr_loss, tmp: Path, card: str, smi: str) -> dict:
+    """rtdetr-l at 640 (80 classes), batch 16, the JAX defaults otherwise
+    (nbs 64, warmup 3 epochs, max_gt 128, num_dn 100), 2 epochs on the
+    detect fixture images 8 times over (128, train = val), no epoch-end val
+    (the JAX RT-DETR trainer runs none). K2's forward and backward launches
+    are read around the run (6 + 6 a micro-batch); the matcher's host ms a
+    step; then micro_batch_measures (device ms, idle share, the criterion's
+    device ms and launches) with K2's forward and backward ms a launch from
+    its profile, and K2 on one micro-batch's captured inputs and gradient:
+    forward (k2_measure) and backward (k2_grad_measure) against the plain
+    version, timed, with their bounds."""
+    from ultralytics_pro_tpu_torch.nn.modules import transformer
+
+    data = val_set_640(tmp / "rtdetr_train_set")
+    data.write_text(data.read_text().replace("val: images/val", "train: images/val\nval: images/val\n"))
+    model = RTDETR("rtdetr-l.yaml", device="cuda", seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    msda_cuda.launches = msda_cuda.backward_launches = 0
+    t0 = time.perf_counter()
+    with timed_matching(detr_loss) as rec:
+        model.train(data=str(data), epochs=TRAIN_EPOCHS, imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH,
+                    project=str(tmp / "rtdetr_train"))
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"forward": msda_cuda.launches, "backward": msda_cuda.backward_launches}
+    tr = model.trainer
+    nb = VAL_COPIES * 16 // TRAIN_BATCH
+    ndl = len(tr.model.model[-1].decoder.layers)
+    if launches != {"forward": ndl * TRAIN_EPOCHS * nb, "backward": ndl * TRAIN_EPOCHS * nb}:
+        raise AssertionError(f"K2 launches {launches} in {TRAIN_EPOCHS} epochs of {nb} micro-batches, want "
+                             f"{ndl} forward and {ndl} backward a micro-batch")
+    if not all(np.isfinite(v) for e in tr.loss_history for v in e.values()) or len(tr.loss_history) != TRAIN_EPOCHS:
+        raise AssertionError(f"loss history {tr.loss_history}")
+    solve_ms = [x * 1e3 for x in rec["seconds"]]
+    info = dict(model="rtdetr-l", nc=tr.model.nc, imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, nbs=tr.nbs,
+                accumulate=tr.accumulate, warmup_epochs=tr.warmup_epochs, epochs=TRAIN_EPOCHS,
+                images=nb * TRAIN_BATCH, micro_batches_per_epoch=nb, opt_steps=tr.opt_steps,
+                max_gt=int(tr.args["max_gt"]), num_dn=int(tr.args.get("num_dn", 100)),
+                train_seconds=seconds, epoch_train_seconds=tr.epoch_train_seconds,
+                train_images_per_s_epoch2=nb * TRAIN_BATCH / tr.epoch_train_seconds[-1],
+                wall_ms_per_micro_batch_epoch2=tr.epoch_train_seconds[-1] * 1e3 / nb,
+                max_memory_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+                loss_history=tr.loss_history, k2_launches=launches,
+                k2_launches_per_micro_batch={k: v / (TRAIN_EPOCHS * nb) for k, v in launches.items()},
+                matcher_host_ms_per_step={"median": float(np.median(solve_ms)), "max": max(solve_ms),
+                                          "calls": len(solve_ms)},
+                matched_gts_per_step=float(np.mean(rec["matched"])))
+    host = det_host_batch(tr, data, TRAIN_IMGSZ)
+    info.update(micro_batch_measures(tr, host, TRAIN_IMGSZ))
+    by_cat = info["micro_batch_profile"]["device_ms_by_category"]
+    info.update(k2_profiled_ms_per_launch=by_cat.get("k2_msda_sample", 0.0) / ndl,
+                k2_backward_profiled_ms_per_launch=by_cat.get("k2_msda_backward", 0.0) / ndl)
+    with capture_k2_grad(transformer) as cap:
+        tr.model.train()
+        tr.step(tr.put_batch(host), [0.0] * 3, tr.momentum, False)
+        tr.optimizer.zero_grad(set_to_none=True)
+        tr.model.eval()
+    value, shapes, locs, attn = cap["args"]
+    if tuple(locs.shape[:2]) != (TRAIN_BATCH, RTDETR_TRAIN_Q):
+        raise AssertionError(f"K2 on the train path took locs {tuple(locs.shape)}, want ({TRAIN_BATCH}, "
+                             f"{RTDETR_TRAIN_Q}, ...)")
+    info.update(k2_on_train_inputs=k2_measure(msda_cuda, "train_path", value, shapes, locs, attn),
+                k2_backward_on_train_inputs=k2_grad_measure(msda_cuda, "train_path", value, shapes, locs, attn,
+                                                            cap["grad_out"]),
+                card=card, nvidia_smi=smi)
+    return info
+
+
 def cls_set(root: Path, copies: int, train_per_class=None) -> Path:
     """A classify set under root from the fixture's PNGs: val/ holds its 16
     val images `copies` times; train/ holds the same when train_per_class is
@@ -2066,7 +2433,7 @@ def main() -> int:
     from ultralytics_pro_tpu_torch.nn.modules.head import decode_single_label
     from ultralytics_pro_tpu_torch.nn.tasks import yaml_model_load
     from ultralytics_pro_tpu_torch.ops import nms as ops_nms
-    from ultralytics_pro_tpu_torch.utils import full_f32
+    from ultralytics_pro_tpu_torch.utils import detr_loss, full_f32
 
     t_all = time.perf_counter()
     t = time.perf_counter()
@@ -2111,6 +2478,11 @@ def main() -> int:
           k2_check(msda_cuda, "edge_hd8_q37_outside", 2, 37, 4, 8, ((12, 16), (6, 8), (3, 4)), seed=5,
                    lo=-0.6, hi=1.6)]
     emit("k2", checks=k2, card=card, nvidia_smi=smi, seconds=time.perf_counter() - t)
+    t = time.perf_counter()
+    k2g = [k2_grad_check(msda_cuda, "train", TRAIN_BATCH, RTDETR_TRAIN_Q, 8, 32, RTDETR_LEVELS, seed=6, cpu=False),
+           k2_grad_check(msda_cuda, "edge_hd8_q37_outside", 2, 37, 4, 8, ((12, 16), (6, 8), (3, 4)), seed=7,
+                         cpu=True, lo=-0.6, hi=1.6)]
+    emit("k2_grad", checks=k2g, tolerance=K2_GRAD_TOL, card=card, nvidia_smi=smi, seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
     model, batch, info = rtdetr_path(RTDETR, msda_cuda, nms_cuda, card, smi)
@@ -2125,6 +2497,12 @@ def main() -> int:
         t = time.perf_counter()
         rt_val = rtdetr_val(RTDETR, msda_cuda, full_f32, Path(tmp), card, smi)
         emit("rtdetr_val", **rt_val, seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        info = rtdetr_train_parity(RTDETR, yaml_model_load, load_pickle, detr_loss, Path(tmp), card, smi)
+        emit("rtdetr_train_parity", **info, seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        rt_train = rtdetr_train(RTDETR, msda_cuda, detr_loss, Path(tmp), card, smi)
+        emit("rtdetr_train", **rt_train, seconds=time.perf_counter() - t)
 
     with tempfile.TemporaryDirectory() as tmp:
         t = time.perf_counter()
@@ -2249,6 +2627,24 @@ def main() -> int:
         "val_path_max_abs_err": rt_val["k2_on_val_inputs"]["max_abs_err"],
         **{f"val_path_{key}": rt_val["k2_on_val_inputs"][key]
            for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "train_path_launches": rt_train["k2_launches"]["forward"],
+        "train_path_profiled_ms": rt_train["k2_profiled_ms_per_launch"],
+        "train_path_max_abs_err": rt_train["k2_on_train_inputs"]["max_abs_err"],
+        **{f"train_path_{key}": rt_train["k2_on_train_inputs"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    }, {
+        "name": "msda_sample_fused_backward", "route": "cuda",
+        "source": "ultralytics_pro_tpu_torch/csrc/msda_sample.cu",
+        "replaces": "ultralytics_pro_tpu/kernels/msda_pallas.py:52",
+        "tpu_kernel": "the gradient of ultralytics_pro_tpu/kernels/msda_pallas.py:msda_sample_pallas (the JAX "
+                      "package has no backward kernel: it differentiates its XLA gather)",
+        "launches": rt_train["k2_launches"]["backward"],
+        "max_abs_err": max(c["max_abs_err"] for c in (*k2g, rt_train["k2_backward_on_train_inputs"])),
+        **{key: rt_train["k2_backward_on_train_inputs"][key]
+           for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_covers")},
+        "main_path_profiled_ms": rt_train["k2_backward_profiled_ms_per_launch"],
+        "synthetic_train_shape_ms": k2g[0]["ms"], "synthetic_train_shape_plain_ms": k2g[0]["plain_ms"],
+        "synthetic_train_shape_bound_ms": k2g[0]["bound_ms"], "synthetic_train_shape_library_ms": k2g[0]["library_ms"],
     }]
     emit("total", seconds=time.perf_counter() - t_all)
     print(smi, flush=True)

@@ -4,7 +4,9 @@ pose val on the committed fixture sets against val on the CPU, K1 on
 segment and pose rows with their payload, the OBB task's rotated NMS
 (plain PyTorch) on the card against the CPU, the segment, pose and OBB
 criteria, forward and backward, on the card against the CPU, classify
-predict and val and rtdetr-l val (K2 on the val path) against the CPU.
+predict and val and rtdetr-l val (K2 on the val path) against the CPU, K2's
+backward kernel against the plain version's autograd, and a narrow RT-DETR
+training epoch through K2 forward and backward.
 
 These tests need a card and nvcc, and import neither JAX nor the JAX package
 nor `tests/conftest.py` (which imports JAX), so they run on a machine that has
@@ -13,8 +15,9 @@ the card but no JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Without a card they skip (the `card` fixture decides, never an import).
-`k1_inputs` also feeds the CPU tests of test_torch_nms.py, and
-`task_loss_inputs` and `port_criterion` those of test_torch_task_loss.py.
+`k1_inputs` also feeds the CPU tests of test_torch_nms.py, `task_loss_inputs`
+and `port_criterion` those of test_torch_task_loss.py, and the narrow RT-DETR
+`NARROW` those of test_torch_rtdetr.py and test_torch_rtdetr_train.py.
 """
 
 import json
@@ -33,6 +36,46 @@ from ultralytics_pro_tpu_torch.nn.tasks import yaml_model_load
 FIXTURES = Path(__file__).resolve().parent / "fixtures"
 
 TF32_FLAGS = ("cudnn", "matmul")
+
+# A narrow RT-DETR with rtdetr-l's module set: HGStem, HGBlock plain and with
+# LightConv (with and without the residual), DWConv, AIFI, RepC3 (with and
+# without cv3) and an RTDETRDecoder of hd = 64 (8 heads of 8), 2 layers and
+# the default nq = 300.
+NARROW = {
+    "nc": 7,
+    "backbone": [
+        [-1, 1, "HGStem", [8, 16]],  # 0 P2/4
+        [-1, 2, "HGBlock", [8, 32, 3]],  # 1
+        [-1, 1, "DWConv", [32, 3, 2, 1, False]],  # 2 P3/8
+        [-1, 2, "HGBlock", [16, 48, 3]],  # 3
+        [-1, 1, "DWConv", [48, 3, 2, 1, False]],  # 4 P4/16
+        [-1, 2, "HGBlock", [16, 64, 5, True, False]],  # 5
+        [-1, 2, "HGBlock", [16, 64, 5, True, True]],  # 6
+        [-1, 1, "DWConv", [64, 3, 2, 1, False]],  # 7 P5/32
+        [-1, 2, "HGBlock", [32, 128, 5, True, False]],  # 8
+    ],
+    "head": [
+        [-1, 1, "Conv", [64, 1, 1, None, 1, 1, False]],  # 9
+        [-1, 1, "AIFI", [128, 8]],  # 10
+        [-1, 1, "Conv", [64, 1, 1]],  # 11
+        [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+        [6, 1, "Conv", [64, 1, 1, None, 1, 1, False]],  # 13
+        [[-2, -1], 1, "Concat", [1]],
+        [-1, 2, "RepC3", [64]],  # 15
+        [-1, 1, "Conv", [64, 1, 1]],  # 16
+        [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
+        [3, 1, "Conv", [64, 1, 1, None, 1, 1, False]],  # 18
+        [[-2, -1], 1, "Concat", [1]],
+        [-1, 2, "RepC3", [64]],  # 20 X3
+        [-1, 1, "Conv", [64, 3, 2]],
+        [[-1, 16], 1, "Concat", [1]],
+        [-1, 2, "RepC3", [64]],  # 23 F4
+        [-1, 1, "Conv", [64, 3, 2]],
+        [[-1, 11], 1, "Concat", [1]],
+        [-1, 2, "RepC3", [64, 0.5]],  # 26 F5
+        [[20, 23, 26], 1, "RTDETRDecoder", ["nc", 64, 300, 2]],
+    ],
+}
 
 
 def _tf32():
@@ -289,12 +332,12 @@ def test_k2_kernel_matches_plain_on_card(card, case):
 
 @pytest.mark.cuda
 def test_k2_refuses_grad_and_wrong_types(card):
-    """No backward and no silent casts or copies: the wrapper raises before a launch."""
+    """No silent casts or copies: the wrapper raises before a launch. (Grad
+    is no longer refused: K2 has a backward kernel, held by
+    test_k2_backward_matches_plain_autograd_on_card.)"""
     value, shapes, locs, attn = k2_inputs(3, b=1, q=5)
     value, locs, attn = value.cuda(), locs.cuda(), attn.cuda()
     before = msda_cuda.launches
-    with pytest.raises(RuntimeError, match="backward"):
-        msda_cuda.msda_sample_fused(value.clone().requires_grad_(True), shapes, locs, attn)
     with pytest.raises(TypeError, match="float32"):
         msda_cuda.msda_sample_fused(value.double(), shapes, locs, attn)
     with pytest.raises(ValueError, match="contiguous"):
@@ -303,6 +346,55 @@ def test_k2_refuses_grad_and_wrong_types(card):
         msda_cuda.msda_sample_fused(value, shapes[:2], locs[:, :, :, :2].contiguous(),
                                     attn[:, :, :, :2].contiguous())
     assert msda_cuda.launches == before
+
+
+K2_BACKWARD_CASES = {
+    "small": dict(b=2, q=20, nh=8, hd=32, shapes=((20, 20), (10, 10), (5, 5))),
+    "edge_hd8_q37_outside": dict(lo=-0.6, hi=1.6),
+    "hd40_two_levels": dict(b=1, q=9, nh=3, hd=40, shapes=((5, 7), (3, 4)), p=3, lo=-1.0, hi=2.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(K2_BACKWARD_CASES))
+def test_k2_backward_matches_plain_autograd_on_card(card, case):
+    """K2 under autograd on the card: one forward and one backward kernel
+    launch, and value's, locs' and attn's gradients within 1e-5 of each
+    one's largest magnitude of the plain version's autograd on the card and
+    on the CPU (grad_value sums with atomics, in no fixed order)."""
+    value, shapes, locs, attn = k2_inputs(4, **K2_BACKWARD_CASES[case])
+    grad_out = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(value.shape[0], locs.shape[1], value.shape[2] * value.shape[3])).astype(np.float32))
+    leaves = [t.cuda().requires_grad_(True) for t in (value, locs, attn)]
+    before = (msda_cuda.launches, msda_cuda.backward_launches)
+    msda_cuda.msda_sample_fused(leaves[0], shapes, leaves[1], leaves[2]).backward(grad_out.cuda())
+    torch.cuda.synchronize()
+    assert (msda_cuda.launches, msda_cuda.backward_launches) == (before[0] + 1, before[1] + 1)
+    ref_gpu = msda_cuda.msda_sample_fused_backward_plain(value.cuda(), shapes, locs.cuda(), attn.cuda(),
+                                                         grad_out.cuda())
+    ref_cpu = msda_cuda.msda_sample_fused_backward_plain(value, shapes, locs, attn, grad_out)
+    for name, got, rg, rc in zip(("value", "locs", "attn"), (t.grad for t in leaves), ref_gpu, ref_cpu):
+        assert torch.isfinite(got).all(), name
+        tol = 1e-5 * float(rc.abs().max())
+        torch.testing.assert_close(got, rg, rtol=0, atol=tol, msg=name)
+        torch.testing.assert_close(got.cpu(), rc, rtol=0, atol=tol, msg=name)
+
+
+@pytest.mark.cuda
+def test_rtdetr_train_step_on_card_runs_k2_forward_and_backward(card, tmp_path):
+    """One epoch of a narrow RT-DETR (tests/test_torch_rtdetr.py's NARROW, 2
+    decoder layers) on the card: each micro-batch launches K2's forward and
+    backward kernels once a decoder layer, and no plain path runs there."""
+    data = shutil.copytree(FIXTURES / "torch_val_synth", tmp_path / "set")
+    (data / "train.yaml").write_text("train: images/val\nval: images/val\nnames:\n  0: a\n  1: b\n  2: c\n")
+    m = RTDETR(dict(NARROW), device="cuda")
+    before = (msda_cuda.launches, msda_cuda.backward_launches)
+    m.train(data=str(data / "train.yaml"), epochs=1, imgsz=64, batch=4, nbs=4, workers=2, max_gt=4, num_dn=8,
+            warmup_epochs=0.0, project=str(tmp_path / "runs"))
+    torch.cuda.synchronize()
+    micro = 16 // 4
+    assert (msda_cuda.launches - before[0], msda_cuda.backward_launches - before[1]) == (2 * micro, 2 * micro)
+    assert all(np.isfinite(v) for v in m.trainer.loss_history[0].values())
 
 
 @pytest.mark.cuda

@@ -117,6 +117,29 @@ def test_port_trains_with_jax_yaml_cv2_blocked(tmp_path):
     assert out.returncode == 0, out.stderr[-3000:]
 
 
+def test_port_trains_rtdetr_with_jax_yaml_cv2_blocked(tmp_path):
+    """RT-DETR training (the denoising queries, the DETR loss with its scipy
+    matcher, K2's plain version under autograd, the checkpoint) runs in the
+    blocking process, with PIL refused too, and loads what it wrote."""
+    import shutil
+
+    from tests.test_torch_rtdetr import NARROW
+
+    data = shutil.copytree(REPO / "tests" / "fixtures" / "torch_val_synth", tmp_path / "set")
+    (data / "train.yaml").write_text("train: images/val\nval: images/val\nnames:\n  0: a\n  1: b\n  2: c\n")
+    then = ("import torch\n"
+            "torch.set_num_threads(2)\n"
+            "from ultralytics_pro_tpu_torch import RTDETR\n"
+            f"m = RTDETR({NARROW!r}, device='cpu')\n"
+            f"m.train(data={str(data / 'train.yaml')!r}, epochs=1, imgsz=64, batch=4, nbs=4, workers=2, "
+            f"max_gt=4, num_dn=8, warmup_epochs=0.0, project={str(tmp_path / 'runs')!r})\n"
+            "assert list(m.trainer.loss_history[0])[3:] == ['dn_cls', 'dn_bbox', 'dn_giou']\n"
+            "RTDETR(str(m.trainer.wdir / 'last.ckpt'), device='cpu')")
+    out = subprocess.run([sys.executable, "-c", _blocker(BLOCKED + ("PIL",), then)], capture_output=True,
+                         text=True, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+
+
 @pytest.mark.parametrize("task", ["segment", "pose", "obb"])
 def test_port_trains_the_tasks_with_jax_yaml_cv2_blocked(tmp_path, task):
     """Segment, pose and OBB training (the task's collate, criterion and

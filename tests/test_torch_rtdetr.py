@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from tests.conftest import FIXTURES
+from tests.test_torch_cuda import NARROW
 from tests.test_torch_modules import nchw, randomize, to_nhwc, torch_threads  # noqa: F401 (autouse fixture)
 from ultralytics_pro_tpu_torch import RTDETR
 from ultralytics_pro_tpu_torch.nn.modules import (
@@ -43,47 +44,6 @@ from ultralytics_pro_tpu_torch.utils.weights import jax_to_torch_state_dict
 
 ATOL_MODULE = 1e-5
 ATOL_MODEL = 1e-4
-
-# A narrow RT-DETR with rtdetr-l's module set: HGStem, HGBlock plain and with
-# LightConv (with and without the residual), DWConv, AIFI, RepC3 (with and
-# without cv3) and an RTDETRDecoder of hd = 64 (8 heads of 8), 2 layers and
-# the default nq = 300.
-NARROW = {
-    "nc": 7,
-    "backbone": [
-        [-1, 1, "HGStem", [8, 16]],  # 0 P2/4
-        [-1, 2, "HGBlock", [8, 32, 3]],  # 1
-        [-1, 1, "DWConv", [32, 3, 2, 1, False]],  # 2 P3/8
-        [-1, 2, "HGBlock", [16, 48, 3]],  # 3
-        [-1, 1, "DWConv", [48, 3, 2, 1, False]],  # 4 P4/16
-        [-1, 2, "HGBlock", [16, 64, 5, True, False]],  # 5
-        [-1, 2, "HGBlock", [16, 64, 5, True, True]],  # 6
-        [-1, 1, "DWConv", [64, 3, 2, 1, False]],  # 7 P5/32
-        [-1, 2, "HGBlock", [32, 128, 5, True, False]],  # 8
-    ],
-    "head": [
-        [-1, 1, "Conv", [64, 1, 1, None, 1, 1, False]],  # 9
-        [-1, 1, "AIFI", [128, 8]],  # 10
-        [-1, 1, "Conv", [64, 1, 1]],  # 11
-        [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
-        [6, 1, "Conv", [64, 1, 1, None, 1, 1, False]],  # 13
-        [[-2, -1], 1, "Concat", [1]],
-        [-1, 2, "RepC3", [64]],  # 15
-        [-1, 1, "Conv", [64, 1, 1]],  # 16
-        [-1, 1, "nn.Upsample", [None, 2, "nearest"]],
-        [3, 1, "Conv", [64, 1, 1, None, 1, 1, False]],  # 18
-        [[-2, -1], 1, "Concat", [1]],
-        [-1, 2, "RepC3", [64]],  # 20 X3
-        [-1, 1, "Conv", [64, 3, 2]],
-        [[-1, 16], 1, "Concat", [1]],
-        [-1, 2, "RepC3", [64]],  # 23 F4
-        [-1, 1, "Conv", [64, 3, 2]],
-        [[-1, 11], 1, "Concat", [1]],
-        [-1, 2, "RepC3", [64, 0.5]],  # 26 F5
-        [[20, 23, 26], 1, "RTDETRDecoder", ["nc", 64, 300, 2]],
-    ],
-}
-
 
 def _rng(seed):
     return np.random.default_rng(seed)
@@ -455,8 +415,9 @@ def test_narrow_rtdetr_val_departs_from_jax_on_pad_and_single_cls(narrow_vals):
 
 def test_rtdetr_entry_points():
     """RTDETR defaults to device='cuda' and raises without a card; with
-    device='cpu' it builds rtdetr-l at full width and depth; val asks for
-    data, and train names its later slice (queue 1 item 4b)."""
+    device='cpu' it builds rtdetr-l at full width and depth; val and train
+    ask for data (train is ported since queue 1 item 4b,
+    tests/test_torch_rtdetr_train.py)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; this checks the no-card behaviour")
     with pytest.raises(RuntimeError, match="cuda"):
@@ -466,7 +427,7 @@ def test_rtdetr_entry_points():
     assert len(m.model.model[-1].decoder.layers) == 6
     with pytest.raises(ValueError, match="data="):
         m.val()
-    with pytest.raises(NotImplementedError, match="later slice .*4b"):
+    with pytest.raises(ValueError, match="data="):
         m.train()
     with pytest.raises(ValueError, match="RTDETRDecoder"):
         RTDETR("yolov8n.yaml", device="cpu")

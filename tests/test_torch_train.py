@@ -530,3 +530,23 @@ def test_non_finite_loss_restores_the_last_checkpoint(data_yaml, tmp_path, nan_e
     assert last["epoch"] == 2 and all(np.isfinite(v).all() for _, v in leaves(last["params"]))
     # 2 steps an epoch (batch 8 = nbs): epoch 0's 2, then epoch 1's undone by the restore, then epoch 2's
     assert last["ema_updates"] == 4 and trainer.opt_steps == 6
+
+
+@pytest.mark.parametrize("trainer", ["DetectionTrainer", "ClassificationTrainer"])
+def test_put_batch_gives_contiguous_nchw_images(trainer):
+    """On the CPU the device images are RGB / 255 in contiguous NCHW
+    (`engine/trainer.py:device_images`). A permuted view of the NHWC batch
+    would carry channels-last strides into the model, the CPU's convolutions
+    keep that layout, and PyTorch's channels-last train-mode BatchNorm there
+    folds the normalisation into x * (g / s) + (b - m * g / s), which loses
+    digits where a channel's mean is large against its spread
+    (tools/torch_rtdetr_step_precision.py reads it on rtdetr-l's step)."""
+    from ultralytics_pro_tpu_torch.engine import trainer as ptrainer
+
+    tr = getattr(ptrainer, trainer).__new__(getattr(ptrainer, trainer))
+    tr.device = torch.device("cpu")
+    img = np.random.default_rng(0).integers(0, 256, (2, 6, 5, 3), dtype=np.uint8)
+    out = tr.put_batch({"img": img, "cls": np.zeros((2, 1), np.float32), "bboxes": np.zeros((2, 1, 4), np.float32),
+                        "mask_gt": np.zeros((2, 1), bool)})
+    assert out["img"].shape == (2, 3, 6, 5) and out["img"].is_contiguous()
+    np.testing.assert_array_equal(out["img"].numpy(), img[..., ::-1].transpose(0, 3, 1, 2).astype(np.float32) / 255.0)

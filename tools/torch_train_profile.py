@@ -3,6 +3,7 @@
     python3 tools/torch_train_profile.py [--model yolov8s] [--imgsz 640] [--batch 16] [--reps 3]
     python3 tools/torch_train_profile.py --model yolov8s-seg    # or yolov8s-pose
     python3 tools/torch_train_profile.py --model yolov8s-obb --imgsz 1024
+    python3 tools/torch_train_profile.py --layout channels_last  # the images' layout
 
 Builds YOLO("<model>.yaml", device="cuda") with seeded random weights (the
 YAML's classes) and its task's trainer with the JAX package's default
@@ -15,7 +16,9 @@ training loop runs it (the host batch copied up, forward, loss, backward,
 the loss parts pulled to the host) without and with the optimizer step
 (clip, 3-group SGD, EMA), in full f32 with TF32 off as the trainer runs
 it, and the criterion alone (TAL and the loss, forward and backward to
-the head's outputs: the task's criterion). Prints one JSON line per workload: wall ms, device busy ms, idle share,
+the head's outputs: the task's criterion); `--layout channels_last` feeds
+the images in channels-last strides instead of the trainer's contiguous
+NCHW. Prints one JSON line per workload: wall ms, device busy ms, idle share,
 kernel launches, device ms by category (chip_smoke.category: convolution,
 batchnorm, optimizer, sort, memcpy, other elementwise and reduce) and the
 `--top` kernels. The profiler adds host time, so wall ms and idle share read high
@@ -81,6 +84,8 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--top", type=int, default=40, help="kernels listed per workload")
+    ap.add_argument("--layout", choices=("contiguous", "channels_last"), default="contiguous",
+                    help="the images' memory layout (the trainer's is contiguous)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -98,6 +103,9 @@ def main() -> int:
         tr = task_map[model.task]["trainer"](model.model.train(), {**DEFAULT_CFG_DICT, "batch": args.batch,
                                                                    "imgsz": args.imgsz, "project": tmp})
         lrs, mom = [tr.lr0] * 3, tr.momentum
+        if args.layout == "channels_last":
+            put = tr.put_batch
+            tr.put_batch = lambda b: {**(d := put(b)), "img": d["img"].contiguous(memory_format=torch.channels_last)}
         dev = tr.put_batch(host)
         with torch.no_grad(), full_f32():
             out = detached(tr.model(dev["img"]))
@@ -116,7 +124,8 @@ def main() -> int:
                          ("micro_batch_with_optimizer_step", lambda: micro(True)),
                          ("loss_and_tal_with_backward", loss_and_tal)):
             print(json.dumps({"model": args.model, "imgsz": args.imgsz, "batch": args.batch, "workload": name,
-                              "card": smi, **profile_window(fn, args.reps, top=args.top)}), flush=True)
+                              "layout": args.layout, "card": smi, **profile_window(fn, args.reps, top=args.top)}),
+                  flush=True)
     return 0
 
 

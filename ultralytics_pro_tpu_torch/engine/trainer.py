@@ -1,4 +1,5 @@
-"""Trainer: the training loop on one device, for detect, segment, pose, obb and classify.
+"""Trainer: the training loop on one device, for detect, segment, pose, obb and classify
+(RT-DETR's trainer, `models/rtdetr.py:RTDETRTrainer`, subclasses it).
 
 Counterpart of `ultralytics_pro_tpu/engine/trainer.py` (`param_group:35`,
 `EarlyStopping:52`, `BaseTrainer:73` with `lr_lambda:135`, the step of
@@ -14,8 +15,8 @@ their criterion, and classify's batch holds only the images and classes):
   `do_step` is true, every `accumulate` of them (warmup ramps it);
 - the optimizer step clips the accumulated gradients at global norm 10.0
   (`scale = min(1, 10 / (norm + 1e-6))`), then runs Nesterov SGD over three
-  groups, conv and linear weights (decayed, by `weight_decay * batch *
-  accumulate / nbs`), norm weights and biases: `torch.optim.SGD` with
+  groups, conv, linear and attention weights (decayed, by `weight_decay *
+  batch * accumulate / nbs`), norm weights and biases (`param_group`): `torch.optim.SGD` with
   `foreach=True`, whose update `m = mu*m + g + wd*p; p -= lr*(g + wd*p + mu*m)`
   is the JAX step's;
 - the EMA covers the parameters only and ticks on optimizer steps, with
@@ -61,11 +62,13 @@ QUEUED_ARGS = {  # train arguments of the JAX trainer that the port takes up lat
 
 
 def param_group(module: nn.Module, leaf: str) -> int:
-    """0: conv and linear weights (decayed), 1: BN weights, 2: biases, as
-    the JAX package groups flax's `kernel`, `scale` and `bias` leaves."""
-    if leaf == "bias":
+    """0: conv, linear and attention weights and embeddings (decayed), 1:
+    BatchNorm and LayerNorm weights, 2: biases (attention's `in_proj_bias`
+    among them), as the JAX package groups flax's `kernel` (and bare params
+    such as `denoising_class_embed`), `scale` and `bias` leaves."""
+    if leaf.endswith("bias"):
         return 2
-    return 1 if isinstance(module, nn.BatchNorm2d) else 0
+    return 1 if isinstance(module, (nn.BatchNorm2d, nn.LayerNorm)) else 0
 
 
 class EarlyStopping:
@@ -176,20 +179,22 @@ class BaseTrainer(CallbackMixin):
         """Host batch -> tensors on the model's device; img as (B, 3, H, W)
         RGB floats in [0, 1] (the JAX loss_fn's flip and scale); segment's
         masks and pose's keypoints where the batch has them."""
-        img = torch.from_numpy(batch["img"]).to(self.device)
-        out = {"img": img.flip(-1).permute(0, 3, 1, 2).float() / 255.0}
+        out = {"img": device_images(batch["img"], self.device)}
         for k in ("cls", "bboxes", "mask_gt", "masks", "keypoints"):
             if k in batch:
                 out[k] = torch.from_numpy(np.asarray(batch[k])).to(self.device)
         return out
+
+    def model_outputs(self, batch: Dict[str, torch.Tensor]):
+        """The model's train-mode outputs for a device batch, as the criterion takes them."""
+        return self.model(batch["img"])
 
     def step(self, batch: Dict[str, torch.Tensor], lr_by_group, momentum: float, do_step: bool):
         """One micro-batch: forward, loss and backward (gradients add up in
         `.grad`), then the optimizer step when do_step. Returns the loss
         total and parts, detached, on the device."""
         with full_f32():
-            x = batch["img"]
-            total, parts = self.criterion(self.model(x), batch, x.shape[2:])
+            total, parts = self.criterion(self.model_outputs(batch), batch, batch["img"].shape[2:])
             total.backward()
             if do_step:
                 self.optimizer_step(lr_by_group, momentum)
@@ -389,6 +394,19 @@ def save_pickle(path, obj) -> None:
         pickle.dump(obj, f)
 
 
+def device_images(img: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A uint8 NHWC BGR batch -> (B, 3, H, W) RGB floats in [0, 1] on device
+    (the JAX loss_fn's flip and scale), contiguous. A permuted view would
+    carry channels-last strides into the model: on the CPU, PyTorch's
+    channels-last train-mode BatchNorm folds the normalisation into
+    x * (g / s) + (b - m * g / s) and loses digits when a channel's mean is
+    large against its spread (tools/torch_rtdetr_step_precision.py); on a
+    card, channels-last is the faster layout for training
+    (tools/torch_train_profile.py --layout), left for later (ROADMAP.md)."""
+    x = torch.from_numpy(img).to(device).flip(-1).permute(0, 3, 1, 2).float()
+    return x.contiguous() / 255.0
+
+
 def load_pickle(path):
     """A checkpoint written by either package. Unpickling runs code the file
     names: load only checkpoints that you or these packages wrote."""
@@ -409,8 +427,8 @@ class DetectionTrainer(BaseTrainer):
 
         head = self.model.model[-1]
         if not isinstance(head, Detect):
-            raise NotImplementedError(f"training a {type(head).__name__} head is not implemented in "
-                                      "ultralytics_pro_tpu_torch yet (RT-DETR: ROADMAP.md queue 1 item 4)")
+            raise NotImplementedError(f"the detect trainer trains a Detect head, not a {type(head).__name__}; "
+                                      "an RT-DETR model trains through RTDETR(...).train")
         return getattr(loss, self.loss_name)(nc=self.model.nc, reg_max=head.reg_max,
                                              strides=self.model.stride.tolist(), hyp=self.gains(),
                                              **self.criterion_kwargs(head))
@@ -463,6 +481,5 @@ class ClassificationTrainer(BaseTrainer):
         return _ClassifyCriterion()
 
     def put_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        img = torch.from_numpy(batch["img"]).to(self.device)
-        return {"img": img.flip(-1).permute(0, 3, 1, 2).float() / 255.0,
+        return {"img": device_images(batch["img"], self.device),
                 "cls": torch.from_numpy(np.asarray(batch["cls"])).to(self.device)}

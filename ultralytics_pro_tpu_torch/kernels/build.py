@@ -94,6 +94,9 @@ def load_library() -> ctypes.CDLL:
         lib.upt_msda_sample_fused.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
                                               ctypes.POINTER(ci), vp]
         lib.upt_msda_sample_fused.restype = ci
+        lib.upt_msda_sample_fused_backward.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci,
+                                                       ctypes.POINTER(ci), vp]
+        lib.upt_msda_sample_fused_backward.restype = ci
         lib.upt_cuda_error_string.argtypes = [ci]
         lib.upt_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

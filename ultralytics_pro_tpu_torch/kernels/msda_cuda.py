@@ -14,6 +14,15 @@ value rows it gathers, locs, attn and out); the note in the source says more.
 `msda_flatten_coords` followed by `msda_sample_plain` (each held to its JAX
 counterpart by the CPU tests), and launches the kernel for CUDA tensors or
 raises; there is no fallback. `launches` counts kernel launches.
+
+For training, the kernel has a backward (`upt_msda_sample_fused_backward` in
+the same source): `msda_sample_fused` on CUDA tensors is a
+`torch.autograd.Function` that saves value, locs and attn, and its backward
+launches that kernel, which computes exactly the gradients that autograd
+takes through the plain version (`msda_sample_fused_backward_plain`). On CPU
+tensors the plain version's own autograd is the backward.
+`backward_launches` counts the backward kernel's launches. The JAX package
+has no backward kernel; it differentiates its XLA gather.
 """
 
 from __future__ import annotations
@@ -25,6 +34,7 @@ import torch
 from ultralytics_pro_tpu_torch.kernels.build import check, load_library
 
 launches = 0
+backward_launches = 0
 
 
 def msda_flatten_coords(shapes, locs: torch.Tensor, attn: torch.Tensor):
@@ -66,7 +76,9 @@ def msda_sample_plain(val: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> 
     `msda_pallas.py:msda_gather_xla`.
 
     val (B, nh, V, hd) f32; idx (B, nh, Q, S) int32 rows into V; w (B, nh, Q,
-    S) f32. A row outside [0, V) adds 0. Returns (B, nh, Q, hd) f32.
+    S) f32. A row outside [0, V) adds 0. Returns (B, nh, Q, hd) in the
+    inputs' type (f32 on every path of the port; f64 inputs give f64, for
+    checks against a float64 reference).
     """
     b, nh, v, hd = val.shape
     q, s = idx.shape[2], idx.shape[3]
@@ -74,7 +86,7 @@ def msda_sample_plain(val: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> 
     rows = torch.where(ok, idx, 0).long().reshape(b, nh, q * s, 1).expand(-1, -1, -1, hd)
     g = torch.gather(val, 2, rows).reshape(b, nh, q, s, hd)
     g = torch.where(ok[..., None], g, 0.0)
-    return (g * w[..., None]).sum(3).to(torch.float32)
+    return (g * w[..., None]).sum(3)
 
 
 def msda_sample_fused_plain(value: torch.Tensor, shapes, locs: torch.Tensor,
@@ -92,38 +104,46 @@ def msda_sample_fused_plain(value: torch.Tensor, shapes, locs: torch.Tensor,
     return out.transpose(1, 2).reshape(b, q, -1)
 
 
+def msda_sample_fused_backward_plain(value: torch.Tensor, shapes, locs: torch.Tensor, attn: torch.Tensor,
+                                     grad_out: torch.Tensor):
+    """The gradients of `msda_sample_fused_plain`'s output for grad_out (B, Q,
+    nh*hd), by autograd: (grad_value, grad_locs, grad_attn), shaped as value,
+    locs and attn."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (value, locs, attn)]
+        out = msda_sample_fused_plain(leaves[0], shapes, leaves[1], leaves[2])
+        return torch.autograd.grad(out, leaves, grad_out)
+
+
 MAX_LEVELS = 8  # csrc/msda_sample.cu kMaxLevels
 
 
-def msda_sample_fused(value: torch.Tensor, shapes, locs: torch.Tensor,
-                      attn: torch.Tensor) -> torch.Tensor:
-    """Multiscale deformable sampling: the CUDA kernel for CUDA tensors, the
-    plain version for CPU ones. Same contract as `msda_sample_fused_plain`."""
+def _checked(value: torch.Tensor, shapes, locs: torch.Tensor, attn: torch.Tensor, what: str):
+    """Raise on what the kernels do not take; returns shapes as int pairs."""
     tensors = (value, locs, attn)
-    if all(t.device.type == "cpu" for t in tensors):
-        return msda_sample_fused_plain(value, shapes, locs, attn)
     if value.device.type != "cuda" or any(t.device != value.device for t in tensors):
-        raise ValueError(f"msda_sample_fused: value on {value.device}, locs on {locs.device}, "
+        raise ValueError(f"{what}: value on {value.device}, locs on {locs.device}, "
                          f"attn on {attn.device}; all must be on one CUDA device (or all on the CPU)")
-    if any(t.requires_grad for t in tensors):
-        raise RuntimeError("msda_sample_fused has no backward: the kernel would cut the autograd "
-                           "graph; call it under torch.no_grad()")
     if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"msda_sample_fused takes float32 value, locs and attn; got {value.dtype}, "
+        raise TypeError(f"{what} takes float32 value, locs and attn; got {value.dtype}, "
                         f"{locs.dtype}, {attn.dtype}")
     shapes = [(int(h), int(w)) for h, w in shapes]
     if value.ndim != 4 or locs.ndim != 6 or locs.shape[-1] != 2 \
             or tuple(attn.shape) != tuple(locs.shape[:5]) or locs.shape[0] != value.shape[0] \
             or locs.shape[2] != value.shape[2] or locs.shape[3] != len(shapes) \
             or value.shape[1] != sum(h * w for h, w in shapes):
-        raise ValueError(f"msda_sample_fused wants value (B, V, nh, hd) with V the levels' total "
+        raise ValueError(f"{what} wants value (B, V, nh, hd) with V the levels' total "
                          f"area, locs (B, Q, nh, L, P, 2), attn (B, Q, nh, L, P) and L level "
                          f"shapes; got {tuple(value.shape)}, {tuple(locs.shape)}, "
                          f"{tuple(attn.shape)} and {shapes}")
     if not 1 <= len(shapes) <= MAX_LEVELS:
-        raise ValueError(f"msda_sample_fused takes 1 to {MAX_LEVELS} levels, got {len(shapes)}")
+        raise ValueError(f"{what} takes 1 to {MAX_LEVELS} levels, got {len(shapes)}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("msda_sample_fused takes contiguous tensors")
+        raise ValueError(f"{what} takes contiguous tensors")
+    return shapes
+
+
+def _launch_forward(value: torch.Tensor, shapes, locs: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
     b, v, nh, hd = value.shape
     q, nl, npl = locs.shape[1], locs.shape[3], locs.shape[4]
     out = torch.empty((b, q, nh * hd), dtype=torch.float32, device=value.device)
@@ -139,3 +159,57 @@ def msda_sample_fused(value: torch.Tensor, shapes, locs: torch.Tensor,
     global launches
     launches += 1
     return out
+
+
+def _launch_backward(value: torch.Tensor, shapes, locs: torch.Tensor, attn: torch.Tensor,
+                     grad_out: torch.Tensor):
+    b, v, nh, hd = value.shape
+    q, nl, npl = locs.shape[1], locs.shape[3], locs.shape[4]
+    if tuple(grad_out.shape) != (b, q, nh * hd) or grad_out.dtype != torch.float32 \
+            or grad_out.device != value.device:
+        raise ValueError(f"msda_sample_fused_backward wants grad_out ({b}, {q}, {nh * hd}) float32 on "
+                         f"{value.device}; got {tuple(grad_out.shape)} {grad_out.dtype} on {grad_out.device}")
+    grad_out = grad_out.contiguous()
+    grad_value = torch.zeros_like(value)  # the kernel adds into it
+    grad_locs, grad_attn = torch.empty_like(locs), torch.empty_like(attn)
+    if grad_out.numel() == 0:
+        return grad_value, grad_locs.zero_(), grad_attn.zero_()
+    level_hw = (ctypes.c_int * (2 * nl))(*(x for hw in shapes for x in hw))
+    lib = load_library()
+    with torch.cuda.device(value.device):
+        stream = torch.cuda.current_stream(value.device).cuda_stream
+        check(lib.upt_msda_sample_fused_backward(value.data_ptr(), locs.data_ptr(), attn.data_ptr(),
+                                                 grad_out.data_ptr(), grad_value.data_ptr(),
+                                                 grad_locs.data_ptr(), grad_attn.data_ptr(), b, q, nh, hd,
+                                                 v, nl, npl, level_hw, stream),
+              "msda_sample_fused_backward kernel launch")
+    global backward_launches
+    backward_launches += 1
+    return grad_value, grad_locs, grad_attn
+
+
+class _MSDASampleFused(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its gradient."""
+
+    @staticmethod
+    def forward(ctx, value, locs, attn, shapes):
+        ctx.shapes = shapes
+        ctx.save_for_backward(value, locs, attn)
+        return _launch_forward(value, shapes, locs, attn)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        value, locs, attn = ctx.saved_tensors
+        return (*_launch_backward(value, ctx.shapes, locs, attn, grad_out), None)
+
+
+def msda_sample_fused(value: torch.Tensor, shapes, locs: torch.Tensor,
+                      attn: torch.Tensor) -> torch.Tensor:
+    """Multiscale deformable sampling: the CUDA kernel for CUDA tensors, with
+    the backward kernel as its gradient, the plain version for CPU ones. Same
+    contract as `msda_sample_fused_plain`."""
+    if all(t.device.type == "cpu" for t in (value, locs, attn)):
+        return msda_sample_fused_plain(value, shapes, locs, attn)
+    shapes = _checked(value, shapes, locs, attn, "msda_sample_fused")
+    return _MSDASampleFused.apply(value, locs, attn, shapes)
+

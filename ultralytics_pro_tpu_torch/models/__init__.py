@@ -1,6 +1,6 @@
 """Task bindings: the predictor, validator and trainer for a model
 (detect, segment, pose, obb and classify, and RT-DETR's NMS-free predictor
-and validator)."""
+and validator and its trainer)."""
 
 from ultralytics_pro_tpu_torch.engine.predictor import (
     ClassificationPredictor,
@@ -23,7 +23,7 @@ from ultralytics_pro_tpu_torch.engine.validator import (
     PoseValidator,
     SegmentationValidator,
 )
-from ultralytics_pro_tpu_torch.models.rtdetr import RTDETR, RTDETRPredictor, RTDETRValidator
+from ultralytics_pro_tpu_torch.models.rtdetr import RTDETR, RTDETRPredictor, RTDETRTrainer, RTDETRValidator
 from ultralytics_pro_tpu_torch.nn.modules.head import RTDETRDecoder
 
 
@@ -37,7 +37,7 @@ task_map = {"detect": {"predictor": DetectionPredictor, "validator": DetectionVa
                     "trainer": OBBTrainer},
             "classify": {"predictor": ClassificationPredictor, "validator": ClassificationValidator,
                          "trainer": ClassificationTrainer},
-            "rtdetr": {"predictor": RTDETRPredictor, "validator": RTDETRValidator}}
+            "rtdetr": {"predictor": RTDETRPredictor, "validator": RTDETRValidator, "trainer": RTDETRTrainer}}
 
 
 def predictor_for(model, task: str):
@@ -46,4 +46,4 @@ def predictor_for(model, task: str):
     return task_map["rtdetr" if isinstance(model.model[-1], RTDETRDecoder) else task]["predictor"]
 
 
-__all__ = ["RTDETR", "RTDETRPredictor", "RTDETRValidator", "predictor_for", "task_map"]
+__all__ = ["RTDETR", "RTDETRPredictor", "RTDETRTrainer", "RTDETRValidator", "predictor_for", "task_map"]

@@ -1,8 +1,14 @@
-"""RT-DETR in the port: the NMS-free predictor and validator, and the facade
-(predict and val).
+"""RT-DETR in the port: the trainer, the NMS-free predictor and validator,
+and the facade (predict, val and train).
 
-Counterpart of `ultralytics_pro_tpu/models/rtdetr.py` (`RTDETRValidator:46`,
-`RTDETRPredictor:93`, `RTDETR:134`). The predictor's device function `run` is
+Counterpart of `ultralytics_pro_tpu/models/rtdetr.py` (`RTDETRTrainer:21`,
+`RTDETRValidator:46`, `RTDETRPredictor:93`, `RTDETR:134`). The trainer is
+the port's BaseTrainer with the DETR criterion (`utils/detr_loss.py`) and the
+contrastive-denoising queries that `make_cdn_batch` draws for each batch on
+the host. Where the JAX trainer draws them from an unseeded generator, the
+port's trainer owns one seeded from the `seed` argument (ROADMAP.md section
+3). Deformable attention runs on K2 forward and backward for tensors on the
+card. The predictor's device function `run` is
 the JAX package's jitted `run`:
 uint8 BGR batch -> RGB / 255 -> forward -> (B, nq, 4 + nc) normalised cxcywh
 boxes and scores, in full f32 with TF32 off (`utils.full_f32`); deformable
@@ -23,6 +29,7 @@ zeroes the ground truth's (ROADMAP.md section 3).
 
 from __future__ import annotations
 
+import copy
 from typing import Dict, List
 
 import numpy as np
@@ -31,13 +38,36 @@ import torch
 from ultralytics_pro_tpu_torch.engine.model import Model
 from ultralytics_pro_tpu_torch.engine.predictor import BasePredictor, rgb01
 from ultralytics_pro_tpu_torch.engine.results import Results
+from ultralytics_pro_tpu_torch.engine.trainer import BaseTrainer
 from ultralytics_pro_tpu_torch.engine.validator import DetectionValidator, xywhn_to_xyxy_px
 from ultralytics_pro_tpu_torch.nn.modules.head import RTDETRDecoder
 from ultralytics_pro_tpu_torch.utils import full_f32
+from ultralytics_pro_tpu_torch.utils.detr_loss import RTDETRDetectionLoss, make_cdn_batch
 from ultralytics_pro_tpu_torch.utils.metrics import box_iou_np, match_predictions
 
-_LATER = ("comes with a later slice of the port (ROADMAP.md queue 1 item 4b, RT-DETR train): "
-          "it needs the DETR loss, the Hungarian matcher, contrastive denoising and a K2 backward")
+
+class RTDETRTrainer(BaseTrainer):
+    """RT-DETR trainer: RTDETRDetectionLoss, and each batch's denoising
+    queries (`dn_train`, default True; `num_dn`, default 100) passed to the
+    model."""
+
+    def __init__(self, model, args):
+        super().__init__(model, args)
+        self.cdn_rng = np.random.default_rng(int(args.get("seed") or 0))
+
+    def build_criterion(self):
+        return RTDETRDetectionLoss(nc=self.model.nc)
+
+    def put_batch(self, batch: Dict) -> Dict:
+        out = super().put_batch(batch)
+        if self.args.get("dn_train", True):
+            dn = make_cdn_batch(batch["cls"], batch["bboxes"], batch["mask_gt"], nc=self.model.nc,
+                                num_dn=int(self.args.get("num_dn", 100)), rng=self.cdn_rng)
+            out["dn"] = {k: torch.from_numpy(v).to(self.device) for k, v in dn.items()}
+        return out
+
+    def model_outputs(self, batch: Dict):
+        return self.model(batch["img"], dn=batch.get("dn"))
 
 
 class RTDETRValidator(DetectionValidator):
@@ -114,8 +144,8 @@ class RTDETRPredictor(BasePredictor):
 
 
 class RTDETR(Model):
-    """RT-DETR entry point: `RTDETR("rtdetr-l.yaml", device="cuda").predict(images)`
-    and `.val(data=...)`."""
+    """RT-DETR entry point: `RTDETR("rtdetr-l.yaml", device="cuda").predict(images)`,
+    `.val(data=...)` and `.train(data=...)`."""
 
     def __init__(self, model="rtdetr-l.yaml", device="cuda", seed: int = 0, verbose: bool = False):
         super().__init__(model, task="detect", device=device, seed=seed, verbose=verbose)
@@ -139,5 +169,24 @@ class RTDETR(Model):
                             max_gt=int(args["max_gt"]))
         return RTDETRValidator(args)(self.model, loader, names=d["names"])
 
-    def train(self, *args, **kwargs):
-        raise NotImplementedError(f"RTDETR.train is not ported yet: the RT-DETR trainer {_LATER}")
+    def train(self, data=None, **kwargs):
+        """RT-DETR training (the JAX facade's, `:172-196`): the model rebuilt
+        at the dataset's nc, the train split shuffled with drop_last (augment
+        as the arguments say: True raises, as YOLO's does), RTDETRTrainer,
+        and no epoch-end val, as there. `data` is kept in the checkpoints'
+        `train_args`, as `Model.train` keeps it. Returns None; results are on
+        `self.trainer` and in its save_dir (results.csv, weights/last.ckpt)."""
+        from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset
+
+        args = self._merged_args(**kwargs)
+        if data is not None:
+            args["data"] = data
+        d = self._dataset(data, args)
+        if d["nc"] != self.model.nc:
+            self.model = self._build(copy.deepcopy(self.model.yaml), nc=d["nc"])
+        self.model.names = d["names"]
+        train_set = YOLODataset(d["train"], imgsz=int(args["imgsz"]), augment=bool(args["augment"]), data=d)
+        loader = DataLoader(train_set, batch_size=int(args["batch"]), shuffle=True, drop_last=True,
+                            max_gt=int(args["max_gt"]), workers=int(args["workers"]))
+        self.trainer = RTDETRTrainer(self.model, args)
+        self.trainer.train(loader, val_fn=None)

@@ -215,12 +215,12 @@ def decode_single_label(raw, strides, nc: int, reg_max: int = 16):
 
 
 class RTDETRDecoder(nn.Module):
-    """RT-DETR decoder head, inference branch: project and flatten the
-    multiscale maps, pick the top-nq encoder queries by their best class
-    logit, and refine them through `ndl` deformable decoder layers.
+    """RT-DETR decoder head: project and flatten the multiscale maps, pick
+    the top-nq encoder queries by their best class logit, and refine them
+    through `ndl` deformable decoder layers. In train mode it takes the
+    contrastive-denoising queries (`dn`, from `utils/detr_loss.py:make_cdn_batch`)
+    and returns the aux dict alone, as the JAX decoder does.
 
-    The training-only contrastive-denoising branch waits for the training
-    slice; `denoising_class_embed` is kept so that weights carry across.
     Output (B, nq, 4 + nc): normalised cxcywh boxes and sigmoid scores. No NMS.
     """
 
@@ -260,17 +260,43 @@ class RTDETRDecoder(nn.Module):
         anchors = torch.log(anchors / (1 - anchors))
         return torch.where(valid, anchors, torch.inf), valid.to(torch.float32)
 
-    def forward(self, feats, aux: bool = True):
-        """feats: NCHW maps, one per level. Returns (y (B, nq, 4 + nc), aux).
+    @staticmethod
+    def dn_attn_mask(t_dn: int, two_g: int, nq: int, device) -> torch.Tensor:
+        """The (1, 1, t, t) self-attention mask of a train step with t_dn
+        denoising queries in groups of two_g before nq matching queries
+        (`head.py:527-541` of the JAX package), True where a query may
+        attend: the matching queries see each other only, a denoising query
+        sees its own group and the matching queries."""
+        t = t_dn + nq
+        allowed = torch.zeros((t, t), dtype=torch.bool, device=device)
+        allowed[t_dn:, t_dn:] = True
+        gi = torch.arange(t_dn, device=device) // two_g
+        allowed[:t_dn, :t_dn] = gi[:, None] == gi[None, :]
+        allowed[:t_dn, t_dn:] = True
+        return allowed[None, None]
+
+    def forward(self, feats, aux: bool = True, dn=None):
+        """feats: NCHW maps, one per level. In eval mode returns (y (B, nq,
+        4 + nc), aux); in train mode aux alone.
 
         aux carries the JAX decoder's keys and shapes: 'enc_scores' (B, nq, nc)
         and 'enc_bboxes' (B, nq, 4), the selected queries' encoder logits and
         boxes; 'dec_bboxes' (ndl, B, nq, 4) and 'dec_scores' (ndl, B, nq, nc),
         every decoder layer's boxes and score logits. The port adds
         'topk_index' (B, nq) and 'enc_scores_dense' (B, A, nc), the encoder
-        logits of every anchor before the query selection. With aux=False it
-        is None, and only the last layer's score head runs: what a predict
-        keeps of the JAX decoder once its jitted run drops the unused outputs."""
+        logits of every anchor before the query selection. With aux=False (eval
+        only) it is None, and only the last layer's score head runs: what a
+        predict keeps of the JAX decoder once its jitted run drops the unused
+        outputs.
+
+        dn (train mode only): {"cls": (B, ng, 2G) int, "bbox_logit": (B, ng,
+        2G, 4)}. Their t_dn = ng * 2G queries (`denoising_class_embed` rows and
+        sigmoid boxes) go before the matching ones, under `dn_attn_mask`, and
+        aux gains 'dn_bboxes' (ndl, B, t_dn, 4) and 'dn_scores' (ndl, B, t_dn,
+        nc). Gradients stop where the JAX decoder stops them: at the selected
+        encoder rows that start the queries, at the boxes each layer samples
+        around, and, in train mode, at each layer's output boxes; layer 0's
+        query position and box logit read the encoder's boxes undetached."""
         b = feats[0].shape[0]
         shapes = [tuple(f.shape[2:]) for f in feats]
         memory = torch.cat([p(f).flatten(2).transpose(1, 2) for p, f in zip(self.input_proj, feats)], 1)
@@ -279,24 +305,43 @@ class RTDETRDecoder(nn.Module):
         enc = self.enc_output(memory * valid)
         enc_scores = self.enc_score_head(enc)  # (B, A, nc)
         # top-nq queries by best class logit, ties in index order as lax.top_k gives them
-        _, topi = _topk(enc_scores.amax(-1), min(self.nq, enc_scores.shape[1]))  # (B, nq)
-        embed = torch.gather(enc, 1, topi[..., None].expand(-1, -1, self.hd))
+        nq = min(self.nq, enc_scores.shape[1])
+        _, topi = _topk(enc_scores.amax(-1).detach(), nq)  # (B, nq)
+        feat_sel = torch.gather(enc, 1, topi[..., None].expand(-1, -1, self.hd))
         anc = torch.gather(anchors.expand(b, -1, -1), 1, topi[..., None].expand(-1, -1, 4))
-        refer_bbox = torch.sigmoid(self.enc_bbox_head(embed) + anc)  # (B, nq, 4) cxcywh
+        refer_bbox = torch.sigmoid(self.enc_bbox_head(feat_sel) + anc)  # (B, nq, 4) cxcywh
+
+        embed, bbox, t_dn, attn_mask = feat_sel.detach(), refer_bbox, 0, None
+        if self.training and dn is not None:
+            ng, two_g = dn["cls"].shape[1:3]
+            t_dn = ng * two_g
+            dn_embed = self.denoising_class_embed.weight[dn["cls"].reshape(b, t_dn).long()]
+            embed = torch.cat([dn_embed.to(embed.dtype), embed], 1)
+            bbox = torch.cat([torch.sigmoid(dn["bbox_logit"].reshape(b, t_dn, 4)), bbox], 1)
+            attn_mask = self.dn_attn_mask(t_dn, two_g, nq, memory.device)
+        aux = aux or self.training
 
         ndl = len(self.decoder.layers)
-        bbox, dec_bboxes, dec_scores = refer_bbox, [], []
+        dec_bboxes, dec_scores = [], []
         for i, layer in enumerate(self.decoder.layers):
-            embed = layer(embed, bbox, memory, shapes, query_pos=self.query_pos_head(bbox))
+            embed = layer(embed, bbox.detach(), memory, shapes, query_pos=self.query_pos_head(bbox),
+                          attn_mask=attn_mask)
             logit_prev = torch.log(bbox / (1 - bbox + 1e-9) + 1e-9)
             bbox = torch.sigmoid(self.dec_bbox_head[i](embed) + logit_prev)
             dec_bboxes.append(bbox)
             if aux or i == ndl - 1:
                 dec_scores.append(self.dec_score_head[i](embed))
-        y = torch.cat([bbox, dec_scores[-1].sigmoid()], -1)
+            if self.training:
+                bbox = bbox.detach()
         if not aux:
-            return y, None
-        return y, {"dec_bboxes": torch.stack(dec_bboxes), "dec_scores": torch.stack(dec_scores),
-                   "enc_bboxes": refer_bbox,
-                   "enc_scores": torch.gather(enc_scores, 1, topi[..., None].expand(-1, -1, self.nc)),
-                   "topk_index": topi, "enc_scores_dense": enc_scores}
+            return torch.cat([bbox, dec_scores[-1].sigmoid()], -1), None
+        dec_bboxes, dec_scores = torch.stack(dec_bboxes), torch.stack(dec_scores)
+        out = {"dec_bboxes": dec_bboxes[:, :, t_dn:], "dec_scores": dec_scores[:, :, t_dn:],
+               "enc_bboxes": refer_bbox,
+               "enc_scores": torch.gather(enc_scores, 1, topi[..., None].expand(-1, -1, self.nc)),
+               "topk_index": topi, "enc_scores_dense": enc_scores}
+        if t_dn:
+            out["dn_bboxes"], out["dn_scores"] = dec_bboxes[:, :, :t_dn], dec_scores[:, :, :t_dn]
+        if self.training:
+            return out
+        return torch.cat([dec_bboxes[-1], dec_scores[-1].sigmoid()], -1), out

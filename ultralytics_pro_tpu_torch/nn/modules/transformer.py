@@ -45,7 +45,10 @@ class MultiheadAttention(nn.Module):
     (`in_proj_weight` (3C, C) packing q, k, v; `in_proj_bias`; `out_proj`),
     computed as flax's `MultiHeadDotProductAttention` does: per-head
     projections with biases, the query divided by sqrt(head dim), softmax
-    over the keys, then the output projection. No mask: predict passes none."""
+    over the keys, then the output projection. `attn_mask` follows flax's
+    `mask`: a bool tensor broadcastable to (B, nh, Q, K), True where a query
+    may attend; a masked logit becomes the f32 minimum (flax's `big_neg`),
+    not -inf."""
 
     def __init__(self, c: int, num_heads: int):
         super().__init__()
@@ -55,7 +58,8 @@ class MultiheadAttention(nn.Module):
         self.out_proj = nn.Linear(c, c)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                attn_mask: torch.Tensor = None) -> torch.Tensor:
         b, nq, c = q.shape
         nh = self.num_heads
         hd = c // nh
@@ -64,7 +68,10 @@ class MultiheadAttention(nn.Module):
         q = F.linear(q, wq, bq).view(b, nq, nh, hd).transpose(1, 2) / math.sqrt(hd)
         k = F.linear(k, wk, bk).view(b, -1, nh, hd).transpose(1, 2)
         v = F.linear(v, wv, bv).view(b, -1, nh, hd).transpose(1, 2)
-        a = (q @ k.transpose(-2, -1)).softmax(-1)
+        a = q @ k.transpose(-2, -1)
+        if attn_mask is not None:
+            a = a.masked_fill(~attn_mask, torch.finfo(a.dtype).min)
+        a = a.softmax(-1)
         return self.out_proj((a @ v).transpose(1, 2).reshape(b, nq, c))
 
 
@@ -169,9 +176,9 @@ class DeformableTransformerDecoderLayer(nn.Module):
         self.linear2 = nn.Linear(d_ffn, d_model)
         self.norm3 = nn.LayerNorm(d_model, eps=LN_EPS)
 
-    def forward(self, embed, refer_bbox, value, shapes, query_pos=None):
+    def forward(self, embed, refer_bbox, value, shapes, query_pos=None, attn_mask=None):
         q = k = embed if query_pos is None else embed + query_pos
-        embed = self.norm1(embed + self.self_attn(q, k, embed))
+        embed = self.norm1(embed + self.self_attn(q, k, embed, attn_mask))
         ca = self.cross_attn(embed if query_pos is None else embed + query_pos, refer_bbox, value, shapes)
         embed = self.norm2(embed + ca)
         return self.norm3(embed + self.linear2(F.relu(self.linear1(embed))))

@@ -265,7 +265,7 @@ class BaseModel(nn.Module):
             feats = self._run(torch.zeros(1, ch, s, s), stop_at_head=True)
         return torch.tensor([s / x.shape[-2] for x in feats])
 
-    def _run(self, x, stop_at_head: bool = False, decode: bool = True, aux: bool = True):
+    def _run(self, x, stop_at_head: bool = False, decode: bool = True, aux: bool = True, dn=None):
         y = {}
         for m in self.model:
             if m.f != -1:
@@ -273,21 +273,23 @@ class BaseModel(nn.Module):
             if isinstance(m, Detect):
                 return x if stop_at_head else m(x, decode=decode and not self.training)
             if isinstance(m, RTDETRDecoder):
-                return x if stop_at_head else m(x, aux=aux)
+                return x if stop_at_head else m(x, aux=aux, dn=dn)
             x = m(x)
             if m.i in self.save:
                 y[m.i] = x
         return x
 
-    def forward(self, x: torch.Tensor, decode: bool = True, aux: bool = True):
+    def forward(self, x: torch.Tensor, decode: bool = True, aux: bool = True, dn=None):
         """x (B, C, H, W) float. For a Detect model: (decoded (B, A, 4+nc), raw
         per-level maps), or the raw maps alone when decode=False or in train
         mode; Segment, OBB and Pose models give their head's (y, dict), or
         the dict alone (`Segment.forward`, `OBB.forward`, `Pose.forward`). For an RT-DETR model:
-        (y (B, nq, 4+nc), aux), aux None when aux=False, see
-        `RTDETRDecoder.forward`. For a classification model: (B, nc)
+        (y (B, nq, 4+nc), aux), aux None when aux=False, and in train mode
+        aux alone, with the denoising queries `dn` when given (see
+        `RTDETRDecoder.forward`; the JAX model passes `dn` to its head as
+        here, `nn/tasks.py:1241,1294`). For a classification model: (B, nc)
         logits in train mode, their softmax in eval mode."""
-        return self._run(x, decode=decode, aux=aux)
+        return self._run(x, decode=decode, aux=aux, dn=dn)
 
 
 class DetectionModel(BaseModel):
