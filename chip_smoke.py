@@ -40,9 +40,11 @@ exits non-zero):
           (value, locs, attn) within K2_GRAD_TOL of its largest magnitude,
           at the train shape (B=16, Q=556: 256 denoising + 300 queries,
           V=8400, 8 heads of 32, 3 levels x 4 points) and on an edge case
-          (hd=8, locations outside the maps, also against the CPU); the
-          backward's time, the plain backward's, the bound, and index_add_
-          of the same corner rows as the yardstick of its scatter
+          (hd=8, locations outside the maps, also against the CPU);
+          grad_locs and grad_attn bit for bit over two more launches of the
+          backward kernel; the backward's time, the plain backward's, the
+          bound, and index_add_ of the same corner rows as the yardstick of
+          its scatter
   rtdetr  RTDETR("rtdetr-l.yaml", device="cuda").predict(4 images) at 640 px,
           default conf 0.25, with K2's launches read around the call (6 per
           image); warm predict latency per image over 100 calls, the device
@@ -1912,9 +1914,10 @@ def k2_grad_measure(msda_cuda, name: str, value, shapes, locs, attn, grad_out, c
     """K2 forward and backward under autograd on these inputs (on the card)
     against the plain version's autograd on the card (and on the CPU when
     cpu): the forward within 1e-5, each gradient within K2_GRAD_TOL of its
-    largest magnitude; the backward's time (its wrapper: grad_value's
-    zero-fill and the kernel), the plain backward's, the bound, and
-    index_add_ on the same corner rows as the yardstick of the scatter."""
+    largest magnitude; grad_locs and grad_attn bit for bit over two more
+    launches of the backward kernel; the backward's time (its wrapper:
+    grad_value's zero-fill and the kernel), the plain backward's, the bound,
+    and index_add_ on the same corner rows as the yardstick of the scatter."""
     shapes = [tuple(int(v) for v in s) for s in shapes]
     b, q, nh = locs.shape[:3]
     v, hd = value.shape[1], value.shape[-1]
@@ -1937,6 +1940,9 @@ def k2_grad_measure(msda_cuda, name: str, value, shapes, locs, attn, grad_out, c
                                  f"version's autograd, tolerance {K2_GRAD_TOL} x {scale}")
     if not fwd_err <= 1e-5:
         raise AssertionError(f"K2 forward {name}: max abs error {fwd_err} against the plain version")
+    again = [msda_cuda._launch_backward(value, shapes, locs, attn, grad_out) for _ in range(2)]
+    if not all(torch.equal(again[0][i], again[1][i]) and torch.equal(again[0][i], leaves[i].grad) for i in (1, 2)):
+        raise AssertionError(f"K2 backward {name}: grad_locs or grad_attn differ between launches")
     ms = cuda_ms(lambda: msda_cuda._launch_backward(value, shapes, locs, attn, grad_out), iters=20)
     plain_ms = cuda_ms(lambda: msda_cuda.msda_sample_fused_backward_plain(value, shapes, locs, attn, grad_out),
                        iters=3)
@@ -1967,6 +1973,7 @@ def k2_grad_measure(msda_cuda, name: str, value, shapes, locs, attn, grad_out, c
     lib_ms = cuda_ms(library, iters=10)
     return {"size": name, "B": b, "Q": q, "nh": nh, "hd": hd, "V": v, "S": idx.shape[-1],
             "corners_outside": int((~inside).sum()), "forward_max_abs_err": fwd_err, "grads": grads,
+            "locs_attn_bit_stable": True, "grad_value_bit_stable": torch.equal(again[0][0], again[1][0]),
             "max_abs_err": max(x["max_abs_err"] for x in grads.values()),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations", "bytes": nbytes,

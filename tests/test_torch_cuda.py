@@ -352,6 +352,8 @@ K2_BACKWARD_CASES = {
     "small": dict(b=2, q=20, nh=8, hd=32, shapes=((20, 20), (10, 10), (5, 5))),
     "edge_hd8_q37_outside": dict(lo=-0.6, hi=1.6),
     "hd40_two_levels": dict(b=1, q=9, nh=3, hd=40, shapes=((5, 7), (3, 4)), p=3, lo=-1.0, hi=2.0),
+    "rtdetr_l_train_b2": dict(b=2, q=556, nh=8, hd=32, shapes=RTDETR_L_SHAPES),  # 256 denoising + 300 queries
+    "rtdetr_1280_large_v": dict(b=1, q=300, nh=8, hd=32, shapes=((160, 160), (80, 80), (40, 40))),
 }
 
 
@@ -361,7 +363,8 @@ def test_k2_backward_matches_plain_autograd_on_card(card, case):
     """K2 under autograd on the card: one forward and one backward kernel
     launch, and value's, locs' and attn's gradients within 1e-5 of each
     one's largest magnitude of the plain version's autograd on the card and
-    on the CPU (grad_value sums with atomics, in no fixed order)."""
+    on the CPU (grad_value sums with atomics, in no fixed order); grad_locs
+    and grad_attn bit for bit over two more launches of the backward kernel."""
     value, shapes, locs, attn = k2_inputs(4, **K2_BACKWARD_CASES[case])
     grad_out = torch.from_numpy(np.random.default_rng(5).normal(
         size=(value.shape[0], locs.shape[1], value.shape[2] * value.shape[3])).astype(np.float32))
@@ -378,6 +381,10 @@ def test_k2_backward_matches_plain_autograd_on_card(card, case):
         tol = 1e-5 * float(rc.abs().max())
         torch.testing.assert_close(got, rg, rtol=0, atol=tol, msg=name)
         torch.testing.assert_close(got.cpu(), rc, rtol=0, atol=tol, msg=name)
+    again = [msda_cuda._launch_backward(value.cuda(), shapes, locs.cuda(), attn.cuda(), grad_out.cuda())
+             for _ in range(2)]
+    for i, name in ((1, "locs"), (2, "attn")):
+        assert torch.equal(again[0][i], again[1][i]) and torch.equal(again[0][i], leaves[i].grad), name
 
 
 @pytest.mark.cuda
