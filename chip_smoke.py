@@ -215,6 +215,34 @@ exits non-zero):
           2 epochs on 128 images: the numbers of phase train (images/s, device
           ms a micro-batch, idle share, the criterion's ms and launches, the
           FLOP share)
+  zoo_predict  YOLO("yolo11s.yaml"), "yolov10s.yaml", "yolov5s.yaml" and
+          "yolov3-tiny.yaml" (80 classes, seeded weights) predict on the 4
+          images at 640 px with conf 1e-6: K1's launches around the call (one
+          an image; yolov10s is end-to-end and must reach no NMS at all), the
+          detections checked; warm latency per image over ZOO_CALLS calls,
+          the idle share, launches an image and K1's ms a launch from one
+          profiled window, the device function's images/s at batch 16; card
+          against CPU on one image (decoded outputs within ZOO_PARITY_TOL,
+          NMS on the CPU's decode equal on both devices; yolov10s: its
+          one-to-one decode, and the top-300 rows of the CPU's decode taken
+          on both devices, equal); K1 on the 4 images' captured rows (K =
+          8400; yolov3-tiny's two levels K = 2,000) bit for bit against its
+          plain version, timed, with its bound
+  zoo_val yolo11s and yolov10s val at 640 on the val phase's 128 images
+          (batch 16, conf 1e-6): images/s, K1's launches (8 for yolo11s, 0
+          and no NMS for yolov10s), idle share and K1's ms a launch from one
+          profiled call, K1 on yolo11s's first batch of rows; card against
+          CPU on the first 16 images, every mAP within ZOO_VAL_TOL
+  zoo_train_parity  one optimizer step of seeded yolo11n and yolov10n (nc 3;
+          yolov10n with E2EDetectLoss) on 8 fixture images at 160 px, batch
+          8, nbs 8, on the card and on the CPU, within TRAIN_PARITY_TOL
+  zoo_train  yolo11s and yolov10s as phase train: 640 px, batch 16, 2 epochs
+          on 128 images with the epoch-end val (K1 16 launches for yolo11s,
+          none for yolov10s), train images/s in epoch 2, device ms a
+          micro-batch, the idle share, the criterion's device ms and
+          launches, K1's ms a launch from one more profiled val, and K1 on
+          the rows of another val of yolo11s bit for bit against its plain
+          version, timed, with its bound
   kernels the per-kernel summary line
 The last line is {"ok": true, "device": {...}}.
 """
@@ -330,6 +358,22 @@ CLS_CALLS = 100  # timed warm predict calls of yolov8s-cls
 CLS_PROFILED_CALLS = 10
 CLS_TOL = 1e-5  # card vs CPU, yolov8s-cls probabilities
 CLS_SET = "torch_cls_synth"  # the classify fixture set: 3 classes, 24 train and 16 val PNGs of 80 x 64
+# The YOLO11, YOLOv10, YOLOv5 and YOLOv3-tiny detect families at full width
+# (scale s; v3-tiny has no scales), 640 px, seeded weights, 80 classes.
+# yolov10s is end-to-end: no NMS, so neither K1 nor its plain version runs.
+ZOO_PREDICT = ("yolo11s", "yolov10s", "yolov5s", "yolov3-tiny")
+ZOO_VAL = ("yolo11s", "yolov10s")
+ZOO_TRAIN_PARITY = ("yolo11n", "yolov10n")  # at 160 px, nc 3, seeded
+ZOO_TRAIN = ("yolo11s", "yolov10s")
+ZOO_CALLS = 10  # timed warm predict calls of the 4 images a model
+ZOO_PROFILED_CALLS = 3
+ZOO_PARITY_TOL = {"boxes_px": 1e-3, "scores": 1e-4}  # card vs CPU, decoded outputs of one image at 640 px
+ZOO_VAL_TOL = 1e-4  # card vs CPU, each mAP of a zoo model's val of 16 images (rtdetr_val's RTDETR_VAL_TOL["map"])
+# zoo_train_parity, card vs CPU after one step, measured as rtdetr_step_diffs does:
+# TRAIN_PARITY_TOL's bounds, the momentum's 2e-3 on the tree and on every leaf
+# above MOMENTUM_LEAF_FLOOR (readings: under 3e-4; the leaves whose gradient
+# is 0 but for rounding sit below 3e-9 of the largest leaf's norm)
+ZOO_TRAIN_PARITY_TOL = {**TRAIN_PARITY_TOL, "momentum_leaf": TRAIN_PARITY_TOL["momentum_buffer"]}
 
 
 def emit(phase: str, **fields) -> None:
@@ -728,6 +772,22 @@ def k1_check(nms_cuda, name: str, b: int, k: int, max_det: int, iou: float, seed
             **bound, "argmax_form_ops": argmax_ops, "argmax_form_bound_ms": argmax_ops / F32_FLOPS * 1e3}
 
 
+def check_detections(results, imgs) -> list:
+    """Each image's detections finite, 1-300 of them, boxes inside the image; their counts."""
+    dets = []
+    for r, im in zip(results, imgs):
+        d = r.boxes.data
+        h, w = im.shape[:2]
+        if not np.isfinite(d).all():
+            raise AssertionError("non-finite detection")
+        if not 0 < len(d) <= 300:
+            raise AssertionError(f"{len(d)} detections for one image")
+        if d[:, [0, 2]].min() < 0 or d[:, [0, 2]].max() > w or d[:, [1, 3]].min() < 0 or d[:, [1, 3]].max() > h:
+            raise AssertionError("box outside its image")
+        dets.append(len(d))
+    return dets
+
+
 def main_path(YOLO, nms_cuda, decode_single_label, full_f32, card: str, smi: str):
     imgs = seeded_images()
     model = YOLO("yolov8s.yaml", device="cuda", seed=0)
@@ -740,18 +800,7 @@ def main_path(YOLO, nms_cuda, decode_single_label, full_f32, card: str, smi: str
     launches = nms_cuda.launches
     if launches != len(imgs):
         raise AssertionError(f"K1 launched {launches} times for {len(imgs)} images")
-    dets = []
-    for r, im in zip(results, imgs):
-        d = r.boxes.data
-        h, w = im.shape[:2]
-        if not np.isfinite(d).all():
-            raise AssertionError("non-finite detection")
-        if len(d) > 300 or len(d) == 0:
-            raise AssertionError(f"{len(d)} detections for one image")
-        if (d[:, [0, 2]].min() < 0 or d[:, [0, 2]].max() > w or d[:, [1, 3]].min() < 0
-                or d[:, [1, 3]].max() > h):
-            raise AssertionError("box outside its image")
-        dets.append(len(d))
+    dets = check_detections(results, imgs)
 
     pred = model.predictor
     head = model.model.model[-1]
@@ -1043,17 +1092,22 @@ def val_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str, model_name
              src: str = "torch_val_synth"):
     """model_name val at 640 on 128 images of the fixture set src. Returns the
     phase's line and what `capture_k1` recorded of the first batch in the
-    warm-up call (K1's rows and the gather around it)."""
+    warm-up call (K1's rows and the gather around it; nothing for an
+    end-to-end model, whose val must reach no NMS)."""
     data = val_set_640(tmp / f"{src}_640", src)
     kw = dict(data=str(data), imgsz=VAL_IMGSZ, batch=VAL_BATCH, conf=CONF, iou=0.7, max_det=300)
     model = YOLO(f"{model_name}.yaml", device="cuda", seed=0)
+    end2end = model.model.model[-1].end2end
 
     with capture_k1(ops_nms) as cap:  # warm-up call: cuDNN, allocator, and the rows
         model.val(**kw)
-    boxes, scores = cap["rows"]
-    if tuple(scores.shape) != (VAL_BATCH, 30000) or not cap["k1_kwargs"].get("presorted"):
-        raise AssertionError(f"K1's val rows {tuple(scores.shape)} ({cap['k1_kwargs']}), "
-                             f"want presorted ({VAL_BATCH}, 30000)")
+    if end2end and cap:
+        raise AssertionError(f"{model_name} is end-to-end, and its val reached NMS")
+    if not end2end:
+        boxes, scores = cap["rows"]
+        if tuple(scores.shape) != (VAL_BATCH, 30000) or not cap["k1_kwargs"].get("presorted"):
+            raise AssertionError(f"K1's val rows {tuple(scores.shape)} ({cap['k1_kwargs']}), "
+                                 f"want presorted ({VAL_BATCH}, 30000)")
 
     n_images = VAL_COPIES * 16
     nms_cuda.launches = 0
@@ -1063,7 +1117,7 @@ def val_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str, model_name
     wall = time.perf_counter() - t0
     launches = nms_cuda.launches
     n_batches = n_images // VAL_BATCH
-    if launches != n_batches:
+    if launches != (0 if end2end else n_batches):
         raise AssertionError(f"K1 launched {launches} times for {n_batches} val batches")
     confs = metrics.stats["conf"]
     kept = [len(c) for c in confs]
@@ -1074,7 +1128,8 @@ def val_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str, model_name
     busy = prof["device_busy_ms_per_call"]
     sort = prof["ops"].get("aten::sort", {})
     info = dict(model=model_name, nc=80, imgsz=VAL_IMGSZ, images=n_images, batch=VAL_BATCH, conf=CONF, iou=0.7,
-                max_det=300, k1_launches=launches, k1_rows=list(scores.shape),
+                max_det=300, end2end=end2end, k1_launches=launches,
+                k1_rows=None if end2end else list(cap["rows"][1].shape),
                 kept_per_image={"min": min(kept), "median": float(np.median(kept)), "max": max(kept)},
                 val_seconds=wall, images_per_s=n_images / wall,
                 ms_per_image={k: v * 1e3 / n_images for k, v in metrics.speed.items()},
@@ -1315,23 +1370,26 @@ def detached(x, grad: bool = False):
     return x.detach().clone().requires_grad_(True) if grad and x.is_floating_point() else x.detach()
 
 
-def train_run(YOLO, nms_cuda, tmp: Path, task: str = "detect") -> tuple:
+def train_run(YOLO, nms_cuda, tmp: Path, task: str = "detect", served: str | None = None) -> tuple:
     """Two epochs of the task's served model at full width (yolov8s,
     yolov8s-seg and yolov8s-pose at 640, yolov8s-obb at 1024), batch 16
     and the JAX defaults otherwise (nbs 64, warmup 3 epochs, val=True), on
     128 images of the task's fixture set (train = val; 80 class names for
     detect and segment, DOTA's 15 for obb, the set's 3 and [5, 3] keypoints
-    for pose); the model is rebuilt at the set's nc (and pose's shape). K1's
-    launches (or the rotated NMS's calls, obb) are counted over the run;
-    raises unless there is one a val batch, on a non-finite loss or a None
-    fitness. Returns the trainer, its data YAML and the run's numbers."""
+    for pose); the model is rebuilt at the set's nc (and pose's shape).
+    served names another detect model (the zoo's). K1's launches (or the
+    rotated NMS's calls, obb) are counted over the run; raises unless there
+    is one a val batch (none for an end-to-end head), on a non-finite loss
+    or a None fitness. Returns the trainer, its data YAML and the run's
+    numbers."""
     from ultralytics_pro_tpu_torch.engine import validator as eng_val
 
-    served, src, nc, imgsz = {"detect": ("yolov8s", "torch_val_synth", 80, TRAIN_IMGSZ),
+    default, src, nc, imgsz = {"detect": ("yolov8s", "torch_val_synth", 80, TRAIN_IMGSZ),
                               "segment": ("yolov8s-seg", "torch_val_synth_segment", 80, TRAIN_IMGSZ),
                               "pose": ("yolov8s-pose", "torch_val_synth_pose", 3, TRAIN_IMGSZ),
                               "obb": ("yolov8s-obb", "torch_val_synth_obb", 15, OBB_IMGSZ)}[task]
-    data = val_set_640(tmp / f"train_{task}_set", src, nc=nc)
+    served = served or default
+    data = val_set_640(tmp / f"train_{served}_set", src, nc=nc)
     kpt = "kpt_shape: [5, 3]\n" if task == "pose" else ""
     data.write_text(data.read_text().replace("val: images/val", "train: images/val\nval: images/val\n" + kpt))
     model = YOLO(f"{served}.yaml", device="cuda", seed=0)
@@ -1340,19 +1398,19 @@ def train_run(YOLO, nms_cuda, tmp: Path, task: str = "detect") -> tuple:
     t0 = time.perf_counter()
     with capture_rotated(eng_val) as rot:
         model.train(data=str(data), epochs=TRAIN_EPOCHS, imgsz=imgsz, batch=TRAIN_BATCH,
-                    project=str(tmp / f"train_{task}"))
+                    project=str(tmp / f"train_{served}"))
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     tr = model.trainer
+    head = tr.model.model[-1]
     nb = VAL_COPIES * 16 // TRAIN_BATCH
     if not all(np.isfinite(v) for e in tr.loss_history for v in e.values()) or len(tr.loss_history) != TRAIN_EPOCHS:
         raise AssertionError(f"loss history {tr.loss_history}")
     counts = {"k1_launches": nms_cuda.launches, "rotated_nms_calls": rot["calls"]}
-    want = {"k1_launches": 0 if task == "obb" else TRAIN_EPOCHS * nb,
+    want = {"k1_launches": 0 if task == "obb" or head.end2end else TRAIN_EPOCHS * nb,
             "rotated_nms_calls": TRAIN_EPOCHS * nb if task == "obb" else 0}
     if counts != want:
-        raise AssertionError(f"{task} train: {counts} in {TRAIN_EPOCHS} vals of {nb} batches, want {want}")
-    head = tr.model.model[-1]
+        raise AssertionError(f"{served} train: {counts} in {TRAIN_EPOCHS} vals of {nb} batches, want {want}")
     return tr, data, dict(model=served, nc=tr.model.nc, kpt_shape=getattr(head, "kpt_shape", None), imgsz=imgsz,
                           batch=TRAIN_BATCH, nbs=tr.nbs, accumulate=tr.accumulate, warmup_epochs=tr.warmup_epochs,
                           epochs=TRAIN_EPOCHS, images=VAL_COPIES * 16, micro_batches_per_epoch=nb,
@@ -2411,6 +2469,213 @@ def cls_train(YOLO, tmp: Path, card: str, smi: str) -> dict:
     return info
 
 
+def zoo_parity(YOLO, ops_nms, full_f32, name: str, model, batch) -> dict:
+    """The same seeded weights on the card and on the CPU, full f32, on the
+    first letterboxed image: the decoded outputs within ZOO_PARITY_TOL
+    (yolov10s: its one-to-one branch decoded, every anchor), and the final
+    boxes: NMS on the CPU's decoded outputs on both devices equal (K1
+    against the CPU's plain version; for yolov10s the top-300 rows of the
+    CPU's decode taken on both devices, equal, and the rows whose anchor
+    and class differ between the two devices' own rows counted)."""
+    from ultralytics_pro_tpu_torch.engine.predictor import rgb01
+    from ultralytics_pro_tpu_torch.nn.modules.head import decode_single_label
+
+    cpu = YOLO(f"{name}.yaml", device="cpu", seed=0)
+    for (k, a), b in zip(model.model.state_dict().items(), cpu.model.state_dict().values()):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"{name}: seeded weights differ between devices at {k}")
+    x = rgb01(batch[:1].cpu())
+    head, cpu_head = model.model.model[-1], cpu.model.model[-1]
+    with torch.no_grad(), full_f32():
+        y_gpu, aux_gpu = model.model(x.cuda())
+        y_cpu, aux_cpu = cpu.model(x)
+        if head.end2end:
+            dense_gpu, dense_cpu = head.decode(aux_gpu["one2one"]).cpu(), cpu_head.decode(aux_cpu["one2one"])
+        else:
+            dense_gpu, dense_cpu = y_gpu.cpu(), y_cpu
+    box_err = float((dense_gpu[..., :4] - dense_cpu[..., :4]).abs().max())
+    score_err = float((dense_gpu[..., 4:] - dense_cpu[..., 4:]).abs().max())
+    info = dict(decoded_shape=list(dense_cpu.shape), max_abs_box_err_px=box_err, max_abs_score_err=score_err,
+                tolerance=ZOO_PARITY_TOL)
+    if head.end2end:
+        final_gpu = head.postprocess_topk(dense_cpu.cuda()).cpu()
+        final_cpu = cpu_head.postprocess_topk(dense_cpu)
+        info["final_rows_mismatch"] = int((final_gpu != final_cpu).sum())
+        info["own_rows_anchor_or_class_differ"] = int((y_gpu.cpu()[..., 5] != y_cpu[..., 5]).sum())
+        info["rows"] = list(final_cpu.shape)
+    else:
+        b4, cf, cl = decode_single_label(aux_cpu, cpu_head.stride.tolist(), cpu_head.nc)
+        kw = dict(conf_thres=CONF, iou_thres=0.7, max_det=300)
+        out_cpu = ops_nms.non_max_suppression_fused(b4, cf, cl, **kw)
+        out_gpu = ops_nms.non_max_suppression_fused(b4.cuda(), cf.cuda(), cl.cuda(), **kw)
+        info["final_rows_mismatch"] = sum(int((out_gpu[k].cpu() != out_cpu[k]).sum()) for k in out_cpu)
+        info["kept"] = int(out_cpu["valid"].sum())
+    if not (box_err <= ZOO_PARITY_TOL["boxes_px"] and score_err <= ZOO_PARITY_TOL["scores"]) \
+            or info["final_rows_mismatch"]:
+        raise AssertionError(f"{name} card vs CPU: {info}")
+    return info
+
+
+def zoo_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name: str, card: str, smi: str) -> dict:
+    """One zoo model's predict at 640 on the 4 seeded images, conf 1e-6: K1's
+    launches read around the call (one an image; none for yolov10s, whose
+    call must reach no NMS at all), the detections checked; warm latency an
+    image over ZOO_CALLS calls, the idle share, launches an image and K1's
+    device ms a launch from one profiled window; the device function's
+    images/s at batch 16; card against CPU (zoo_parity); and, where NMS
+    runs, K1 on the 4 images' captured rows bit for bit against its plain
+    version, timed, with its bound (captured_k1)."""
+    imgs = seeded_images()
+    model = YOLO(f"{name}.yaml", device="cuda", seed=0)
+    end2end = model.model.model[-1].end2end
+    model.predict(imgs[:1], conf=CONF)  # first call: cuDNN and allocator set-up
+    torch.cuda.synchronize()
+    nms_cuda.launches = 0
+    with capture_k1(ops_nms) as cap:
+        results = model.predict(imgs, conf=CONF)
+        torch.cuda.synchronize()
+    launches = nms_cuda.launches
+    want = 0 if end2end else len(imgs)
+    if launches != want or end2end and cap:
+        raise AssertionError(f"{name}: K1 launched {launches} times for {len(imgs)} images, want {want}; "
+                             f"NMS reached: {bool(cap)}")
+    dets = check_detections(results, imgs)
+    per_image = []
+    for _ in range(ZOO_CALLS):
+        t0 = time.perf_counter()
+        model.predict(imgs, conf=CONF)
+        per_image.append((time.perf_counter() - t0) * 1e3 / len(imgs))
+    q = np.percentile(per_image, [0, 10, 50, 90, 100])
+    prof = profile_window(lambda: model.predict(imgs, conf=CONF), ZOO_PROFILED_CALLS)
+    call_ms = q[2] * len(imgs)
+    busy = prof["device_busy_ms_per_call"]
+    pred = model.predictor
+    batch = pred.preprocess(imgs)
+    ms16 = cuda_ms(lambda: pred.run(batch.repeat(4, 1, 1, 1)), iters=5)
+    info = dict(model=name, parameters=sum(p.numel() for p in model.model.parameters()),
+                stride=model.model.stride.tolist(), end2end=end2end, imgsz=640, conf=CONF, k1_launches=launches,
+                detections=dets, predict_calls=ZOO_CALLS,
+                predict_ms_per_image={"median": q[2], "p10": q[1], "p90": q[3], "min": q[0], "max": q[4]},
+                predict_median_ms_per_call=call_ms, device_busy_ms_per_call=busy,
+                device_idle_share=None if busy is None else max(0.0, 1 - busy / call_ms),
+                kernel_launches_per_image=prof["kernel_launches_per_call"] / len(imgs),
+                k1_profiled_ms_per_launch=prof["device_ms_by_category"].get("k1_greedy_nms", 0.0) / len(imgs),
+                device_fn_batch16_ms=ms16, device_fn_batch16_images_per_s=16 * 1e3 / ms16,
+                parity=zoo_parity(YOLO, ops_nms, full_f32, name, model, batch), predict_profile=prof)
+    if not end2end:
+        with capture_k1(ops_nms) as cap:  # one batch of the 4 images: K1's rows and the gather around it
+            pred.run(batch)
+        info["k1_on_batch_rows"] = captured_k1(ops_nms, nms_cuda, cap, card, smi)
+    return info
+
+
+def zoo_predict(YOLO, nms_cuda, ops_nms, full_f32, card: str, smi: str) -> dict:
+    return {"models": {name: zoo_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name, card, smi)
+                       for name in ZOO_PREDICT}, "card": card, "nvidia_smi": smi}
+
+
+def zoo_val_parity(YOLO, model, name: str, data16: Path) -> dict:
+    """A zoo model's val of the first 16 images on the card and on the CPU
+    (the same seeded weights): every mAP within ZOO_VAL_TOL."""
+    kw = dict(imgsz=VAL_IMGSZ, batch=VAL_BATCH, conf=CONF, iou=0.7, max_det=300)
+    maps = {}
+    for device in ("cuda", "cpu"):
+        m = model if device == "cuda" else YOLO(f"{name}.yaml", device="cpu", seed=0)
+        t0 = time.perf_counter()
+        r = m.val(data=str(data16), **kw)
+        maps[device] = {"map50": float(r.box.map50), "map50_95": float(r.box.map), "precision": float(r.box.mp),
+                        "recall": float(r.box.mr), "kept": sum(len(c) for c in r.stats["conf"]),
+                        "seconds": time.perf_counter() - t0}
+    diff = {k: abs(maps["cuda"][k] - maps["cpu"][k]) for k in ("map50", "map50_95")}
+    if not max(diff.values()) <= ZOO_VAL_TOL:
+        raise AssertionError(f"{name} val of 16 images, card vs CPU: {maps} (tolerance {ZOO_VAL_TOL})")
+    return {"images": 16, "card": maps["cuda"], "cpu": maps["cpu"], "abs_diff": diff, "tolerance": ZOO_VAL_TOL,
+            "cpu_threads": torch.get_num_threads()}
+
+
+def zoo_val(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
+    """yolo11s and yolov10s as phase val (val_path: K1 once a batch for
+    yolo11s, no NMS for yolov10s), K1 on yolo11s's first batch of rows
+    (captured_k1), and card against CPU on 16 images (zoo_val_parity)."""
+    data16 = val_set_640(tmp / "zoo_val_16", copies=1)
+    models = {}
+    for name in ZOO_VAL:
+        info, cap = val_path(YOLO, nms_cuda, ops_nms, tmp / name, card, smi, name)
+        info["parity"] = zoo_val_parity(YOLO, YOLO(f"{name}.yaml", device="cuda", seed=0), name, data16)
+        if cap:
+            info["k1_on_batch_rows"] = captured_k1(ops_nms, nms_cuda, cap, card, smi)
+        models[name] = info
+    return {"models": models, "card": card, "nvidia_smi": smi}
+
+
+def zoo_train_parity(YOLO, yaml_model_load, load_pickle, tmp: Path, card: str, smi: str) -> dict:
+    """One optimizer step of yolo11n and yolov10n (seeded, nc 3) on 8 fixture
+    images at 160 px, batch 8, nbs 8, no warmup, no val, through
+    YOLO(...).train on the card and on the CPU; yolov10n trains with
+    E2EDetectLoss. Held within ZOO_TRAIN_PARITY_TOL as rtdetr_step_diffs
+    measures them (params, EMA and BN statistics against the tree's largest
+    magnitude, the momentum buffers as relative L2 distances): the attention
+    and activation-free convs of C2PSA, PSA, SCDown and the light head
+    leave biases whose gradient is 0 but for rounding (a per-channel shift
+    that the next train-mode BatchNorm removes, or a key bias that softmax
+    ignores), so no tensor is held against its own largest value. The five
+    momentum leaves furthest from the CPU's are reported with their norm's
+    share of the largest leaf's."""
+    data = fixture_train_set(tmp / "zoo_train_parity_set", TRAIN_PARITY_IMAGES)
+    out = {}
+    for name in ZOO_TRAIN_PARITY:
+        runs = []
+        for device in ("cuda", "cpu"):
+            model = YOLO({**yaml_model_load(f"{name}.yaml"), "nc": 3}, device=device, seed=0)
+            model.train(data=str(data), epochs=1, imgsz=160, batch=TRAIN_PARITY_IMAGES, nbs=TRAIN_PARITY_IMAGES,
+                        warmup_epochs=0.0, val=False, workers=4, max_gt=32, project=str(tmp / f"zoo_{name}_{device}"))
+            tr = model.trainer
+            if tr.opt_steps != 1:
+                raise AssertionError(f"{name} on {device}: {tr.opt_steps} optimizer steps, want 1")
+            runs.append((tr.loss_history[0], load_pickle(tr.wdir / "last.ckpt")))
+        diffs = rtdetr_step_diffs(*runs)
+        got, want = dict(tree_leaves(runs[0][1]["momentum_buffer"])), dict(tree_leaves(runs[1][1]["momentum_buffer"]))
+        norm = {k: float(np.linalg.norm(w)) for k, w in want.items()}
+        top = max(norm.values())
+        worst = sorted(((float(np.linalg.norm(got[k] - w)) / max(norm[k], 1e-30), k, norm[k] / top)
+                        for k, w in want.items()), reverse=True)[:5]
+        bad = {k: v for k, v in diffs.items()
+               if not v[0] <= ZOO_TRAIN_PARITY_TOL["loss" if k.startswith("loss") else k]}
+        out[name] = {"criterion": type(model.trainer.criterion).__name__, "loss_card": runs[0][0],
+                     "loss_cpu": runs[1][0], "max_diff": diffs,
+                     "momentum_leaves_furthest": [{"rel_l2": d, "leaf": k, "norm_share": n} for d, k, n in worst]}
+        if bad:
+            raise AssertionError(f"{name} card vs CPU after one step beyond {ZOO_TRAIN_PARITY_TOL}: {bad}; {out[name]}")
+    return {"models": out, "images": TRAIN_PARITY_IMAGES, "imgsz": 160, "batch": TRAIN_PARITY_IMAGES,
+            "nbs": TRAIN_PARITY_IMAGES, "warmup_epochs": 0.0, "tolerance": ZOO_TRAIN_PARITY_TOL,
+            "momentum_leaf_floor": MOMENTUM_LEAF_FLOOR, "cpu_threads": torch.get_num_threads(),
+            "card": card, "nvidia_smi": smi}
+
+
+def zoo_train(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
+    """yolo11s and yolov10s as phase train (train_run, micro_batch_measures):
+    640 px, batch 16, 2 epochs on 128 images with the epoch-end val, K1's
+    launches counted there (yolov10s: none), K1's device ms a launch from a
+    profile of one more val of the trained model, and, as phase train does,
+    K1 on the rows of another such val held to its plain version, timed,
+    with its bound (val_k1)."""
+    out = {}
+    for name in ZOO_TRAIN:
+        tr, data, info = train_run(YOLO, nms_cuda, tmp, served=name)
+        info["criterion"] = type(tr.criterion).__name__
+        info.update(micro_batch_measures(tr, det_host_batch(tr, data, TRAIN_IMGSZ), TRAIN_IMGSZ))
+        vprof = profile_window(lambda: tr.val_fn(tr.model), reps=1, warmup=0)
+        n = info["k1_launches"] // TRAIN_EPOCHS
+        info.update(val_device_busy_ms=vprof["device_busy_ms_per_call"],
+                    k1_profiled_ms_per_launch=vprof["device_ms_by_category"].get("k1_greedy_nms", 0.0) / max(n, 1))
+        if n:
+            with capture_k1(ops_nms) as cap:
+                tr.val_fn(tr.model)
+            info["k1_on_val_rows"] = val_k1(nms_cuda, cap["rows"], card, smi)
+        out[name] = info
+    return {"models": out, "card": card, "nvidia_smi": smi}
+
+
 def tf32_seen(model, call) -> dict:
     """torch's TF32 flags (cudnn, cuda matmul) as found, inside model's forward
     during call(), and after it."""
@@ -2580,6 +2845,20 @@ def main() -> int:
             t = time.perf_counter()
             emit(phase, **fn(), seconds=time.perf_counter() - t)
 
+    t = time.perf_counter()
+    zp = zoo_predict(YOLO, nms_cuda, ops_nms, full_f32, card, smi)
+    emit("zoo_predict", **zp, seconds=time.perf_counter() - t)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        zv = zoo_val(YOLO, nms_cuda, ops_nms, Path(tmp), card, smi)
+        emit("zoo_val", **zv, seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        emit("zoo_train_parity", **zoo_train_parity(YOLO, yaml_model_load, load_pickle, Path(tmp), card, smi),
+             seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        zt = zoo_train(YOLO, nms_cuda, ops_nms, Path(tmp), card, smi)
+        emit("zoo_train", **zt, seconds=time.perf_counter() - t)
+
     pred, val_size = k1
     tk1 = train["k1_on_val_rows"]
     task_k1 = {"seg_predict": (task_runs["segment"], task_runs["segment"]["k1_on_batch_rows"]),
@@ -2587,7 +2866,11 @@ def main() -> int:
                "seg_val": (seg_val, seg_val["k1_on_batch_rows"]),
                "seg_train": (task_train["seg_parity"], task_train["seg_parity"]["k1_on_val_rows"]),
                "pose_train": (task_train["pose_parity"], task_train["pose_parity"]["k1_on_val_rows"])}
-    captured = (vk1, tk1, *(rows for _, rows in task_k1.values()))
+    zoo_rows = {f"zoo_{name.replace('-', '_')}_{path}": runs["models"][name][key]
+                for path, runs, key in (("predict", zp, "k1_on_batch_rows"), ("val", zv, "k1_on_batch_rows"),
+                                        ("train_val", zt, "k1_on_val_rows"))
+                for name in runs["models"] if key in runs["models"][name]}
+    captured = (vk1, tk1, *(rows for _, rows in task_k1.values()), *zoo_rows.values())
     kernels = [{
         "name": "greedy_nms", "route": "cuda",
         "source": "ultralytics_pro_tpu_torch/csrc/greedy_nms.cu",
@@ -2619,6 +2902,11 @@ def main() -> int:
         **{f"{short}_train_full_width_launches": task_train[short]["k1_launches"] for short in ("seg", "pose")},
         **{f"{short}_train_full_width_profiled_ms": task_train[short]["nms_profiled_ms_per_val_batch"]
            for short in ("seg", "pose")},
+        **{f"zoo_{name.replace('-', '_')}_{path}_path_{key}": runs["models"][name][src]
+           for path, runs in (("predict", zp), ("val", zv), ("train_val", zt)) for name in runs["models"]
+           for key, src in (("launches", "k1_launches"), ("profiled_ms", "k1_profiled_ms_per_launch"))},
+        **{f"{name}_{key}": rows[key] for name, rows in zoo_rows.items()
+           for key in ("B", "K", "ms", "plain_ms", "bound_ms", "bound_by", "scanned_per_row")},
     }, {
         "name": "msda_sample_fused", "route": "cuda",
         "source": "ultralytics_pro_tpu_torch/csrc/msda_sample.cu",

@@ -5,8 +5,10 @@ segment and pose rows with their payload, the OBB task's rotated NMS
 (plain PyTorch) on the card against the CPU, the segment, pose and OBB
 criteria, forward and backward, on the card against the CPU, classify
 predict and val and rtdetr-l val (K2 on the val path) against the CPU, K2's
-backward kernel against the plain version's autograd, and a narrow RT-DETR
-training epoch through K2 forward and backward.
+backward kernel against the plain version's autograd, a narrow RT-DETR
+training epoch through K2 forward and backward, and the YOLO11 and YOLOv10
+forwards and predicts on the card against the CPU (v10 without NMS) with K1
+on yolov3-tiny's two-level rows.
 
 These tests need a card and nvcc, and import neither JAX nor the JAX package
 nor `tests/conftest.py` (which imports JAX), so they run on a machine that has
@@ -28,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import cls_fixture_model
+from chip_smoke import capture_k1, check_detections, cls_fixture_model, zoo_parity
 from ultralytics_pro_tpu_torch import RTDETR, YOLO
 from ultralytics_pro_tpu_torch.kernels import msda_cuda, nms_cuda
 from ultralytics_pro_tpu_torch.nn.tasks import yaml_model_load
@@ -588,3 +590,48 @@ def test_rtdetr_val_on_card_matches_cpu_and_runs_k2(tf32_on, tmp_path):
         assert len(g) == len(w) > 0
         np.testing.assert_allclose(np.sort(g), np.sort(w), atol=1e-4, rtol=0)
     assert abs(card.box.map50 - cpu.box.map50) <= 1e-4 and abs(card.box.map - cpu.box.map) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cfg", ["yolo11n.yaml", "yolov10n.yaml"])
+def test_zoo_forward_and_predict_on_card_match_cpu(card, cfg):
+    """Predict on the card at 160 px, conf 1e-6: K1 launched once an image for
+    yolo11n and never for yolov10n, 1-300 finite detections inside each
+    image; then the same seeded weights on the card and the CPU as
+    chip_smoke.zoo_parity holds them on the first letterboxed image (decoded
+    outputs within ZOO_PARITY_TOL, yolov10n's one-to-one decode; the final
+    rows made from the CPU's decode equal on both devices). The card's own
+    rows are not compared with the CPU's: seeded scores sit within 1e-9 of
+    each other, so their order is rounding."""
+    from ultralytics_pro_tpu_torch.ops import nms as ops_nms
+    from ultralytics_pro_tpu_torch.utils import full_f32
+
+    m = YOLO(cfg, device="cuda", seed=0)
+    imgs = [np.random.default_rng(i).integers(0, 256, (120, 160, 3), dtype=np.uint8) for i in range(3)]
+    before = nms_cuda.launches
+    res = m.predict(imgs, imgsz=160, conf=1e-6)
+    assert nms_cuda.launches == before + (0 if cfg == "yolov10n.yaml" else len(imgs))
+    check_detections(res, imgs)
+    info = zoo_parity(YOLO, ops_nms, full_f32, cfg[:-5], m, m.predictor.preprocess(imgs))
+    assert info["final_rows_mismatch"] == 0
+
+
+@pytest.mark.cuda
+def test_k1_on_yolov3_tiny_rows_equals_plain(card):
+    """yolov3-tiny predicts at 640 through K1 on rows of K = 40^2 + 20^2 =
+    2,000 candidates (its two levels, P4 first); K1 on the captured rows
+    equals its plain version bit for bit."""
+    from ultralytics_pro_tpu_torch.ops import nms as ops_nms
+
+    m = YOLO("yolov3-tiny.yaml", device="cuda", seed=0)
+    assert m.model.stride.tolist() == [16.0, 32.0]
+    img = np.random.default_rng(2).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    before = nms_cuda.launches
+    with capture_k1(ops_nms) as cap:
+        res = m.predict([img], conf=1e-6)
+    assert nms_cuda.launches == before + 1 and 0 < len(res[0]) <= 300
+    boxes, scores = cap["rows"]
+    assert tuple(scores.shape) == (1, 2000) and cap["k1_kwargs"]["presorted"]
+    keep, valid = nms_cuda.greedy_nms(boxes, scores, 300, 0.7, presorted=True)
+    rk, rv = nms_cuda.greedy_nms_plain(boxes, scores, 300, 0.7)
+    assert torch.equal(keep, rk) and torch.equal(valid, rv)

@@ -416,7 +416,7 @@ def _v8n_with_head(name: str) -> dict:
     return y
 
 
-@pytest.mark.parametrize("case", ["augment", "multi_scale", "remat", "orbax", "device2", "v5_head", "v10_head"])
+@pytest.mark.parametrize("case", ["augment", "multi_scale", "remat", "orbax", "device2", "v5_head"])
 def test_left_for_later_switches_raise(data_yaml, tmp_path, case):
     """Each names where the port takes it up; none trains a step."""
     kw = dict(TRAIN_KW, project=str(tmp_path))
@@ -427,7 +427,6 @@ def test_left_for_later_switches_raise(data_yaml, tmp_path, case):
         "orbax": (lambda: port_model().train(data=str(data_yaml), ckpt_format="orbax", **kw), "orbax"),
         "device2": (lambda: port_model().train(data=str(data_yaml), device=2, **kw), "item 7"),
         "v5_head": (lambda: YOLO(_v8n_with_head("AnchorDetect"), device="cpu"), "item 9"),
-        "v10_head": (lambda: YOLO(_v8n_with_head("v10Detect"), device="cpu"), "item 9"),
     }
     call, match = calls[case]
     with pytest.raises(NotImplementedError, match=match):

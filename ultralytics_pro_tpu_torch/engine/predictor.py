@@ -10,7 +10,9 @@ on the card). For a plain Detect head it takes the fused single-label decode
 (the branch `:136-148` takes); for Segment and Pose the generic decode and
 `non_max_suppression` with the head's extra columns as its payload (`:149-159`):
 32 mask coefficients a candidate, or the decoded keypoints. Letterboxing runs
-on the model's device.
+on the model's device. A v10Detect head is end-to-end (`:62,125-135`): no
+NMS and no fused decode, its (B, 300, 6) rows taken as they come, boxes
+`xywh2xyxy`, valid where conf > `conf` (`end2end_outputs`).
 
 Segment's postprocess combines the coefficients with the prototypes, cuts the
 letterbox pad off, resizes to the original image and crops by the boxes on
@@ -35,8 +37,16 @@ import torch
 
 from ultralytics_pro_tpu_torch.data.augment import LetterBox, resize_bilinear
 from ultralytics_pro_tpu_torch.engine.results import Results
-from ultralytics_pro_tpu_torch.nn.modules.head import OBB, Classify, Detect, Pose, Segment, decode_single_label
-from ultralytics_pro_tpu_torch.ops.boxes import scale_boxes
+from ultralytics_pro_tpu_torch.nn.modules.head import (
+    OBB,
+    Classify,
+    Detect,
+    Pose,
+    Segment,
+    decode_single_label,
+    v10Detect,
+)
+from ultralytics_pro_tpu_torch.ops.boxes import scale_boxes, xywh2xyxy
 from ultralytics_pro_tpu_torch.ops.masks import process_mask_native
 from ultralytics_pro_tpu_torch.ops.nms import non_max_suppression, non_max_suppression_fused, non_max_suppression_rotated
 from ultralytics_pro_tpu_torch.utils import Profile, full_f32
@@ -52,6 +62,14 @@ def rgb01(img_u8: torch.Tensor) -> torch.Tensor:
     functions' first step."""
     x = img_u8.flip(-1) if img_u8.shape[-1] == 3 else img_u8
     return x.permute(0, 3, 1, 2).float().contiguous() / 255.0
+
+
+def end2end_outputs(y: torch.Tensor, conf: float) -> Dict[str, torch.Tensor]:
+    """An end-to-end head's (B, k, 6) rows (xywh, conf, cls; scores
+    descending) as the NMS dict: 'boxes' xyxy, 'scores', 'cls' int32 and
+    'valid' = scores > conf."""
+    return {"boxes": xywh2xyxy(y[..., :4]), "scores": y[..., 4], "cls": y[..., 5].to(torch.int32),
+            "valid": y[..., 4] > conf}
 
 
 def _detections(out, i: int, n: int, batch_shape, orig_shape) -> torch.Tensor:
@@ -72,7 +90,7 @@ def letterbox_pad(batch_shape, orig_shape):
 class BasePredictor:
     """Single-model streaming inference on the model's device."""
 
-    head_types = (Detect,)  # the heads whose outputs this predictor's run and postprocess read
+    head_types = (Detect, v10Detect)  # the heads whose outputs this predictor's run and postprocess read
     outputs_to_host = True  # False: postprocess takes run's outputs on the device
 
     def __init__(self, model, args: Dict | None = None):
@@ -103,10 +121,12 @@ class BasePredictor:
     @torch.no_grad()
     def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The device function: (B, H, W, 3) uint8 BGR on the model's device ->
-        dict of (B, max_det) 'boxes' xyxy, 'scores', 'cls', 'valid'. Runs in
-        full f32 (`utils.full_f32`)."""
+        dict of (B, max_det) 'boxes' xyxy, 'scores', 'cls', 'valid' (an
+        end-to-end head's (B, 300) rows). Runs in full f32 (`utils.full_f32`)."""
         head = self.model.model[-1]
         with full_f32():
+            if head.end2end:
+                return end2end_outputs(self.model(rgb01(img_u8), aux=False)[0], self.conf)
             raw = self.model(rgb01(img_u8), decode=False)
             boxes, conf, cls = decode_single_label(raw, head.stride.tolist(), head.nc, head.reg_max)
             return non_max_suppression_fused(boxes, conf, cls, conf_thres=self.conf,

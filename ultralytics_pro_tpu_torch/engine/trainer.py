@@ -415,7 +415,9 @@ def load_pickle(path):
 
 
 class DetectionTrainer(BaseTrainer):
-    """Detect-task trainer: v8DetectionLoss with the box, cls and dfl gains."""
+    """Detect-task trainer: v8DetectionLoss with the box, cls and dfl gains,
+    or E2EDetectLoss for an end-to-end (v10Detect) head, as the JAX trainer
+    chooses (`:544-553`)."""
 
     loss_name = "v8DetectionLoss"
 
@@ -429,9 +431,9 @@ class DetectionTrainer(BaseTrainer):
         if not isinstance(head, Detect):
             raise NotImplementedError(f"the detect trainer trains a Detect head, not a {type(head).__name__}; "
                                       "an RT-DETR model trains through RTDETR(...).train")
-        return getattr(loss, self.loss_name)(nc=self.model.nc, reg_max=head.reg_max,
-                                             strides=self.model.stride.tolist(), hyp=self.gains(),
-                                             **self.criterion_kwargs(head))
+        name = "E2EDetectLoss" if head.end2end else self.loss_name
+        return getattr(loss, name)(nc=self.model.nc, reg_max=head.reg_max, strides=self.model.stride.tolist(),
+                                   hyp=self.gains(), **self.criterion_kwargs(head))
 
     def criterion_kwargs(self, head) -> Dict:
         return {}

@@ -23,8 +23,12 @@ ClassificationValidator scores them again). The three `Profile`s synchronise
 the model's device: preprocess is the batch's copy to the device, inference
 the device function and the copy back, postprocess the matching.
 
+A v10Detect head is end-to-end (`:115-128`): its (B, 300, 6) rows go to the
+matching without NMS, boxes `xywh2xyxy`, valid where conf > `conf`
+(`predictor.end2end_outputs`).
+
 `save_json` (and so `coco_evaluate`) and `plots` raise NotImplementedError,
-but for OBB's `save_json`; the v10Detect end-to-end branch waits for that head.
+but for OBB's `save_json`.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ultralytics_pro_tpu_torch.engine.predictor import rgb01
+from ultralytics_pro_tpu_torch.engine.predictor import end2end_outputs, rgb01
 from ultralytics_pro_tpu_torch.nn.modules.head import OBB, Classify, Detect, Pose, Segment
 from ultralytics_pro_tpu_torch.ops.boxes import scale_boxes, xywhr2xyxyxyxy
 from ultralytics_pro_tpu_torch.ops.iou import batch_probiou
@@ -105,9 +109,12 @@ class DetectionValidator:
 
     def _run(self, img_u8: torch.Tensor, payload: bool = False):
         """Forward and multi-label NMS, with the columns after the class scores
-        as 'extra' when payload. Returns (NMS dict, the head's second output)."""
+        as 'extra' when payload. Returns (NMS dict, the head's second output);
+        an end-to-end head's rows skip NMS (dict None)."""
         nc = self.model.nc
         with full_f32():
+            if self.model.model[-1].end2end:
+                return end2end_outputs(self.model(rgb01(img_u8), aux=False)[0], self.conf), None
             y, aux = self.model(rgb01(img_u8))
             out = non_max_suppression(y[..., :4], y[..., 4:4 + nc], extra=y[..., 4 + nc:] if payload else None,
                                       conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,

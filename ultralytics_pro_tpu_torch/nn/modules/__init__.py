@@ -1,6 +1,25 @@
-"""YOLOv8, classify and RT-DETR modules in NCHW with the torch reference's names."""
+"""YOLOv8, YOLO11, YOLOv10, YOLOv5, classify and RT-DETR modules in NCHW with the torch reference's names."""
 
-from ultralytics_pro_tpu_torch.nn.modules.block import DFL, SPPF, Bottleneck, C2f, HGBlock, HGStem, Proto, RepC3
+from ultralytics_pro_tpu_torch.nn.modules.block import (
+    C3,
+    CIB,
+    DFL,
+    PSA,
+    SPPF,
+    Attention,
+    Bottleneck,
+    C2f,
+    C2fCIB,
+    C2PSA,
+    C3k,
+    C3k2,
+    HGBlock,
+    HGStem,
+    Proto,
+    PSABlock,
+    RepC3,
+    SCDown,
+)
 from ultralytics_pro_tpu_torch.nn.modules.conv import Concat, Conv, DWConv, LightConv, RepConv, autopad
 from ultralytics_pro_tpu_torch.nn.modules.head import (
     OBB,
@@ -10,6 +29,7 @@ from ultralytics_pro_tpu_torch.nn.modules.head import (
     RTDETRDecoder,
     Segment,
     decode_single_label,
+    v10Detect,
 )
 from ultralytics_pro_tpu_torch.nn.modules.transformer import (
     AIFI,
@@ -20,7 +40,8 @@ from ultralytics_pro_tpu_torch.nn.modules.transformer import (
     TransformerEncoderLayer,
 )
 
-__all__ = ["AIFI", "C2f", "Bottleneck", "Classify", "Concat", "Conv", "DFL", "DWConv",
+__all__ = ["AIFI", "Attention", "C2PSA", "C2f", "C2fCIB", "C3", "C3k", "C3k2", "CIB", "Bottleneck", "Classify",
+           "Concat", "Conv", "DFL", "DWConv", "PSA", "PSABlock", "SCDown", "v10Detect",
            "DeformableTransformerDecoderLayer", "Detect", "HGBlock", "HGStem", "LightConv", "MLP",
            "MSDeformAttn", "MultiheadAttention", "OBB", "Pose", "Proto", "RTDETRDecoder", "RepC3", "RepConv",
            "SPPF", "Segment",

@@ -2,7 +2,14 @@
 
 Counterpart of `ultralytics_pro_tpu/nn/modules/block.py` (`Bottleneck:32`,
 `C2f:86`, `SPPF:173`, `DFL:251`, `Proto:270`, and RT-DETR's `HGStem:413`, `HGBlock:437`,
-`RepC3:505`).
+`RepC3:505`), and the v5, v10 and YOLO11 blocks (`C3:110`, `C3k:131`,
+`C3k2:147`, `Attention:287`, `PSABlock:316`, `PSA:334`, `C2PSA:352`,
+`SCDown:369`, `CIB:382`, `C2fCIB:404`).
+
+Where the JAX blocks differ from the torch reference, the port follows the
+JAX package: C3k2's plain inner Bottleneck keeps its width (e = 1.0, where
+the reference's default halves it), CIB ignores `lk` (no RepVGGDW), and
+C2PSA takes at least one head.
 """
 
 from __future__ import annotations
@@ -70,6 +77,157 @@ class C2f(nn.Module):
         for m in self.m:
             y.append(m(y[-1]))
         return self.cv2(torch.cat(y, 1))
+
+
+class C3(nn.Module):
+    """CSP bottleneck with 3 convs: cv3(cat(m(cv1(x)), cv2(x))), n bottlenecks
+    of kernels (1, 3) in `m`, an nn.Sequential (`m.0.cv1`)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5,
+                 k=((1, 1), (3, 3))):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.cv3 = Conv(2 * c_, c2, 1)
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, k=k, e=1.0) for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class C3k(C3):
+    """C3 whose bottlenecks are k x k twice."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5,
+                 k: int = 3):
+        super().__init__(c1, c2, n, shortcut, g, e, k=(k, k))
+
+
+class C3k2(C2f):
+    """YOLO11's C2f: its inner blocks are C3k (n = 2) when c3k, else
+    Bottlenecks of full width (the JAX block's e = 1.0)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False, e: float = 0.5, g: int = 1,
+                 shortcut: bool = True):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        self.m = nn.ModuleList(C3k(self.c, self.c, 2, shortcut, g) if c3k else
+                               Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0) for _ in range(n))
+
+
+class CIB(nn.Module):
+    """YOLOv10's conditional identity block: depth-wise 3x3, 1x1, depth-wise
+    3x3, 1x1, depth-wise 3x3 (`cv1.0` to `cv1.4`), with the residual when
+    shortcut and c1 == c2. `lk` is taken and ignored, as the JAX block does."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5, lk: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = nn.Sequential(Conv(c1, c1, 3, g=c1), Conv(c1, 2 * c_, 1), Conv(2 * c_, 2 * c_, 3, g=2 * c_),
+                                 Conv(2 * c_, c2, 1), Conv(c2, c2, 3, g=c2))
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return x + y if self.add else y
+
+
+class C2fCIB(C2f):
+    """C2f whose inner blocks are CIBs."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, lk: bool = False, g: int = 1,
+                 e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        self.m = nn.ModuleList(CIB(self.c, self.c, shortcut, e=1.0, lk=lk) for _ in range(n))
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention over a map's H*W positions, with a depth-wise
+    3x3 positional encoding of v (`qkv`, `pe`, `proj`).
+
+    `qkv` gives each head's q, k (key_dim each) and v (head_dim) channels in
+    turn, head after head; the JAX block splits its channel-last map the
+    same way. scale = key_dim ** -0.5."""
+
+    def __init__(self, dim: int, num_heads: int = 8, attn_ratio: float = 0.5):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = int(self.head_dim * attn_ratio)
+        self.scale = self.key_dim ** -0.5
+        self.qkv = Conv(dim, dim + 2 * self.key_dim * num_heads, 1, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+        self.pe = Conv(dim, dim, 3, 1, g=dim, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        q, k, v = self.qkv(x).view(b, self.num_heads, 2 * self.key_dim + self.head_dim, h * w).split(
+            [self.key_dim, self.key_dim, self.head_dim], dim=2)
+        attn = ((q.transpose(-2, -1) @ k) * self.scale).float().softmax(-1).to(v.dtype)
+        y = (v @ attn.transpose(-2, -1)).view(b, c, h, w) + self.pe(v.reshape(b, c, h, w))
+        return self.proj(y)
+
+
+class PSABlock(nn.Module):
+    """Attention then a 2x feed-forward (`ffn.0`, `ffn.1`), each with a residual when shortcut."""
+
+    def __init__(self, c: int, attn_ratio: float = 0.5, num_heads: int = 4, shortcut: bool = True):
+        super().__init__()
+        self.attn = Attention(c, num_heads=num_heads, attn_ratio=attn_ratio)
+        self.ffn = nn.Sequential(Conv(c, c * 2, 1), Conv(c * 2, c, 1, act=False))
+        self.add = shortcut
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(x) if self.add else self.attn(x)
+        return x + self.ffn(x) if self.add else self.ffn(x)
+
+
+class PSA(nn.Module):
+    """YOLOv10's position-sensitive attention: half the channels through
+    Attention (c // 64 heads) and a feed-forward, both with residuals."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv(2 * self.c, c2, 1)
+        self.attn = Attention(self.c, num_heads=self.c // 64, attn_ratio=0.5)
+        self.ffn = nn.Sequential(Conv(self.c, self.c * 2, 1), Conv(self.c * 2, self.c, 1, act=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.cv1(x).split((self.c, self.c), 1)
+        b = b + self.attn(b)
+        b = b + self.ffn(b)
+        return self.cv2(torch.cat((a, b), 1))
+
+
+class C2PSA(nn.Module):
+    """YOLO11's CSP block of n PSABlocks (max(1, c // 64) heads) on half the channels."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv(2 * self.c, c2, 1)
+        self.m = nn.Sequential(*(PSABlock(self.c, attn_ratio=0.5, num_heads=max(1, self.c // 64))
+                                 for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.cv1(x).split((self.c, self.c), 1)
+        return self.cv2(torch.cat((a, self.m(b)), 1))
+
+
+class SCDown(nn.Module):
+    """YOLOv10's separable downsample: a 1x1 Conv, then a depth-wise k x k
+    stride-s Conv without activation."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 2):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.cv2 = Conv(c2, c2, k, s, g=c2, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv2(self.cv1(x))
 
 
 class SPPF(nn.Module):

@@ -1,9 +1,10 @@
 """The anchor-free Detect head and its decodes, the Segment, OBB and Pose
 heads, the Classify head, and the RT-DETR decoder head.
 
-Counterpart of `ultralytics_pro_tpu/nn/modules/head.py` (`Detect:48`,
-`_decode:87`, `decode_single_label:127`, `Segment:170`, `OBB:193`,
-`Pose:222`, `Classify:418`, `RTDETRDecoder:440`). Module names follow the
+Counterpart of `ultralytics_pro_tpu/nn/modules/head.py` (`_branch:30`,
+`Detect:48`, `_decode:87`, `decode_single_label:127`, `Segment:170`,
+`OBB:193`, `Pose:222`, `Classify:418`, `RTDETRDecoder:440`,
+`v10Detect:709`). Module names follow the
 torch reference (`cv2.i.0.conv.weight`, `cv3.i.2.bias`, `dfl.conv.weight`,
 `cv4.i.2.bias`, `proto.upsample.weight`, `conv.conv.weight`,
 `linear.weight`, `decoder.layers.i.cross_attn.value_proj.weight`).
@@ -13,7 +14,8 @@ anchor-major like the JAX package's: (B, A, 4 + nc), anchors ordered level by
 level, then row by row; Segment appends nm mask coefficients and Pose the
 decoded keypoints to each anchor's row. OBB's rows are (B, A, 4 + nc + 1):
 rotated (cx, cy, w, h), the class scores, then the angle in radians. Segment's prototypes stay NCHW
-(B, nm, H/4, W/4), where the JAX package's are channel-last.
+(B, nm, H/4, W/4), where the JAX package's are channel-last. v10Detect's
+eval rows are (B, k, 6): xywh, conf, cls.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch
 from torch import nn
 
 from ultralytics_pro_tpu_torch.nn.modules.block import DFL, Proto, dfl_expectation
-from ultralytics_pro_tpu_torch.nn.modules.conv import BN_EPS, BN_MOMENTUM, BatchNorm2d, Conv
+from ultralytics_pro_tpu_torch.nn.modules.conv import BN_EPS, BN_MOMENTUM, BatchNorm2d, Conv, DWConv
 from ultralytics_pro_tpu_torch.nn.modules.transformer import LN_EPS, MLP, DeformableTransformerDecoderLayer
 from ultralytics_pro_tpu_torch.ops.anchors import dist2bbox, dist2rbox, make_anchors
 from ultralytics_pro_tpu_torch.ops.nms import _topk
@@ -38,32 +40,51 @@ def _level_boxes(dist: torch.Tensor, stride: float) -> torch.Tensor:
 
 
 class Detect(nn.Module):
-    """Anchor-free YOLOv8 detect head (legacy branch form)."""
+    """Anchor-free YOLOv8 detect head. legacy=False (a YAML with C3k2, C2fCIB
+    or v10Detect) gives each class branch the light form: DWConv 3x3 and
+    Conv 1x1, twice, then the 1x1 conv (`cv3.i.0.0`, `cv3.i.0.1`,
+    `cv3.i.1.0`, `cv3.i.1.1`, `cv3.i.2`)."""
 
-    def __init__(self, nc: int = 80, ch=(), reg_max: int = 16):
+    end2end = False
+
+    def __init__(self, nc: int = 80, ch=(), reg_max: int = 16, legacy: bool = True):
         super().__init__()
         self.nc = nc
         self.nl = len(ch)
         self.reg_max = reg_max
+        self.legacy = legacy
         self.no = nc + 4 * reg_max
         self.stride = torch.zeros(self.nl)  # set by DetectionModel once strides are known
-        c2, c3 = max(16, ch[0] // 4, reg_max * 4), max(ch[0], min(nc, 100))
-        self.cv2 = nn.ModuleList(
-            nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3), nn.Conv2d(c2, 4 * reg_max, 1))
-            for x in ch)
-        self.cv3 = nn.ModuleList(
-            nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), nn.Conv2d(c3, nc, 1)) for x in ch)
+        self.c2, self.c3 = max(16, ch[0] // 4, reg_max * 4), max(ch[0], min(nc, 100))
+        self.cv2 = nn.ModuleList(self._box_branch(x) for x in ch)
+        self.cv3 = nn.ModuleList(self._cls_branch(x) for x in ch)
         self.dfl = DFL(reg_max)
+
+    def _box_branch(self, x: int) -> nn.Sequential:
+        return nn.Sequential(Conv(x, self.c2, 3), Conv(self.c2, self.c2, 3), nn.Conv2d(self.c2, 4 * self.reg_max, 1))
+
+    def _cls_branch(self, x: int) -> nn.Sequential:
+        c3 = self.c3
+        if self.legacy:
+            return nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), nn.Conv2d(c3, self.nc, 1))
+        return nn.Sequential(nn.Sequential(DWConv(x, x, 3), Conv(x, c3, 1)),
+                             nn.Sequential(DWConv(c3, c3, 3), Conv(c3, c3, 1)), nn.Conv2d(c3, self.nc, 1))
+
+    def branch_pairs(self):
+        """(box branches, class branches) whose last convs take `bias_init`."""
+        return [(self.cv2, self.cv3)]
 
     def bias_init(self) -> None:
         """Box bias 1.0, class bias log(5 / nc / (640 / s)^2), as the reference initialises them."""
-        for a, b, s in zip(self.cv2, self.cv3, self.stride.tolist()):
-            a[-1].bias.data[:] = 1.0
-            b[-1].bias.data[: self.nc] = math.log(5 / self.nc / (640 / s) ** 2)
+        for box, cls in self.branch_pairs():
+            for a, b, s in zip(box, cls, self.stride.tolist()):
+                a[-1].bias.data[:] = 1.0
+                b[-1].bias.data[: self.nc] = math.log(5 / self.nc / (640 / s) ** 2)
 
-    def raw(self, feats):
+    def raw(self, feats, box=None, cls=None):
         """Per-level raw maps: box (4*reg_max) and class (nc) channels, concatenated."""
-        return [torch.cat([self.cv2[i](x), self.cv3[i](x)], 1) for i, x in enumerate(feats)]
+        box, cls = (self.cv2, self.cv3) if box is None else (box, cls)
+        return [torch.cat([box[i](x), cls[i](x)], 1) for i, x in enumerate(feats)]
 
     def decode(self, raw) -> torch.Tensor:
         """(B, A, 4 + nc): xywh pixel boxes and sigmoid class scores."""
@@ -80,6 +101,48 @@ class Detect(nn.Module):
         if not decode:
             return raw
         return self.decode(raw), raw
+
+
+class v10Detect(Detect):
+    """YOLOv10's NMS-free head: Detect's branches (one-to-many) and a copy of
+    them (`one2one_cv2`, `one2one_cv3`) that reads the levels detached, so
+    its loss trains its own parameters only. Always the light class branch.
+
+    Train mode (decode=False): {'feats': one-to-many raw maps, 'one2one':
+    one-to-one raw maps}, as the JAX head returns them. Eval: the one-to-one
+    maps decoded and their top min(max_det, A * nc) (anchor, class) pairs,
+    (B, k, 6) rows of xywh, conf and cls (`postprocess_topk`), with the dict
+    of both branches' maps; aux=False skips the one-to-many branch, which a
+    predict does not read, and gives None for the dict."""
+
+    end2end = True
+    max_det = 300
+
+    def __init__(self, nc: int = 80, ch=(), reg_max: int = 16, legacy: bool = False):
+        super().__init__(nc, ch, reg_max, legacy=False)  # `legacy` is taken and ignored
+        self.one2one_cv2 = nn.ModuleList(self._box_branch(x) for x in ch)
+        self.one2one_cv3 = nn.ModuleList(self._cls_branch(x) for x in ch)
+
+    def branch_pairs(self):
+        return [(self.cv2, self.cv3), (self.one2one_cv2, self.one2one_cv3)]
+
+    def forward(self, feats, decode: bool = True, aux: bool = True):
+        o2o = self.raw([f.detach() for f in feats], self.one2one_cv2, self.one2one_cv3)
+        if not decode:
+            return {"feats": self.raw(feats), "one2one": o2o}
+        y = self.postprocess_topk(self.decode(o2o))
+        return y, ({"feats": self.raw(feats), "one2one": o2o} if aux else None)
+
+    def postprocess_topk(self, y: torch.Tensor) -> torch.Tensor:
+        """(B, A, 4 + nc) -> (B, k, 6): the top k = min(max_det, A * nc)
+        scores over the flat (anchor, class) pairs, ties to the lower index as
+        `lax.top_k` breaks them (a stable descending sort), each with its
+        anchor's box and its class."""
+        b, a, no = y.shape
+        nc = no - 4
+        top, idx = _topk(y[..., 4:].reshape(b, -1), min(self.max_det, a * nc))
+        boxes = torch.gather(y[..., :4], 1, (idx // nc)[..., None].expand(-1, -1, 4))
+        return torch.cat([boxes, top[..., None], (idx % nc).to(y.dtype)[..., None]], -1)
 
 
 def _branches(ch, mid: int, out: int) -> nn.ModuleList:
@@ -101,8 +164,9 @@ class Segment(Detect):
     (B, nm, H/4, W/4)}); with decode=False (and in train mode) the dict alone.
     """
 
-    def __init__(self, nc: int = 80, ch=(), nm: int = 32, npr: int = 256, reg_max: int = 16):
-        super().__init__(nc, ch, reg_max)
+    def __init__(self, nc: int = 80, ch=(), nm: int = 32, npr: int = 256, reg_max: int = 16,
+                 legacy: bool = True):
+        super().__init__(nc, ch, reg_max, legacy)
         self.nm, self.npr = nm, npr
         self.proto = Proto(ch[0], npr, nm)
         self.cv4 = _branches(ch, max(ch[0] // 4, nm), nm)
@@ -123,8 +187,8 @@ class OBB(Detect):
     in train mode) the dict alone.
     """
 
-    def __init__(self, nc: int = 80, ch=(), ne: int = 1, reg_max: int = 16):
-        super().__init__(nc, ch, reg_max)
+    def __init__(self, nc: int = 80, ch=(), ne: int = 1, reg_max: int = 16, legacy: bool = True):
+        super().__init__(nc, ch, reg_max, legacy)
         self.ne = ne
         self.cv4 = _branches(ch, max(ch[0] // 4, ne), ne)
 
@@ -154,8 +218,8 @@ class Pose(Detect):
     in train mode) the dict alone.
     """
 
-    def __init__(self, nc: int = 80, ch=(), kpt_shape=(17, 3), reg_max: int = 16):
-        super().__init__(nc, ch, reg_max)
+    def __init__(self, nc: int = 80, ch=(), kpt_shape=(17, 3), reg_max: int = 16, legacy: bool = True):
+        super().__init__(nc, ch, reg_max, legacy)
         self.kpt_shape = tuple(kpt_shape)
         self.nk = self.kpt_shape[0] * self.kpt_shape[1]
         self.cv4 = _branches(ch, max(ch[0] // 4, self.nk), self.nk)

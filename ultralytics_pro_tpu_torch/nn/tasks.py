@@ -6,14 +6,20 @@ Counterpart of `ultralytics_pro_tpu/nn/tasks.py` (`parse_model:1126`,
 `SegmentationModel:1495`, `PoseModel:1499`, `OBBModel:1503`,
 `ClassificationModel:1507`, `model_class_for:1610`, `guess_model_task:1624`)
 for the YOLOv8 module set (Conv, C2f, SPPF, nn.Upsample, Concat, Detect,
-Segment, OBB, Pose, Classify) and
+Segment, OBB, Pose, Classify),
 RT-DETR's (DWConv, HGStem, HGBlock, RepC3, AIFI, RTDETRDecoder; builders at
-`:85`, `:260-263`, `:441-447`). Segment's args are [nc, nm, npr] with npr
-width-scaled, OBB's [nc, ne], Pose's [nc, kpt_shape] with the YAML's
-top-level `kpt_shape` substituted, as the JAX package's `parse_model` reads
-them (`:206-212`, `:1179-1181`). Any other module raises
-NotImplementedError naming it, and the detect heads of the v5 and v10 YAMLs
-name their ROADMAP queue item too.
+`:85`, `:260-263`, `:441-447`) and that of the v3-tiny, v5, v10 and YOLO11
+YAMLs (C3 `:91,236`, C3k2 `:101`, C2fCIB `:110`, PSA, C2PSA and SCDown
+`:257-259`, torch's own nn.MaxPool2d and nn.ZeroPad2d `:282-284`, v10Detect
+`:176`). As in the JAX parse_model, a YAML with C3k2, C2fCIB or v10Detect in any
+row builds its detect head with legacy=False (the pre-scan `:1152-1155`),
+and the modules of REPEAT_MODULES (`:1103-1107`) take the repeats as their
+own n while any other is stacked n times in an nn.Sequential. Segment's
+args are [nc, nm, npr] with npr width-scaled, OBB's [nc, ne], Pose's [nc,
+kpt_shape] with the YAML's top-level `kpt_shape` substituted, as the JAX
+package's `parse_model` reads them (`:206-212`, `:1179-1181`). Any other module raises
+NotImplementedError naming it, and the anchor-based head of the v5 anchor
+YAMLs names its ROADMAP queue item too.
 
 In train mode (`model.train()`) a Detect model returns the head's raw
 per-level maps, NCHW, as the JAX head returns `{"feats": raw}` when
@@ -35,18 +41,42 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ultralytics_pro_tpu_torch.nn.modules.block import SPPF, C2f, HGBlock, HGStem, RepC3
+from ultralytics_pro_tpu_torch.nn.modules.block import (
+    C3,
+    PSA,
+    SPPF,
+    C2f,
+    C2fCIB,
+    C2PSA,
+    C3k2,
+    HGBlock,
+    HGStem,
+    RepC3,
+    SCDown,
+)
 from ultralytics_pro_tpu_torch.nn.modules.conv import Concat, Conv, DWConv
-from ultralytics_pro_tpu_torch.nn.modules.head import OBB, Classify, Detect, Pose, RTDETRDecoder, Segment
+from ultralytics_pro_tpu_torch.nn.modules.head import (
+    OBB,
+    Classify,
+    Detect,
+    Pose,
+    RTDETRDecoder,
+    Segment,
+    v10Detect,
+)
 from ultralytics_pro_tpu_torch.nn.modules.transformer import AIFI, MSDeformAttn, MultiheadAttention
 from ultralytics_pro_tpu_torch.utils import LOGGER, PKG_ROOT, miniyaml
 
-SCALED = {"Conv": Conv, "DWConv": DWConv, "C2f": C2f, "SPPF": SPPF, "RepC3": RepC3}  # c2 is width-scaled
-HEADS = {"Detect": Detect, "Segment": Segment, "OBB": OBB, "Pose": Pose}
-MODULES = (*SCALED, "HGStem", "HGBlock", "AIFI", "nn.Upsample", "Concat", *HEADS, "Classify", "RTDETRDecoder")
+SCALED = {"Conv": Conv, "DWConv": DWConv, "C2f": C2f, "SPPF": SPPF, "RepC3": RepC3, "C3": C3, "C3k2": C3k2,
+          "C2fCIB": C2fCIB, "PSA": PSA, "C2PSA": C2PSA, "SCDown": SCDown}  # c2 is width-scaled
+REPEAT_MODULES = {"C2f", "RepC3", "C3", "C3k2", "C2fCIB", "C2PSA"}  # of SCALED, those whose n is the repeats
+HEADS = {"Detect": Detect, "Segment": Segment, "OBB": OBB, "Pose": Pose, "v10Detect": v10Detect}
+POOLS = {"nn.MaxPool2d": nn.MaxPool2d, "nn.ZeroPad2d": nn.ZeroPad2d}  # torch's own, args as the YAML gives them
+NON_LEGACY = {"C3k2", "C2fCIB", "v10Detect"}  # any of these in a YAML: the detect head's light class branch
+MODULES = (*SCALED, *POOLS, "HGStem", "HGBlock", "AIFI", "nn.Upsample", "Concat", *HEADS, "Classify",
+           "RTDETRDecoder")
 QUEUED = {  # heads of YAMLs the JAX package trains, and where the port takes them up
     "AnchorDetect": "ROADMAP.md queue 1 item 9 (the v5 YAMLs, with v5AnchorLoss)",
-    "v10Detect": "ROADMAP.md queue 1 item 9 (v10, with E2EDetectLoss)",
 }
 
 
@@ -77,11 +107,13 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
         chs = [ch]
         layers, save = [], []
         rows = list(d.get("backbone", [])) + list(d.get("head", []))
+        legacy = not any(len(row) == 4 and row[2] in NON_LEGACY for row in rows)
         for i, row in enumerate(rows):
             if len(row) != 4:
                 raise NotImplementedError(
                     f"malformed model-yaml row {i}: expected [from, repeats, module, args], got {row!r}")
             f, n, m_name, args = row
+            kwargs = {}
             if m_name in QUEUED:
                 raise NotImplementedError(f"module '{m_name}' (layer {i}) is not implemented in "
                                           f"ultralytics_pro_tpu_torch yet: {QUEUED[m_name]}")
@@ -97,10 +129,16 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
             if m_name in SCALED:
                 c2 = make_divisible(min(args[0], max_channels) * width, 8)
                 args = [c1, c2, *args[1:]]
-                if m_name in ("C2f", "RepC3"):  # the repeats are the block's own n
+                if m_name in REPEAT_MODULES:  # the repeats are the block's own n
                     args.insert(2, n)
                     n = 1
+                if m_name == "C3k2" and scale in ("m", "l", "x"):  # [c1, c2, n, c3k, ...]: C3k inside
+                    args = [*args[:3], True, *args[4:]]
                 m = SCALED[m_name]
+            elif m_name in POOLS:
+                c2, m = c1, POOLS[m_name]
+                if m_name == "nn.ZeroPad2d":
+                    args = [tuple(args[0])]
             elif m_name in ("HGStem", "HGBlock"):  # [cm, c2, ...], not width-scaled
                 c2, m = args[1], HGStem
                 if m_name == "HGBlock":  # [cm, c2, k, lightconv, shortcut]; n as the JAX builder takes it
@@ -117,6 +155,7 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
             elif m_name in HEADS:
                 c2, m = None, HEADS[m_name]
                 extra = []
+                kwargs = {"legacy": legacy}
                 if m_name == "Segment":  # [nc, nm, npr], npr width-scaled
                     npr = args[2] if len(args) > 2 else 256
                     extra = [args[1] if len(args) > 1 else 32, make_divisible(min(npr, max_channels) * width, 8)]
@@ -131,7 +170,7 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
             else:  # RTDETRDecoder [nc, hd, nq, ndl], as the JAX builder reads them (tasks.py:195)
                 c2, m = None, RTDETRDecoder
                 args = [args[0], [chs[x] for x in f], *args[1:4]]
-            layer = nn.Sequential(*(m(*args) for _ in range(n))) if n > 1 else m(*args)
+            layer = nn.Sequential(*(m(*args, **kwargs) for _ in range(n))) if n > 1 else m(*args, **kwargs)
             # relative sources other than -1 become absolute layer indices (-2 -> i - 2)
             layer.f = f if f == -1 else f % i if isinstance(f, int) else [x if x == -1 else x % i for x in f]
             layer.i, layer.type = i, m_name
@@ -270,6 +309,8 @@ class BaseModel(nn.Module):
         for m in self.model:
             if m.f != -1:
                 x = y[m.f] if isinstance(m.f, int) else [x if j == -1 else y[j] for j in m.f]
+            if isinstance(m, v10Detect):
+                return x if stop_at_head else m(x, decode=decode and not self.training, aux=aux)
             if isinstance(m, Detect):
                 return x if stop_at_head else m(x, decode=decode and not self.training)
             if isinstance(m, RTDETRDecoder):
@@ -282,8 +323,10 @@ class BaseModel(nn.Module):
     def forward(self, x: torch.Tensor, decode: bool = True, aux: bool = True, dn=None):
         """x (B, C, H, W) float. For a Detect model: (decoded (B, A, 4+nc), raw
         per-level maps), or the raw maps alone when decode=False or in train
-        mode; Segment, OBB and Pose models give their head's (y, dict), or
-        the dict alone (`Segment.forward`, `OBB.forward`, `Pose.forward`). For an RT-DETR model:
+        mode; a v10Detect model gives its head's (B, k, 6) rows and dict, the
+        dict None when aux=False, or the dict alone (`v10Detect.forward`);
+        Segment, OBB and Pose models give their head's (y, dict), or the dict
+        alone (`Segment.forward`, `OBB.forward`, `Pose.forward`). For an RT-DETR model:
         (y (B, nq, 4+nc), aux), aux None when aux=False, and in train mode
         aux alone, with the denoising queries `dn` when given (see
         `RTDETRDecoder.forward`; the JAX model passes `dn` to its head as

@@ -1,10 +1,11 @@
 """The YOLOv8 training criteria: task-aligned assignment, BCE on classes,
 CIoU and distribution focal loss on boxes, and the segment, pose and OBB
-terms on top.
+terms on top; YOLOv10's dual-assignment criterion over its two branches.
 
 Counterpart of `ultralytics_pro_tpu/utils/loss.py` (`bce_logits:27`,
 `df_loss:76`, `v8DetectionLoss:94`, `v8SegmentationLoss:190`,
-`v8PoseLoss:270` with `OKS_SIGMA:265`, `v8OBBLoss:375`). Batches carry padded
+`v8PoseLoss:270` with `OKS_SIGMA:265`, `v8OBBLoss:375`,
+`E2EDetectLoss:447`). Batches carry padded
 ground truth: cls (B, G), bboxes (B, G, 4) normalised xywh (obb: (B, G, 5)
 xywhr), mask_gt (B, G), and segment's masks (B, G, H/4, W/4) or pose's
 keypoints (B, G, K, 3) normalised. The head's maps come NCHW, one per level,
@@ -291,3 +292,18 @@ class v8OBBLoss(v8DetectionLoss):
         loss_dfl = self.dfl_term(pred_distri, anchor_points, xywh2xyxy(tb[..., :4]), weight, target_scores_sum)
         return self.total({"box": loss_iou * self.box_gain, "cls": loss_cls * self.cls_gain,
                            "dfl": loss_dfl * self.dfl_gain}, pred_scores.shape[0])
+
+
+class E2EDetectLoss:
+    """YOLOv10's dual assignment: v8DetectionLoss with tal_topk = 10 on the
+    one-to-many maps plus tal_topk = 1 on the one-to-one maps; the total is
+    their sum, the parts `o2m_*` and `o2o_*`."""
+
+    def __init__(self, nc: int, reg_max: int, strides, hyp: Dict | None = None):
+        self.one2many = v8DetectionLoss(nc, reg_max, strides, hyp, tal_topk=10)
+        self.one2one = v8DetectionLoss(nc, reg_max, strides, hyp, tal_topk=1)
+
+    def __call__(self, preds: Dict[str, List[torch.Tensor]], batch: Dict, imgsz_hw) -> Tuple[torch.Tensor, Dict]:
+        t1, p1 = self.one2many(preds["feats"], batch, imgsz_hw)
+        t2, p2 = self.one2one(preds["one2one"], batch, imgsz_hw)
+        return t1 + t2, {**{f"o2m_{k}": v for k, v in p1.items()}, **{f"o2o_{k}": v for k, v in p2.items()}}
