@@ -217,32 +217,39 @@ exits non-zero):
           FLOP share)
   zoo_predict  YOLO("yolo11s.yaml"), "yolov10s.yaml", "yolov5s.yaml" and
           "yolov3-tiny.yaml" (80 classes, seeded weights) predict on the 4
-          images at 640 px with conf 1e-6: K1's launches around the call (one
-          an image; yolov10s is end-to-end and must reach no NMS at all), the
-          detections checked; warm latency per image over ZOO_CALLS calls,
-          the idle share, launches an image and K1's ms a launch from one
-          profiled window, the device function's images/s at batch 16; card
-          against CPU on one image (decoded outputs within ZOO_PARITY_TOL,
-          NMS on the CPU's decode equal on both devices; yolov10s: its
-          one-to-one decode, and the top-300 rows of the CPU's decode taken
-          on both devices, equal); K1 on the 4 images' captured rows (K =
-          8400; yolov3-tiny's two levels K = 2,000) bit for bit against its
-          plain version, timed, with its bound
-  zoo_val yolo11s and yolov10s val at 640 on the val phase's 128 images
-          (batch 16, conf 1e-6): images/s, K1's launches (8 for yolo11s, 0
-          and no NMS for yolov10s), idle share and K1's ms a launch from one
-          profiled call, K1 on yolo11s's first batch of rows; card against
-          CPU on the first 16 images, every mAP within ZOO_VAL_TOL
-  zoo_train_parity  one optimizer step of seeded yolo11n and yolov10n (nc 3;
-          yolov10n with E2EDetectLoss) on 8 fixture images at 160 px, batch
-          8, nbs 8, on the card and on the CPU, within TRAIN_PARITY_TOL
-  zoo_train  yolo11s and yolov10s as phase train: 640 px, batch 16, 2 epochs
-          on 128 images with the epoch-end val (K1 16 launches for yolo11s,
-          none for yolov10s), train images/s in epoch 2, device ms a
-          micro-batch, the idle share, the criterion's device ms and
-          launches, K1's ms a launch from one more profiled val, and K1 on
-          the rows of another val of yolo11s bit for bit against its plain
-          version, timed, with its bound
+          images at 640 px with conf 1e-6, and yolov8s-p6 at 1280 px (K =
+          30000 cut from 34,000 anchors), yolov6s, yolov3-spp, yoloX
+          at scale s (six maps), yolov9c, yolo12s, yolov5-anchor (the anchor
+          head: K = 25,200) and gelan-c-dseg (segment, DSegment) at 640: K1's
+          launches around the call (one an image; yolov10s is end-to-end and
+          must reach no NMS at all), the detections checked; warm latency per
+          image over the model's ZOO_CALLS timed calls, the idle share,
+          launches an image and K1's ms a launch from its profiled window, the device
+          function's images/s at batch 16; card against CPU on one image
+          (decoded outputs within ZOO_PARITY_TOL, a segment head's mask
+          coefficients and prototypes too; NMS on the CPU's decode equal on
+          both devices; yolov10s: its one-to-one decode, and the top-300 rows
+          of the CPU's decode taken on both devices, equal); K1 on the 4
+          images' captured rows bit for bit against its plain version, timed,
+          with its bound
+  zoo_val yolo11s, yolov10s, yolov5-anchor, yolov9c and gelan-c-dseg (on
+          the segment set) val at 640 on the val phase's 128 images (batch
+          16, conf 1e-6): images/s, K1's launches (8, none and no NMS for
+          yolov10s), idle share and K1's ms a launch from one profiled call,
+          K1 on each first batch of rows (K = 30000); card against CPU on the
+          first 16 images, every mAP within ZOO_VAL_TOL
+  zoo_train_parity  one optimizer step of seeded yolo11n, yolov10n (with
+          E2EDetectLoss), yolov5-anchor (v5AnchorLoss), yolo12n and
+          gelan-c-dseg (nc 3) on 8 fixture images at 160 px, batch 8, nbs 8,
+          on the card and on the CPU, within ZOO_TRAIN_PARITY_TOL
+          (gelan-c-dseg in float64 on both: ZOO_TRAIN_PARITY_DTYPE)
+  zoo_train  yolo11s, yolov10s, yolov5-anchor and gelan-c-dseg (segment) as
+          phase train: 640 px, batch 16, 2 epochs on 128 images with the
+          epoch-end val (K1 16 launches, none for yolov10s), train images/s
+          in epoch 2, device ms a micro-batch, the idle share, the
+          criterion's device ms and launches, K1's ms a launch from one more
+          profiled val, and K1 on the rows of another val bit for bit
+          against its plain version, timed, with its bound
   kernels the per-kernel summary line
 The last line is {"ok": true, "device": {...}}.
 """
@@ -361,19 +368,36 @@ CLS_SET = "torch_cls_synth"  # the classify fixture set: 3 classes, 24 train and
 # The YOLO11, YOLOv10, YOLOv5 and YOLOv3-tiny detect families at full width
 # (scale s; v3-tiny has no scales), 640 px, seeded weights, 80 classes.
 # yolov10s is end-to-end: no NMS, so neither K1 nor its plain version runs.
-ZOO_PREDICT = ("yolo11s", "yolov10s", "yolov5s", "yolov3-tiny")
-ZOO_VAL = ("yolo11s", "yolov10s")
-ZOO_TRAIN_PARITY = ("yolo11n", "yolov10n")  # at 160 px, nc 3, seeded
-ZOO_TRAIN = ("yolo11s", "yolov10s")
-ZOO_CALLS = 10  # timed warm predict calls of the 4 images a model
-ZOO_PROFILED_CALLS = 3
+# A zoo model is named by its YAML (f"{name}.yaml", the scale in the name, at
+# 640 px) unless ZOO_SPECS gives its YAML, scale and image size; its task is
+# its head's. The fixed-width YAMLs (yolov9c, gelan-c-dseg, yolov5-anchor with
+# the s multiples, yolov3-spp) run at their own widths.
+ZOO_SPECS = {"yolov8s-p6": ("yolov8s-p6.yaml", None, 1280), "yoloX-s": ("yoloX.yaml", "s", 640)}
+ZOO_PREDICT = ("yolo11s", "yolov10s", "yolov5s", "yolov3-tiny", "yolov8s-p6", "yolov6s", "yolov3-spp", "yoloX-s",
+               "yolov9c", "yolo12s", "yolov5-anchor", "gelan-c-dseg")
+ZOO_VAL = ("yolo11s", "yolov10s", "yolov5-anchor", "yolov9c", "gelan-c-dseg")
+ZOO_TRAIN_PARITY = ("yolo11n", "yolov10n", "yolov5-anchor", "yolo12n", "gelan-c-dseg")  # at 160 px, nc 3, seeded
+ZOO_TRAIN = ("yolo11s", "yolov10s", "yolov5-anchor", "gelan-c-dseg")
+# a model's timed warm predict calls of the 4 images, and its profiled ones:
+# the YOLO11/v10/v5/v3-tiny models at their counts, the later ones fewer
+ZOO_CALLS = dict.fromkeys(ZOO_PREDICT[:4], (10, 3))
+ZOO_CALLS_DEFAULT = (3, 1)
+ZOO_SRC = {"detect": "torch_val_synth", "segment": "torch_val_synth_segment"}  # a task's fixture set
 ZOO_PARITY_TOL = {"boxes_px": 1e-3, "scores": 1e-4}  # card vs CPU, decoded outputs of one image at 640 px
+# (the mask coefficients and prototypes of a segment head: `scores` of their largest magnitude)
 ZOO_VAL_TOL = 1e-4  # card vs CPU, each mAP of a zoo model's val of 16 images (rtdetr_val's RTDETR_VAL_TOL["map"])
 # zoo_train_parity, card vs CPU after one step, measured as rtdetr_step_diffs does:
 # TRAIN_PARITY_TOL's bounds, the momentum's 2e-3 on the tree and on every leaf
 # above MOMENTUM_LEAF_FLOOR (readings: under 3e-4; the leaves whose gradient
 # is 0 but for rounding sit below 3e-9 of the largest leaf's norm)
 ZOO_TRAIN_PARITY_TOL = {**TRAIN_PARITY_TOL, "momentum_leaf": TRAIN_PARITY_TOL["momentum_buffer"]}
+# The step's dtype on both devices, float32 unless named here. gelan-c-dseg's
+# BN scales of layers 16 and 18 (1e-5 of the largest leaf's norm) are beyond
+# float32's reach at the leaf bound: the CPU's own float32 step is 5.8e-3 from
+# its float64 step there, and the card's (cuDNN off or on) 3.7e-3 to 4.4e-3
+# (tools/torch_zoo_step_precision.py). In float64 both devices resolve the
+# step, so the bounds above hold it as they hold the float32 steps of the rest.
+ZOO_TRAIN_PARITY_DTYPE = {"gelan-c-dseg": torch.float64}
 
 
 def emit(phase: str, **fields) -> None:
@@ -490,7 +514,8 @@ def profile_window(fn, reps: int, warmup: int = 2, ops=(), top: int = 12, scope:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     by_cat, kernels, compares = {}, [], 0
-    for ev in prof.key_averages():
+    averages = prof.key_averages()
+    for ev in averages:
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0.0)
@@ -519,7 +544,7 @@ def profile_window(fn, reps: int, warmup: int = 2, ops=(), top: int = 12, scope:
     busy = sum(by_cat.values()) or None
     kernels.sort(reverse=True)
     op_times = {}
-    for ev in prof.key_averages():
+    for ev in averages:
         if ev.key in ops:
             dev_us = getattr(ev, "device_time_total", None)
             if dev_us is None:
@@ -1089,14 +1114,15 @@ def val_set_640(root: Path, src: str = "torch_val_synth", nc: int = 80, copies: 
 
 
 def val_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str, model_name: str = "yolov8s",
-             src: str = "torch_val_synth"):
-    """model_name val at 640 on 128 images of the fixture set src. Returns the
-    phase's line and what `capture_k1` recorded of the first batch in the
-    warm-up call (K1's rows and the gather around it; nothing for an
-    end-to-end model, whose val must reach no NMS)."""
+             src: str = "torch_val_synth", model=None):
+    """model_name val at 640 on 128 images of the fixture set src (model: the
+    card's model of that name, if already built). Returns the phase's line
+    and what `capture_k1` recorded of the first batch in the warm-up call
+    (K1's rows and the gather around it; nothing for an end-to-end model,
+    whose val must reach no NMS)."""
     data = val_set_640(tmp / f"{src}_640", src)
     kw = dict(data=str(data), imgsz=VAL_IMGSZ, batch=VAL_BATCH, conf=CONF, iou=0.7, max_det=300)
-    model = YOLO(f"{model_name}.yaml", device="cuda", seed=0)
+    model = model or YOLO(f"{model_name}.yaml", device="cuda", seed=0)
     end2end = model.model.model[-1].end2end
 
     with capture_k1(ops_nms) as cap:  # warm-up call: cuDNN, allocator, and the rows
@@ -2469,18 +2495,44 @@ def cls_train(YOLO, tmp: Path, card: str, smi: str) -> dict:
     return info
 
 
-def zoo_parity(YOLO, ops_nms, full_f32, name: str, model, batch) -> dict:
-    """The same seeded weights on the card and on the CPU, full f32, on the
+def zoo_spec(name: str) -> tuple:
+    """(YAML, scale or None, image size) of a zoo model."""
+    return ZOO_SPECS.get(name, (f"{name}.yaml", None, 640))
+
+
+def zoo_task(name: str) -> str:
+    """A zoo model's task, from its YAML's head."""
+    from ultralytics_pro_tpu_torch.nn.tasks import guess_model_task
+
+    return guess_model_task(zoo_spec(name)[0])
+
+
+def zoo_yolo(YOLO, name: str, device: str, **over):
+    """A zoo model, seed 0, on device; `over` overrides its YAML's keys (nc)."""
+    from ultralytics_pro_tpu_torch.nn.tasks import yaml_model_load
+
+    src, scale, _ = zoo_spec(name)
+    if scale:
+        over["scale"] = scale
+    return YOLO({**yaml_model_load(src), **over} if over else src, device=device, seed=0)
+
+
+def zoo_parity(YOLO, ops_nms, full_f32, name: str, model, batch, cpu=None) -> dict:
+    """The same seeded weights on the card and on the CPU (cpu, or the zoo
+    model name built there), full f32, on the
     first letterboxed image: the decoded outputs within ZOO_PARITY_TOL
-    (yolov10s: its one-to-one branch decoded, every anchor), and the final
-    boxes: NMS on the CPU's decoded outputs on both devices equal (K1
-    against the CPU's plain version; for yolov10s the top-300 rows of the
-    CPU's decode taken on both devices, equal, and the rows whose anchor
-    and class differ between the two devices' own rows counted)."""
+    (yolov10s: its one-to-one branch decoded, every anchor; a segment head's
+    mask coefficients and prototypes too), and the final boxes: NMS on the
+    CPU's decoded outputs on both devices equal (K1 against the CPU's plain
+    version; the fused single-label NMS for a head whose fused_single_label
+    is set (Detect), the generic one, with the mask coefficients as
+    payload, for the others, as the predictors run them; for yolov10s the top-300 rows of the CPU's decode
+    taken on both devices, equal, and the rows whose anchor and class differ
+    between the two devices' own rows counted)."""
     from ultralytics_pro_tpu_torch.engine.predictor import rgb01
     from ultralytics_pro_tpu_torch.nn.modules.head import decode_single_label
 
-    cpu = YOLO(f"{name}.yaml", device="cpu", seed=0)
+    cpu = cpu or zoo_yolo(YOLO, name, "cpu")
     for (k, a), b in zip(model.model.state_dict().items(), cpu.model.state_dict().values()):
         if not torch.equal(a.cpu(), b):
             raise AssertionError(f"{name}: seeded weights differ between devices at {k}")
@@ -2493,10 +2545,16 @@ def zoo_parity(YOLO, ops_nms, full_f32, name: str, model, batch) -> dict:
             dense_gpu, dense_cpu = head.decode(aux_gpu["one2one"]).cpu(), cpu_head.decode(aux_cpu["one2one"])
         else:
             dense_gpu, dense_cpu = y_gpu.cpu(), y_cpu
+    nc = cpu_head.nc
     box_err = float((dense_gpu[..., :4] - dense_cpu[..., :4]).abs().max())
-    score_err = float((dense_gpu[..., 4:] - dense_cpu[..., 4:]).abs().max())
+    score_err = float((dense_gpu[..., 4:4 + nc] - dense_cpu[..., 4:4 + nc]).abs().max())
     info = dict(decoded_shape=list(dense_cpu.shape), max_abs_box_err_px=box_err, max_abs_score_err=score_err,
                 tolerance=ZOO_PARITY_TOL)
+    extra_rel = 0.0
+    if dense_cpu.shape[-1] > 4 + nc:  # mask coefficients, and the prototypes beside them
+        pairs = [(dense_gpu[..., 4 + nc:], dense_cpu[..., 4 + nc:]), (aux_gpu["protos"].cpu(), aux_cpu["protos"])]
+        extra_rel = max(float((g - c).abs().max() / c.abs().max()) for g, c in pairs)
+        info["max_rel_mask_coef_and_proto_err"] = extra_rel
     if head.end2end:
         final_gpu = head.postprocess_topk(dense_cpu.cuda()).cpu()
         final_cpu = cpu_head.postprocess_topk(dense_cpu)
@@ -2504,35 +2562,44 @@ def zoo_parity(YOLO, ops_nms, full_f32, name: str, model, batch) -> dict:
         info["own_rows_anchor_or_class_differ"] = int((y_gpu.cpu()[..., 5] != y_cpu[..., 5]).sum())
         info["rows"] = list(final_cpu.shape)
     else:
-        b4, cf, cl = decode_single_label(aux_cpu, cpu_head.stride.tolist(), cpu_head.nc)
         kw = dict(conf_thres=CONF, iou_thres=0.7, max_det=300)
-        out_cpu = ops_nms.non_max_suppression_fused(b4, cf, cl, **kw)
-        out_gpu = ops_nms.non_max_suppression_fused(b4.cuda(), cf.cuda(), cl.cuda(), **kw)
+        if cpu_head.fused_single_label:
+            b4, cf, cl = decode_single_label(aux_cpu, cpu_head.stride.tolist(), nc)
+            out_cpu = ops_nms.non_max_suppression_fused(b4, cf, cl, **kw)
+            out_gpu = ops_nms.non_max_suppression_fused(b4.cuda(), cf.cuda(), cl.cuda(), **kw)
+        else:
+            parts = (dense_cpu[..., :4], dense_cpu[..., 4:4 + nc],
+                     dense_cpu[..., 4 + nc:] if dense_cpu.shape[-1] > 4 + nc else None)
+            out_cpu = ops_nms.non_max_suppression(*parts, **kw)
+            out_gpu = ops_nms.non_max_suppression(*(None if p is None else p.cuda() for p in parts), **kw)
         info["final_rows_mismatch"] = sum(int((out_gpu[k].cpu() != out_cpu[k]).sum()) for k in out_cpu)
         info["kept"] = int(out_cpu["valid"].sum())
-    if not (box_err <= ZOO_PARITY_TOL["boxes_px"] and score_err <= ZOO_PARITY_TOL["scores"]) \
-            or info["final_rows_mismatch"]:
+    if not (box_err <= ZOO_PARITY_TOL["boxes_px"] and score_err <= ZOO_PARITY_TOL["scores"]
+            and extra_rel <= ZOO_PARITY_TOL["scores"]) or info["final_rows_mismatch"]:
         raise AssertionError(f"{name} card vs CPU: {info}")
     return info
 
 
 def zoo_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name: str, card: str, smi: str) -> dict:
-    """One zoo model's predict at 640 on the 4 seeded images, conf 1e-6: K1's
-    launches read around the call (one an image; none for yolov10s, whose
-    call must reach no NMS at all), the detections checked; warm latency an
-    image over ZOO_CALLS calls, the idle share, launches an image and K1's
-    device ms a launch from one profiled window; the device function's
-    images/s at batch 16; card against CPU (zoo_parity); and, where NMS
-    runs, K1 on the 4 images' captured rows bit for bit against its plain
-    version, timed, with its bound (captured_k1)."""
+    """One zoo model's predict at its image size on the 4 seeded images, conf
+    1e-6: K1's launches read around the call (one an image; none for
+    yolov10s, whose call must reach no NMS at all), the detections checked;
+    warm latency an image over the model's ZOO_CALLS calls, the idle share,
+    launches an image and K1's device ms a launch from one profiled window;
+    the device function's images/s at batch 16; card against CPU
+    (zoo_parity); and, where NMS runs, K1 on the 4 images' captured rows bit
+    for bit against its plain version, timed, with its bound (captured_k1)."""
+    t_model = time.perf_counter()
     imgs = seeded_images()
-    model = YOLO(f"{name}.yaml", device="cuda", seed=0)
+    imgsz = zoo_spec(name)[2]
+    calls, profiled = ZOO_CALLS.get(name, ZOO_CALLS_DEFAULT)
+    model = zoo_yolo(YOLO, name, "cuda")
     end2end = model.model.model[-1].end2end
-    model.predict(imgs[:1], conf=CONF)  # first call: cuDNN and allocator set-up
+    model.predict(imgs[:1], conf=CONF, imgsz=imgsz)  # first call: cuDNN and allocator set-up
     torch.cuda.synchronize()
     nms_cuda.launches = 0
     with capture_k1(ops_nms) as cap:
-        results = model.predict(imgs, conf=CONF)
+        results = model.predict(imgs, conf=CONF, imgsz=imgsz)
         torch.cuda.synchronize()
     launches = nms_cuda.launches
     want = 0 if end2end else len(imgs)
@@ -2541,20 +2608,21 @@ def zoo_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name: str, card: str, smi
                              f"NMS reached: {bool(cap)}")
     dets = check_detections(results, imgs)
     per_image = []
-    for _ in range(ZOO_CALLS):
+    for _ in range(calls):
         t0 = time.perf_counter()
-        model.predict(imgs, conf=CONF)
+        model.predict(imgs, conf=CONF, imgsz=imgsz)
         per_image.append((time.perf_counter() - t0) * 1e3 / len(imgs))
     q = np.percentile(per_image, [0, 10, 50, 90, 100])
-    prof = profile_window(lambda: model.predict(imgs, conf=CONF), ZOO_PROFILED_CALLS)
+    prof = profile_window(lambda: model.predict(imgs, conf=CONF, imgsz=imgsz), profiled)
     call_ms = q[2] * len(imgs)
     busy = prof["device_busy_ms_per_call"]
     pred = model.predictor
     batch = pred.preprocess(imgs)
     ms16 = cuda_ms(lambda: pred.run(batch.repeat(4, 1, 1, 1)), iters=5)
-    info = dict(model=name, parameters=sum(p.numel() for p in model.model.parameters()),
-                stride=model.model.stride.tolist(), end2end=end2end, imgsz=640, conf=CONF, k1_launches=launches,
-                detections=dets, predict_calls=ZOO_CALLS,
+    info = dict(model=name, yaml=zoo_spec(name)[0], task=model.task, head=type(model.model.model[-1]).__name__,
+                parameters=sum(p.numel() for p in model.model.parameters()),
+                stride=model.model.stride.tolist(), end2end=end2end, imgsz=imgsz, conf=CONF, k1_launches=launches,
+                detections=dets, predict_calls=calls,
                 predict_ms_per_image={"median": q[2], "p10": q[1], "p90": q[3], "min": q[0], "max": q[4]},
                 predict_median_ms_per_call=call_ms, device_busy_ms_per_call=busy,
                 device_idle_share=None if busy is None else max(0.0, 1 - busy / call_ms),
@@ -2566,6 +2634,7 @@ def zoo_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name: str, card: str, smi
         with capture_k1(ops_nms) as cap:  # one batch of the 4 images: K1's rows and the gather around it
             pred.run(batch)
         info["k1_on_batch_rows"] = captured_k1(ops_nms, nms_cuda, cap, card, smi)
+    info["seconds"] = time.perf_counter() - t_model
     return info
 
 
@@ -2580,7 +2649,7 @@ def zoo_val_parity(YOLO, model, name: str, data16: Path) -> dict:
     kw = dict(imgsz=VAL_IMGSZ, batch=VAL_BATCH, conf=CONF, iou=0.7, max_det=300)
     maps = {}
     for device in ("cuda", "cpu"):
-        m = model if device == "cuda" else YOLO(f"{name}.yaml", device="cpu", seed=0)
+        m = model if device == "cuda" else zoo_yolo(YOLO, name, "cpu")
         t0 = time.perf_counter()
         r = m.val(data=str(data16), **kw)
         maps[device] = {"map50": float(r.box.map50), "map50_95": float(r.box.map), "precision": float(r.box.mp),
@@ -2594,45 +2663,71 @@ def zoo_val_parity(YOLO, model, name: str, data16: Path) -> dict:
 
 
 def zoo_val(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
-    """yolo11s and yolov10s as phase val (val_path: K1 once a batch for
-    yolo11s, no NMS for yolov10s), K1 on yolo11s's first batch of rows
+    """The ZOO_VAL models as phase val on their task's fixture set (val_path:
+    K1 once a batch, no NMS for yolov10s), K1 on each first batch of rows
     (captured_k1), and card against CPU on 16 images (zoo_val_parity)."""
-    data16 = val_set_640(tmp / "zoo_val_16", copies=1)
     models = {}
     for name in ZOO_VAL:
-        info, cap = val_path(YOLO, nms_cuda, ops_nms, tmp / name, card, smi, name)
-        info["parity"] = zoo_val_parity(YOLO, YOLO(f"{name}.yaml", device="cuda", seed=0), name, data16)
+        t0 = time.perf_counter()
+        src = ZOO_SRC[zoo_task(name)]
+        data16 = val_set_640(tmp / f"zoo_val_16_{name}", src, copies=1)
+        model = zoo_yolo(YOLO, name, "cuda")
+        info, cap = val_path(YOLO, nms_cuda, ops_nms, tmp / name, card, smi, name, src, model)
+        info["parity"] = zoo_val_parity(YOLO, model, name, data16)
         if cap:
             info["k1_on_batch_rows"] = captured_k1(ops_nms, nms_cuda, cap, card, smi)
+        info["seconds"] = time.perf_counter() - t0
         models[name] = info
     return {"models": models, "card": card, "nvidia_smi": smi}
 
 
-def zoo_train_parity(YOLO, yaml_model_load, load_pickle, tmp: Path, card: str, smi: str) -> dict:
-    """One optimizer step of yolo11n and yolov10n (seeded, nc 3) on 8 fixture
-    images at 160 px, batch 8, nbs 8, no warmup, no val, through
-    YOLO(...).train on the card and on the CPU; yolov10n trains with
-    E2EDetectLoss. Held within ZOO_TRAIN_PARITY_TOL as rtdetr_step_diffs
-    measures them (params, EMA and BN statistics against the tree's largest
-    magnitude, the momentum buffers as relative L2 distances): the attention
-    and activation-free convs of C2PSA, PSA, SCDown and the light head
-    leave biases whose gradient is 0 but for rounding (a per-channel shift
-    that the next train-mode BatchNorm removes, or a key bias that softmax
-    ignores), so no tensor is held against its own largest value. The five
-    momentum leaves furthest from the CPU's are reported with their norm's
-    share of the largest leaf's."""
-    data = fixture_train_set(tmp / "zoo_train_parity_set", TRAIN_PARITY_IMAGES)
+def zoo_one_step(YOLO, load_pickle, tmp: Path, name: str, device: str, dtype: torch.dtype = torch.float32):
+    """One optimizer step of the seeded zoo model name at nc 3, the model and
+    the images in dtype, on 8 images of its task's fixture set at 160 px,
+    batch 8, nbs 8, no warmup, no val, through YOLO(...).train. Returns
+    ((loss parts, last.ckpt), the model)."""
+    from ultralytics_pro_tpu_torch.engine.trainer import BaseTrainer
+
+    model = zoo_yolo(YOLO, name, device, nc=3)
+    model.model.to(dtype)
+    src = ZOO_SRC[model.task]
+    data = tmp / f"zoo_train_parity_{src}" / "data.yaml"
+    if not data.exists():
+        fixture_train_set(data.parent, TRAIN_PARITY_IMAGES, src)
+    put = BaseTrainer.put_batch
+    BaseTrainer.put_batch = lambda self, batch: {**(out := put(self, batch)), "img": out["img"].to(dtype)}
+    try:
+        model.train(data=str(data), epochs=1, imgsz=160, batch=TRAIN_PARITY_IMAGES, nbs=TRAIN_PARITY_IMAGES,
+                    warmup_epochs=0.0, val=False, workers=4, max_gt=32,
+                    project=str(tmp / f"zoo_{name}_{device}_{str(dtype)[6:]}"))
+    finally:
+        BaseTrainer.put_batch = put
+    tr = model.trainer
+    if tr.opt_steps != 1:
+        raise AssertionError(f"{name} on {device}: {tr.opt_steps} optimizer steps, want 1")
+    return (tr.loss_history[0], load_pickle(tr.wdir / "last.ckpt")), model
+
+
+def zoo_train_parity(YOLO, load_pickle, tmp: Path, card: str, smi: str) -> dict:
+    """zoo_one_step of each ZOO_TRAIN_PARITY model on the card and on the
+    CPU, in its ZOO_TRAIN_PARITY_DTYPE; yolov10n trains with E2EDetectLoss, yolov5-anchor with
+    v5AnchorLoss, gelan-c-dseg with v8SegmentationLoss. Held within
+    ZOO_TRAIN_PARITY_TOL as rtdetr_step_diffs measures them (params, EMA
+    and BN statistics against the tree's largest magnitude, the momentum
+    buffers as relative L2 distances): the attention and activation-free
+    convs of C2PSA, PSA, SCDown and the light head leave biases whose
+    gradient is 0 but for rounding (a per-channel shift that the next
+    train-mode BatchNorm removes, or a key bias that softmax ignores), so no
+    tensor is held against its own largest value. The five momentum leaves
+    furthest from the CPU's are reported with their norm's share of the
+    largest leaf's."""
     out = {}
     for name in ZOO_TRAIN_PARITY:
-        runs = []
-        for device in ("cuda", "cpu"):
-            model = YOLO({**yaml_model_load(f"{name}.yaml"), "nc": 3}, device=device, seed=0)
-            model.train(data=str(data), epochs=1, imgsz=160, batch=TRAIN_PARITY_IMAGES, nbs=TRAIN_PARITY_IMAGES,
-                        warmup_epochs=0.0, val=False, workers=4, max_gt=32, project=str(tmp / f"zoo_{name}_{device}"))
-            tr = model.trainer
-            if tr.opt_steps != 1:
-                raise AssertionError(f"{name} on {device}: {tr.opt_steps} optimizer steps, want 1")
-            runs.append((tr.loss_history[0], load_pickle(tr.wdir / "last.ckpt")))
+        t0 = time.perf_counter()
+        dtype = ZOO_TRAIN_PARITY_DTYPE.get(name, torch.float32)
+        card_run, _ = zoo_one_step(YOLO, load_pickle, tmp, name, "cuda", dtype)
+        cpu_run, model = zoo_one_step(YOLO, load_pickle, tmp, name, "cpu", dtype)
+        runs = [card_run, cpu_run]
         diffs = rtdetr_step_diffs(*runs)
         got, want = dict(tree_leaves(runs[0][1]["momentum_buffer"])), dict(tree_leaves(runs[1][1]["momentum_buffer"]))
         norm = {k: float(np.linalg.norm(w)) for k, w in want.items()}
@@ -2641,9 +2736,10 @@ def zoo_train_parity(YOLO, yaml_model_load, load_pickle, tmp: Path, card: str, s
                         for k, w in want.items()), reverse=True)[:5]
         bad = {k: v for k, v in diffs.items()
                if not v[0] <= ZOO_TRAIN_PARITY_TOL["loss" if k.startswith("loss") else k]}
-        out[name] = {"criterion": type(model.trainer.criterion).__name__, "loss_card": runs[0][0],
-                     "loss_cpu": runs[1][0], "max_diff": diffs,
+        out[name] = {"criterion": type(model.trainer.criterion).__name__, "task": model.task, "dtype": str(dtype),
+                     "loss_card": runs[0][0], "loss_cpu": runs[1][0], "max_diff": diffs,
                      "momentum_leaves_furthest": [{"rel_l2": d, "leaf": k, "norm_share": n} for d, k, n in worst]}
+        out[name]["seconds"] = time.perf_counter() - t0
         if bad:
             raise AssertionError(f"{name} card vs CPU after one step beyond {ZOO_TRAIN_PARITY_TOL}: {bad}; {out[name]}")
     return {"models": out, "images": TRAIN_PARITY_IMAGES, "imgsz": 160, "batch": TRAIN_PARITY_IMAGES,
@@ -2653,15 +2749,17 @@ def zoo_train_parity(YOLO, yaml_model_load, load_pickle, tmp: Path, card: str, s
 
 
 def zoo_train(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
-    """yolo11s and yolov10s as phase train (train_run, micro_batch_measures):
-    640 px, batch 16, 2 epochs on 128 images with the epoch-end val, K1's
-    launches counted there (yolov10s: none), K1's device ms a launch from a
-    profile of one more val of the trained model, and, as phase train does,
-    K1 on the rows of another such val held to its plain version, timed,
-    with its bound (val_k1)."""
+    """The ZOO_TRAIN models as phase train, or seg_train for a segment model
+    (train_run, micro_batch_measures): 640 px, batch 16, 2 epochs on 128
+    images of the task's fixture set with the epoch-end val, K1's launches
+    counted there (yolov10s: none), K1's device ms a launch from a profile
+    of one more val of the trained model, and, as phase train does, K1 on the
+    rows of another such val held to its plain version, timed, with its
+    bound (val_k1)."""
     out = {}
     for name in ZOO_TRAIN:
-        tr, data, info = train_run(YOLO, nms_cuda, tmp, served=name)
+        t0 = time.perf_counter()
+        tr, data, info = train_run(YOLO, nms_cuda, tmp, task=zoo_task(name), served=name)
         info["criterion"] = type(tr.criterion).__name__
         info.update(micro_batch_measures(tr, det_host_batch(tr, data, TRAIN_IMGSZ), TRAIN_IMGSZ))
         vprof = profile_window(lambda: tr.val_fn(tr.model), reps=1, warmup=0)
@@ -2672,6 +2770,7 @@ def zoo_train(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
             with capture_k1(ops_nms) as cap:
                 tr.val_fn(tr.model)
             info["k1_on_val_rows"] = val_k1(nms_cuda, cap["rows"], card, smi)
+        info["seconds"] = time.perf_counter() - t0
         out[name] = info
     return {"models": out, "card": card, "nvidia_smi": smi}
 
@@ -2853,7 +2952,7 @@ def main() -> int:
         zv = zoo_val(YOLO, nms_cuda, ops_nms, Path(tmp), card, smi)
         emit("zoo_val", **zv, seconds=time.perf_counter() - t)
         t = time.perf_counter()
-        emit("zoo_train_parity", **zoo_train_parity(YOLO, yaml_model_load, load_pickle, Path(tmp), card, smi),
+        emit("zoo_train_parity", **zoo_train_parity(YOLO, load_pickle, Path(tmp), card, smi),
              seconds=time.perf_counter() - t)
         t = time.perf_counter()
         zt = zoo_train(YOLO, nms_cuda, ops_nms, Path(tmp), card, smi)

@@ -6,9 +6,10 @@ segment and pose rows with their payload, the OBB task's rotated NMS
 criteria, forward and backward, on the card against the CPU, classify
 predict and val and rtdetr-l val (K2 on the val path) against the CPU, K2's
 backward kernel against the plain version's autograd, a narrow RT-DETR
-training epoch through K2 forward and backward, and the YOLO11 and YOLOv10
-forwards and predicts on the card against the CPU (v10 without NMS) with K1
-on yolov3-tiny's two-level rows.
+training epoch through K2 forward and backward, the YOLO11, YOLOv10, v5
+anchor-head, YOLO12 and GELAN-DSegment forwards and predicts on the card
+against the CPU (v10 without NMS), and K1 on yolov3-tiny's two-level rows
+and on the anchor head's 25,200-candidate rows.
 
 These tests need a card and nvcc, and import neither JAX nor the JAX package
 nor `tests/conftest.py` (which imports JAX), so they run on a machine that has
@@ -632,6 +633,58 @@ def test_k1_on_yolov3_tiny_rows_equals_plain(card):
     assert nms_cuda.launches == before + 1 and 0 < len(res[0]) <= 300
     boxes, scores = cap["rows"]
     assert tuple(scores.shape) == (1, 2000) and cap["k1_kwargs"]["presorted"]
+    keep, valid = nms_cuda.greedy_nms(boxes, scores, 300, 0.7, presorted=True)
+    rk, rv = nms_cuda.greedy_nms_plain(boxes, scores, 300, 0.7)
+    assert torch.equal(keep, rk) and torch.equal(valid, rv)
+
+
+ZOO2 = {  # the fixed-width YAMLs narrowed as the CPU tests narrow them
+    "yolov5-anchor": {"depth_multiple": 0.33, "width_multiple": 0.25},
+    "yolo12n": {},
+    "gelan-c-dseg": {"depth_multiple": 0.33, "width_multiple": 0.25},
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(ZOO2))
+def test_zoo2_forward_and_predict_on_card_match_cpu(card, name):
+    """As test_zoo_forward_and_predict_on_card_match_cpu, for the anchor
+    head (generic single-label NMS over its decoded rows), YOLO12's area
+    attention and GELAN's DSegment (the mask coefficients as K1's payload,
+    the coefficients and prototypes within ZOO_PARITY_TOL of their largest
+    magnitude)."""
+    from ultralytics_pro_tpu_torch.ops import nms as ops_nms
+    from ultralytics_pro_tpu_torch.utils import full_f32
+
+    cfg = {**yaml_model_load(f"{name}.yaml"), **ZOO2[name]}
+    m, cpu = YOLO(dict(cfg), device="cuda", seed=0), YOLO(dict(cfg), device="cpu", seed=0)
+    imgs = [np.random.default_rng(i).integers(0, 256, (120, 160, 3), dtype=np.uint8) for i in range(3)]
+    before = nms_cuda.launches
+    res = m.predict(imgs, imgsz=160, conf=1e-6)
+    assert nms_cuda.launches == before + len(imgs)
+    check_detections(res, imgs)
+    if name == "gelan-c-dseg":
+        assert all(r.masks.data.shape[0] == len(r.boxes.data) for r in res)
+    info = zoo_parity(YOLO, ops_nms, full_f32, name, m, m.predictor.preprocess(imgs), cpu=cpu)
+    assert info["final_rows_mismatch"] == 0
+
+
+@pytest.mark.cuda
+def test_k1_on_anchor_head_rows_equals_plain(card):
+    """A narrowed yolov5-anchor predicts at 640 through K1 on rows of K = 3 x
+    (80^2 + 40^2 + 20^2) = 25,200 candidates (every anchor above conf 1e-6,
+    under max_nms); K1 on the captured rows equals its plain version bit
+    for bit."""
+    from ultralytics_pro_tpu_torch.ops import nms as ops_nms
+
+    m = YOLO({**yaml_model_load("yolov5-anchor.yaml"), **ZOO2["yolov5-anchor"]}, device="cuda", seed=0)
+    img = np.random.default_rng(3).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    before = nms_cuda.launches
+    with capture_k1(ops_nms) as cap:
+        res = m.predict([img], conf=1e-6)
+    assert nms_cuda.launches == before + 1 and 0 < len(res[0]) <= 300
+    boxes, scores = cap["rows"]
+    assert tuple(scores.shape) == (1, 25200) and cap["k1_kwargs"]["presorted"]
     keep, valid = nms_cuda.greedy_nms(boxes, scores, 300, 0.7, presorted=True)
     rk, rv = nms_cuda.greedy_nms_plain(boxes, scores, 300, 0.7)
     assert torch.equal(keep, rk) and torch.equal(valid, rv)

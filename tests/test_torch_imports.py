@@ -95,7 +95,9 @@ def test_port_trains_with_jax_yaml_cv2_blocked(tmp_path):
     data = shutil.copytree(REPO / "tests" / "fixtures" / "torch_val_synth", tmp_path / "set")
     cls_set = REPO / "tests" / "fixtures" / "torch_cls_synth"
     (data / "train.yaml").write_text("train: images/val\nval: images/val\nnames:\n  0: a\n  1: b\n  2: c\n")
-    then = ("from ultralytics_pro_tpu_torch import YOLO\n"
+    then = ("import torch\n"
+            "torch.set_num_threads(2)\n"
+            "from ultralytics_pro_tpu_torch import YOLO\n"
             "m = YOLO('yolov8n.yaml', device='cpu')\n"
             f"m.train(data={str(data / 'train.yaml')!r}, epochs=1, imgsz=32, batch=8, nbs=8, workers=2, "
             f"max_gt=16, warmup_epochs=0.0, project={str(tmp_path / 'runs')!r})\n"
@@ -173,6 +175,8 @@ def test_port_serves_segment_and_pose_with_jax_yaml_cv2_blocked(tmp_path):
 
     data = shutil.copytree(REPO / "tests" / "fixtures" / "torch_val_synth_segment", tmp_path / "seg")
     then = ("import numpy as np\n"
+            "import torch\n"
+            "torch.set_num_threads(2)\n"
             "from ultralytics_pro_tpu_torch import YOLO\n"
             "import ultralytics_pro_tpu_torch.data.rasterize, ultralytics_pro_tpu_torch.ops.masks\n"
             f"m = YOLO('yolov8n-seg.yaml', device='cpu').val(data={str(data / 'data.yaml')!r}, imgsz=64, batch=8)\n"
@@ -193,6 +197,8 @@ def test_port_serves_obb_with_jax_yaml_cv2_blocked(tmp_path):
 
     data = shutil.copytree(REPO / "tests" / "fixtures" / "torch_val_synth_obb", tmp_path / "obb")
     then = ("import numpy as np\n"
+            "import torch\n"
+            "torch.set_num_threads(2)\n"
             "from ultralytics_pro_tpu_torch import YOLO\n"
             "import ultralytics_pro_tpu_torch.data.geometry\n"
             f"m = YOLO('yolov8n-obb.yaml', device='cpu').val(data={str(data / 'data.yaml')!r}, imgsz=64, batch=8, "

@@ -17,10 +17,12 @@ from ultralytics_pro_tpu_torch.nn.modules import C2f, SPPF, Conv, Detect, decode
 from ultralytics_pro_tpu_torch.utils.weights import jax_to_torch_state_dict
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def torch_threads():
-    """Two torch threads per test: the suite runs several workers on one
-    machine, and torch's default of one thread per core oversubscribes it."""
+    """Two torch threads per test module, its module-scoped fixtures
+    included (an autouse fixture comes first in its scope): the suite runs
+    several workers on one machine, and torch's default of one thread per
+    core oversubscribes it."""
     n = torch.get_num_threads()
     torch.set_num_threads(min(n, 2))
     yield

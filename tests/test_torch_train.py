@@ -410,13 +410,7 @@ def test_schedule_and_early_stopping_match_jax():
     assert [mine(e, f) for e, f in enumerate(fits)] == [theirs(e, f) for e, f in enumerate(fits)]
 
 
-def _v8n_with_head(name: str) -> dict:
-    y = yaml_model_load("yolov8n.yaml")
-    y["head"][-1] = [*y["head"][-1][:2], name, y["head"][-1][3]]
-    return y
-
-
-@pytest.mark.parametrize("case", ["augment", "multi_scale", "remat", "orbax", "device2", "v5_head"])
+@pytest.mark.parametrize("case", ["augment", "multi_scale", "remat", "orbax", "device2"])
 def test_left_for_later_switches_raise(data_yaml, tmp_path, case):
     """Each names where the port takes it up; none trains a step."""
     kw = dict(TRAIN_KW, project=str(tmp_path))
@@ -426,7 +420,6 @@ def test_left_for_later_switches_raise(data_yaml, tmp_path, case):
         "remat": (lambda: port_model().train(data=str(data_yaml), remat=True, **kw), "torch.utils.checkpoint"),
         "orbax": (lambda: port_model().train(data=str(data_yaml), ckpt_format="orbax", **kw), "orbax"),
         "device2": (lambda: port_model().train(data=str(data_yaml), device=2, **kw), "item 7"),
-        "v5_head": (lambda: YOLO(_v8n_with_head("AnchorDetect"), device="cpu"), "item 9"),
     }
     call, match = calls[case]
     with pytest.raises(NotImplementedError, match=match):

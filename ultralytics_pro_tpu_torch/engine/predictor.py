@@ -6,10 +6,12 @@ Counterpart of `ultralytics_pro_tpu/engine/predictor.py` (`BasePredictor:26`,
 The jitted `run` of the JAX package (`_build_jit:45`) is a plain device
 function here, in full f32 with TF32 off (`utils.full_f32`), as the JAX
 package computes it: uint8 BGR batch -> RGB/255 -> forward -> NMS (kernel K1
-on the card). For a plain Detect head it takes the fused single-label decode
-(the branch `:136-148` takes); for Segment and Pose the generic decode and
-`non_max_suppression` with the head's extra columns as its payload (`:149-159`):
-32 mask coefficients a candidate, or the decoded keypoints. Letterboxing runs
+on the card). For a Detect head (the one head whose `fused_single_label`
+is set) it takes the fused single-label decode (the branch `:136-148`
+takes); for any other head (DDetect, AnchorDetect,
+Segment, DSegment, Pose) the generic decode and `non_max_suppression`, with
+the head's extra columns as its payload (`:149-159`): 32 mask coefficients
+a candidate, or the decoded keypoints. Letterboxing runs
 on the model's device. A v10Detect head is end-to-end (`:62,125-135`): no
 NMS and no fused decode, its (B, 300, 6) rows taken as they come, boxes
 `xywh2xyxy`, valid where conf > `conf` (`end2end_outputs`).
@@ -39,8 +41,11 @@ from ultralytics_pro_tpu_torch.data.augment import LetterBox, resize_bilinear
 from ultralytics_pro_tpu_torch.engine.results import Results
 from ultralytics_pro_tpu_torch.nn.modules.head import (
     OBB,
+    AnchorDetect,
     Classify,
+    DDetect,
     Detect,
+    DSegment,
     Pose,
     Segment,
     decode_single_label,
@@ -90,7 +95,7 @@ def letterbox_pad(batch_shape, orig_shape):
 class BasePredictor:
     """Single-model streaming inference on the model's device."""
 
-    head_types = (Detect, v10Detect)  # the heads whose outputs this predictor's run and postprocess read
+    head_types = (Detect, v10Detect, DDetect, AnchorDetect)  # the heads whose outputs run and postprocess read
     outputs_to_host = True  # False: postprocess takes run's outputs on the device
 
     def __init__(self, model, args: Dict | None = None):
@@ -124,6 +129,8 @@ class BasePredictor:
         dict of (B, max_det) 'boxes' xyxy, 'scores', 'cls', 'valid' (an
         end-to-end head's (B, 300) rows). Runs in full f32 (`utils.full_f32`)."""
         head = self.model.model[-1]
+        if not head.fused_single_label and not head.end2end:
+            return self._run_generic(img_u8)[0]
         with full_f32():
             if head.end2end:
                 return end2end_outputs(self.model(rgb01(img_u8), aux=False)[0], self.conf)
@@ -140,7 +147,8 @@ class BasePredictor:
         nc = self.model.nc
         with full_f32():
             y, aux = self.model(rgb01(img_u8))
-            out = non_max_suppression(y[..., :4], y[..., 4:4 + nc], extra=y[..., 4 + nc:],
+            extra = y[..., 4 + nc:] if y.shape[-1] > 4 + nc else None
+            out = non_max_suppression(y[..., :4], y[..., 4:4 + nc], extra=extra,
                                       conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,
                                       agnostic=self.agnostic, classes=self.classes_mask)
         return out, aux
@@ -199,7 +207,7 @@ class SegmentationPredictor(BasePredictor):
     """Boxes and instance masks; `run` adds 'extra' (B, max_det, nm) mask
     coefficients and 'protos' (B, nm, H/4, W/4)."""
 
-    head_types = (Segment,)
+    head_types = (Segment, DSegment)
     outputs_to_host = False
 
     @torch.no_grad()

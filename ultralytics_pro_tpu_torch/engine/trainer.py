@@ -48,7 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ultralytics_pro_tpu_torch.nn.modules.head import Detect
+from ultralytics_pro_tpu_torch.nn.modules.head import AnchorDetect, Detect
 from ultralytics_pro_tpu_torch.utils import LOGGER, full_f32
 from ultralytics_pro_tpu_torch.utils.callbacks import CallbackMixin, csv_logger_callbacks
 from ultralytics_pro_tpu_torch.utils.files import get_latest_run, increment_path
@@ -416,8 +416,11 @@ def load_pickle(path):
 
 class DetectionTrainer(BaseTrainer):
     """Detect-task trainer: v8DetectionLoss with the box, cls and dfl gains,
-    or E2EDetectLoss for an end-to-end (v10Detect) head, as the JAX trainer
-    chooses (`:544-553`)."""
+    E2EDetectLoss for an end-to-end (v10Detect) head, or v5AnchorLoss for an
+    AnchorDetect head, as the JAX trainer chooses (`:529-553`). The anchor
+    criterion's box gain is 0.05 unless `box` differs from the v8 default
+    7.5, and its `obj` gain is the `obj` argument, 1.0 when not given (no
+    default config key holds it, in either package)."""
 
     loss_name = "v8DetectionLoss"
 
@@ -428,9 +431,14 @@ class DetectionTrainer(BaseTrainer):
         from ultralytics_pro_tpu_torch.utils import loss
 
         head = self.model.model[-1]
+        if isinstance(head, AnchorDetect):
+            box = self.args.get("box", 7.5)
+            return loss.v5AnchorLoss(self.model.nc, head.anchor_list, self.model.stride.tolist(),
+                                     hyp={"box": 0.05 if box == 7.5 else box, "cls": self.args.get("cls", 0.5),
+                                          "obj": self.args.get("obj", 1.0)})
         if not isinstance(head, Detect):
-            raise NotImplementedError(f"the detect trainer trains a Detect head, not a {type(head).__name__}; "
-                                      "an RT-DETR model trains through RTDETR(...).train")
+            raise NotImplementedError(f"the detect trainer trains a Detect or AnchorDetect head, not a "
+                                      f"{type(head).__name__}; an RT-DETR model trains through RTDETR(...).train")
         name = "E2EDetectLoss" if head.end2end else self.loss_name
         return getattr(loss, name)(nc=self.model.nc, reg_max=head.reg_max, strides=self.model.stride.tolist(),
                                    hyp=self.gains(), **self.criterion_kwargs(head))

@@ -8,8 +8,10 @@ of the JAX package (`_build_jit:105`) is a plain device function here,
 multi-label NMS (kernel K1 on the card), in full f32 with TF32 off
 (`utils.full_f32`). Segment and pose pass the head's extra columns through
 NMS as each candidate's payload (mask coefficients, decoded keypoints).
-Matching and AP run on the host in numpy (`utils/metrics.py`): boxes in the
-original image frame for detect and segment, masks in the letterbox frame
+The DDetect and AnchorDetect heads decode to Detect's rows and DSegment to
+Segment's, so their models take the same device function. Matching and AP
+run on the host in numpy (`utils/metrics.py`): boxes in the original image
+frame for detect and segment, masks in the letterbox frame
 (the predicted masks made on the model's device by `process_mask`, only
 their > 0.5 bits brought back), and pose's boxes and OKS in the letterbox
 frame, as the JAX validators match them. OBB's device function ends in the
@@ -41,7 +43,7 @@ import numpy as np
 import torch
 
 from ultralytics_pro_tpu_torch.engine.predictor import end2end_outputs, rgb01
-from ultralytics_pro_tpu_torch.nn.modules.head import OBB, Classify, Detect, Pose, Segment
+from ultralytics_pro_tpu_torch.nn.modules.head import OBB, AnchorDetect, Classify, Detect, Pose, Segment
 from ultralytics_pro_tpu_torch.ops.boxes import scale_boxes, xywhr2xyxyxyxy
 from ultralytics_pro_tpu_torch.ops.iou import batch_probiou
 from ultralytics_pro_tpu_torch.ops.masks import process_mask
@@ -73,7 +75,7 @@ def xywhn_to_xyxy_px(xywhn: np.ndarray, h: int, w: int) -> np.ndarray:
 class DetectionValidator:
     """Evaluate a detection model over a dataloader."""
 
-    head_type = Detect  # the head (or a subclass of it) whose outputs run reads
+    head_types = (Detect, AnchorDetect)  # the heads (or their subclasses) whose outputs run reads
     metrics_class = DetMetrics
     ported_flags = ()  # of save_json and plots, those this validator honours
 
@@ -126,10 +128,11 @@ class DetectionValidator:
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     def __call__(self, model, dataloader, names: Optional[Dict] = None) -> DetMetrics:
-        """model: a task model on its device whose head is a `head_type`."""
-        if not isinstance(model.model[-1], self.head_type):
-            raise NotImplementedError(f"{type(self).__name__} needs a {self.head_type.__name__} head, got "
-                                      f"{type(model.model[-1]).__name__}")
+        """model: a task model on its device whose head is one of `head_types`."""
+        if not isinstance(model.model[-1], self.head_types):
+            want = " or ".join(t.__name__ for t in self.head_types)
+            raise NotImplementedError(f"{type(self).__name__} needs a {want} head, "
+                                      f"got {type(model.model[-1]).__name__}")
         self.model = model
         device = next(model.parameters()).device
         names = names or model.names
@@ -190,7 +193,7 @@ class DetectionValidator:
 class SegmentationValidator(DetectionValidator):
     """Box and mask matching; SegmentMetrics."""
 
-    head_type = Segment
+    head_types = (Segment,)
     metrics_class = SegmentMetrics
 
     @torch.no_grad()
@@ -261,7 +264,7 @@ class SegmentationValidator(DetectionValidator):
 class PoseValidator(DetectionValidator):
     """Box and OKS keypoint matching, both in the letterbox frame; PoseMetrics."""
 
-    head_type = Pose
+    head_types = (Pose,)
     metrics_class = PoseMetrics
 
     @torch.no_grad()
@@ -305,7 +308,7 @@ class OBBValidator(DetectionValidator):
     """Rotated boxes matched by probiou in the letterbox frame; OBBMetrics.
     With save_json, DOTA Task1 files under `save_dir`/predictions_dota."""
 
-    head_type = OBB
+    head_types = (OBB,)
     metrics_class = OBBMetrics
     ported_flags = ("save_json",)
 
@@ -390,7 +393,7 @@ class OBBValidator(DetectionValidator):
 class ClassificationValidator(DetectionValidator):
     """Top-1 and top-5 accuracy; ClassifyMetrics."""
 
-    head_type = Classify
+    head_types = (Classify,)
     metrics_class = ClassifyMetrics
 
     @torch.no_grad()

@@ -74,7 +74,7 @@ class RTDETRValidator(DetectionValidator):
     """No-NMS validation: each query's best class above `conf`, matched in the
     letterbox frame."""
 
-    head_type = RTDETRDecoder
+    head_types = (RTDETRDecoder,)
 
     @torch.no_grad()
     def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:

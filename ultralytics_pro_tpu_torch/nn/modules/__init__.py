@@ -1,10 +1,11 @@
-"""YOLOv8, YOLO11, YOLOv10, YOLOv5, classify and RT-DETR modules in NCHW with the torch reference's names."""
+"""YOLOv8, YOLO11, YOLOv10, YOLOv5, YOLOv9, YOLO12, classify and RT-DETR modules in NCHW with the torch reference's names."""
 
 from ultralytics_pro_tpu_torch.nn.modules.block import (
     C3,
     CIB,
     DFL,
     PSA,
+    SPP,
     SPPF,
     Attention,
     Bottleneck,
@@ -23,8 +24,12 @@ from ultralytics_pro_tpu_torch.nn.modules.block import (
 from ultralytics_pro_tpu_torch.nn.modules.conv import Concat, Conv, DWConv, LightConv, RepConv, autopad
 from ultralytics_pro_tpu_torch.nn.modules.head import (
     OBB,
+    V5_ANCHORS,
+    AnchorDetect,
     Classify,
+    DDetect,
     Detect,
+    DSegment,
     Pose,
     RTDETRDecoder,
     Segment,
@@ -39,9 +44,21 @@ from ultralytics_pro_tpu_torch.nn.modules.transformer import (
     MultiheadAttention,
     TransformerEncoderLayer,
 )
+from ultralytics_pro_tpu_torch.nn.modules.v9v12 import (
+    SPPELAN,
+    A2C2f,
+    AAttn,
+    ABlock,
+    ADown,
+    RepNBottleneck,
+    RepNCSP,
+    RepNCSPELAN4,
+)
 
-__all__ = ["AIFI", "Attention", "C2PSA", "C2f", "C2fCIB", "C3", "C3k", "C3k2", "CIB", "Bottleneck", "Classify",
-           "Concat", "Conv", "DFL", "DWConv", "PSA", "PSABlock", "SCDown", "v10Detect",
+__all__ = ["AIFI", "A2C2f", "AAttn", "ABlock", "ADown", "AnchorDetect", "Attention", "C2PSA", "C2f", "C2fCIB", "C3",
+           "C3k", "C3k2", "CIB", "Bottleneck", "Classify", "Concat", "Conv", "DDetect", "DFL", "DSegment", "DWConv",
+           "PSA", "PSABlock", "RepNBottleneck", "RepNCSP", "RepNCSPELAN4", "SCDown", "SPP", "SPPELAN", "V5_ANCHORS",
+           "v10Detect",
            "DeformableTransformerDecoderLayer", "Detect", "HGBlock", "HGStem", "LightConv", "MLP",
            "MSDeformAttn", "MultiheadAttention", "OBB", "Pose", "Proto", "RTDETRDecoder", "RepC3", "RepConv",
            "SPPF", "Segment",

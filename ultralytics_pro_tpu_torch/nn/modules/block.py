@@ -1,7 +1,7 @@
 """YOLOv8 blocks, NCHW, with the reference's torch module names.
 
 Counterpart of `ultralytics_pro_tpu/nn/modules/block.py` (`Bottleneck:32`,
-`C2f:86`, `SPPF:173`, `DFL:251`, `Proto:270`, and RT-DETR's `HGStem:413`, `HGBlock:437`,
+`C2f:86`, `SPP:159`, `SPPF:173`, `DFL:251`, `Proto:270`, and RT-DETR's `HGStem:413`, `HGBlock:437`,
 `RepC3:505`), and the v5, v10 and YOLO11 blocks (`C3:110`, `C3k:131`,
 `C3k2:147`, `Attention:287`, `PSABlock:316`, `PSA:334`, `C2PSA:352`,
 `SCDown:369`, `CIB:382`, `C2fCIB:404`).
@@ -228,6 +228,22 @@ class SCDown(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.cv2(self.cv1(x))
+
+
+class SPP(nn.Module):
+    """Spatial pyramid pooling: cv1 to c1 / 2 channels, its k x k max pools
+    (stride 1, same size) beside it, all concatenated into cv2."""
+
+    def __init__(self, c1: int, c2: int, k=(5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c_ * (len(k) + 1), c2, 1, 1)
+        self.m = nn.ModuleList(nn.MaxPool2d(kernel_size=x, stride=1, padding=x // 2) for x in k)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.cv1(x)
+        return self.cv2(torch.cat([x, *(m(x) for m in self.m)], 1))
 
 
 class SPPF(nn.Module):

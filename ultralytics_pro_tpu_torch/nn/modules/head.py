@@ -3,8 +3,9 @@ heads, the Classify head, and the RT-DETR decoder head.
 
 Counterpart of `ultralytics_pro_tpu/nn/modules/head.py` (`_branch:30`,
 `Detect:48`, `_decode:87`, `decode_single_label:127`, `Segment:170`,
-`OBB:193`, `Pose:222`, `Classify:418`, `RTDETRDecoder:440`,
-`v10Detect:709`). Module names follow the
+`OBB:193`, `Pose:222`, `DDetect:278`, `DSegment:312`, `Classify:418`,
+`RTDETRDecoder:440`, `v10Detect:709`, `AnchorDetect:795` with
+`V5_ANCHORS:788`). Module names follow the
 torch reference (`cv2.i.0.conv.weight`, `cv3.i.2.bias`, `dfl.conv.weight`,
 `cv4.i.2.bias`, `proto.upsample.weight`, `conv.conv.weight`,
 `linear.weight`, `decoder.layers.i.cross_attn.value_proj.weight`).
@@ -15,7 +16,9 @@ level, then row by row; Segment appends nm mask coefficients and Pose the
 decoded keypoints to each anchor's row. OBB's rows are (B, A, 4 + nc + 1):
 rotated (cx, cy, w, h), the class scores, then the angle in radians. Segment's prototypes stay NCHW
 (B, nm, H/4, W/4), where the JAX package's are channel-last. v10Detect's
-eval rows are (B, k, 6): xywh, conf, cls.
+eval rows are (B, k, 6): xywh, conf, cls. AnchorDetect's raw maps are
+(B, na * (5 + nc), H, W) and its decoded rows (B, A, 4 + nc), A = H * W * na
+a level, anchors in (h, w, na) order.
 """
 
 from __future__ import annotations
@@ -43,9 +46,14 @@ class Detect(nn.Module):
     """Anchor-free YOLOv8 detect head. legacy=False (a YAML with C3k2, C2fCIB
     or v10Detect) gives each class branch the light form: DWConv 3x3 and
     Conv 1x1, twice, then the 1x1 conv (`cv3.i.0.0`, `cv3.i.0.1`,
-    `cv3.i.1.0`, `cv3.i.1.1`, `cv3.i.2`)."""
+    `cv3.i.1.0`, `cv3.i.1.1`, `cv3.i.2`).
+
+    fused_single_label: the predictor's `run` decodes this head's raw maps
+    with `decode_single_label` and the fused NMS; True for this class only,
+    as the JAX predictor takes that branch for a head named Detect alone."""
 
     end2end = False
+    fused_single_label = True
 
     def __init__(self, nc: int = 80, ch=(), reg_max: int = 16, legacy: bool = True):
         super().__init__()
@@ -55,10 +63,14 @@ class Detect(nn.Module):
         self.legacy = legacy
         self.no = nc + 4 * reg_max
         self.stride = torch.zeros(self.nl)  # set by DetectionModel once strides are known
-        self.c2, self.c3 = max(16, ch[0] // 4, reg_max * 4), max(ch[0], min(nc, 100))
+        self.c2, self.c3 = self._head_channels(ch[0])
         self.cv2 = nn.ModuleList(self._box_branch(x) for x in ch)
         self.cv3 = nn.ModuleList(self._cls_branch(x) for x in ch)
         self.dfl = DFL(reg_max)
+
+    def _head_channels(self, ch0: int):
+        """(box branch width, class branch width)."""
+        return max(16, ch0 // 4, self.reg_max * 4), max(ch0, min(self.nc, 100))
 
     def _box_branch(self, x: int) -> nn.Sequential:
         return nn.Sequential(Conv(x, self.c2, 3), Conv(self.c2, self.c2, 3), nn.Conv2d(self.c2, 4 * self.reg_max, 1))
@@ -116,6 +128,7 @@ class v10Detect(Detect):
     predict does not read, and gives None for the dict."""
 
     end2end = True
+    fused_single_label = False
     max_det = 300
 
     def __init__(self, nc: int = 80, ch=(), reg_max: int = 16, legacy: bool = False):
@@ -145,6 +158,22 @@ class v10Detect(Detect):
         return torch.cat([boxes, top[..., None], (idx % nc).to(y.dtype)[..., None]], -1)
 
 
+class DDetect(Detect):
+    """YOLOv9's detect head: the box branch a 3x3 Conv, a 3x3 Conv of 4
+    groups and a 1x1 conv of 4 groups (`cv2.i.2`), its width rounded up to
+    a multiple of 4; the class branch Detect's, max(ch0, min(2 nc, 128)) wide."""
+
+    fused_single_label = False
+
+    def _head_channels(self, ch0: int):
+        c2 = max(ch0 // 4, self.reg_max * 4, 16)
+        return -(-c2 // 4) * 4, max(ch0, min(self.nc * 2, 128))
+
+    def _box_branch(self, x: int) -> nn.Sequential:
+        return nn.Sequential(Conv(x, self.c2, 3), Conv(self.c2, self.c2, 3, g=4),
+                             nn.Conv2d(self.c2, 4 * self.reg_max, 1, groups=4))
+
+
 def _branches(ch, mid: int, out: int) -> nn.ModuleList:
     """One extra branch per level (the JAX `_branch`, legacy form): Conv 3x3,
     Conv 3x3, 1x1 conv with bias."""
@@ -164,6 +193,8 @@ class Segment(Detect):
     (B, nm, H/4, W/4)}); with decode=False (and in train mode) the dict alone.
     """
 
+    fused_single_label = False
+
     def __init__(self, nc: int = 80, ch=(), nm: int = 32, npr: int = 256, reg_max: int = 16,
                  legacy: bool = True):
         super().__init__(nc, ch, reg_max, legacy)
@@ -178,6 +209,26 @@ class Segment(Detect):
         return torch.cat([self.decode(aux["feats"]), aux["mc"]], -1), aux
 
 
+class DSegment(DDetect, Segment):
+    """DDetect over all inputs but the last, plus nm mask coefficients per
+    anchor (`cv4`, max(ch0 // 4, nm) wide) and the prototypes, a 1x1 Conv
+    (`proto`) on the last input. The outputs are Segment's."""
+
+    def __init__(self, nc: int = 80, ch=(), nm: int = 32, npr: int = 256, reg_max: int = 16,
+                 legacy: bool = True):
+        DDetect.__init__(self, nc, ch[:-1], reg_max, legacy)
+        self.nm, self.npr = nm, npr
+        self.proto = Conv(ch[-1], nm, 1)
+        self.cv4 = _branches(ch[:-1], max(ch[0] // 4, nm), nm)
+
+    def forward(self, feats, decode: bool = True):
+        det = feats[:-1]
+        aux = {"feats": self.raw(det), "mc": _per_anchor(self.cv4, det), "protos": self.proto(feats[-1])}
+        if not decode:
+            return aux
+        return torch.cat([self.decode(aux["feats"]), aux["mc"]], -1), aux
+
+
 class OBB(Detect):
     """Detect plus ne rotation angles per anchor (`cv4`), (sigmoid - 0.25) * pi,
     in [-pi/4, 3pi/4).
@@ -186,6 +237,8 @@ class OBB(Detect):
     boxes decoded by `dist2rbox` with the first angle; with decode=False (and
     in train mode) the dict alone.
     """
+
+    fused_single_label = False
 
     def __init__(self, nc: int = 80, ch=(), ne: int = 1, reg_max: int = 16, legacy: bool = True):
         super().__init__(nc, ch, reg_max, legacy)
@@ -218,6 +271,8 @@ class Pose(Detect):
     in train mode) the dict alone.
     """
 
+    fused_single_label = False
+
     def __init__(self, nc: int = 80, ch=(), kpt_shape=(17, 3), reg_max: int = 16, legacy: bool = True):
         super().__init__(nc, ch, reg_max, legacy)
         self.kpt_shape = tuple(kpt_shape)
@@ -241,6 +296,60 @@ class Pose(Detect):
         if self.kpt_shape[1] == 3:
             xy = torch.cat([xy, k[..., 2:3].sigmoid()], -1)
         return xy.reshape(b, a, -1)
+
+
+V5_ANCHORS = (  # pixels, per level (P3, P4, P5): the COCO anchors of the YOLOv5 YAMLs
+    ((10, 13), (16, 30), (33, 23)),
+    ((30, 61), (62, 45), (59, 119)),
+    ((116, 90), (156, 198), (373, 326)),
+)
+
+
+class AnchorDetect(nn.Module):
+    """YOLOv5's anchor-based head: one 1x1 conv a level (`m.i`, with bias)
+    giving na * (5 + nc) channels, anchor after anchor: xywh, objectness,
+    classes. Eval decodes each (cell, anchor) as xy = (2 sig - 0.5 + grid) *
+    stride, wh = (2 sig)^2 * anchor, score = sig(obj) * sig(cls), to (B, A,
+    4 + nc) rows, Detect's contract, so NMS, predict and val take it as
+    Detect's. Train mode (decode=False) returns {'feats': raw, 'anchor_feats':
+    raw}, the maps `v5AnchorLoss` reads. Not a Detect subclass: it has none
+    of Detect's branches; the model, the detect validator and trainer, and
+    the predictor name it beside Detect."""
+
+    end2end = False
+    fused_single_label = False
+
+    def __init__(self, nc: int = 80, ch=(), anchors=V5_ANCHORS, legacy: bool = True):
+        super().__init__()
+        self.nc, self.nl, self.legacy = nc, len(ch), legacy
+        self.na = len(anchors[0])
+        self.no = 5 + nc
+        self.stride = torch.zeros(self.nl)
+        self.anchor_list = tuple(tuple(tuple(float(v) for v in a) for a in lvl) for lvl in anchors)
+        self.register_buffer("anchors", torch.tensor(self.anchor_list, dtype=torch.float32), persistent=False)
+        self.m = nn.ModuleList(nn.Conv2d(x, self.na * self.no, 1) for x in ch)
+
+    def raw(self, feats):
+        return [m(x) for m, x in zip(self.m, feats)]
+
+    def decode(self, raw) -> torch.Tensor:
+        outs = []
+        for i, (r, s) in enumerate(zip(raw, self.stride.tolist())):
+            b, _, h, w = r.shape
+            sig = r.float().view(b, self.na, self.no, h, w).permute(0, 3, 4, 1, 2).sigmoid()  # (B, H, W, na, no)
+            gy, gx = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=r.device),
+                                    torch.arange(w, dtype=torch.float32, device=r.device), indexing="ij")
+            grid = torch.stack([gx, gy], -1)[None, :, :, None, :]
+            xy = (sig[..., :2] * 2.0 - 0.5 + grid) * s
+            wh = (sig[..., 2:4] * 2.0) ** 2 * self.anchors[i]
+            outs.append(torch.cat([xy, wh, sig[..., 5:] * sig[..., 4:5]], -1).reshape(b, -1, 4 + self.nc))
+        return torch.cat(outs, 1)
+
+    def forward(self, feats, decode: bool = True):
+        raw = self.raw(feats)
+        if not decode:
+            return {"feats": raw, "anchor_feats": raw}
+        return self.decode(raw), raw
 
 
 class Classify(nn.Module):

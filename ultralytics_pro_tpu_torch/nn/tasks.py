@@ -8,24 +8,31 @@ Counterpart of `ultralytics_pro_tpu/nn/tasks.py` (`parse_model:1126`,
 for the YOLOv8 module set (Conv, C2f, SPPF, nn.Upsample, Concat, Detect,
 Segment, OBB, Pose, Classify),
 RT-DETR's (DWConv, HGStem, HGBlock, RepC3, AIFI, RTDETRDecoder; builders at
-`:85`, `:260-263`, `:441-447`) and that of the v3-tiny, v5, v10 and YOLO11
+`:85`, `:260-263`, `:441-447`), that of the v3-tiny, v5, v10 and YOLO11
 YAMLs (C3 `:91,236`, C3k2 `:101`, C2fCIB `:110`, PSA, C2PSA and SCDown
 `:257-259`, torch's own nn.MaxPool2d and nn.ZeroPad2d `:282-284`, v10Detect
-`:176`). As in the JAX parse_model, a YAML with C3k2, C2fCIB or v10Detect in any
-row builds its detect head with legacy=False (the pre-scan `:1152-1155`),
-and the modules of REPEAT_MODULES (`:1103-1107`) take the repeats as their
-own n while any other is stacked n times in an nn.Sequential. Segment's
+`:176`), and that of the P6/P7, v6, v3, YOLOX, v9, YOLO12 and v5-anchor
+YAMLs (Bottleneck `:228`, SPP `:255`, torch's own nn.ConvTranspose2d with its
+bias `:274-277`, RepNCSPELAN4, ADown and SPPELAN `:338-345`, A2C2f `:127`,
+DDetect and DSegment `:459-460`, AnchorDetect `:185`). As in the JAX
+parse_model, a YAML with C3k2, C2fCIB, A2C2f or v10Detect in any row builds
+its detect head with legacy=False (the pre-scan `:1152-1155`), and the
+modules of REPEAT_MODULES (`:1103-1107`) take the repeats as their own n,
+RepNCSPELAN4 ignores them (its n is its fourth argument), and any other is
+stacked n times in an nn.Sequential (`:1208-1213`). A2C2f at scales l and x
+takes residual=True and mlp_ratio=1.2. Segment's and DSegment's
 args are [nc, nm, npr] with npr width-scaled, OBB's [nc, ne], Pose's [nc,
-kpt_shape] with the YAML's top-level `kpt_shape` substituted, as the JAX
-package's `parse_model` reads them (`:206-212`, `:1179-1181`). Any other module raises
-NotImplementedError naming it, and the anchor-based head of the v5 anchor
-YAMLs names its ROADMAP queue item too.
+kpt_shape] with the YAML's top-level `kpt_shape` substituted, AnchorDetect's
+[nc, anchors], as the JAX package's `parse_model` reads them (`:206-212`,
+`:1179-1181`). Any other module raises NotImplementedError naming it, and the
+modules of the YOLOv13 YAML name their ROADMAP queue item too.
 
 In train mode (`model.train()`) a Detect model returns the head's raw
 per-level maps, NCHW, as the JAX head returns `{"feats": raw}` when
 `train=True` (`nn/modules/head.py:120-123`). A classification model returns
 (B, nc) logits in train mode and their softmax in eval mode; it has no
-detect head, so no strides are probed.
+detect head, so no strides are probed. A YOLOX head reads six maps, a class
+and a box tower for each of P3-P5, so its strides repeat: 8, 8, 16, 16, 32, 32.
 
 Models are nn.Modules in NCHW whose parameter names are the reference's
 (`model.N.cv1.conv.weight`). Weights are initialised from an explicit
@@ -44,7 +51,9 @@ from torch import nn
 from ultralytics_pro_tpu_torch.nn.modules.block import (
     C3,
     PSA,
+    SPP,
     SPPF,
+    Bottleneck,
     C2f,
     C2fCIB,
     C2PSA,
@@ -57,27 +66,34 @@ from ultralytics_pro_tpu_torch.nn.modules.block import (
 from ultralytics_pro_tpu_torch.nn.modules.conv import Concat, Conv, DWConv
 from ultralytics_pro_tpu_torch.nn.modules.head import (
     OBB,
+    V5_ANCHORS,
+    AnchorDetect,
     Classify,
+    DDetect,
     Detect,
+    DSegment,
     Pose,
     RTDETRDecoder,
     Segment,
     v10Detect,
 )
 from ultralytics_pro_tpu_torch.nn.modules.transformer import AIFI, MSDeformAttn, MultiheadAttention
+from ultralytics_pro_tpu_torch.nn.modules.v9v12 import SPPELAN, A2C2f, ADown, RepNCSPELAN4
 from ultralytics_pro_tpu_torch.utils import LOGGER, PKG_ROOT, miniyaml
 
 SCALED = {"Conv": Conv, "DWConv": DWConv, "C2f": C2f, "SPPF": SPPF, "RepC3": RepC3, "C3": C3, "C3k2": C3k2,
-          "C2fCIB": C2fCIB, "PSA": PSA, "C2PSA": C2PSA, "SCDown": SCDown}  # c2 is width-scaled
-REPEAT_MODULES = {"C2f", "RepC3", "C3", "C3k2", "C2fCIB", "C2PSA"}  # of SCALED, those whose n is the repeats
-HEADS = {"Detect": Detect, "Segment": Segment, "OBB": OBB, "Pose": Pose, "v10Detect": v10Detect}
+          "C2fCIB": C2fCIB, "PSA": PSA, "C2PSA": C2PSA, "SCDown": SCDown, "Bottleneck": Bottleneck, "SPP": SPP,
+          "nn.ConvTranspose2d": nn.ConvTranspose2d, "ADown": ADown, "A2C2f": A2C2f}  # c2 is width-scaled
+REPEAT_MODULES = {"C2f", "RepC3", "C3", "C3k2", "C2fCIB", "C2PSA", "A2C2f"}  # of SCALED, those whose n is the repeats
+ELAN = {"RepNCSPELAN4": RepNCSPELAN4, "SPPELAN": SPPELAN}  # [c2, c3(, c4, n)]: every width scaled
+HEADS = {"Detect": Detect, "Segment": Segment, "OBB": OBB, "Pose": Pose, "v10Detect": v10Detect,
+         "DDetect": DDetect, "DSegment": DSegment, "AnchorDetect": AnchorDetect}
 POOLS = {"nn.MaxPool2d": nn.MaxPool2d, "nn.ZeroPad2d": nn.ZeroPad2d}  # torch's own, args as the YAML gives them
-NON_LEGACY = {"C3k2", "C2fCIB", "v10Detect"}  # any of these in a YAML: the detect head's light class branch
-MODULES = (*SCALED, *POOLS, "HGStem", "HGBlock", "AIFI", "nn.Upsample", "Concat", *HEADS, "Classify",
+NON_LEGACY = {"C3k2", "C2fCIB", "A2C2f", "v10Detect"}  # any of these in a YAML: the detect head's light class branch
+MODULES = (*SCALED, *ELAN, *POOLS, "HGStem", "HGBlock", "AIFI", "nn.Upsample", "Concat", *HEADS, "Classify",
            "RTDETRDecoder")
-QUEUED = {  # heads of YAMLs the JAX package trains, and where the port takes them up
-    "AnchorDetect": "ROADMAP.md queue 1 item 9 (the v5 YAMLs, with v5AnchorLoss)",
-}
+QUEUED = dict.fromkeys(  # the modules of 13/yolov13.yaml that the JAX package builds, and where the port takes them up
+    ("DSC3k2", "DSConv", "DownsampleConv", "FullPAD_Tunnel", "HyperACE"), "ROADMAP.md queue 1 item 9b (YOLOv13)")
 
 
 def make_divisible(x, divisor: int = 8) -> int:
@@ -134,7 +150,14 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
                     n = 1
                 if m_name == "C3k2" and scale in ("m", "l", "x"):  # [c1, c2, n, c3k, ...]: C3k inside
                     args = [*args[:3], True, *args[4:]]
+                if m_name == "A2C2f" and scale in ("l", "x"):  # [c1, c2, n, a2, area, residual, mlp_ratio]
+                    args = [*args[:3], args[3] if len(args) > 3 else True, args[4] if len(args) > 4 else 1, True, 1.2]
                 m = SCALED[m_name]
+            elif m_name in ELAN:
+                c2 = make_divisible(min(args[0], max_channels) * width, 8)
+                scaled = [make_divisible(min(c, max_channels) * width, 8) for c in args[1:3]]
+                args = [c1, c2, *scaled, *args[3:]]
+                n, m = 1, ELAN[m_name]  # RepNCSPELAN4's n is its own argument; the repeats are ignored
             elif m_name in POOLS:
                 c2, m = c1, POOLS[m_name]
                 if m_name == "nn.ZeroPad2d":
@@ -156,13 +179,18 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
                 c2, m = None, HEADS[m_name]
                 extra = []
                 kwargs = {"legacy": legacy}
-                if m_name == "Segment":  # [nc, nm, npr], npr width-scaled
+                if m_name in ("Segment", "DSegment"):  # [nc, nm, npr], npr width-scaled
                     npr = args[2] if len(args) > 2 else 256
                     extra = [args[1] if len(args) > 1 else 32, make_divisible(min(npr, max_channels) * width, 8)]
                 elif m_name == "OBB":  # [nc, ne]
                     extra = [args[1] if len(args) > 1 else 1]
                 elif m_name == "Pose":  # [nc, kpt_shape]
                     extra = [tuple(args[1] if len(args) > 1 else (17, 3))]
+                elif m_name == "AnchorDetect":  # [nc, anchors, implicit]
+                    if len(args) > 2 and args[2]:
+                        raise NotImplementedError(f"AnchorDetect with implicit=True (layer {i}, the YOLOv7 "
+                                                  "IDetect form) is not implemented in ultralytics_pro_tpu_torch")
+                    extra = [args[1] if len(args) > 1 and isinstance(args[1], (list, tuple)) else V5_ANCHORS]
                 args = [args[0], [chs[x] for x in f], *extra]
             elif m_name == "Classify":  # [c2, k, s, p, g], the inputs' channels summed
                 c2, m = args[0], Classify
@@ -290,7 +318,7 @@ class BaseModel(nn.Module):
         self.eval()
         self.stride = torch.tensor([32.0])
         head = self.model[-1]
-        if isinstance(head, (Detect, RTDETRDecoder)):
+        if isinstance(head, (Detect, AnchorDetect, RTDETRDecoder)):
             head.stride = self._infer_strides(ch)
             self.stride = head.stride
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
@@ -298,10 +326,13 @@ class BaseModel(nn.Module):
             head.bias_init()
 
     def _infer_strides(self, ch: int) -> torch.Tensor:
-        """Strides from the head's input map sizes on a 256 px dry run."""
+        """Strides from the head's input map sizes on a 256 px dry run (the
+        detection inputs of a DSegment head: its last is the prototypes' source)."""
         s = 256
         with torch.no_grad():
             feats = self._run(torch.zeros(1, ch, s, s), stop_at_head=True)
+        if isinstance(self.model[-1], DSegment):
+            feats = feats[:-1]
         return torch.tensor([s / x.shape[-2] for x in feats])
 
     def _run(self, x, stop_at_head: bool = False, decode: bool = True, aux: bool = True, dn=None):
@@ -311,7 +342,7 @@ class BaseModel(nn.Module):
                 x = y[m.f] if isinstance(m.f, int) else [x if j == -1 else y[j] for j in m.f]
             if isinstance(m, v10Detect):
                 return x if stop_at_head else m(x, decode=decode and not self.training, aux=aux)
-            if isinstance(m, Detect):
+            if isinstance(m, (Detect, AnchorDetect)):
                 return x if stop_at_head else m(x, decode=decode and not self.training)
             if isinstance(m, RTDETRDecoder):
                 return x if stop_at_head else m(x, aux=aux, dn=dn)

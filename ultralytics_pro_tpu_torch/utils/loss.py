@@ -1,11 +1,12 @@
 """The YOLOv8 training criteria: task-aligned assignment, BCE on classes,
 CIoU and distribution focal loss on boxes, and the segment, pose and OBB
-terms on top; YOLOv10's dual-assignment criterion over its two branches.
+terms on top; YOLOv10's dual-assignment criterion over its two branches;
+YOLOv5's anchor-based criterion.
 
 Counterpart of `ultralytics_pro_tpu/utils/loss.py` (`bce_logits:27`,
 `df_loss:76`, `v8DetectionLoss:94`, `v8SegmentationLoss:190`,
 `v8PoseLoss:270` with `OKS_SIGMA:265`, `v8OBBLoss:375`,
-`E2EDetectLoss:447`). Batches carry padded
+`E2EDetectLoss:447`, `v5AnchorLoss:502`). Batches carry padded
 ground truth: cls (B, G), bboxes (B, G, 4) normalised xywh (obb: (B, G, 5)
 xywhr), mask_gt (B, G), and segment's masks (B, G, H/4, W/4) or pose's
 keypoints (B, G, K, 3) normalised. The head's maps come NCHW, one per level,
@@ -307,3 +308,94 @@ class E2EDetectLoss:
         t1, p1 = self.one2many(preds["feats"], batch, imgsz_hw)
         t2, p2 = self.one2one(preds["one2one"], batch, imgsz_hw)
         return t1 + t2, {**{f"o2m_{k}": v for k, v in p1.items()}, **{f"o2o_{k}": v for k, v in p2.items()}}
+
+
+class v5AnchorLoss:
+    """YOLOv5's anchor-based criterion over AnchorDetect's raw maps (B, na *
+    (5 + nc), H, W), with static shapes as the JAX criterion has them: every
+    (GT, anchor, cell offset) candidate is scored and masked.
+
+    A candidate is a real GT slot (a padded one's CIoU would be NaN, so it is
+    scored against a unit box and masked), an anchor whose width and height ratios to the
+    GT's are all under `anchor_t`, and one of five cells: the GT's own, and
+    the left, right, upper or lower neighbour when the centre lies in that
+    half of its cell and the neighbour is inside the map. Its box is
+    (2 sig - 0.5 + cell, (2 sig)^2 * anchor) in grid units; the box term is
+    the mean of 1 - CIoU over the candidates. The objectness target of each
+    (cell, anchor) is the largest detached IoU, clamped at 0, of the
+    candidates there (a scatter-max, so the order of writes does not matter),
+    and its BCE is averaged over the map with the per-level balance (4.0,
+    1.0, 0.4). The class term (one-hot BCE over the candidates) exists only
+    when nc > 1. The parts are the box, obj and cls terms times their gains
+    (box 0.05, obj 1.0, cls 0.5 by default), the total their sum times the
+    batch size."""
+
+    BALANCE = (4.0, 1.0, 0.4)
+    # cell offsets, times 0.5: floor(gxy - off) is the GT's cell, then its left,
+    # right, upper and lower neighbour (the left one needs +0.5: floor(gx - 0.5)
+    # is cell - 1 when the centre lies in the left half)
+    OFFSETS = ((0.0, 0.0), (0.5, 0.0), (-0.5, 0.0), (0.0, 0.5), (0.0, -0.5))
+
+    def __init__(self, nc: int, anchors, strides, hyp: Dict | None = None, anchor_t: float = 4.0):
+        hyp = hyp or {}
+        self.nc = int(nc)
+        self.anchors = [torch.tensor(a, dtype=torch.float32) for a in anchors]  # pixels
+        self.strides = tuple(float(s) for s in strides)
+        self.na = len(self.anchors[0])
+        self.box_gain = hyp.get("box", 0.05)
+        self.cls_gain = hyp.get("cls", 0.5)
+        self.obj_gain = hyp.get("obj", 1.0)
+        self.anchor_t = anchor_t
+
+    def __call__(self, preds, batch: Dict, imgsz_hw) -> Tuple[torch.Tensor, Dict]:
+        feats = preds["anchor_feats"] if isinstance(preds, dict) else preds
+        dev = feats[0].device
+        bboxes = batch["bboxes"].float()  # (B, G, 4) normalised xywh
+        gt = batch["mask_gt"].float() > 0  # (B, G)
+        bsz = gt.shape[0]
+        cls = batch["cls"].long().reshape(bsz, -1)
+        offsets = torch.tensor(self.OFFSETS, device=dev)
+        classes = torch.arange(self.nc, device=dev)
+        lbox = lobj = lcls = torch.zeros((), device=dev)
+        for li, y in enumerate(feats):
+            b, _, h, w = y.shape
+            t = y.float().view(b, self.na, 5 + self.nc, h, w).permute(0, 3, 4, 1, 2)  # (B, H, W, na, no)
+            anc = self.anchors[li].to(dev) / self.strides[li]  # grid units
+            size = torch.tensor([w, h], dtype=torch.float32, device=dev)
+            gxy, gwh = bboxes[..., :2] * size, bboxes[..., 2:] * size
+            r = gwh[:, :, None, :] / (anc[None, None] + 1e-9)
+            ratio_ok = torch.maximum(r, 1.0 / (r + 1e-9)).amax(-1) < self.anchor_t  # (B, G, na)
+            gx, gy = gxy[..., 0], gxy[..., 1]
+            fx, fy = gx % 1.0, gy % 1.0
+            off_ok = torch.stack([torch.ones_like(gt), (fx < 0.5) & (gx > 1.0), (fx >= 0.5) & (gx < w - 1.0),
+                                  (fy < 0.5) & (gy > 1.0), (fy >= 0.5) & (gy < h - 1.0)], -1)  # (B, G, 5)
+            cell = torch.floor(gxy[:, :, None, :] - offsets)
+            cx, cy = cell[..., 0].clamp(0, w - 1).long(), cell[..., 1].clamp(0, h - 1).long()
+            m = gt[:, :, None, None] & ratio_ok[..., None] & off_ok[:, :, None, :]  # (B, G, na, 5)
+
+            idx = cy * w + cx  # (B, G, 5)
+            flat = t.reshape(b, h * w, self.na, 5 + self.nc)
+            pred = flat[torch.arange(b, device=dev)[:, None, None], idx].permute(0, 1, 3, 2, 4)  # (B, G, na, 5, no)
+            sig = pred.sigmoid()
+            pxy = sig[..., :2] * 2.0 - 0.5 + torch.stack([cx, cy], -1)[:, :, None].float()
+            pwh = (sig[..., 2:4] * 2.0) ** 2 * anc[None, None, :, None, :]
+            pbox = torch.cat([pxy, pwh], -1)
+            tbox = torch.where(gt[..., None], torch.cat([gxy, gwh], -1), 1.0)  # a padded slot's 0 x 0 box: NaN
+            iou = bbox_iou(pbox, tbox[:, :, None, None, :].expand_as(pbox), xywh=True, CIoU=True)[..., 0]
+            mf = m.float()
+            npos = mf.sum() + 1e-6
+            lbox = lbox + ((1.0 - iou) * mf).sum() / npos
+
+            slot = ((torch.arange(b, device=dev)[:, None, None, None] * (h * w) + idx[:, :, None, :]) * self.na
+                    + torch.arange(self.na, device=dev)[None, None, :, None])  # (B, G, na, 5) into (B, H*W, na)
+            tobj = torch.zeros(b * h * w * self.na, device=dev).scatter_reduce(
+                0, slot.reshape(-1), (iou.detach().clamp(min=0.0) * mf).reshape(-1), "amax", include_self=True)
+            balance = self.BALANCE[li] if li < len(self.BALANCE) else 0.4
+            lobj = lobj + balance * bce_logits(t[..., 4].reshape(-1), tobj).mean()
+
+            if self.nc > 1:
+                tcls = (cls[:, :, None, None, None] == classes).float().expand(-1, -1, self.na, 5, -1)
+                lcls = lcls + (bce_logits(pred[..., 5:], tcls) * mf[..., None]).sum() / (npos * self.nc)
+
+        parts = {"box": self.box_gain * lbox, "obj": self.obj_gain * lobj, "cls": self.cls_gain * lcls}
+        return sum(parts.values()) * bsz, parts

@@ -9,7 +9,9 @@ the port uses the torch reference's names (`model.22.cv2.0.0.conv.weight`,
 HWIO conv kernels become OIHW, dense kernels are transposed, `scale` ->
 `weight`, `mean`/`var` -> `running_mean`/`running_var`. Only the first path
 token `layers_N` is the model's layer `model.N`; a nested one (an MLP's
-`layers_0`) is `layers.0`.
+`layers_0`) is `layers.0`. A layer that the YAML stacks n times (a row
+`[-1, 6, Conv, ...]`) is an nn.Sequential here, `model.N.i`, and the JAX
+`Repeat`'s children `layers_N/i`.
 
 The extra branch of Segment, Pose and OBB heads (`cv4_i_j` in flax,
 `cv4.i.j` here) takes the generic rule.
@@ -20,6 +22,14 @@ torch `ConvTranspose2d` weight (in, out, kh, kw) through the same
 OIHW -> HWIO transpose as a conv (`torch_import.py:13-15`), so the one 4-D
 rule carries it both ways: HWIO's last axis becomes torch's first, which for
 this kernel is its input channels (`_to_torch_array`).
+
+The YOLOv6 YAMLs' `nn.ConvTranspose2d` layer is a bare module, `model.N`
+(`weight`, `bias`), where the JAX package nests it as
+`layers_N/conv_transpose`; its kernel takes the transposed conv's rule above.
+RepNCSPELAN4's `cv2_csp`, `cv2_conv`, `cv3_csp` and `cv3_conv` are the
+reference's `cv2.0`, `cv2.1`, `cv3.0` and `cv3.1` (`ELAN_NAMES`), which a
+Detect head's `cv2.0.0` does not match: there a digit follows. A2C2f's
+`gamma` is a bare parameter under its own name (`PARAM_LEAVES`).
 
 RT-DETR adds two kinds of names:
 - flax attention (`ma/query|key|value|out`, kernels (C, nh, hd) and
@@ -50,6 +60,11 @@ HEAD_NAMES = (
     ("enc_output", "enc_output.0"),
 )
 BARE_PARAMS = ("denoising_class_embed",)  # flax `self.param` leaves: a module's one `weight`
+PARAM_LEAVES = ("gamma",)  # flax `self.param` leaves kept under their name: A2C2f's `model.N.gamma`
+# RepNCSPELAN4's children (flax name, torch name); torch -> flax only where a
+# non-digit token follows, so that a Detect head's `cv2.0.0` keeps its name
+ELAN_NAMES = (("cv2_csp", "cv2.0"), ("cv2_conv", "cv2.1"), ("cv3_csp", "cv3.0"), ("cv3_conv", "cv3.1"))
+TRANSPOSED = "conv_transpose"  # the flax module of a bare `nn.ConvTranspose2d` layer
 MHA_PARTS = ("query", "key", "value")  # the rows of in_proj_weight, in order
 
 
@@ -71,8 +86,10 @@ def _rename(name: str, sep: str, src: str, dst: str) -> str:
 
 def _flax_path_to_torch(path) -> str:
     """('layers_28', 'dec_bbox_head_0', 'layers_0') -> 'model.28.dec_bbox_head.0.layers.0'."""
+    if len(path) == 2 and path[1] == TRANSPOSED and path[0].startswith("layers_"):
+        path = path[:1]
     joined = "/".join(path)
-    for flax_name, torch_name in HEAD_NAMES:
+    for flax_name, torch_name in (*HEAD_NAMES, *ELAN_NAMES):
         joined = _rename(joined, "/", flax_name, torch_name)
     out = []
     for pos, tok in enumerate(joined.split("/")):
@@ -98,9 +115,14 @@ def _torch_name_to_flax(name: str) -> Tuple[str, ...]:
     if parts and parts[0].isdigit():
         path.append(f"layers_{parts[0]}")
         parts = parts[1:]
+        if parts and parts[0].isdigit():  # a layer stacked n times: the JAX `Repeat` names its copies '0', '1', ...
+            path.append(parts[0])
+            parts = parts[1:]
     joined = ".".join(parts)
     for flax_name, torch_name in HEAD_NAMES:
         joined = _rename(joined, ".", torch_name, flax_name)
+    for flax_name, torch_name in ELAN_NAMES:
+        joined = re.sub(rf"(?<![^.]){re.escape(torch_name)}(?=\.[^\d.])", flax_name, joined)
     for p in joined.split(".") if joined else []:
         if p.isdigit() and path:
             path[-1] = f"{path[-1]}_{p}"
@@ -119,6 +141,8 @@ def torch_key_to_flax(key: str, ndim: int) -> Tuple[Tuple[str, ...], str, str]:
         path = (*path[:-1], "out")
     if path and path[-1] in BARE_PARAMS:
         return path[:-1], path[-1], "params"
+    if len(path) == 1 and path[0].startswith("layers_") and leaf in ("weight", "bias"):
+        path = (*path, TRANSPOSED)  # a bare layer with a weight: nn.ConvTranspose2d
     if leaf == "weight":
         return path, "scale" if ndim == 1 else "kernel", "params"
     if leaf == "running_mean":
@@ -161,6 +185,9 @@ def jax_to_torch_state_dict(variables: dict, reg_max: int = 16) -> Dict[str, tor
             arr = np.asarray(w, dtype=np.float32)
             if coll == "params" and leaf in BARE_PARAMS:
                 sd[f"{_flax_path_to_torch((*mods, leaf))}.weight"] = torch.from_numpy(arr.copy())
+                continue
+            if coll == "params" and leaf in PARAM_LEAVES:
+                sd[".".join(filter(None, (_flax_path_to_torch(mods), leaf)))] = torch.from_numpy(arr.copy())
                 continue
             if leaf not in leaf_names[coll]:
                 raise KeyError(f"unknown {coll} leaf {'/'.join(path)}")
