@@ -220,7 +220,8 @@ exits non-zero):
           images at 640 px with conf 1e-6, and yolov8s-p6 at 1280 px (K =
           30000 cut from 34,000 anchors), yolov6s, yolov3-spp, yoloX
           at scale s (six maps), yolov9c, yolo12s, yolov5-anchor (the anchor
-          head: K = 25,200) and gelan-c-dseg (segment, DSegment) at 640: K1's
+          head: K = 25,200), gelan-c-dseg (segment, DSegment) and yolov13s
+          (HyperACE, FullPAD) at 640: K1's
           launches around the call (one an image; yolov10s is end-to-end and
           must reach no NMS at all), the detections checked; warm latency per
           image over the model's ZOO_CALLS timed calls, the idle share,
@@ -232,24 +233,42 @@ exits non-zero):
           of the CPU's decode taken on both devices, equal); K1 on the 4
           images' captured rows bit for bit against its plain version, timed,
           with its bound
-  zoo_val yolo11s, yolov10s, yolov5-anchor, yolov9c and gelan-c-dseg (on
-          the segment set) val at 640 on the val phase's 128 images (batch
-          16, conf 1e-6): images/s, K1's launches (8, none and no NMS for
+  zoo_val yolo11s, yolov10s, yolov5-anchor, yolov9c, gelan-c-dseg (on
+          the segment set) and yolov13s val at 640 on the val phase's 128
+          images (batch 16, conf 1e-6): images/s, K1's launches (8, none and no NMS for
           yolov10s), idle share and K1's ms a launch from one profiled call,
           K1 on each first batch of rows (K = 30000); card against CPU on the
           first 16 images, every mAP within ZOO_VAL_TOL
   zoo_train_parity  one optimizer step of seeded yolo11n, yolov10n (with
-          E2EDetectLoss), yolov5-anchor (v5AnchorLoss), yolo12n and
-          gelan-c-dseg (nc 3) on 8 fixture images at 160 px, batch 8, nbs 8,
-          on the card and on the CPU, within ZOO_TRAIN_PARITY_TOL
+          E2EDetectLoss), yolov5-anchor (v5AnchorLoss), yolo12n,
+          gelan-c-dseg and yolov13n (nc 3) on 8 fixture images at 160 px,
+          batch 8, nbs 8, on the card and on the CPU, within ZOO_TRAIN_PARITY_TOL
           (gelan-c-dseg in float64 on both: ZOO_TRAIN_PARITY_DTYPE)
-  zoo_train  yolo11s, yolov10s, yolov5-anchor and gelan-c-dseg (segment) as
-          phase train: 640 px, batch 16, 2 epochs on 128 images with the
-          epoch-end val (K1 16 launches, none for yolov10s), train images/s
+  zoo_train  yolo11s, yolov10s, yolov5-anchor, gelan-c-dseg (segment) and
+          yolov13s as phase train: 640 px, batch 16, 2 epochs on 128 images
+          with the epoch-end val (K1 16 launches, none for yolov10s), train images/s
           in epoch 2, device ms a micro-batch, the idle share, the
           criterion's device ms and launches, K1's ms a launch from one more
           profiled val, and K1 on the rows of another val bit for bit
           against its plain version, timed, with its bound
+  (the zoo phases' YOLOv13 models have each FullPAD gate set to a seeded
+  value in GATE_RANGE by seed_gates: at 0 the gates cut HyperACE off)
+  tta     yolov8s (seeded) predict(augment=True) on the 4 images at 640 px,
+          conf 1e-6: K1 once an image over the three passes' candidates
+          (K = 15,049 at a 640 x 640 letterbox), every image's rows bit for bit
+          against the plain version, timed, with the bound; warm latency an
+          image over TTA_CALLS calls, the idle share and K1's profiled ms; the
+          three forwards of one image on the card against the CPU within
+          ZOO_PARITY_TOL and the NMS on the CPU's rows equal on both devices;
+          the trained fixture yolov8n's TTA predict of the 16 fixture images
+          at 160 px giving the same detections on the card and on the CPU
+  val_options  the trained fixture yolov8n at 160 px on the fixture set:
+          rect=True with save_json on the card and on the CPU (mAPs within
+          TASK_FIXTURE_TOL, K1 once a batch, each batch's rows (one shape
+          each) bit for bit against the plain version, timed, with the
+          bound), coco_evaluate (COCOEvalNp) of each predictions.json against
+          the set's COCO ground truth within TASK_FIXTURE_TOL, and the card's
+          cache="ram" val equal to its uncached val
   kernels the per-kernel summary line
 The last line is {"ok": true, "device": {...}}.
 """
@@ -372,12 +391,13 @@ CLS_SET = "torch_cls_synth"  # the classify fixture set: 3 classes, 24 train and
 # 640 px) unless ZOO_SPECS gives its YAML, scale and image size; its task is
 # its head's. The fixed-width YAMLs (yolov9c, gelan-c-dseg, yolov5-anchor with
 # the s multiples, yolov3-spp) run at their own widths.
+# YOLOv13 (yolov13s, yolov13n) runs with its FullPAD gates seeded (seed_gates).
 ZOO_SPECS = {"yolov8s-p6": ("yolov8s-p6.yaml", None, 1280), "yoloX-s": ("yoloX.yaml", "s", 640)}
 ZOO_PREDICT = ("yolo11s", "yolov10s", "yolov5s", "yolov3-tiny", "yolov8s-p6", "yolov6s", "yolov3-spp", "yoloX-s",
-               "yolov9c", "yolo12s", "yolov5-anchor", "gelan-c-dseg")
-ZOO_VAL = ("yolo11s", "yolov10s", "yolov5-anchor", "yolov9c", "gelan-c-dseg")
-ZOO_TRAIN_PARITY = ("yolo11n", "yolov10n", "yolov5-anchor", "yolo12n", "gelan-c-dseg")  # at 160 px, nc 3, seeded
-ZOO_TRAIN = ("yolo11s", "yolov10s", "yolov5-anchor", "gelan-c-dseg")
+               "yolov9c", "yolo12s", "yolov5-anchor", "gelan-c-dseg", "yolov13s")
+ZOO_VAL = ("yolo11s", "yolov10s", "yolov5-anchor", "yolov9c", "gelan-c-dseg", "yolov13s")
+ZOO_TRAIN_PARITY = ("yolo11n", "yolov10n", "yolov5-anchor", "yolo12n", "gelan-c-dseg", "yolov13n")  # 160 px, nc 3
+ZOO_TRAIN = ("yolo11s", "yolov10s", "yolov5-anchor", "gelan-c-dseg", "yolov13s")
 # a model's timed warm predict calls of the 4 images, and its profiled ones:
 # the YOLO11/v10/v5/v3-tiny models at their counts, the later ones fewer
 ZOO_CALLS = dict.fromkeys(ZOO_PREDICT[:4], (10, 3))
@@ -398,6 +418,10 @@ ZOO_TRAIN_PARITY_TOL = {**TRAIN_PARITY_TOL, "momentum_leaf": TRAIN_PARITY_TOL["m
 # (tools/torch_zoo_step_precision.py). In float64 both devices resolve the
 # step, so the bounds above hold it as they hold the float32 steps of the rest.
 ZOO_TRAIN_PARITY_DTYPE = {"gelan-c-dseg": torch.float64}
+# FullPAD_Tunnel's gates start at 0, which cuts every path from HyperACE to the
+# head; every YOLOv13 model here sets them to seeded values in this range.
+GATE_RANGE = (0.5, 1.5)
+TTA_CALLS = (3, 1)  # timed and profiled warm TTA predict calls of the 4 images
 
 
 def emit(phase: str, **fields) -> None:
@@ -665,18 +689,21 @@ def k1_bound(boxes, scores, keep, valid, max_det: int, thres: float) -> dict:
 
 
 @contextlib.contextmanager
-def capture_k1(ops_nms):
+def capture_k1(ops_nms, every: bool = False):
     """Records the first K1 call NMS makes inside the block: K1's rows as it
     received them (class-offset boxes, scores) and its keyword arguments,
     and the arguments and result of the gather around it
     (`_suppress_and_gather`, which gathers the `extra` payload). Yields a
     dict that holds 'rows', 'k1_kwargs', 'gather_args' and 'gather_out'
-    once a call has been made."""
+    once a call has been made; with every, also 'every_rows', the rows of
+    each call in turn."""
     cap, greedy_nms, gather = {}, ops_nms.greedy_nms, ops_nms._suppress_and_gather
 
     def k1(boxes, scores, **k):
         if "rows" not in cap:
             cap["rows"], cap["k1_kwargs"] = (boxes.clone(), scores.clone()), k
+        if every:
+            cap.setdefault("every_rows", []).append((boxes.clone(), scores.clone()))
         return greedy_nms(boxes, scores, **k)
 
     def suppress_and_gather(*args):
@@ -1419,6 +1446,7 @@ def train_run(YOLO, nms_cuda, tmp: Path, task: str = "detect", served: str | Non
     kpt = "kpt_shape: [5, 3]\n" if task == "pose" else ""
     data.write_text(data.read_text().replace("val: images/val", "train: images/val\nval: images/val\n" + kpt))
     model = YOLO(f"{served}.yaml", device="cuda", seed=0)
+    seed_gates(model.model)
     torch.cuda.reset_peak_memory_stats()
     nms_cuda.launches = 0
     t0 = time.perf_counter()
@@ -2507,14 +2535,29 @@ def zoo_task(name: str) -> str:
     return guess_model_task(zoo_spec(name)[0])
 
 
+def seed_gates(model, seed: int = 0) -> int:
+    """Set every FullPAD_Tunnel gate of a port model (an nn.Module) to a
+    seeded value in GATE_RANGE; returns how many there are."""
+    from ultralytics_pro_tpu_torch.nn.modules.v13 import FullPAD_Tunnel
+
+    gates = [m.gate for m in model.modules() if isinstance(m, FullPAD_Tunnel)]
+    with torch.no_grad():
+        for g, v in zip(gates, np.random.default_rng(seed).uniform(*GATE_RANGE, len(gates))):
+            g.fill_(float(v))
+    return len(gates)
+
+
 def zoo_yolo(YOLO, name: str, device: str, **over):
-    """A zoo model, seed 0, on device; `over` overrides its YAML's keys (nc)."""
+    """A zoo model, seed 0, on device, its FullPAD gates (if any) seeded;
+    `over` overrides its YAML's keys (nc)."""
     from ultralytics_pro_tpu_torch.nn.tasks import yaml_model_load
 
     src, scale, _ = zoo_spec(name)
     if scale:
         over["scale"] = scale
-    return YOLO({**yaml_model_load(src), **over} if over else src, device=device, seed=0)
+    model = YOLO({**yaml_model_load(src), **over} if over else src, device=device, seed=0)
+    seed_gates(model.model)
+    return model
 
 
 def zoo_parity(YOLO, ops_nms, full_f32, name: str, model, batch, cpu=None) -> dict:
@@ -2775,6 +2818,171 @@ def zoo_train(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
     return {"models": out, "card": card, "nvidia_smi": smi}
 
 
+def tta_parity(YOLO, ops_nms, full_f32, model, batch) -> dict:
+    """Seeded yolov8s's three augmented forwards (`tta_forward`) of one
+    letterboxed image on the card and on the CPU: the decoded rows within
+    ZOO_PARITY_TOL, and the generic NMS on the CPU's rows (K1 on the card,
+    its plain version on the CPU) equal."""
+    from ultralytics_pro_tpu_torch.engine.predictor import rgb01, tta_forward
+
+    cpu = YOLO("yolov8s.yaml", device="cpu", seed=0)
+    x = rgb01(batch[:1].cpu())
+    with torch.no_grad(), full_f32():
+        y_gpu, y_cpu = tta_forward(model.model, x.cuda()).cpu(), tta_forward(cpu.model, x)
+    box_err = float((y_gpu[..., :4] - y_cpu[..., :4]).abs().max())
+    score_err = float((y_gpu[..., 4:] - y_cpu[..., 4:]).abs().max())
+    kw = dict(conf_thres=CONF, iou_thres=0.7, max_det=300)
+    parts = (y_cpu[..., :4], y_cpu[..., 4:])
+    out_cpu = ops_nms.non_max_suppression(*parts, **kw)
+    out_gpu = ops_nms.non_max_suppression(*(p.cuda() for p in parts), **kw)
+    info = dict(rows=list(y_cpu.shape), max_abs_box_err_px=box_err, max_abs_score_err=score_err,
+                final_rows_mismatch=sum(int((out_gpu[k].cpu() != out_cpu[k]).sum()) for k in out_cpu),
+                kept=int(out_cpu["valid"].sum()), tolerance=ZOO_PARITY_TOL)
+    if not (box_err <= ZOO_PARITY_TOL["boxes_px"] and score_err <= ZOO_PARITY_TOL["scores"]) \
+            or info["final_rows_mismatch"]:
+        raise AssertionError(f"TTA card vs CPU: {info}")
+    return info
+
+
+def tta_fixture(YOLO, yaml_model_load) -> dict:
+    """The reference-trained yolov8n (val_parity_model.npz, nc 3) predicts the
+    16 fixture images with augment=True at 160 px on the card and on the CPU:
+    the same detections (count and classes equal), boxes within
+    ZOO_PARITY_TOL px and scores within its score bound."""
+    from ultralytics_pro_tpu_torch.data import imread
+
+    ref = json.loads((FIXTURES / "val_parity_ref.json").read_text())
+    imgs = [imread(p) for p in sorted((FIXTURES / "torch_val_synth" / "images" / "val").glob("*.png"))]
+    res = {d: parity_yolov8n(YOLO, yaml_model_load, ref, d).predict(imgs, imgsz=160, augment=True)
+           for d in ("cuda", "cpu")}
+    box_err = score_err = 0.0
+    for g, c in zip(res["cuda"], res["cpu"]):
+        if len(g.boxes.data) != len(c.boxes.data) or not np.array_equal(g.boxes.cls, c.boxes.cls):
+            raise AssertionError(f"TTA fixture: card kept {g.boxes.data}, the CPU {c.boxes.data}")
+        if len(c.boxes.data):
+            box_err = max(box_err, float(np.abs(g.boxes.xyxy - c.boxes.xyxy).max()))
+            score_err = max(score_err, float(np.abs(g.boxes.conf - c.boxes.conf).max()))
+    if not (box_err <= ZOO_PARITY_TOL["boxes_px"] and score_err <= ZOO_PARITY_TOL["scores"]):
+        raise AssertionError(f"TTA fixture card vs CPU: boxes {box_err} px, scores {score_err}")
+    return dict(images=len(imgs), imgsz=160, detections=[len(r.boxes.data) for r in res["cuda"]],
+                max_abs_box_err_px=box_err, max_abs_score_err=score_err, tolerance=ZOO_PARITY_TOL)
+
+
+def tta(YOLO, yaml_model_load, nms_cuda, ops_nms, full_f32, card: str, smi: str) -> dict:
+    """Seeded yolov8s predict(augment=True) of the 4 images at 640, conf 1e-6:
+    K1's launches around the call (one an image: the three passes' rows go
+    through one generic NMS), each image's rows (K = 8,000 + 6,069 + 980 at
+    a 640 x 640 letterbox) captured and held bit for bit against the plain
+    version, timed, with the bound; warm latency an image over TTA_CALLS
+    calls, the idle share and K1's profiled ms; card against CPU
+    (tta_parity) and on the trained fixture model (tta_fixture)."""
+    imgs = seeded_images()
+    calls, profiled = TTA_CALLS
+    model = YOLO("yolov8s.yaml", device="cuda", seed=0)
+    kw = dict(conf=CONF, augment=True)
+    model.predict(imgs[:1], **kw)  # first call: cuDNN and allocator set-up
+    torch.cuda.synchronize()
+    nms_cuda.launches = 0
+    with capture_k1(ops_nms, every=True) as cap:
+        results = model.predict(imgs, **kw)
+        torch.cuda.synchronize()
+    launches = nms_cuda.launches
+    if launches != len(imgs) or len(cap["every_rows"]) != len(imgs):
+        raise AssertionError(f"TTA: K1 launched {launches} times for {len(imgs)} images")
+    dets = check_detections(results, imgs)
+    rows = [val_k1(nms_cuda, r, card, smi) for r in cap["every_rows"]]
+    if rows[0]["K"] != 15049:
+        raise AssertionError(f"TTA rows of {rows[0]['K']} candidates at 640 x 640, want 15049")
+    per_image = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        model.predict(imgs, **kw)
+        per_image.append((time.perf_counter() - t0) * 1e3 / len(imgs))
+    prof = profile_window(lambda: model.predict(imgs, **kw), profiled)
+    call_ms = float(np.median(per_image)) * len(imgs)
+    busy = prof["device_busy_ms_per_call"]
+    batch = model.predictor.preprocess(imgs)
+    return dict(model="yolov8s", imgsz=VAL_IMGSZ, conf=CONF, k1_launches=launches, detections=dets,
+                rows_K=[r["K"] for r in rows], k1_on_rows=rows, predict_calls=calls,
+                predict_ms_per_image={"median": float(np.median(per_image)), "min": min(per_image),
+                                      "max": max(per_image)},
+                device_busy_ms_per_call=busy, device_idle_share=None if busy is None else max(0.0, 1 - busy / call_ms),
+                kernel_launches_per_image=prof["kernel_launches_per_call"] / len(imgs),
+                k1_profiled_ms_per_launch=prof["device_ms_by_category"].get("k1_greedy_nms", 0.0) / len(imgs),
+                parity=tta_parity(YOLO, ops_nms, full_f32, model, batch), fixture=tta_fixture(YOLO, yaml_model_load),
+                predict_profile=prof, card=card, nvidia_smi=smi)
+
+
+def coco_ground_truth(root: Path) -> dict:
+    """A YOLO-format set's val labels as a COCO ground truth: image ids the
+    file stems (as `pred_to_json` names them), boxes top-left xywh in the
+    original pixels, the classes of its data.yaml."""
+    from ultralytics_pro_tpu_torch.data import check_det_dataset, imsize
+
+    images, anns = [], []
+    for p in sorted((root / "images" / "val").glob("*.png")):
+        h, w = imsize(p)
+        images.append({"id": p.stem, "width": w, "height": h})
+        for line in (root / "labels" / "val" / f"{p.stem}.txt").read_text().splitlines():
+            if line.strip():
+                c, cx, cy, bw, bh = (float(v) for v in line.split())
+                box = [(cx - bw / 2) * w, (cy - bh / 2) * h, bw * w, bh * h]
+                anns.append({"id": len(anns), "image_id": p.stem, "category_id": int(c), "bbox": box,
+                             "area": box[2] * box[3], "iscrowd": 0})
+    names = check_det_dataset(root / "data.yaml")["names"]
+    return {"images": images, "annotations": anns, "categories": [{"id": i} for i in names]}
+
+
+def val_options(YOLO, yaml_model_load, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
+    """The reference-trained yolov8n on the fixture set at 160 px, batch 8,
+    conf 0.001: a rect val with save_json on the card and on the CPU (mAPs
+    within TASK_FIXTURE_TOL; K1 once a batch, each batch's rows, one shape
+    each, bit for bit against the plain version, timed, with the bound),
+    `coco_evaluate` of each predictions.json against the set's COCO ground
+    truth (COCOEvalNp's mAPs within TASK_FIXTURE_TOL), and the card's val
+    with cache="ram" against its uncached val (every metric equal)."""
+    from ultralytics_pro_tpu_torch.engine.validator import DetectionValidator
+
+    ref = json.loads((FIXTURES / "val_parity_ref.json").read_text())
+    root = shutil.copytree(FIXTURES / "torch_val_synth", tmp / "options_set")
+    data = str(root / "data.yaml")
+    gt = tmp / "options_gt.json"
+    gt.write_text(json.dumps(coco_ground_truth(root)))
+    va = ref["val_args"]
+    kw = dict(data=data, imgsz=va["imgsz"], batch=8, conf=va["conf"], iou=va["iou"], max_det=va["max_det"])
+    keys = ("metrics/mAP50(B)", "metrics/mAP50-95(B)")
+    runs, rect_rows = {}, None
+    for device in ("cuda", "cpu"):
+        model = parity_yolov8n(YOLO, yaml_model_load, ref, device)
+        save_dir = tmp / f"options_json_{device}"
+        nms_cuda.launches = 0
+        t0 = time.perf_counter()
+        with capture_k1(ops_nms, every=True) as cap:
+            m = model.val(rect=True, save_json=True, save_dir=str(save_dir), **kw)
+        seconds = time.perf_counter() - t0
+        coco = DetectionValidator().coco_evaluate(gt, save_dir / "predictions.json")
+        runs[device] = {**{k: float(m.results_dict[k]) for k in keys}, "coco_map50-95": coco["map50-95"],
+                        "coco_map50": coco["map50"], "seconds": seconds, "k1_launches": nms_cuda.launches,
+                        "predictions": len(json.loads((save_dir / "predictions.json").read_text()))}
+        if device == "cuda":
+            rect_rows = cap["every_rows"]
+            plain = model.val(**kw)
+            cached = model.val(cache="ram", **kw)
+            if cached.results_dict != plain.results_dict:
+                raise AssertionError(f"cache=ram val {cached.results_dict} against uncached {plain.results_dict}")
+            runs["cuda_uncached_vs_ram"] = {k: float(plain.results_dict[k]) for k in keys}
+    diff = {k: abs(runs["cuda"][k] - runs["cpu"][k]) for k in (*keys, "coco_map50-95", "coco_map50")}
+    if not max(diff.values()) <= TASK_FIXTURE_TOL or runs["cuda"]["predictions"] != runs["cpu"]["predictions"]:
+        raise AssertionError(f"rect val with save_json, card vs CPU: {runs} (tolerance {TASK_FIXTURE_TOL})")
+    if runs["cuda"]["k1_launches"] != 2 or len(rect_rows) != 2:
+        raise AssertionError(f"rect val: K1 launched {runs['cuda']['k1_launches']} times for 2 batches")
+    rows = [val_k1(nms_cuda, r, card, smi) for r in rect_rows]
+    return dict(model="yolov8n (val_parity_model.npz)", data="tests/fixtures/torch_val_synth", val_args=kw,
+                runs=runs, abs_diff=diff, tolerance=TASK_FIXTURE_TOL,
+                rect_k1_rows=[list(r[1].shape) for r in rect_rows], k1_on_rect_rows=rows,
+                card=card, nvidia_smi=smi)
+
+
 def tf32_seen(model, call) -> dict:
     """torch's TF32 flags (cudnn, cuda matmul) as found, inside model's forward
     during call(), and after it."""
@@ -2958,6 +3166,14 @@ def main() -> int:
         zt = zoo_train(YOLO, nms_cuda, ops_nms, Path(tmp), card, smi)
         emit("zoo_train", **zt, seconds=time.perf_counter() - t)
 
+    t = time.perf_counter()
+    ta = tta(YOLO, yaml_model_load, nms_cuda, ops_nms, full_f32, card, smi)
+    emit("tta", **ta, seconds=time.perf_counter() - t)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        vo = val_options(YOLO, yaml_model_load, nms_cuda, ops_nms, Path(tmp), card, smi)
+        emit("val_options", **vo, seconds=time.perf_counter() - t)
+
     pred, val_size = k1
     tk1 = train["k1_on_val_rows"]
     task_k1 = {"seg_predict": (task_runs["segment"], task_runs["segment"]["k1_on_batch_rows"]),
@@ -2969,7 +3185,8 @@ def main() -> int:
                 for path, runs, key in (("predict", zp, "k1_on_batch_rows"), ("val", zv, "k1_on_batch_rows"),
                                         ("train_val", zt, "k1_on_val_rows"))
                 for name in runs["models"] if key in runs["models"][name]}
-    captured = (vk1, tk1, *(rows for _, rows in task_k1.values()), *zoo_rows.values())
+    captured = (vk1, tk1, *(rows for _, rows in task_k1.values()), *zoo_rows.values(), *ta["k1_on_rows"],
+                *vo["k1_on_rect_rows"])
     kernels = [{
         "name": "greedy_nms", "route": "cuda",
         "source": "ultralytics_pro_tpu_torch/csrc/greedy_nms.cu",
@@ -3005,6 +3222,12 @@ def main() -> int:
            for path, runs in (("predict", zp), ("val", zv), ("train_val", zt)) for name in runs["models"]
            for key, src in (("launches", "k1_launches"), ("profiled_ms", "k1_profiled_ms_per_launch"))},
         **{f"{name}_{key}": rows[key] for name, rows in zoo_rows.items()
+           for key in ("B", "K", "ms", "plain_ms", "bound_ms", "bound_by", "scanned_per_row")},
+        "tta_predict_path_launches": ta["k1_launches"], "tta_predict_path_profiled_ms": ta["k1_profiled_ms_per_launch"],
+        **{f"tta_predict_{key}": [r[key] for r in ta["k1_on_rows"]]
+           for key in ("K", "ms", "plain_ms", "bound_ms", "bound_by", "scanned_per_row")},
+        "rect_val_path_launches": vo["runs"]["cuda"]["k1_launches"],
+        **{f"rect_val_{key}": [r[key] for r in vo["k1_on_rect_rows"]]
            for key in ("B", "K", "ms", "plain_ms", "bound_ms", "bound_by", "scanned_per_row")},
     }, {
         "name": "msda_sample_fused", "route": "cuda",

@@ -7,9 +7,10 @@ criteria, forward and backward, on the card against the CPU, classify
 predict and val and rtdetr-l val (K2 on the val path) against the CPU, K2's
 backward kernel against the plain version's autograd, a narrow RT-DETR
 training epoch through K2 forward and backward, the YOLO11, YOLOv10, v5
-anchor-head, YOLO12 and GELAN-DSegment forwards and predicts on the card
-against the CPU (v10 without NMS), and K1 on yolov3-tiny's two-level rows
-and on the anchor head's 25,200-candidate rows.
+anchor-head, YOLO12, GELAN-DSegment and YOLOv13 (seeded FullPAD gates)
+forwards and predicts on the card against the CPU (v10 without NMS), K1 on
+yolov3-tiny's two-level rows and on the anchor head's 25,200-candidate rows,
+test-time augmentation and a rect val on the card against the CPU.
 
 These tests need a card and nvcc, and import neither JAX nor the JAX package
 nor `tests/conftest.py` (which imports JAX), so they run on a machine that has
@@ -31,7 +32,15 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import capture_k1, check_detections, cls_fixture_model, zoo_parity
+from chip_smoke import (
+    capture_k1,
+    check_detections,
+    cls_fixture_model,
+    parity_yolov8n,
+    tta_fixture,
+    zoo_parity,
+    zoo_yolo,
+)
 from ultralytics_pro_tpu_torch import RTDETR, YOLO
 from ultralytics_pro_tpu_torch.kernels import msda_cuda, nms_cuda
 from ultralytics_pro_tpu_torch.nn.tasks import yaml_model_load
@@ -688,3 +697,60 @@ def test_k1_on_anchor_head_rows_equals_plain(card):
     keep, valid = nms_cuda.greedy_nms(boxes, scores, 300, 0.7, presorted=True)
     rk, rv = nms_cuda.greedy_nms_plain(boxes, scores, 300, 0.7)
     assert torch.equal(keep, rk) and torch.equal(valid, rv)
+
+
+@pytest.mark.cuda
+def test_v13_forward_and_predict_on_card_match_cpu(card):
+    """yolov13n with its FullPAD gates seeded (chip_smoke.zoo_yolo) predicts
+    on the card at 160 px through K1, once an image; the same weights on the
+    card and the CPU as chip_smoke.zoo_parity holds them."""
+    from ultralytics_pro_tpu_torch.nn.modules.v13 import FullPAD_Tunnel
+    from ultralytics_pro_tpu_torch.ops import nms as ops_nms
+    from ultralytics_pro_tpu_torch.utils import full_f32
+
+    m = zoo_yolo(YOLO, "yolov13n", "cuda")
+    gates = [float(x.gate.detach()) for x in m.model.modules() if isinstance(x, FullPAD_Tunnel)]
+    assert len(gates) == 7 and min(gates) >= 0.5
+    imgs = [np.random.default_rng(i).integers(0, 256, (120, 160, 3), dtype=np.uint8) for i in range(3)]
+    before = nms_cuda.launches
+    res = m.predict(imgs, imgsz=160, conf=1e-6)
+    assert nms_cuda.launches == before + len(imgs)
+    check_detections(res, imgs)
+    info = zoo_parity(YOLO, ops_nms, full_f32, "yolov13n", m, m.predictor.preprocess(imgs))
+    assert info["final_rows_mismatch"] == 0
+
+
+@pytest.mark.cuda
+def test_tta_predict_on_card_matches_cpu(card):
+    """The trained fixture yolov8n's predict(augment=True) at 160 px: the same
+    detections on the card and on the CPU (chip_smoke.tta_fixture), K1 once
+    an image over the three passes' candidates."""
+    before = nms_cuda.launches
+    info = tta_fixture(YOLO, yaml_model_load)
+    assert nms_cuda.launches == before + info["images"] and sum(info["detections"]) > 0
+
+
+@pytest.mark.cuda
+def test_rect_val_on_card_matches_cpu(tf32_on, tmp_path):
+    """A rect val of the fixture set at 160 px (two batch shapes): every mAP
+    on the card within 1e-4 of the CPU's, K1 once a batch, each batch's rows
+    through K1 equal to its plain version."""
+    from ultralytics_pro_tpu_torch.ops import nms as ops_nms
+
+    ref = json.loads((FIXTURES / "val_parity_ref.json").read_text())
+    data = shutil.copytree(FIXTURES / "torch_val_synth", tmp_path / "set") / "data.yaml"
+    kw = dict(data=str(data), imgsz=160, batch=8, conf=0.001, rect=True)
+    before = nms_cuda.launches
+    with capture_k1(ops_nms, every=True) as cap:
+        got = parity_yolov8n(YOLO, yaml_model_load, ref, "cuda").val(**kw)
+    assert nms_cuda.launches == before + 2
+    want = parity_yolov8n(YOLO, yaml_model_load, ref, "cpu").val(**kw)
+    for k, v in want.results_dict.items():
+        assert abs(got.results_dict[k] - v) <= 1e-4, k
+    shapes = set()
+    for boxes, scores in cap["every_rows"]:
+        shapes.add(tuple(scores.shape))
+        keep, valid = nms_cuda.greedy_nms(boxes, scores, 300, 0.7, presorted=True)
+        rk, rv = nms_cuda.greedy_nms_plain(boxes, scores, 300, 0.7)
+        assert torch.equal(keep, rk) and torch.equal(valid, rv)
+    assert len(shapes) == 2

@@ -97,11 +97,11 @@ def test_unported_modules_raise_by_name():
     from ultralytics_pro_tpu_torch.nn.tasks import yaml_model_load
 
     d = yaml_model_load("yolov8n.yaml")
-    d["backbone"][2] = [-1, 1, "HyperACE", [128, 64, 32, 1]]
-    with pytest.raises(NotImplementedError, match="HyperACE"):
+    d["backbone"][2] = [-1, 1, "CBAM", [128]]
+    with pytest.raises(NotImplementedError, match="CBAM"):
         DetectionModel(d)
-    with pytest.raises(FileNotFoundError, match="yolov13"):
-        DetectionModel("yolov13.yaml")
+    with pytest.raises(FileNotFoundError, match="yolov8-CBAM"):
+        DetectionModel("yolov8-CBAM.yaml")
 
 
 def test_yaml_activation_override_is_model_wide_and_restored():

@@ -376,8 +376,7 @@ def test_loader_pads_the_last_batch_in_order(fixture_copy):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(rect=True), "rect"), (dict(augment=True), "augment"), (dict(cache="ram"), "cache"),
-    (dict(task="classify"), "classify"), (dict(data={"channels": 1}), "channels"),
+    (dict(augment=True), "augment"), (dict(task="classify"), "classify"), (dict(data={"channels": 1}), "channels"),
 ])
 def test_dataset_refuses_what_it_does_not_port(fixture_copy, kwargs, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -430,21 +429,24 @@ def test_val_single_cls_zeroes_ground_truth_too(fixture_copy):
     assert 0.5 < m.box.map50 <= 1
 
 
-def test_val_refuses_what_it_does_not_port(fixture_copy):
+def test_val_refuses_what_it_does_not_port(fixture_copy, tmp_path):
+    """plots raises in both facades; RT-DETR's save_json writes an empty
+    predictions.json, as the JAX RTDETRValidator does (its matching keeps no
+    records)."""
+    from tests.test_torch_cuda import NARROW
     from ultralytics_pro_tpu_torch import RTDETR
 
     model = YOLO("yolov8n.yaml", device="cpu")
     data = str(fixture_copy / "data.yaml")
-    for kwargs, match in ((dict(plots=True), "plots"), (dict(save_json=True), "save_json"),
-                          (dict(rect=True), "rect")):
-        with pytest.raises(NotImplementedError, match=match):
-            model.val(data=data, imgsz=64, **kwargs)
+    with pytest.raises(NotImplementedError, match="plots"):
+        model.val(data=data, imgsz=64, plots=True)
     with pytest.raises(ValueError, match="data="):
         model.val()
-    detr = RTDETR("rtdetr-l.yaml", device="cpu")  # its val is ported; its validator refuses the same flags
-    for key in ("plots", "save_json"):
-        with pytest.raises(NotImplementedError, match=key):
-            detr.val(data=data, imgsz=64, **{key: True})
+    detr = RTDETR("rtdetr-l.yaml", device="cpu")  # its val is ported; its validator refuses the same flag
+    with pytest.raises(NotImplementedError, match="plots"):
+        detr.val(data=data, imgsz=64, plots=True)
+    RTDETR(dict(NARROW), device="cpu").val(data=data, imgsz=64, save_json=True, project=str(tmp_path))
+    assert json.loads((tmp_path / "predictions.json").read_text()) == []
 
 
 if __name__ == "__main__":

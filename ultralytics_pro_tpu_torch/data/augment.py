@@ -103,9 +103,10 @@ class LetterBox:
         self.scaleup = scaleup
         self.padding_value = padding_value
 
-    def _geometry(self, shape):
-        """(ratio, (w, h) after the resize, (top, bottom, left, right) pads) for an (h, w) image."""
-        new_shape = self.new_shape
+    def _geometry(self, shape, new_shape=None):
+        """(ratio, (w, h) after the resize, (top, bottom, left, right) pads) for
+        an (h, w) image into new_shape (h, w), the letterbox's own by default."""
+        new_shape = new_shape or self.new_shape
         r = min(new_shape[0] / shape[0], new_shape[1] / shape[1])
         if not self.scaleup:
             r = min(r, 1.0)
@@ -142,10 +143,12 @@ class LetterBox:
         letterboxed, `bboxes` (n, 4) pixel xyxy or (n, 5) xywhr, `keypoints`
         (n, K, 2|3) and `segments` (a list of (k, 2)) scaled and shifted,
         `ratio_pad` ((gain_h, gain_w), (left, top)) composed with the
-        dataset's pre-resize gain, `resized_shape` the letterboxed (h, w)."""
+        dataset's pre-resize gain, `resized_shape` the letterboxed (h, w). A
+        `rect_shape` (h, w) in labels (the rect batch's) is popped and taken
+        in place of the letterbox's own shape."""
         img = labels["img"]
         shape = img.shape[:2]
-        r, new_unpad, pads = self._geometry(shape)
+        r, new_unpad, pads = self._geometry(shape, labels.pop("rect_shape", None))
         x = torch.from_numpy(np.ascontiguousarray(img))
         if shape[::-1] != new_unpad:
             x = resize_bilinear(x, new_unpad)

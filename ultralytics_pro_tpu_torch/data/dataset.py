@@ -22,11 +22,24 @@ corners become (cx, cy, w, h, rad) in the resized image's pixels through
 With `augment=False` (the JAX package's default, `cfg/default.yaml:66`)
 train images go through the same transforms as val, as in the JAX dataset.
 Labels are parsed on every construction: the port writes no `.cache` beside
-the labels. Rectangular batches, image caches, augmentation (the JAX
-`v8_transforms`: Mosaic, RandomPerspective, RandomHSV, flips, MixUp),
-channel counts other than 3 and `ClassificationDataset(augment=True)`
-(RandAugment through cv2) raise NotImplementedError; the class filter and
-`fraction` of the JAX dataset are
+the labels.
+
+`rect=True` (`set_rectangle:74`, `__getitem__:414-417`): the images sorted
+by aspect ratio h / w, read from the files' headers (`image_io.imsize`; the
+JAX dataset opens them with PIL, and an image it cannot open counts as
+square there and here), one shape a batch of `batch_size`, a multiple of
+`stride` (`ceil(shape * imgsz / stride + pad) * stride`), and each image
+letterboxed to its batch's shape. `cache` (`_cache_images:124`,
+`load_image:332`): "ram" (or any other true value) keeps each resized image,
+unless the free memory looks too small for them (`_check_cache_ram:103`);
+"disk" writes each resized image and its original (h, w) as `im` and `shape`
+in an `.npz` beside the image file, read back in place of the image (either
+package reads the other's).
+
+Augmentation (the JAX `v8_transforms`: Mosaic, RandomPerspective,
+RandomHSV, flips, MixUp), channel counts other than 3 and
+`ClassificationDataset(augment=True)` (RandAugment through cv2) raise
+NotImplementedError; the class filter and `fraction` of the JAX dataset are
 left out.
 """
 
@@ -34,6 +47,7 @@ from __future__ import annotations
 
 import glob
 import os
+import random
 from pathlib import Path
 from typing import Dict, List, Optional
 
@@ -41,7 +55,8 @@ import numpy as np
 
 from ultralytics_pro_tpu_torch.data.augment import Compose, LetterBox, classify_transforms, resize_area, resize_bilinear
 from ultralytics_pro_tpu_torch.data.geometry import poly2xywhr
-from ultralytics_pro_tpu_torch.data.image_io import imread
+from ultralytics_pro_tpu_torch.data.image_io import imread, imsize
+from ultralytics_pro_tpu_torch.utils import LOGGER
 
 IMG_FORMATS = {"bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp", "pfm"}
 TASKS = ("detect", "segment", "pose", "obb")
@@ -65,7 +80,7 @@ class YOLODataset:
 
     def __init__(self, img_path, imgsz: int = 640, augment: bool = False, rect: bool = False,
                  single_cls: bool = False, data: Optional[Dict] = None, task: str = "detect",
-                 cache=None):
+                 cache=None, batch_size: int = 16, stride: int = 32, pad: float = 0.5):
         if augment:
             raise NotImplementedError(
                 "YOLODataset(augment=True) is not implemented in ultralytics_pro_tpu_torch yet: the "
@@ -74,12 +89,9 @@ class YOLODataset:
         if task == "classify":
             raise NotImplementedError("YOLODataset(task='classify'): a classify set is a folder per class, "
                                       "read by ClassificationDataset (data/dataset.py) after check_cls_dataset")
-        unported = {"rect=True": rect, f"cache={cache!r}": cache, f"task={task!r}": task not in TASKS}
-        for what, asked in unported.items():
-            if asked:
-                raise NotImplementedError(f"YOLODataset({what}) is not implemented in "
-                                          f"ultralytics_pro_tpu_torch yet; it ports the {', '.join(TASKS)} "
-                                          "paths without augmentation")
+        if task not in TASKS:
+            raise NotImplementedError(f"YOLODataset(task={task!r}) is not implemented in ultralytics_pro_tpu_torch "
+                                      f"yet; it ports the {', '.join(TASKS)} paths without augmentation")
         self.data = data or {}
         ch = int(self.data.get("channels", 3) or 3)
         if ch != 3:
@@ -92,7 +104,76 @@ class YOLODataset:
         self.im_files = self.get_img_files(img_path)
         self.labels = self.get_labels()
         self.ni = len(self.labels)
+        self.cache = str(cache).lower() if cache not in (None, False) else None
+        self.ims = [None] * self.ni
+        if self.cache == "ram" and not self._check_cache_ram():
+            self.cache = None
+        if self.cache:
+            self._cache_images()
+        self.rect = bool(rect)
+        self.batch_size, self.stride, self.pad = batch_size, stride, pad
+        if self.rect:
+            self.set_rectangle()
         self.transforms = self.build_transforms()
+
+    def set_rectangle(self):
+        """Sort the images by aspect ratio and give each batch one shape,
+        `batch_shapes[batch_index[i]]` (h, w)."""
+        shapes = []
+        for f in self.im_files:
+            try:
+                shapes.append(imsize(f))
+            except Exception:  # as the JAX dataset takes an image PIL cannot open
+                shapes.append((self.imgsz, self.imgsz))
+        ar = np.array([h / w for h, w in shapes], np.float64)
+        order = np.argsort(ar).tolist()
+        self.im_files = [self.im_files[i] for i in order]
+        self.labels = [self.labels[i] for i in order]
+        self.ims = [self.ims[i] for i in order]
+        ar = ar[order]
+        nb = int(np.ceil(self.ni / self.batch_size))
+        self.batch_index = (np.arange(self.ni) // self.batch_size).astype(int)
+        out = np.ones((nb, 2), np.float64)
+        for b in range(nb):
+            ari = ar[self.batch_index == b]
+            mini, maxi = ari.min(), ari.max()
+            if maxi < 1:
+                out[b] = [maxi, 1]
+            elif mini > 1:
+                out[b] = [1, 1 / mini]
+        self.batch_shapes = np.ceil(out * self.imgsz / self.stride + self.pad).astype(int) * self.stride
+
+    # -- caching ----------------------------------------------------------------
+    def _npy_path(self, i: int) -> Path:
+        return Path(self.im_files[i]).with_suffix(".npz")
+
+    def _check_cache_ram(self, safety_margin: float = 0.5) -> bool:
+        """Whether the resized images of up to 30 sampled files, extrapolated
+        to the set and times 1 + safety_margin, fit in the free memory."""
+        n = min(self.ni, 30)
+        b = 0
+        for i in random.Random(0).sample(range(self.ni), n):
+            try:
+                h, w = imsize(self.im_files[i])
+            except (OSError, ImportError):  # unreadable, or not PNG with no PIL: left out of the sample
+                continue
+            r = self.imgsz / max(h, w)
+            b += h * w * 3 * min(r, 1) ** 2
+        need = b * self.ni / max(n, 1) * (1 + safety_margin)
+        free = _available_memory()
+        if need >= free:
+            LOGGER.warning(f"cache=ram needs ~{need / 1e9:.1f}GB but only {free / 1e9:.1f}GB free; caching disabled")
+        return need < free
+
+    def _cache_images(self):
+        for i in range(self.ni):
+            if self.cache == "disk":
+                p = self._npy_path(i)
+                if not p.exists():
+                    im, (h0, w0), _ = self._read_resized(i)
+                    np.savez(str(p), im=im, shape=np.array((h0, w0)))
+            else:
+                self.ims[i] = self._read_resized(i)
 
     # -- files / labels -------------------------------------------------------
     def get_img_files(self, img_path) -> List[str]:
@@ -160,9 +241,22 @@ class YOLODataset:
 
     # -- loading --------------------------------------------------------------
     def load_image(self, i: int):
-        """Read + long-side resize to imgsz (`_read_resized`; there is no image
-        cache): area averaging to shrink, bilinear to grow (the val path's
-        INTER_AREA and INTER_LINEAR). Returns (image, (h0, w0), (h, w))."""
+        """The image from the RAM cache, the disk cache's `.npz`, or the file
+        (`_read_resized`). Returns (image, (h0, w0), (h, w))."""
+        if self.ims[i] is not None:
+            return self.ims[i]
+        if self.cache == "disk":
+            p = self._npy_path(i)
+            if p.exists():
+                with np.load(str(p)) as z:
+                    im = z["im"]
+                    return im, tuple(int(v) for v in z["shape"]), im.shape[:2]
+        return self._read_resized(i)
+
+    def _read_resized(self, i: int):
+        """Read + long-side resize to imgsz: area averaging to shrink, bilinear
+        to grow (the val path's INTER_AREA and INTER_LINEAR). Returns (image,
+        (h0, w0), (h, w))."""
         im = imread(self.im_files[i])
         h0, w0 = im.shape[:2]
         r = self.imgsz / max(h0, w0)
@@ -215,7 +309,20 @@ class YOLODataset:
         return self.ni
 
     def __getitem__(self, i: int) -> Dict:
-        return self.transforms(self.get_image_and_label(i))
+        labels = self.get_image_and_label(i)
+        if self.rect:
+            labels["rect_shape"] = tuple(int(v) for v in self.batch_shapes[self.batch_index[i]])
+        return self.transforms(labels)
+
+
+def _available_memory() -> float:
+    """Bytes of memory free for new allocations: psutil's `available` where
+    psutil imports, else the system's free pages."""
+    try:
+        import psutil
+    except ImportError:
+        return float(os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE"))
+    return float(psutil.virtual_memory().available)
 
 
 class ClassificationDataset:

@@ -12,6 +12,10 @@
 - anything else, and PNG variants outside the list above, through PIL when
   PIL imports; otherwise it raises an error that names the file and the
   missing decoder.
+
+`imsize(path)` gives an image's (h, w) without decoding it: a PNG's from its
+IHDR chunk, any other file's through PIL (what the JAX dataset's rect
+batching reads, `ultralytics_pro_tpu/data/dataset.py:74-81`).
 """
 
 from __future__ import annotations
@@ -39,6 +43,21 @@ def imread(path) -> np.ndarray:
         if decoded is not None:
             return decoded
     return _read_with_pil(path)
+
+
+def imsize(path) -> tuple:
+    """(h, w) of an image file: a PNG's from its header, others through PIL."""
+    path = Path(path)
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] == PNG_SIGNATURE and head[12:16] == b"IHDR":
+        w, h = struct.unpack(">II", head[16:24])
+        return h, w
+    from PIL import Image
+
+    with Image.open(path) as im:
+        w, h = im.size
+    return h, w
 
 
 def _read_with_pil(path: Path) -> np.ndarray:

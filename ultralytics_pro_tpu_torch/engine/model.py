@@ -122,7 +122,10 @@ class Model:
     def val(self, data=None, **kwargs):
         """Evaluate on a dataset's `split` (default val; a classify set's val
         folder); returns the task's metrics (DetMetrics, SegmentMetrics,
-        PoseMetrics, OBBMetrics or ClassifyMetrics)."""
+        PoseMetrics, OBBMetrics or ClassifyMetrics). `rect` batches by aspect
+        ratio as the JAX facade's val does; `cache` ("ram" or "disk") caches
+        the resized images, which the JAX facade's val leaves out (its
+        dataset has the cache, and its train takes it), with the same mAPs."""
         from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset
         from ultralytics_pro_tpu_torch.models import task_map  # models/ imports this module
 
@@ -133,7 +136,8 @@ class Model:
         self.model.names = d["names"]
         imgsz, batch = int(args["imgsz"]), int(args["batch"])
         dataset = YOLODataset(d[args["split"]], imgsz=imgsz, augment=False, data=d, task=self.task,
-                              rect=bool(args["rect"]), single_cls=bool(args["single_cls"]))
+                              rect=bool(args["rect"]), single_cls=bool(args["single_cls"]),
+                              cache=args.get("cache") or None, batch_size=batch)
         loader = DataLoader(dataset, batch_size=batch, workers=int(args["workers"]),
                             max_gt=int(args["max_gt"]))
         validator = task_map[self.task]["validator"](args)
@@ -231,7 +235,7 @@ class Model:
         from ultralytics_pro_tpu_torch.models import task_map  # models/ imports this module
 
         dataset = YOLODataset(d["val"], imgsz=int(args["imgsz"]), augment=False, data=d, task=task,
-                              rect=bool(args.get("rect", False)))
+                              rect=bool(args.get("rect", False)), batch_size=int(args["batch"]))
         loader = DataLoader(dataset, batch_size=int(args["batch"]), max_gt=int(args["max_gt"]),
                             workers=int(args["workers"]))
         return task_map[task]["validator"](args)(model, loader, names=d["names"])

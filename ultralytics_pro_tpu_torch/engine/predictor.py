@@ -26,16 +26,31 @@ the model's device (the JAX package's cv2 INTER_LINEAR, within a grey
 level), runs RGB/255 and the forward in full f32, and brings only the
 (B, nc) probabilities to the host.
 
+Test-time augmentation (`augment=True`, the JAX `tta_forward:76-116`) runs
+on a Detect, DDetect or AnchorDetect head that is not end-to-end: three
+forwards at scales 1, 0.83 and 0.67 (each side `ceil(s * scale / 32) * 32`),
+the second flipped left-right before its resize, the resize
+`F.interpolate(bilinear, antialias=True)` as `jax.image.resize` shrinks; the
+boxes descaled (and x mirrored back for the flip); the first pass's last
+`(h // 32) * (w // 32)` rows and the last pass's first `(h // 8) * (w // 8)`
+rows dropped (its P5 and P3 anchors at three levels; a YOLOX head's six
+maps break those counts as they break the JAX package's); then the generic
+NMS over the concatenation (K1 on the card), never the fused single-label
+path. The JAX predictor applies it to every task's head; the port's other
+predictors and heads raise on it (`tta_forward`).
+
 Sources are HWC uint8 BGR numpy arrays, or a list of them. Reading image
 files needs OpenCV and waits for a later slice.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Iterator, List
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ultralytics_pro_tpu_torch.data.augment import LetterBox, resize_bilinear
 from ultralytics_pro_tpu_torch.engine.results import Results
@@ -77,6 +92,33 @@ def end2end_outputs(y: torch.Tensor, conf: float) -> Dict[str, torch.Tensor]:
             "valid": y[..., 4] > conf}
 
 
+TTA_PASSES = ((1.0, False), (0.83, True), (0.67, False))  # (scale, left-right flip) of each forward
+
+
+def tta_forward(model, x: torch.Tensor) -> torch.Tensor:
+    """The decoded (B, A', 4 + nc) rows of the three augmented forwards of x
+    (B, 3, H, W) in [0, 1], boxes xywh in x's frame, concatenated over the
+    anchors with the first pass's P5 and the last pass's P3 anchors dropped."""
+    b, _, h, w = x.shape
+    ys = []
+    for si, (scale, flip) in enumerate(TTA_PASSES):
+        sh, sw = (h, w) if scale == 1.0 else (math.ceil(h * scale / 32) * 32, math.ceil(w * scale / 32) * 32)
+        xi = x.flip(-1) if flip else x
+        if (sh, sw) != (h, w):
+            xi = F.interpolate(xi, (sh, sw), mode="bilinear", align_corners=False, antialias=True)
+        yi = model(xi)[0]
+        bx = yi[..., :4] / torch.tensor([sw / w, sh / h, sw / w, sh / h], dtype=yi.dtype, device=yi.device)
+        if flip:
+            bx = torch.cat([w - bx[..., :1], bx[..., 1:]], -1)
+        yi = torch.cat([bx, yi[..., 4:]], -1)
+        if si == 0:
+            yi = yi[:, :yi.shape[1] - (sh // 32) * (sw // 32)]
+        elif si == len(TTA_PASSES) - 1:
+            yi = yi[:, (sh // 8) * (sw // 8):]
+        ys.append(yi)
+    return torch.cat(ys, 1)
+
+
 def _detections(out, i: int, n: int, batch_shape, orig_shape) -> torch.Tensor:
     """Image i's first n detections as (n, 6) rows, boxes rescaled to the
     original image: x1, y1, x2, y2, conf, cls."""
@@ -96,6 +138,7 @@ class BasePredictor:
     """Single-model streaming inference on the model's device."""
 
     head_types = (Detect, v10Detect, DDetect, AnchorDetect)  # the heads whose outputs run and postprocess read
+    tta_heads = ()  # the heads whose predict takes augment=True
     outputs_to_host = True  # False: postprocess takes run's outputs on the device
 
     def __init__(self, model, args: Dict | None = None):
@@ -108,13 +151,17 @@ class BasePredictor:
         self.max_det = int(self.args.get("max_det", 300))
         self.classes = self.args.get("classes")
         self.agnostic = bool(self.args.get("agnostic_nms", False))
-        if self.args.get("augment"):
-            raise NotImplementedError("test-time augmentation is not implemented in "
-                                      "ultralytics_pro_tpu_torch")
-        if type(model.model[-1]) not in self.head_types:
+        self.augment = bool(self.args.get("augment", False))
+        head = model.model[-1]
+        if type(head) not in self.head_types:
             wanted = " or ".join(t.__name__ for t in self.head_types)
-            raise NotImplementedError(f"{type(self).__name__} needs a {wanted} head, "
-                                      f"got {type(model.model[-1]).__name__}")
+            raise NotImplementedError(f"{type(self).__name__} needs a {wanted} head, got {type(head).__name__}")
+        end2end = getattr(head, "end2end", False)
+        if self.augment and (type(head) not in self.tta_heads or end2end):
+            raise NotImplementedError(
+                f"test-time augmentation (augment=True) is not implemented in ultralytics_pro_tpu_torch for "
+                f"{type(self).__name__} with a{'n end-to-end' if end2end else ''} {type(head).__name__} head: "
+                "it takes the detect heads Detect, DDetect and AnchorDetect")
         self.device = next(model.parameters()).device
         self.letterbox = LetterBox((self.imgsz, self.imgsz), scaleup=False)
         self.classes_mask = None
@@ -129,6 +176,12 @@ class BasePredictor:
         dict of (B, max_det) 'boxes' xyxy, 'scores', 'cls', 'valid' (an
         end-to-end head's (B, 300) rows). Runs in full f32 (`utils.full_f32`)."""
         head = self.model.model[-1]
+        if self.augment:
+            with full_f32():
+                y = tta_forward(self.model, rgb01(img_u8))
+                nc = self.model.nc
+                return non_max_suppression(y[..., :4], y[..., 4:4 + nc], conf_thres=self.conf, iou_thres=self.iou,
+                                           max_det=self.max_det, agnostic=self.agnostic, classes=self.classes_mask)
         if not head.fused_single_label and not head.end2end:
             return self._run_generic(img_u8)[0]
         with full_f32():
@@ -200,7 +253,7 @@ class BasePredictor:
 
 
 class DetectionPredictor(BasePredictor):
-    pass
+    tta_heads = (Detect, DDetect, AnchorDetect)
 
 
 class SegmentationPredictor(BasePredictor):

@@ -29,12 +29,23 @@ A v10Detect head is end-to-end (`:115-128`): its (B, 300, 6) rows go to the
 matching without NMS, boxes `xywh2xyxy`, valid where conf > `conf`
 (`predictor.end2end_outputs`).
 
-`save_json` (and so `coco_evaluate`) and `plots` raise NotImplementedError,
-but for OBB's `save_json`.
+With `save_json` the detect validator (the JAX `pred_to_json:50`,
+`save_predictions_json:68`) keeps each image's valid detections in the
+original frame as COCO records (top-left xywh rounded to 3 decimals, the
+score to 5, the class index as `category_id`, a numeric file stem as an int
+`image_id`) and writes them to `predictions.json` in `save_dir` (default
+`project`/`name`, `runs/val`); the RT-DETR validator writes the file too,
+empty, as the JAX one does (its matching keeps no records). The segment,
+pose and classify validators write none, as the JAX ones do; OBB writes its
+DOTA files. `coco_evaluate(anno_json, pred_json)` scores such a file against
+a COCO-format ground truth with the numpy `utils.cocoeval.COCOEvalNp`, the
+JAX package's branch when pycocotools is missing (it is on neither machine).
+`plots` raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import json
 from collections import defaultdict
 from pathlib import Path
 from typing import Dict, Optional
@@ -77,7 +88,7 @@ class DetectionValidator:
 
     head_types = (Detect, AnchorDetect)  # the heads (or their subclasses) whose outputs run reads
     metrics_class = DetMetrics
-    ported_flags = ()  # of save_json and plots, those this validator honours
+    writes_json = True  # with save_json, predictions.json (pred_to_json's records) in save_dir
 
     def __init__(self, args: Dict | None = None):
         self.args = dict(args or {})
@@ -85,10 +96,11 @@ class DetectionValidator:
         self.iou = float(self.args.get("iou", 0.7))
         self.max_det = int(self.args.get("max_det", 300))
         self.single_cls = bool(self.args.get("single_cls", False))
-        for key in ("save_json", "plots"):
-            if self.args.get(key) and key not in self.ported_flags:
-                raise NotImplementedError(f"val with {key}=True is not implemented in "
-                                          f"ultralytics_pro_tpu_torch yet; pass {key}=False")
+        self.save_json = bool(self.args.get("save_json", False))
+        if self.args.get("plots"):
+            raise NotImplementedError("val with plots=True is not implemented in ultralytics_pro_tpu_torch yet; "
+                                      "pass plots=False")
+        self.jdict = []
         self.model = None
 
     @staticmethod
@@ -99,9 +111,33 @@ class DetectionValidator:
             return boxes
         return scale_boxes(imgsz, torch.from_numpy(boxes), ori_shape, ratio_pad=ratio_pad).numpy()
 
-    def coco_evaluate(self, anno_json, pred_json):
-        raise NotImplementedError("COCO evaluation of saved predictions is not implemented in "
-                                  "ultralytics_pro_tpu_torch yet")
+    def pred_to_json(self, boxes_xyxy: np.ndarray, conf: np.ndarray, cls: np.ndarray, im_file) -> None:
+        """Append an image's detections (original frame) as COCO records."""
+        stem = Path(im_file or "0").stem
+        image_id = int(stem) if stem.isnumeric() else stem
+        b = boxes_xyxy.copy()
+        b[:, 2:] -= b[:, :2]  # xyxy -> top-left xywh
+        for j in range(len(b)):
+            self.jdict.append({"image_id": image_id, "category_id": int(cls[j]),
+                               "bbox": [round(float(x), 3) for x in b[j]], "score": round(float(conf[j]), 5)})
+
+    def save_predictions_json(self, save_dir) -> Path:
+        """Write the records to save_dir/predictions.json; returns its path."""
+        path = Path(save_dir) / "predictions.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(self.jdict))
+        LOGGER.info(f"saved {len(self.jdict)} predictions to {path}")
+        return path
+
+    def coco_evaluate(self, anno_json, pred_json) -> Dict[str, float]:
+        """COCO evaluation of a predictions file against a COCO-format ground
+        truth (dicts or paths), by `COCOEvalNp`: map50-95, map50, map75 and
+        the small, medium and large mAPs."""
+        from ultralytics_pro_tpu_torch.utils.cocoeval import COCOEvalNp
+
+        stats = COCOEvalNp(*(str(x) if isinstance(x, Path) else x for x in (anno_json, pred_json))).run()
+        LOGGER.info(f"COCO eval (numpy): mAP50-95 {stats['map50-95']:.4f} mAP50 {stats['map50']:.4f}")
+        return stats
 
     @torch.no_grad()
     def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -134,6 +170,7 @@ class DetectionValidator:
             raise NotImplementedError(f"{type(self).__name__} needs a {want} head, "
                                       f"got {type(model.model[-1]).__name__}")
         self.model = model
+        self.jdict = []
         device = next(model.parameters()).device
         names = names or model.names
         metrics = self.metrics_class(names)
@@ -153,6 +190,9 @@ class DetectionValidator:
         }
         self.print_results(metrics, names)
         self.confusion = confusion
+        if self.save_json and self.writes_json:  # to save_dir, else project/name (runs/val by default)
+            self.save_predictions_json(self.args.get("save_dir") or
+                                       Path(self.args.get("project") or "runs/val") / (self.args.get("name") or ""))
         return metrics
 
     def update_metrics(self, out: Dict[str, np.ndarray], batch: Dict, metrics: DetMetrics,
@@ -162,6 +202,7 @@ class DetectionValidator:
         h, w = imgsz
         ori_shapes = batch.get("ori_shapes") or [None] * b
         ratio_pads = batch.get("ratio_pads") or [None] * b
+        im_files = batch.get("im_files") or [None] * b
         for i in range(b):
             valid = out["valid"][i]
             n = int(valid.sum())
@@ -180,6 +221,8 @@ class DetectionValidator:
             if ori_shapes[i] is not None:
                 pred_boxes = self._to_original_frame(pred_boxes, imgsz, ori_shapes[i], ratio_pads[i])
                 gt_boxes = self._to_original_frame(gt_boxes, imgsz, ori_shapes[i], ratio_pads[i])
+            if self.save_json and n:
+                self.pred_to_json(pred_boxes, pred_conf, pred_cls, im_files[i])
 
             iou = box_iou_np(gt_boxes, pred_boxes) if n and len(gt_boxes) else np.zeros((len(gt_boxes), n))
             tp = match_predictions(pred_cls, gt_cls, iou)
@@ -191,10 +234,11 @@ class DetectionValidator:
 
 
 class SegmentationValidator(DetectionValidator):
-    """Box and mask matching; SegmentMetrics."""
+    """Box and mask matching; SegmentMetrics. Writes no predictions.json."""
 
     head_types = (Segment,)
     metrics_class = SegmentMetrics
+    writes_json = False
 
     @torch.no_grad()
     def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -262,10 +306,12 @@ class SegmentationValidator(DetectionValidator):
 
 
 class PoseValidator(DetectionValidator):
-    """Box and OKS keypoint matching, both in the letterbox frame; PoseMetrics."""
+    """Box and OKS keypoint matching, both in the letterbox frame; PoseMetrics.
+    Writes no predictions.json."""
 
     head_types = (Pose,)
     metrics_class = PoseMetrics
+    writes_json = False
 
     @torch.no_grad()
     def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -310,7 +356,7 @@ class OBBValidator(DetectionValidator):
 
     head_types = (OBB,)
     metrics_class = OBBMetrics
-    ported_flags = ("save_json",)
+    writes_json = False
 
     def __init__(self, args: Dict | None = None):
         super().__init__(args)
@@ -328,7 +374,7 @@ class OBBValidator(DetectionValidator):
                                                max_det=self.max_det)
 
     def __call__(self, model, dataloader, names: Optional[Dict] = None) -> OBBMetrics:
-        self.dota = [] if self.args.get("save_json") else None
+        self.dota = [] if self.save_json else None
         metrics = super().__call__(model, dataloader, names)
         if self.dota is not None:
             self.save_dota(self.args.get("save_dir", "."), names or model.names)
@@ -391,10 +437,11 @@ class OBBValidator(DetectionValidator):
 
 
 class ClassificationValidator(DetectionValidator):
-    """Top-1 and top-5 accuracy; ClassifyMetrics."""
+    """Top-1 and top-5 accuracy; ClassifyMetrics. Writes no predictions.json."""
 
     head_types = (Classify,)
     metrics_class = ClassifyMetrics
+    writes_json = False
 
     @torch.no_grad()
     def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -14,18 +14,23 @@ YAMLs (C3 `:91,236`, C3k2 `:101`, C2fCIB `:110`, PSA, C2PSA and SCDown
 `:176`), and that of the P6/P7, v6, v3, YOLOX, v9, YOLO12 and v5-anchor
 YAMLs (Bottleneck `:228`, SPP `:255`, torch's own nn.ConvTranspose2d with its
 bias `:274-277`, RepNCSPELAN4, ADown and SPPELAN `:338-345`, A2C2f `:127`,
-DDetect and DSegment `:459-460`, AnchorDetect `:185`). As in the JAX
-parse_model, a YAML with C3k2, C2fCIB, A2C2f or v10Detect in any row builds
+DDetect and DSegment `:459-460`, AnchorDetect `:185`), and that of the
+YOLOv13 YAML (DSConv `:317`, DSC3k2, HyperACE, DownsampleConv and
+FullPAD_Tunnel `:399-413`; its Conv rows with a padding and a group). As in
+the JAX parse_model, a YAML with C3k2, C2fCIB, A2C2f, HyperACE or v10Detect
+in any row builds
 its detect head with legacy=False (the pre-scan `:1152-1155`), and the
 modules of REPEAT_MODULES (`:1103-1107`) take the repeats as their own n,
 RepNCSPELAN4 ignores them (its n is its fourth argument), and any other is
-stacked n times in an nn.Sequential (`:1208-1213`). A2C2f at scales l and x
+stacked n times in an nn.Sequential (`:1208-1213`). HyperACE reads three
+layers and gives args[0] channels; DownsampleConv gives twice its input's
+channels (its input's with channel_adjust False); FullPAD_Tunnel gives its
+first input's. A2C2f at scales l and x
 takes residual=True and mlp_ratio=1.2. Segment's and DSegment's
 args are [nc, nm, npr] with npr width-scaled, OBB's [nc, ne], Pose's [nc,
 kpt_shape] with the YAML's top-level `kpt_shape` substituted, AnchorDetect's
 [nc, anchors], as the JAX package's `parse_model` reads them (`:206-212`,
-`:1179-1181`). Any other module raises NotImplementedError naming it, and the
-modules of the YOLOv13 YAML name their ROADMAP queue item too.
+`:1179-1181`). Any other module raises NotImplementedError naming it.
 
 In train mode (`model.train()`) a Detect model returns the head's raw
 per-level maps, NCHW, as the JAX head returns `{"feats": raw}` when
@@ -78,22 +83,29 @@ from ultralytics_pro_tpu_torch.nn.modules.head import (
     v10Detect,
 )
 from ultralytics_pro_tpu_torch.nn.modules.transformer import AIFI, MSDeformAttn, MultiheadAttention
+from ultralytics_pro_tpu_torch.nn.modules.v13 import (
+    AdaHGComputation,
+    DownsampleConv,
+    DSC3k2,
+    DSConv,
+    FullPAD_Tunnel,
+    HyperACE,
+)
 from ultralytics_pro_tpu_torch.nn.modules.v9v12 import SPPELAN, A2C2f, ADown, RepNCSPELAN4
 from ultralytics_pro_tpu_torch.utils import LOGGER, PKG_ROOT, miniyaml
 
 SCALED = {"Conv": Conv, "DWConv": DWConv, "C2f": C2f, "SPPF": SPPF, "RepC3": RepC3, "C3": C3, "C3k2": C3k2,
           "C2fCIB": C2fCIB, "PSA": PSA, "C2PSA": C2PSA, "SCDown": SCDown, "Bottleneck": Bottleneck, "SPP": SPP,
-          "nn.ConvTranspose2d": nn.ConvTranspose2d, "ADown": ADown, "A2C2f": A2C2f}  # c2 is width-scaled
-REPEAT_MODULES = {"C2f", "RepC3", "C3", "C3k2", "C2fCIB", "C2PSA", "A2C2f"}  # of SCALED, those whose n is the repeats
+          "nn.ConvTranspose2d": nn.ConvTranspose2d, "ADown": ADown, "A2C2f": A2C2f, "DSConv": DSConv,
+          "DSC3k2": DSC3k2}  # c2 is width-scaled
+REPEAT_MODULES = {"C2f", "RepC3", "C3", "C3k2", "C2fCIB", "C2PSA", "A2C2f", "DSC3k2"}  # of SCALED, n is the repeats
 ELAN = {"RepNCSPELAN4": RepNCSPELAN4, "SPPELAN": SPPELAN}  # [c2, c3(, c4, n)]: every width scaled
 HEADS = {"Detect": Detect, "Segment": Segment, "OBB": OBB, "Pose": Pose, "v10Detect": v10Detect,
          "DDetect": DDetect, "DSegment": DSegment, "AnchorDetect": AnchorDetect}
 POOLS = {"nn.MaxPool2d": nn.MaxPool2d, "nn.ZeroPad2d": nn.ZeroPad2d}  # torch's own, args as the YAML gives them
-NON_LEGACY = {"C3k2", "C2fCIB", "A2C2f", "v10Detect"}  # any of these in a YAML: the detect head's light class branch
-MODULES = (*SCALED, *ELAN, *POOLS, "HGStem", "HGBlock", "AIFI", "nn.Upsample", "Concat", *HEADS, "Classify",
-           "RTDETRDecoder")
-QUEUED = dict.fromkeys(  # the modules of 13/yolov13.yaml that the JAX package builds, and where the port takes them up
-    ("DSC3k2", "DSConv", "DownsampleConv", "FullPAD_Tunnel", "HyperACE"), "ROADMAP.md queue 1 item 9b (YOLOv13)")
+NON_LEGACY = {"C3k2", "C2fCIB", "A2C2f", "HyperACE", "v10Detect"}  # any of these in a YAML: the light class branch
+MODULES = (*SCALED, *ELAN, *POOLS, "HGStem", "HGBlock", "AIFI", "nn.Upsample", "Concat", "HyperACE",
+           "DownsampleConv", "FullPAD_Tunnel", *HEADS, "Classify", "RTDETRDecoder")
 
 
 def make_divisible(x, divisor: int = 8) -> int:
@@ -130,9 +142,6 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
                     f"malformed model-yaml row {i}: expected [from, repeats, module, args], got {row!r}")
             f, n, m_name, args = row
             kwargs = {}
-            if m_name in QUEUED:
-                raise NotImplementedError(f"module '{m_name}' (layer {i}) is not implemented in "
-                                          f"ultralytics_pro_tpu_torch yet: {QUEUED[m_name]}")
             if m_name not in MODULES:
                 raise NotImplementedError(
                     f"module '{m_name}' (layer {i}) is not implemented in ultralytics_pro_tpu_torch; "
@@ -175,6 +184,15 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
                 c2, m = c1, nn.Upsample
             elif m_name == "Concat":
                 c2, m = sum(chs[x] for x in f), Concat
+            elif m_name == "HyperACE":  # [c2, ne, dsc3k, shortcut, e1, e2, context] over three layers
+                c2 = make_divisible(min(args[0], max_channels) * width, 8)
+                args = [[chs[x] for x in f], c2, n, *args[1:]]
+                n, m = 1, HyperACE
+            elif m_name == "DownsampleConv":  # [channel_adjust]
+                adjust = bool(args[0]) if args else True
+                c2, m, args = c1 * 2 if adjust else c1, DownsampleConv, [c1, adjust]
+            elif m_name == "FullPAD_Tunnel":
+                c2, m, args = chs[f[0]], FullPAD_Tunnel, []
             elif m_name in HEADS:
                 c2, m = None, HEADS[m_name]
                 extra = []
@@ -280,8 +298,9 @@ def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation, as flax initialises the JAX modules: conv and
     dense kernels (attention projections too) lecun-normal, their biases
-    zero, BatchNorm and LayerNorm at identity, embeddings normal(1.0); then
-    MSDeformAttn's own offset and attention init."""
+    zero, BatchNorm and LayerNorm at identity, embeddings normal(1.0),
+    AdaHGComputation's prototypes xavier-uniform (FullPAD_Tunnel's gates stay
+    0); then MSDeformAttn's own offset and attention init."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) and m.weight.requires_grad:
             _lecun_normal_(m.weight, generator)
@@ -295,6 +314,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, nn.Embedding):
             with torch.no_grad():
                 m.weight.copy_(torch.empty(m.weight.shape).normal_(generator=generator))
+        elif isinstance(m, AdaHGComputation):
+            ne, c = m.prototype_base.shape
+            bound = math.sqrt(6.0 / (ne + c))
+            with torch.no_grad():
+                m.prototype_base.copy_(torch.empty(ne, c).uniform_(-bound, bound, generator=generator))
     for m in model.modules():
         if isinstance(m, MSDeformAttn):
             m.reset_parameters()

@@ -29,7 +29,12 @@ The YOLOv6 YAMLs' `nn.ConvTranspose2d` layer is a bare module, `model.N`
 RepNCSPELAN4's `cv2_csp`, `cv2_conv`, `cv3_csp` and `cv3_conv` are the
 reference's `cv2.0`, `cv2.1`, `cv3.0` and `cv3.1` (`ELAN_NAMES`), which a
 Detect head's `cv2.0.0` does not match: there a digit follows. A2C2f's
-`gamma` is a bare parameter under its own name (`PARAM_LEAVES`).
+`gamma`, FullPAD_Tunnel's 0-d `gate` and AdaHGComputation's
+`prototype_base` are bare parameters under their own names (`PARAM_LEAVES`),
+carried as they are. The YOLOv13 blocks' other names take the generic rule
+(`dwconv`, `pwconv`, `m_0` -> `m.0`, `fuse_conv`, `branch1`, `channel_adjust`,
+the AdaHGComputation's dense layers `context_net`, `pre_head_proj`,
+`edge_proj`, `node_proj`).
 
 RT-DETR adds two kinds of names:
 - flax attention (`ma/query|key|value|out`, kernels (C, nh, hd) and
@@ -60,7 +65,9 @@ HEAD_NAMES = (
     ("enc_output", "enc_output.0"),
 )
 BARE_PARAMS = ("denoising_class_embed",)  # flax `self.param` leaves: a module's one `weight`
-PARAM_LEAVES = ("gamma",)  # flax `self.param` leaves kept under their name: A2C2f's `model.N.gamma`
+# flax `self.param` leaves kept under their name: A2C2f's `model.N.gamma`,
+# FullPAD_Tunnel's 0-d `model.N.gate`, AdaHGComputation's `prototype_base` (ne, C)
+PARAM_LEAVES = ("gamma", "gate", "prototype_base")
 # RepNCSPELAN4's children (flax name, torch name); torch -> flax only where a
 # non-digit token follows, so that a Detect head's `cv2.0.0` keeps its name
 ELAN_NAMES = (("cv2_csp", "cv2.0"), ("cv2_conv", "cv2.1"), ("cv3_csp", "cv3.0"), ("cv3_conv", "cv3.1"))
