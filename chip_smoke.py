@@ -21,7 +21,7 @@ exits non-zero):
           the timed rows
   main    YOLO("yolov8s.yaml", device="cuda").predict(4 images) at 640 px,
           with K1's launch count read around the call; warm predict latency
-          per image over 200 calls (median and spread), the device's busy
+          per image over PREDICT_CALLS calls (median and spread), the device's busy
           time, idle share and kernel launches per image on those calls (one
           torch.profiler window of 20 calls against the unprofiled median),
           and the device function's images/s at batch 16
@@ -47,7 +47,7 @@ exits non-zero):
           its scatter
   rtdetr  RTDETR("rtdetr-l.yaml", device="cuda").predict(4 images) at 640 px,
           default conf 0.25, with K2's launches read around the call (6 per
-          image); warm predict latency per image over 100 calls, the device
+          image); warm predict latency per image over RTDETR_CALLS calls, the device
           idle share, kernel launches and comparison launches per image from
           one profiled window of 10 calls, and the device function's
           images/s at batch 16
@@ -234,19 +234,19 @@ exits non-zero):
           images' captured rows bit for bit against its plain version, timed,
           with its bound
   zoo_val yolo11s, yolov10s, yolov5-anchor, yolov9c, gelan-c-dseg (on
-          the segment set) and yolov13s val at 640 on the val phase's 128
-          images (batch 16, conf 1e-6): images/s, K1's launches (8, none and no NMS for
+          the segment set) and yolov13s val at 640 on ZOO_COPIES x 16 = 64
+          images (batch 16, conf 1e-6): images/s, K1's launches (4, none and no NMS for
           yolov10s), idle share and K1's ms a launch from one profiled call,
           K1 on each first batch of rows (K = 30000); card against CPU on the
-          first 16 images, every mAP within ZOO_VAL_TOL
+          first ZOO_PARITY_IMAGES = 8 images, every mAP within ZOO_VAL_TOL
   zoo_train_parity  one optimizer step of seeded yolo11n, yolov10n (with
           E2EDetectLoss), yolov5-anchor (v5AnchorLoss), yolo12n,
           gelan-c-dseg and yolov13n (nc 3) on 8 fixture images at 160 px,
           batch 8, nbs 8, on the card and on the CPU, within ZOO_TRAIN_PARITY_TOL
           (gelan-c-dseg in float64 on both: ZOO_TRAIN_PARITY_DTYPE)
   zoo_train  yolo11s, yolov10s, yolov5-anchor, gelan-c-dseg (segment) and
-          yolov13s as phase train: 640 px, batch 16, 2 epochs on 128 images
-          with the epoch-end val (K1 16 launches, none for yolov10s), train images/s
+          yolov13s as phase train: 640 px, batch 16, 2 epochs on 64 images
+          with the epoch-end val (K1 8 launches, none for yolov10s), train images/s
           in epoch 2, device ms a micro-batch, the idle share, the
           criterion's device ms and launches, K1's ms a launch from one more
           profiled val, and K1 on the rows of another val bit for bit
@@ -268,7 +268,39 @@ exits non-zero):
           each) bit for bit against the plain version, timed, with the
           bound), coco_evaluate (COCOEvalNp) of each predictions.json against
           the set's COCO ground truth within TASK_FIXTURE_TOL, and the card's
-          cache="ram" val equal to its uncached val
+          cache="ram" val equal to its uncached val; K1's device ms a launch
+          from one more profiled rect val on the card
+  aug_parity  one augmented step (Mosaic, the warp, HSV and flips at the
+          default gains, each sample drawn from its own generators) of the
+          trained fixture yolov8n on 8 fixture images at 160 px, batch 8, on
+          the card and on the CPU within TRAIN_PARITY_TOL; the multi_scale
+          resize of that batch at each rung of the 160 px ladder, card
+          against CPU, within MULTI_SCALE_TOL grey levels
+  aug_train  yolov8s at 640, batch 16, 2 epochs on 128 images with
+          augment=True at the default gains and close_mosaic=1 (epoch 2
+          without Mosaic: the loader's reset): train images/s in each
+          epoch, the loader's host ms a batch with Mosaic on and off
+          (8 threads, no model, half the set), the device's busy ms a micro-batch and the
+          idle share of each epoch, K1 16 launches in the epoch-end vals,
+          K1's ms a launch from one more profiled val, and its rows of
+          another val bit for bit against the plain version
+  aug_cls_train  yolov8s-cls at 224, batch 16, 2 epochs on 128 images with
+          augment=True (RandomResizedCrop, flip, RandAugment, erasing 0.4):
+          images/s in each epoch and the loader's host ms a batch
+  remat   one yolov8s micro-batch at 640, batch 16, with its optimizer step,
+          with and without remat: loss parts within TRAIN_PARITY_TOL, the
+          updated parameters and BN statistics within it, peak memory and
+          device ms of each
+  channels  the trained fixture yolov8n's val of the fixture set read grey
+          (channels: 1) on the card and on the CPU, every mAP within
+          TASK_FIXTURE_TOL; a 10-band set (the 16 fixture images with .npy
+          band stacks of their size) written here: yolov8n re-stemmed to 10
+          input channels trains one epoch at 160 px on the card (finite
+          losses, K1 in its val); then the trained fixture yolov8n with its
+          stem widened to the 10 bands (zeros on bands 3-9) validates on
+          the band set on the card and on the CPU, every mAP within
+          ZOO_VAL_TOL of each other and of the 3-channel val of the same
+          images (mAP50 above 0.5, so a band order reversed anywhere fails)
   kernels the per-kernel summary line
 The last line is {"ok": true, "device": {...}}.
 """
@@ -302,15 +334,17 @@ NMS_JITTER = 0.02  # std of a copy's centre and log size, relative to its object
 CONF = 1e-6  # random-init class logits sit near log(5/nc/(640/s)^2), i.e. scores ~1e-5
 MIN_CANDIDATES = 1000
 IMAGE_SHAPES = ((480, 640), (720, 1280), (640, 640), (333, 500))
-PREDICT_CALLS = 200  # timed warm predict calls of the 4 images, one at a time
-PROFILED_CALLS = 20  # predict calls traced by torch.profiler for the device's busy time
-RTDETR_CALLS = 100  # the same for RT-DETR
-RTDETR_PROFILED_CALLS = 10
+PREDICT_CALLS = 30  # timed warm predict calls of the 4 images, one at a time (the *_CALLS: PERF.md section 6)
+PROFILED_CALLS = 8  # predict calls traced by torch.profiler for the device's busy time
+RTDETR_CALLS = 15  # the same for RT-DETR
+RTDETR_PROFILED_CALLS = 4
 RTDETR_LEVELS = ((80, 80), (40, 40), (20, 20))  # rtdetr-l's P3-P5 at 640 px: V = 8400 value rows
 PARITY_TOL = 1e-3  # card vs CPU, rtdetr-l encoder scores and final outputs
 FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
 VAL_FIXTURE_TOL = 0.005  # card vs val_parity_ref.json, the tolerance of tests/test_val_parity.py
 VAL_COPIES = 8  # the val phase's data: the fixture's 16 images 8 times over
+ZOO_COPIES = 4  # zoo_val's and zoo_train's: 4 times over, to keep the run inside its limit (PERF.md section 6)
+ZOO_PARITY_IMAGES = 8  # zoo_val's card-against-CPU val: the first 8 images
 VAL_BATCH = 16
 VAL_IMGSZ = 640
 SLEEP_CYCLES = 100_000_000  # cuda_ms's head start for the host: about 50 ms at the H100's clock
@@ -328,8 +362,8 @@ TRAIN_PARITY_TOL = {"loss": 1e-4, "params": 1e-4, "ema": 1e-4, "batch_stats": 1e
 TRAIN_PARITY_IMAGES = 8
 TRAIN_IMGSZ, TRAIN_BATCH, TRAIN_EPOCHS = 640, 16, 2
 TASK_FIXTURE_TOL = 1e-4  # card vs CPU, each mAP on the segment, pose and obb fixture sets
-TASK_CALLS = 50  # timed warm predict calls of yolov8s-seg and yolov8s-pose
-TASK_PROFILED_CALLS = 5
+TASK_CALLS = 8  # timed warm predict calls of yolov8s-seg, yolov8s-pose and yolov8s-obb
+TASK_PROFILED_CALLS = 3
 MASK_TOL, MASK_EDGE_SHARE = 1e-5, 1e-3  # mask step, card vs CPU: probabilities, and > 0.5 bits that flip
 # the other tasks: the reference-trained fixture model and set, the served
 # model, the mAPs against the reference's keys, and the K1 launches and
@@ -380,8 +414,8 @@ RTDETR_PARITY_IMGSZ = 160
 RTDETR_TRAIN_PARITY_TOL = {**TRAIN_PARITY_TOL, "momentum_buffer": 0.1, "momentum_leaf": 0.2}
 MOMENTUM_LEAF_FLOOR = 1e-8  # rtdetr_step_diffs: leaves below this share of the largest norm hold rounding only
 CLS_IMGSZ = 224  # yolov8s-cls's ImageNet size
-CLS_CALLS = 100  # timed warm predict calls of yolov8s-cls
-CLS_PROFILED_CALLS = 10
+CLS_CALLS = 30  # timed warm predict calls of yolov8s-cls
+CLS_PROFILED_CALLS = 4
 CLS_TOL = 1e-5  # card vs CPU, yolov8s-cls probabilities
 CLS_SET = "torch_cls_synth"  # the classify fixture set: 3 classes, 24 train and 16 val PNGs of 80 x 64
 # The YOLO11, YOLOv10, YOLOv5 and YOLOv3-tiny detect families at full width
@@ -400,8 +434,8 @@ ZOO_TRAIN_PARITY = ("yolo11n", "yolov10n", "yolov5-anchor", "yolo12n", "gelan-c-
 ZOO_TRAIN = ("yolo11s", "yolov10s", "yolov5-anchor", "gelan-c-dseg", "yolov13s")
 # a model's timed warm predict calls of the 4 images, and its profiled ones:
 # the YOLO11/v10/v5/v3-tiny models at their counts, the later ones fewer
-ZOO_CALLS = dict.fromkeys(ZOO_PREDICT[:4], (10, 3))
-ZOO_CALLS_DEFAULT = (3, 1)
+ZOO_CALLS = dict.fromkeys(ZOO_PREDICT[:4], (3, 1))
+ZOO_CALLS_DEFAULT = (2, 1)
 ZOO_SRC = {"detect": "torch_val_synth", "segment": "torch_val_synth_segment"}  # a task's fixture set
 ZOO_PARITY_TOL = {"boxes_px": 1e-3, "scores": 1e-4}  # card vs CPU, decoded outputs of one image at 640 px
 # (the mask coefficients and prototypes of a segment head: `scores` of their largest magnitude)
@@ -422,6 +456,9 @@ ZOO_TRAIN_PARITY_DTYPE = {"gelan-c-dseg": torch.float64}
 # head; every YOLOv13 model here sets them to seeded values in this range.
 GATE_RANGE = (0.5, 1.5)
 TTA_CALLS = (3, 1)  # timed and profiled warm TTA predict calls of the 4 images
+MULTI_SCALE_TOL = 1  # grey levels, the multi_scale resize on the card against the CPU
+AUG_PARITY_IMGSZ = 160
+BANDS = 10  # the channels phase's multi-band set
 
 
 def emit(phase: str, **fields) -> None:
@@ -1125,14 +1162,16 @@ def val_fixture(YOLO, yaml_model_load, nms_cuda, tmp: Path, card: str, smi: str)
                 card_minus_cpu=card_minus_cpu, tolerance=VAL_FIXTURE_TOL, card=card, nvidia_smi=smi)
 
 
-def val_set_640(root: Path, src: str = "torch_val_synth", nc: int = 80, copies: int = VAL_COPIES) -> Path:
-    """The val phases' data: a fixture set's images and labels `copies`
-    times under new names (labels' classes 0-2 of nc names)."""
+def val_set_640(root: Path, src: str = "torch_val_synth", nc: int = 80, copies: int = VAL_COPIES,
+                first: int = 16) -> Path:
+    """The val phases' data: the first `first` images of a fixture set and
+    their labels `copies` times under new names (labels' classes 0-2 of nc
+    names)."""
     src = FIXTURES / src
     for sub in ("images", "labels"):
         (root / sub / "val").mkdir(parents=True)
     for c in range(copies):
-        for png in sorted((src / "images" / "val").glob("*.png")):
+        for png in sorted((src / "images" / "val").glob("*.png"))[:first]:
             shutil.copy(png, root / "images" / "val" / f"copy{c}_{png.name}")
             shutil.copy(src / "labels" / "val" / f"{png.stem}.txt", root / "labels" / "val" / f"copy{c}_{png.stem}.txt")
     names = "".join(f"  {i}: class{i}\n" for i in range(nc))
@@ -1141,19 +1180,20 @@ def val_set_640(root: Path, src: str = "torch_val_synth", nc: int = 80, copies: 
 
 
 def val_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str, model_name: str = "yolov8s",
-             src: str = "torch_val_synth", model=None):
-    """model_name val at 640 on 128 images of the fixture set src (model: the
-    card's model of that name, if already built). Returns the phase's line
-    and what `capture_k1` recorded of the first batch in the warm-up call
-    (K1's rows and the gather around it; nothing for an end-to-end model,
-    whose val must reach no NMS)."""
-    data = val_set_640(tmp / f"{src}_640", src)
+             src: str = "torch_val_synth", model=None, copies: int = VAL_COPIES):
+    """model_name val at 640 on copies x 16 images of the fixture set src
+    (model: the card's model of that name, if already built). Returns the phase's line
+    and what `capture_k1` recorded of the first batch in the warm-up call,
+    a val of the set's first 16 images (K1's rows and the gather around it;
+    nothing for an end-to-end model, whose val must reach no NMS)."""
+    data = val_set_640(tmp / f"{src}_640", src, copies=copies)
+    warm = val_set_640(tmp / f"{src}_640_warm", src, copies=1)  # one batch
     kw = dict(data=str(data), imgsz=VAL_IMGSZ, batch=VAL_BATCH, conf=CONF, iou=0.7, max_det=300)
     model = model or YOLO(f"{model_name}.yaml", device="cuda", seed=0)
     end2end = model.model.model[-1].end2end
 
     with capture_k1(ops_nms) as cap:  # warm-up call: cuDNN, allocator, and the rows
-        model.val(**kw)
+        model.val(**{**kw, "data": str(warm)})
     if end2end and cap:
         raise AssertionError(f"{model_name} is end-to-end, and its val reached NMS")
     if not end2end:
@@ -1162,7 +1202,7 @@ def val_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str, model_name
             raise AssertionError(f"K1's val rows {tuple(scores.shape)} ({cap['k1_kwargs']}), "
                                  f"want presorted ({VAL_BATCH}, 30000)")
 
-    n_images = VAL_COPIES * 16
+    n_images = copies * 16
     nms_cuda.launches = 0
     t0 = time.perf_counter()
     metrics = model.val(**kw)
@@ -1262,17 +1302,17 @@ def max_rel_tree_diff(got: dict, want: dict):
 
 
 def train_one_step(YOLO, yaml_model_load, load_pickle, data: Path, project: Path, device: str,
-                   task: str = "detect", val: bool = False):
+                   task: str = "detect", val: bool = False, **kw):
     """One optimizer step of a task's reference-trained yolov8n through
     YOLO(...).train: 8 images, batch 8, nbs 8, no warmup, the epoch-end val
-    when val. Returns the loss parts, the last.ckpt dict, the optimizer steps
-    taken and the facade."""
+    when val, more train arguments in kw. Returns the loss parts, the
+    last.ckpt dict, the optimizer steps taken and the facade."""
     stem, model_yaml = (TASKS[task]["stem"], TASKS[task]["fixture_yaml"]) if task in TASKS else \
         ("val_parity", "yolov8n.yaml")
     ref = json.loads((FIXTURES / f"{stem}_ref.json").read_text())
     model = parity_yolov8n(YOLO, yaml_model_load, ref, device, stem, model_yaml)
     model.train(data=str(data), epochs=1, imgsz=160, batch=TRAIN_PARITY_IMAGES, nbs=TRAIN_PARITY_IMAGES,
-                warmup_epochs=0.0, val=val, workers=4, max_gt=32, project=str(project))
+                warmup_epochs=0.0, val=val, workers=4, max_gt=32, project=str(project), **kw)
     tr = model.trainer
     return tr.loss_history[0], load_pickle(tr.wdir / "last.ckpt"), tr.opt_steps, model
 
@@ -1423,7 +1463,8 @@ def detached(x, grad: bool = False):
     return x.detach().clone().requires_grad_(True) if grad and x.is_floating_point() else x.detach()
 
 
-def train_run(YOLO, nms_cuda, tmp: Path, task: str = "detect", served: str | None = None) -> tuple:
+def train_run(YOLO, nms_cuda, tmp: Path, task: str = "detect", served: str | None = None, copies: int = VAL_COPIES,
+              **kw) -> tuple:
     """Two epochs of the task's served model at full width (yolov8s,
     yolov8s-seg and yolov8s-pose at 640, yolov8s-obb at 1024), batch 16
     and the JAX defaults otherwise (nbs 64, warmup 3 epochs, val=True), on
@@ -1433,8 +1474,8 @@ def train_run(YOLO, nms_cuda, tmp: Path, task: str = "detect", served: str | Non
     served names another detect model (the zoo's). K1's launches (or the
     rotated NMS's calls, obb) are counted over the run; raises unless there
     is one a val batch (none for an end-to-end head), on a non-finite loss
-    or a None fitness. Returns the trainer, its data YAML and the run's
-    numbers."""
+    or a None fitness. kw: more train arguments. Returns the trainer, its
+    data YAML and the run's numbers."""
     from ultralytics_pro_tpu_torch.engine import validator as eng_val
 
     default, src, nc, imgsz = {"detect": ("yolov8s", "torch_val_synth", 80, TRAIN_IMGSZ),
@@ -1442,7 +1483,7 @@ def train_run(YOLO, nms_cuda, tmp: Path, task: str = "detect", served: str | Non
                               "pose": ("yolov8s-pose", "torch_val_synth_pose", 3, TRAIN_IMGSZ),
                               "obb": ("yolov8s-obb", "torch_val_synth_obb", 15, OBB_IMGSZ)}[task]
     served = served or default
-    data = val_set_640(tmp / f"train_{served}_set", src, nc=nc)
+    data = val_set_640(tmp / f"train_{served}_set", src, nc=nc, copies=copies)
     kpt = "kpt_shape: [5, 3]\n" if task == "pose" else ""
     data.write_text(data.read_text().replace("val: images/val", "train: images/val\nval: images/val\n" + kpt))
     model = YOLO(f"{served}.yaml", device="cuda", seed=0)
@@ -1452,12 +1493,12 @@ def train_run(YOLO, nms_cuda, tmp: Path, task: str = "detect", served: str | Non
     t0 = time.perf_counter()
     with capture_rotated(eng_val) as rot:
         model.train(data=str(data), epochs=TRAIN_EPOCHS, imgsz=imgsz, batch=TRAIN_BATCH,
-                    project=str(tmp / f"train_{served}"))
+                    project=str(tmp / f"train_{served}"), **kw)
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     tr = model.trainer
     head = tr.model.model[-1]
-    nb = VAL_COPIES * 16 // TRAIN_BATCH
+    nb = copies * 16 // TRAIN_BATCH
     if not all(np.isfinite(v) for e in tr.loss_history for v in e.values()) or len(tr.loss_history) != TRAIN_EPOCHS:
         raise AssertionError(f"loss history {tr.loss_history}")
     counts = {"k1_launches": nms_cuda.launches, "rotated_nms_calls": rot["calls"]}
@@ -1467,7 +1508,7 @@ def train_run(YOLO, nms_cuda, tmp: Path, task: str = "detect", served: str | Non
         raise AssertionError(f"{served} train: {counts} in {TRAIN_EPOCHS} vals of {nb} batches, want {want}")
     return tr, data, dict(model=served, nc=tr.model.nc, kpt_shape=getattr(head, "kpt_shape", None), imgsz=imgsz,
                           batch=TRAIN_BATCH, nbs=tr.nbs, accumulate=tr.accumulate, warmup_epochs=tr.warmup_epochs,
-                          epochs=TRAIN_EPOCHS, images=VAL_COPIES * 16, micro_batches_per_epoch=nb,
+                          epochs=TRAIN_EPOCHS, images=copies * 16, micro_batches_per_epoch=nb,
                           opt_steps=tr.opt_steps, train_seconds=seconds,
                           epoch_train_seconds=tr.epoch_train_seconds,
                           train_images_per_s_epoch2=nb * TRAIN_BATCH / tr.epoch_train_seconds[-1],
@@ -1486,7 +1527,7 @@ def det_host_batch(tr, data: Path, imgsz: int) -> dict:
                                 batch_size=TRAIN_BATCH, workers=8, max_gt=int(tr.args.get("max_gt", 128)))))
 
 
-def micro_batch_measures(tr, host: dict, imgsz: int) -> dict:
+def micro_batch_measures(tr, host: dict, imgsz: int, nb: int = VAL_COPIES * 16 // TRAIN_BATCH) -> dict:
     """On the trained model (its parameters change; nothing here is checked
     against the run): the device ms of a micro-batch's forward, loss and
     backward (CUDA events), one profiled micro-batch with its optimizer step
@@ -1499,13 +1540,13 @@ def micro_batch_measures(tr, host: dict, imgsz: int) -> dict:
     dev = tr.put_batch(host)
     lrs, mom = [tr.lr0] * 3, tr.momentum
     tr.model.train()
-    ms_micro = cuda_ms(lambda: tr.step(dev, lrs, mom, False), iters=5)
+    ms_micro = cuda_ms(lambda: tr.step(dev, lrs, mom, False), iters=2, warmup=1)
 
     def loop_micro():  # as the loop runs one: host batch up, step, the loss parts pulled
         _, parts = tr.step(tr.put_batch(host), lrs, mom, True)
         return torch.stack(list(parts.values())).tolist()
 
-    prof = profile_window(loop_micro, reps=3, top=25)
+    prof = profile_window(loop_micro, reps=1, warmup=1, top=25)
     with torch.no_grad(), full_f32():
         out = detached(tr.model_outputs(dev))
 
@@ -1514,13 +1555,13 @@ def micro_batch_measures(tr, host: dict, imgsz: int) -> dict:
             total, _ = tr.criterion(detached(out, grad=True), dev, dev["img"].shape[2:])
             total.backward()
 
-    lprof = profile_window(criterion, reps=3)  # device time: its many small launches pace CUDA events
+    lprof = profile_window(criterion, reps=1, warmup=1)  # device time: its many small launches pace CUDA events
     tr.model.eval()
     flops_fwd = conv_flops_per_image(tr.model, imgsz)
     step_flops = 3 * flops_fwd * TRAIN_BATCH
     bound_ms = step_flops / F32_FLOPS * 1e3
     busy = prof["device_busy_ms_per_call"]
-    wall_micro_ms = tr.epoch_train_seconds[-1] * 1e3 / (VAL_COPIES * 16 // TRAIN_BATCH)
+    wall_micro_ms = tr.epoch_train_seconds[-1] * 1e3 / nb
     return dict(device_ms_per_micro_batch=ms_micro,
                 device_ms_per_optimizer_step=prof["device_ms_by_category"].get("optimizer", 0.0),
                 device_ms_loss_and_tal_with_backward=lprof["device_busy_ms_per_call"],
@@ -1539,9 +1580,8 @@ def train_path(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
     tr, data, info = train_run(YOLO, nms_cuda, tmp)
     info.update(micro_batch_measures(tr, det_host_batch(tr, data, TRAIN_IMGSZ), TRAIN_IMGSZ))
     nb = info["micro_batches_per_epoch"]
-    vprof = profile_window(lambda: tr.val_fn(tr.model), reps=1, warmup=0)
-    with capture_k1(ops_nms) as cap:
-        tr.val_fn(tr.model)
+    with capture_k1(ops_nms) as cap:  # one more val: profiled, its first K1 rows captured
+        vprof = profile_window(lambda: tr.val_fn(tr.model), reps=1, warmup=0)
     info.update(k1_profiled_ms_per_launch=vprof["device_ms_by_category"].get("k1_greedy_nms", 0.0) / nb,
                 k1_on_val_rows=val_k1(nms_cuda, cap["rows"], card, smi),
                 val_device_busy_ms=vprof["device_busy_ms_per_call"], card=card, nvidia_smi=smi)
@@ -2687,8 +2727,8 @@ def zoo_predict(YOLO, nms_cuda, ops_nms, full_f32, card: str, smi: str) -> dict:
 
 
 def zoo_val_parity(YOLO, model, name: str, data16: Path) -> dict:
-    """A zoo model's val of the first 16 images on the card and on the CPU
-    (the same seeded weights): every mAP within ZOO_VAL_TOL."""
+    """A zoo model's val of the first ZOO_PARITY_IMAGES images on the card
+    and on the CPU (the same seeded weights): every mAP within ZOO_VAL_TOL."""
     kw = dict(imgsz=VAL_IMGSZ, batch=VAL_BATCH, conf=CONF, iou=0.7, max_det=300)
     maps = {}
     for device in ("cuda", "cpu"):
@@ -2700,22 +2740,24 @@ def zoo_val_parity(YOLO, model, name: str, data16: Path) -> dict:
                         "seconds": time.perf_counter() - t0}
     diff = {k: abs(maps["cuda"][k] - maps["cpu"][k]) for k in ("map50", "map50_95")}
     if not max(diff.values()) <= ZOO_VAL_TOL:
-        raise AssertionError(f"{name} val of 16 images, card vs CPU: {maps} (tolerance {ZOO_VAL_TOL})")
-    return {"images": 16, "card": maps["cuda"], "cpu": maps["cpu"], "abs_diff": diff, "tolerance": ZOO_VAL_TOL,
+        raise AssertionError(f"{name} val of {ZOO_PARITY_IMAGES} images, card vs CPU: {maps} "
+                             f"(tolerance {ZOO_VAL_TOL})")
+    return {"images": ZOO_PARITY_IMAGES, "card": maps["cuda"], "cpu": maps["cpu"], "abs_diff": diff, "tolerance": ZOO_VAL_TOL,
             "cpu_threads": torch.get_num_threads()}
 
 
 def zoo_val(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
     """The ZOO_VAL models as phase val on their task's fixture set (val_path:
     K1 once a batch, no NMS for yolov10s), K1 on each first batch of rows
-    (captured_k1), and card against CPU on 16 images (zoo_val_parity)."""
+    (captured_k1), and card against CPU on ZOO_PARITY_IMAGES images
+    (zoo_val_parity); on ZOO_COPIES x 16 images."""
     models = {}
     for name in ZOO_VAL:
         t0 = time.perf_counter()
         src = ZOO_SRC[zoo_task(name)]
-        data16 = val_set_640(tmp / f"zoo_val_16_{name}", src, copies=1)
+        data16 = val_set_640(tmp / f"zoo_val_16_{name}", src, copies=1, first=ZOO_PARITY_IMAGES)
         model = zoo_yolo(YOLO, name, "cuda")
-        info, cap = val_path(YOLO, nms_cuda, ops_nms, tmp / name, card, smi, name, src, model)
+        info, cap = val_path(YOLO, nms_cuda, ops_nms, tmp / name, card, smi, name, src, model, copies=ZOO_COPIES)
         info["parity"] = zoo_val_parity(YOLO, model, name, data16)
         if cap:
             info["k1_on_batch_rows"] = captured_k1(ops_nms, nms_cuda, cap, card, smi)
@@ -2802,16 +2844,16 @@ def zoo_train(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
     out = {}
     for name in ZOO_TRAIN:
         t0 = time.perf_counter()
-        tr, data, info = train_run(YOLO, nms_cuda, tmp, task=zoo_task(name), served=name)
+        tr, data, info = train_run(YOLO, nms_cuda, tmp, task=zoo_task(name), served=name, copies=ZOO_COPIES)
         info["criterion"] = type(tr.criterion).__name__
-        info.update(micro_batch_measures(tr, det_host_batch(tr, data, TRAIN_IMGSZ), TRAIN_IMGSZ))
-        vprof = profile_window(lambda: tr.val_fn(tr.model), reps=1, warmup=0)
+        info.update(micro_batch_measures(tr, det_host_batch(tr, data, TRAIN_IMGSZ), TRAIN_IMGSZ,
+                                         info["micro_batches_per_epoch"]))
         n = info["k1_launches"] // TRAIN_EPOCHS
+        with capture_k1(ops_nms) as cap:  # one more val: profiled, its first K1 rows captured
+            vprof = profile_window(lambda: tr.val_fn(tr.model), reps=1, warmup=0)
         info.update(val_device_busy_ms=vprof["device_busy_ms_per_call"],
                     k1_profiled_ms_per_launch=vprof["device_ms_by_category"].get("k1_greedy_nms", 0.0) / max(n, 1))
         if n:
-            with capture_k1(ops_nms) as cap:
-                tr.val_fn(tr.model)
             info["k1_on_val_rows"] = val_k1(nms_cuda, cap["rows"], card, smi)
         info["seconds"] = time.perf_counter() - t0
         out[name] = info
@@ -2966,6 +3008,8 @@ def val_options(YOLO, yaml_model_load, nms_cuda, ops_nms, tmp: Path, card: str, 
                         "predictions": len(json.loads((save_dir / "predictions.json").read_text()))}
         if device == "cuda":
             rect_rows = cap["every_rows"]
+            vprof = profile_window(lambda: model.val(rect=True, **kw), reps=1, warmup=0)
+            runs["cuda"]["k1_profiled_ms_per_launch"] = vprof["device_ms_by_category"].get("k1_greedy_nms", 0.0) / 2
             plain = model.val(**kw)
             cached = model.val(cache="ram", **kw)
             if cached.results_dict != plain.results_dict:
@@ -2980,6 +3024,259 @@ def val_options(YOLO, yaml_model_load, nms_cuda, ops_nms, tmp: Path, card: str, 
     return dict(model="yolov8n (val_parity_model.npz)", data="tests/fixtures/torch_val_synth", val_args=kw,
                 runs=runs, abs_diff=diff, tolerance=TASK_FIXTURE_TOL,
                 rect_k1_rows=[list(r[1].shape) for r in rect_rows], k1_on_rect_rows=rows,
+                card=card, nvidia_smi=smi)
+
+
+def aug_host_batch(data: Path, imgsz: int, batch: int, task: str = "detect") -> dict:
+    """The first collated batch of an augmented train set (epoch 0, unshuffled)."""
+    from ultralytics_pro_tpu_torch.cfg import DEFAULT_CFG_DICT, HYP_KEYS
+    from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset, check_det_dataset
+
+    d = check_det_dataset(str(data))
+    ds = YOLODataset(d["train"], imgsz=imgsz, augment=True, hyp={k: DEFAULT_CFG_DICT[k] for k in HYP_KEYS}, data=d,
+                     task=task)
+    return next(iter(DataLoader(ds, batch_size=batch, workers=8, max_gt=32)))
+
+
+def multi_scale_rungs(img: np.ndarray, imgsz: int) -> dict:
+    """The multi_scale resize (`engine/trainer.py:resize_u8`) of a uint8 NHWC
+    batch at each rung of imgsz's ladder on the card and on the CPU: the
+    largest difference in grey levels, and the share of equal values."""
+    from ultralytics_pro_tpu_torch.engine.trainer import MULTI_SCALE_FACTORS, resize_u8
+
+    x = torch.from_numpy(np.ascontiguousarray(img))
+    out = {}
+    for size in sorted({max(32, round(imgsz * f / 32) * 32) for f in MULTI_SCALE_FACTORS}):
+        card, cpu = resize_u8(x.cuda(), size).cpu().int(), resize_u8(x, size).int()
+        out[size] = {"max_grey_diff": int((card - cpu).abs().max()), "equal_share": float((card == cpu).float().mean())}
+    worst = max(v["max_grey_diff"] for v in out.values())
+    if worst > MULTI_SCALE_TOL:
+        raise AssertionError(f"multi_scale resize card vs CPU: {out} (tolerance {MULTI_SCALE_TOL} grey level)")
+    return out
+
+
+def aug_parity(YOLO, yaml_model_load, load_pickle, tmp: Path, card: str, smi: str) -> dict:
+    """One augmented optimizer step of the trained fixture yolov8n, card
+    against CPU (both draw the same samples: each from generators seeded by
+    seed, epoch and index), and the multi_scale resize of an augmented
+    batch at every rung, card against CPU."""
+    root = tmp / "aug_parity"
+    data = fixture_train_set(root / "set", TRAIN_PARITY_IMAGES)
+    info = one_step_diffs(*(train_one_step(YOLO, yaml_model_load, load_pickle, data, root / d, d, augment=True)
+                            for d in ("cuda", "cpu")))
+    host = aug_host_batch(data, AUG_PARITY_IMGSZ, TRAIN_PARITY_IMAGES)
+    return dict(model="yolov8n (val_parity_model.npz)", images=TRAIN_PARITY_IMAGES, imgsz=AUG_PARITY_IMGSZ,
+                batch=TRAIN_PARITY_IMAGES, augment=True, **info,
+                multi_scale_rungs=multi_scale_rungs(host["img"], AUG_PARITY_IMGSZ),
+                multi_scale_tolerance_grey=MULTI_SCALE_TOL, card=card, nvidia_smi=smi)
+
+
+def loader_ms_per_batch(dataset, batch: int, collate_fn=None, close_mosaic: bool = False) -> float:
+    """Host ms a batch of one pass of a train loader over dataset (8 threads,
+    no model, shuffled, the last partial batch dropped), Mosaic and the
+    other mosaic-type transforms off when asked."""
+    from ultralytics_pro_tpu_torch.data import DataLoader
+
+    loader = DataLoader(dataset, batch_size=batch, workers=8, shuffle=True, drop_last=True, collate_fn=collate_fn)
+    if close_mosaic:
+        loader.reset()
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def busy_ms_per_micro_batch(tr, host: dict) -> float:
+    """Device busy ms of one micro-batch with its optimizer step, as the loop runs it (profiled)."""
+    lrs, mom = [tr.lr0] * 3, tr.momentum
+
+    def loop_micro():
+        _, parts = tr.step(tr.put_batch(host), lrs, mom, True)
+        return torch.stack(list(parts.values())).tolist()
+
+    tr.model.train()
+    busy = profile_window(loop_micro, reps=1, warmup=1)["device_busy_ms_per_call"]
+    tr.model.eval()
+    return busy
+
+
+def aug_train(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
+    """yolov8s at 640 through train_run with augment=True and close_mosaic=1,
+    its loader's host ms a batch, the idle share of each epoch, and K1 in
+    its epoch-end val (train_path's checks)."""
+    from ultralytics_pro_tpu_torch.cfg import DEFAULT_CFG_DICT, HYP_KEYS
+    from ultralytics_pro_tpu_torch.data import YOLODataset, check_det_dataset
+
+    tr, data, info = train_run(YOLO, nms_cuda, tmp, augment=True, close_mosaic=1)
+    nb = info["micro_batches_per_epoch"]
+    d = check_det_dataset(str(data))
+    hyp = {k: DEFAULT_CFG_DICT[k] for k in HYP_KEYS}
+    half = data.parent / "half.txt"  # the loader alone reads half the set: 4 batches (PERF.md section 6)
+    pngs = sorted(str(p) for p in (data.parent / "images" / "val").glob("*.png"))
+    half.write_text("\n".join(pngs[:nb * TRAIN_BATCH // 2]))
+    host_ms = {}
+    for closed in (False, True):
+        ds = YOLODataset(str(half), imgsz=TRAIN_IMGSZ, augment=True, hyp=hyp, data=d)
+        host_ms["without_mosaic" if closed else "with_mosaic"] = loader_ms_per_batch(ds, TRAIN_BATCH,
+                                                                                     close_mosaic=closed)
+    busy = busy_ms_per_micro_batch(tr, aug_host_batch(data, TRAIN_IMGSZ, TRAIN_BATCH))
+    wall = [s * 1e3 / nb for s in tr.epoch_train_seconds]
+    with capture_k1(ops_nms) as cap:  # one more val: profiled, its first K1 rows captured
+        vprof = profile_window(lambda: tr.val_fn(tr.model), reps=1, warmup=0)
+    info.update(close_mosaic=1, hyp=hyp, train_images_per_s_per_epoch=[nb * TRAIN_BATCH / s for s in
+                                                                        tr.epoch_train_seconds],
+                wall_ms_per_micro_batch_per_epoch=wall, loader_host_ms_per_batch=host_ms,
+                device_busy_ms_per_micro_batch=busy,
+                device_idle_share_per_epoch=None if busy is None else [max(0.0, 1 - busy / w) for w in wall],
+                k1_profiled_ms_per_launch=vprof["device_ms_by_category"].get("k1_greedy_nms", 0.0) / nb,
+                k1_on_val_rows=val_k1(nms_cuda, cap["rows"], card, smi), card=card, nvidia_smi=smi)
+    return info
+
+
+def aug_cls_train(YOLO, tmp: Path, card: str, smi: str) -> dict:
+    """yolov8s-cls at 224 as phase cls_train with augment=True: images/s in
+    each epoch and the loader's host ms a batch."""
+    from ultralytics_pro_tpu_torch.data import ClassificationDataset, collate_classify
+
+    root = cls_set(tmp / "aug_cls_set", VAL_COPIES)
+    model = YOLO("yolov8s-cls.yaml", device="cuda", seed=0)
+    t0 = time.perf_counter()
+    model.train(data=str(root), epochs=TRAIN_EPOCHS, imgsz=CLS_IMGSZ, batch=TRAIN_BATCH, augment=True,
+                project=str(tmp / "aug_cls_train"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    tr = model.trainer
+    nb = VAL_COPIES * 16 // TRAIN_BATCH
+    if not all(np.isfinite(v) for e in tr.loss_history for v in e.values()) or len(tr.loss_history) != TRAIN_EPOCHS:
+        raise AssertionError(f"loss history {tr.loss_history}")
+    ds = ClassificationDataset(root / "train", imgsz=CLS_IMGSZ, augment=True)
+    return dict(model="yolov8s-cls", nc=tr.model.nc, imgsz=CLS_IMGSZ, batch=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
+                augment="randaugment, erasing 0.4", images=nb * TRAIN_BATCH, train_seconds=seconds,
+                epoch_train_seconds=tr.epoch_train_seconds,
+                train_images_per_s_per_epoch=[nb * TRAIN_BATCH / s for s in tr.epoch_train_seconds],
+                loader_host_ms_per_batch=loader_ms_per_batch(ds, TRAIN_BATCH, collate_classify),
+                loss_history=tr.loss_history, fitness_per_epoch=fitness_values(tr.save_dir, TRAIN_EPOCHS),
+                card=card, nvidia_smi=smi)
+
+
+def remat_step(YOLO, tmp: Path, card: str, smi: str) -> dict:
+    """One yolov8s micro-batch at 640 (batch 16 of the fixture images, nc
+    80) with its optimizer step, from the same weights with and without
+    remat: loss parts within TRAIN_PARITY_TOL["loss"], parameters and BN
+    statistics after the step within TRAIN_PARITY_TOL, the peak memory of
+    the step and its device ms (CUDA events, 3 more steps)."""
+    from ultralytics_pro_tpu_torch.cfg import DEFAULT_CFG_DICT
+    from ultralytics_pro_tpu_torch.engine.trainer import DetectionTrainer
+    from ultralytics_pro_tpu_torch.utils.weights import torch_state_dict_to_jax
+
+    data = val_set_640(tmp / "remat_set", copies=1)
+    data.write_text(data.read_text().replace("val: images/val", "train: images/val\nval: images/val"))
+    base = YOLO("yolov8s.yaml", device="cuda", seed=0).model
+    runs = {}
+    for remat in (False, True):
+        model = copy.deepcopy(base)
+        tr = DetectionTrainer(model, {**DEFAULT_CFG_DICT, "batch": TRAIN_BATCH, "remat": remat,
+                                      "project": str(tmp / f"remat_{remat}")})
+        host = det_host_batch(tr, data, TRAIN_IMGSZ)
+        dev = tr.put_batch(host)
+        model.train()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        _, parts = tr.step(dev, [tr.lr0] * 3, tr.momentum, True)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - start
+        trees = torch_state_dict_to_jax({k: v.detach().cpu() for k, v in model.state_dict().items()})
+        ms = cuda_ms(lambda: tr.step(dev, [0.0] * 3, tr.momentum, False), iters=3, warmup=1)
+        runs[remat] = ({k: float(v) for k, v in parts.items()}, trees, peak, ms)
+    (l0, t0, p0, ms0), (l1, t1, p1, ms1) = runs[False], runs[True]
+    diffs = {f"loss_{k}": abs(l1[k] - l0[k]) / abs(l0[k]) for k in l0}
+    where = {}
+    for key in ("params", "batch_stats"):
+        diffs[key], where[key] = max_rel_tree_diff(t1[key], t0[key])
+    bad = {k: v for k, v in diffs.items() if not v <= TRAIN_PARITY_TOL["loss" if k.startswith("loss") else k]}
+    if bad:
+        raise AssertionError(f"remat against no remat beyond {TRAIN_PARITY_TOL}: {bad} (at {where})")
+    return dict(model="yolov8s (seeded, nc 80)", imgsz=TRAIN_IMGSZ, batch=TRAIN_BATCH, loss=l0, loss_remat=l1,
+                max_rel_diff=diffs, at=where, tolerance=TRAIN_PARITY_TOL,
+                peak_step_memory_gb={"plain": p0 / 1e9, "remat": p1 / 1e9},
+                device_ms_per_micro_batch={"plain": ms0, "remat": ms1}, card=card, nvidia_smi=smi)
+
+
+def band_set(root: Path) -> Path:
+    """The 16 detect fixture images beside BANDS-band .npy stacks of their
+    own size (their B, G, R as read, then bands made from them, none equal to
+    another), train = val, `channels: BANDS`."""
+    from ultralytics_pro_tpu_torch.data.image_io import imread
+
+    data = fixture_train_set(root, 16)
+    data.write_text(data.read_text() + f"channels: {BANDS}\n")
+    for png in sorted((root / "images" / "train").glob("*.png")):
+        im = imread(png)
+        x = im.astype(np.int64)
+        extra = [(x[..., k % 3] * (k + 2) + 17 * k) % 256 for k in range(BANDS - 3)]
+        np.save(png.with_suffix(".npy"), np.concatenate([im, np.stack(extra, -1).astype(np.uint8)], -1))
+    return data
+
+
+def band_stem_state_dict(model) -> dict:
+    """A 3-channel model's state dict with its stem taking BANDS bands in their
+    order: the filters of its R, G and B inputs (the 3-channel model's batch is
+    flipped to RGB, a band batch is not) on bands 0-2 (B, G, R as read) and
+    zeros on the rest, so its val on `band_set` sees the fixture images as the
+    3-channel model's val does, and a band order reversed anywhere shows."""
+    sd = {k: v.clone() for k, v in model.model.state_dict().items()}
+    w = sd["model.0.conv.weight"]
+    sd["model.0.conv.weight"] = torch.cat([w.flip(1), w.new_zeros(w.shape[0], BANDS - 3, *w.shape[2:])], 1)
+    return sd
+
+
+def channels_phase(YOLO, yaml_model_load, nms_cuda, tmp: Path, card: str, smi: str) -> dict:
+    """The grey val (channels: 1), the 10-band train, and the 10-band val of
+    the trained fixture with its stem widened, card against CPU and against
+    the 3-channel val of the same images."""
+    ref = json.loads((FIXTURES / "val_parity_ref.json").read_text())
+    grey = shutil.copytree(FIXTURES / "torch_val_synth", tmp / "grey_set")
+    (grey / "data.yaml").write_text((grey / "data.yaml").read_text() + "channels: 1\n")
+    va = ref["val_args"]
+    kw = dict(imgsz=va["imgsz"], batch=8, conf=va["conf"], iou=va["iou"], max_det=va["max_det"])
+    keys = ("metrics/mAP50(B)", "metrics/mAP50-95(B)")
+    grey_maps = {d: {k: float(v) for k, v in parity_yolov8n(YOLO, yaml_model_load, ref, d).val(
+        data=str(grey / "data.yaml"), **kw).results_dict.items() if k in keys} for d in ("cuda", "cpu")}
+    grey_diff = max(abs(grey_maps["cuda"][k] - grey_maps["cpu"][k]) for k in keys)
+    if not grey_diff <= TASK_FIXTURE_TOL:
+        raise AssertionError(f"grey val card vs CPU: {grey_maps} (tolerance {TASK_FIXTURE_TOL})")
+
+    data = band_set(tmp / "band_set")
+    model = YOLO("yolov8n.yaml", device="cuda", seed=0)
+    nms_cuda.launches = 0
+    model.train(data=str(data), epochs=1, imgsz=AUG_PARITY_IMGSZ, batch=8, nbs=8, warmup_epochs=0.0, workers=8,
+                max_gt=32, project=str(tmp / "band_train"))
+    launches = nms_cuda.launches
+    tr = model.trainer
+    if model.model.ch != BANDS or not all(np.isfinite(v) for v in tr.loss_history[0].values()) or launches != 2:
+        raise AssertionError(f"{BANDS}-band train: ch {model.model.ch}, losses {tr.loss_history}, K1 {launches}")
+    fixture = parity_yolov8n(YOLO, yaml_model_load, ref, "cuda")
+    rgb_maps = {k: float(v) for k, v in fixture.val(data=str(FIXTURES / "torch_val_synth" / "data.yaml"),
+                                                    **kw).results_dict.items() if k in keys}
+    sd = band_stem_state_dict(fixture)
+    band_maps = {}
+    for d in ("cuda", "cpu"):
+        m = parity_yolov8n(YOLO, yaml_model_load, ref, d)
+        m.model = m._build(m.model.yaml, nc=m.model.nc, ch=BANDS)
+        m.load_state_dict({k: v.cpu() for k, v in sd.items()})
+        band_maps[d] = {k: float(v) for k, v in m.val(data=str(data), **kw).results_dict.items() if k in keys}
+    band_diff = max(abs(band_maps["cuda"][k] - band_maps["cpu"][k]) for k in keys)
+    rgb_diff = max(abs(band_maps["cuda"][k] - rgb_maps[k]) for k in keys)
+    if not (band_diff <= ZOO_VAL_TOL and rgb_diff <= ZOO_VAL_TOL and rgb_maps[keys[0]] > 0.5):
+        raise AssertionError(f"{BANDS}-band val: card {band_maps['cuda']}, CPU {band_maps['cpu']}, the 3-channel "
+                             f"val of the same images {rgb_maps} (tolerance {ZOO_VAL_TOL})")
+    return dict(grey=dict(model="yolov8n (val_parity_model.npz)", maps=grey_maps, abs_diff=grey_diff,
+                          tolerance=TASK_FIXTURE_TOL),
+                bands=dict(train_model=f"yolov8n re-stemmed to {BANDS} channels (seed 0)", imgsz=AUG_PARITY_IMGSZ,
+                           images=16, loss=tr.loss_history[0], k1_launches=launches,
+                           val_model=f"yolov8n (val_parity_model.npz), stem widened to {BANDS} bands",
+                           maps=band_maps, rgb_maps=rgb_maps, abs_diff=band_diff, abs_diff_rgb=rgb_diff,
+                           tolerance=ZOO_VAL_TOL),
                 card=card, nvidia_smi=smi)
 
 
@@ -3174,6 +3471,21 @@ def main() -> int:
         vo = val_options(YOLO, yaml_model_load, nms_cuda, ops_nms, Path(tmp), card, smi)
         emit("val_options", **vo, seconds=time.perf_counter() - t)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        emit("aug_parity", **aug_parity(YOLO, yaml_model_load, load_pickle, Path(tmp), card, smi),
+             seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        at = aug_train(YOLO, nms_cuda, ops_nms, Path(tmp), card, smi)
+        emit("aug_train", **at, seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        emit("aug_cls_train", **aug_cls_train(YOLO, Path(tmp), card, smi), seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        emit("remat", **remat_step(YOLO, Path(tmp), card, smi), seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        emit("channels", **channels_phase(YOLO, yaml_model_load, nms_cuda, Path(tmp), card, smi),
+             seconds=time.perf_counter() - t)
+
     pred, val_size = k1
     tk1 = train["k1_on_val_rows"]
     task_k1 = {"seg_predict": (task_runs["segment"], task_runs["segment"]["k1_on_batch_rows"]),
@@ -3186,7 +3498,7 @@ def main() -> int:
                                         ("train_val", zt, "k1_on_val_rows"))
                 for name in runs["models"] if key in runs["models"][name]}
     captured = (vk1, tk1, *(rows for _, rows in task_k1.values()), *zoo_rows.values(), *ta["k1_on_rows"],
-                *vo["k1_on_rect_rows"])
+                *vo["k1_on_rect_rows"], at["k1_on_val_rows"])
     kernels = [{
         "name": "greedy_nms", "route": "cuda",
         "source": "ultralytics_pro_tpu_torch/csrc/greedy_nms.cu",
@@ -3227,6 +3539,10 @@ def main() -> int:
         **{f"tta_predict_{key}": [r[key] for r in ta["k1_on_rows"]]
            for key in ("K", "ms", "plain_ms", "bound_ms", "bound_by", "scanned_per_row")},
         "rect_val_path_launches": vo["runs"]["cuda"]["k1_launches"],
+        "rect_val_path_profiled_ms": vo["runs"]["cuda"]["k1_profiled_ms_per_launch"],
+        "aug_train_path_launches": at["k1_launches"], "aug_train_path_profiled_ms": at["k1_profiled_ms_per_launch"],
+        **{f"aug_train_rows_{key}": at["k1_on_val_rows"][key]
+           for key in ("B", "K", "ms", "plain_ms", "bound_ms", "bound_by", "scanned_per_row")},
         **{f"rect_val_{key}": [r[key] for r in vo["k1_on_rect_rows"]]
            for key in ("B", "K", "ms", "plain_ms", "bound_ms", "bound_by", "scanned_per_row")},
     }, {

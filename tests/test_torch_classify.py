@@ -206,13 +206,15 @@ def test_classification_dataset_and_loader_match_jax():
 
 @pytest.mark.parametrize("what", ["augment", "synth", "yolo_dataset"])
 def test_classify_data_refuses_what_it_does_not_port(what, tmp_path):
-    """augment=True names item 2a, a missing synthetic set item 10, and
-    YOLODataset(task='classify') the classify dataset."""
+    """A missing synthetic set names item 10, and YOLODataset(task='classify')
+    the classify dataset; augment=True, once refused, now gives augmented
+    samples (tests/test_torch_augment.py holds them to
+    the JAX dataset's)."""
     from ultralytics_pro_tpu_torch.data import YOLODataset
 
     if what == "augment":
-        with pytest.raises(NotImplementedError, match="2a"):
-            ClassificationDataset(SET / "train", imgsz=64, augment=True)
+        item = ClassificationDataset(SET / "train", imgsz=64, augment=True)[0]
+        assert item["img"].shape == (64, 64, 3) and item["img"].dtype == np.uint8
     elif what == "synth":
         (tmp_path / "cls.yaml").write_text("path: missing\nsynth: classify\n")
         with pytest.raises(FileNotFoundError, match="item 10"):

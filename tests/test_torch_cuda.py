@@ -10,7 +10,9 @@ training epoch through K2 forward and backward, the YOLO11, YOLOv10, v5
 anchor-head, YOLO12, GELAN-DSegment and YOLOv13 (seeded FullPAD gates)
 forwards and predicts on the card against the CPU (v10 without NMS), K1 on
 yolov3-tiny's two-level rows and on the anchor head's 25,200-candidate rows,
-test-time augmentation and a rect val on the card against the CPU.
+test-time augmentation and a rect val on the card against the CPU, the
+multi_scale resize of an augmented batch (alone and through the trainer's
+`device_images`) and one augmented train step on the card against the CPU.
 
 These tests need a card and nvcc, and import neither JAX nor the JAX package
 nor `tests/conftest.py` (which imports JAX), so they run on a machine that has
@@ -33,10 +35,15 @@ import pytest
 import torch
 
 from chip_smoke import (
+    aug_host_batch,
     capture_k1,
     check_detections,
     cls_fixture_model,
+    fixture_train_set,
+    multi_scale_rungs,
+    one_step_diffs,
     parity_yolov8n,
+    train_one_step,
     tta_fixture,
     zoo_parity,
     zoo_yolo,
@@ -754,3 +761,42 @@ def test_rect_val_on_card_matches_cpu(tf32_on, tmp_path):
         rk, rv = nms_cuda.greedy_nms_plain(boxes, scores, 300, 0.7)
         assert torch.equal(keep, rk) and torch.equal(valid, rv)
     assert len(shapes) == 2
+
+
+@pytest.mark.cuda
+def test_multi_scale_resize_on_card_matches_cpu(card, tmp_path):
+    """An augmented batch of 8 fixture images at 160 px resized at every
+    rung of the ladder (64 to 256 px: round(7.5) is 8) on the card and on
+    the CPU: within 1 grey level (chip_smoke.multi_scale_rungs)."""
+    host = aug_host_batch(fixture_train_set(tmp_path / "set", 8), 160, 8)
+    rungs = multi_scale_rungs(host["img"], 160)
+    assert sorted(rungs) == [64, 96, 128, 160, 192, 224, 256]
+    assert all(r["max_grey_diff"] <= 1 for r in rungs.values())
+
+
+@pytest.mark.cuda
+def test_multi_scale_device_images_on_card_match_cpu(card, tmp_path):
+    """The trainer's put_batch path under multi_scale (`device_images` with a
+    size: the uint8 resize, the BGR flip, the one float conversion) on the
+    card against the CPU: within 1 grey level at a rung down and one up."""
+    from ultralytics_pro_tpu_torch.engine.trainer import device_images
+
+    host = aug_host_batch(fixture_train_set(tmp_path / "set", 8), 160, 8)
+    for size in (96, 224):
+        got = device_images(host["img"], torch.device("cuda"), size).cpu()
+        want = device_images(host["img"], torch.device("cpu"), size)
+        assert got.shape == want.shape == (8, 3, size, size)
+        assert ((got - want).abs().max() * 255).item() <= 1 + 1e-3
+
+
+@pytest.mark.cuda
+def test_augmented_step_on_card_matches_cpu(card, tmp_path):
+    """One augmented optimizer step (Mosaic, the warp, HSV, flips) of the
+    trained fixture yolov8n on 8 images at 160 px on the card and on the
+    CPU, within chip_smoke's TRAIN_PARITY_TOL (one_step_diffs raises beyond)."""
+    from ultralytics_pro_tpu_torch.engine.trainer import load_pickle
+
+    data = fixture_train_set(tmp_path / "set", 8)
+    info = one_step_diffs(*(train_one_step(YOLO, yaml_model_load, load_pickle, data, tmp_path / d, d, augment=True)
+                            for d in ("cuda", "cpu")))
+    assert info["ema_updates"] == [1, 1]

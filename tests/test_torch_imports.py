@@ -7,7 +7,8 @@ classify predict, val and training and a narrow RT-DETR's val), segment val
 (polygon fill and mask shrink included) and pose predict run, and obb val
 (minAreaRect, the rotated NMS, probiou matching) and predict run; with PIL
 refused as well, they import and `imread` still reads a PNG, equal to cv2's
-reading. An AST scan of the same
+reading, and augmented training (the cv2 copies of data/imgproc.py) with
+multi_scale and remat, on a grey and on a 10-band set, goes through. An AST scan of the same
 files must find no import of the first names.
 """
 
@@ -211,6 +212,47 @@ def test_port_serves_obb_with_jax_yaml_cv2_blocked(tmp_path):
                          text=True, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert len(list((tmp_path / "predictions_dota").glob("Task1_*.txt"))) > 0
+
+
+def test_port_trains_augmented_with_jax_yaml_cv2_pil_blocked(tmp_path):
+    """augment=True for detect (Mosaic, the warp, HSV, flips) with
+    multi_scale, remat and close_mosaic, for pose (flip_idx) and classify
+    (RandAugment, erasing), and train on a grey set and on a 3-band-tiled
+    10-channel set (no .npy stacks) run in the blocking process with PIL
+    refused too."""
+    import shutil
+
+    data = shutil.copytree(REPO / "tests" / "fixtures" / "torch_val_synth", tmp_path / "set")
+    pose = shutil.copytree(REPO / "tests" / "fixtures" / "torch_val_synth_pose", tmp_path / "pose")
+    names = "names:\n  0: a\n  1: b\n  2: c\n"
+    (data / "train.yaml").write_text("train: images/val\nval: images/val\n" + names)
+    (data / "grey.yaml").write_text("train: images/val\nval: images/val\nchannels: 1\n" + names)
+    (data / "bands.yaml").write_text("train: images/val\nval: images/val\nchannels: 10\n" + names)
+    (pose / "train.yaml").write_text("train: images/val\nval: images/val\nkpt_shape: [5, 3]\n"
+                                     "flip_idx: [1, 0, 3, 2, 4]\n" + names)
+    cls_set = REPO / "tests" / "fixtures" / "torch_cls_synth"
+    kw = "epochs=2, imgsz=32, batch=8, nbs=8, workers=2, max_gt=16, warmup_epochs=0.0, augment=True"
+    then = ("import torch\n"
+            "torch.set_num_threads(2)\n"
+            "from ultralytics_pro_tpu_torch import YOLO\n"
+            "import ultralytics_pro_tpu_torch.data.imgproc\n"
+            f"m = YOLO('yolov8n.yaml', device='cpu')\n"
+            f"m.train(data={str(data / 'train.yaml')!r}, {kw}, multi_scale=True, remat=True, close_mosaic=1, "
+            f"project={str(tmp_path / 'runs')!r})\n"
+            "assert m.trainer.last_fitness is not None\n"
+            f"p = YOLO('yolov8n-pose.yaml', device='cpu')\n"
+            f"p.train(data={str(pose / 'train.yaml')!r}, {kw}, project={str(tmp_path / 'pose_runs')!r})\n"
+            f"c = YOLO('yolov8n-cls.yaml', device='cpu')\n"
+            f"c.train(data={str(cls_set)!r}, {kw}, project={str(tmp_path / 'cls_runs')!r})\n"
+            f"g = YOLO('yolov8n.yaml', device='cpu')\n"
+            f"g.train(data={str(data / 'grey.yaml')!r}, {kw}, project={str(tmp_path / 'grey_runs')!r})\n"
+            "assert g.model.ch == 3\n"
+            f"b = YOLO('yolov8n.yaml', device='cpu')\n"
+            f"b.train(data={str(data / 'bands.yaml')!r}, {kw}, project={str(tmp_path / 'band_runs')!r})\n"
+            "assert b.model.ch == 10 and b.trainer.last_fitness is not None")
+    out = subprocess.run([sys.executable, "-c", _blocker(BLOCKED + ("PIL",), then)], capture_output=True,
+                         text=True, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
 
 
 def test_no_blocked_import_in_sources():

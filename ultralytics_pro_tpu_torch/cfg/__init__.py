@@ -5,7 +5,9 @@ The keys of `ultralytics_pro_tpu/cfg/default.yaml` that `Model.predict`,
 defaults, as a dict, so the port needs no YAML parser for them.
 `plots` defaults to False here (True there): the port draws no plots yet, and
 its validator raises when asked to. `augment` is off by default there too,
-so a train run sees the val transforms, and `optimizer` is left out: the
+so a train run sees the val transforms unless it asks for augmentation, whose
+gains (`HYP_KEYS`) go to the dataset as the JAX facade hands them; and
+`optimizer` is left out: the
 trainer runs its 3-group SGD whatever it says, as the JAX one does
 (ROADMAP.md §3).
 """
@@ -56,4 +58,25 @@ DEFAULT_CFG_DICT = {
     "kobj": 1.0,
     "overlap_mask": True,  # read by nothing: the collate always gives overlaps to the smaller instance
     "nbs": 64,
+    # train augmentation (augment=True), cfg/default.yaml:106-123
+    "hsv_h": 0.015,
+    "hsv_s": 0.7,
+    "hsv_v": 0.4,
+    "degrees": 0.0,
+    "translate": 0.1,
+    "scale": 0.5,
+    "shear": 0.0,
+    "perspective": 0.0,
+    "flipud": 0.0,
+    "fliplr": 0.5,
+    "mosaic": 1.0,
+    "mixup": 0.0,
+    "cutmix": 0.0,
+    "copy_paste": 0.0,
+    "copy_paste_mode": "flip",  # read by nothing: CopyPaste is the box-level flip-paste, as in the JAX package
+    "auto_augment": "randaugment",  # classify: read by nothing, as in the JAX facade (the dataset's default)
+    "erasing": 0.4,  # classify: read by nothing, as in the JAX facade (the dataset's default)
 }
+
+HYP_KEYS = ("mosaic", "mixup", "cutmix", "copy_paste", "degrees", "translate", "scale", "shear", "perspective",
+            "hsv_h", "hsv_s", "hsv_v", "flipud", "fliplr")  # the train arguments the JAX facade hands its dataset

@@ -12,9 +12,12 @@ each polygon filled at the full size and shrunk as cv2 does it
 instance rows reordered largest first, as `:72-96` does; the loader yields batches whose
 samples a thread pool reads. For val it keeps the dataset's order and pads
 the last batch by repeating its last sample, with `pad_count` saying how
-many; for train it shuffles with `random.Random(seed + epoch)`, seed 0, and drops
+many; for train it shuffles with `random.Random(SEED + epoch)`, SEED 0, and drops
 the last partial batch, as the JAX loader does, and `epoch` counts the
-passes.
+passes. Each pass hands its `epoch` to the dataset, whose augmented samples
+draw from `sample_generators(epoch, index)`, seeded by (SEED, epoch, index), so the threads' order
+changes no sample; `reset` (the trainer's close_mosaic) has the dataset
+turn its mosaic-type transforms off, as the JAX loader's does.
 """
 
 from __future__ import annotations
@@ -27,6 +30,14 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 
 from ultralytics_pro_tpu_torch.data.rasterize import fill_poly, resize_linear_u8
+
+SEED = 0  # the JAX loader's shuffle seed; the root of the per-sample generators too
+
+
+def sample_generators(epoch: int, i: int):
+    """Sample i's random.Random and np.random.RandomState in pass `epoch`."""
+    s = int(np.random.SeedSequence([SEED, epoch, i]).generate_state(1)[0])
+    return random.Random(s), np.random.RandomState(s)
 
 
 def collate_detect(samples, max_gt: int = 128, mask_ratio: int = 4) -> Dict[str, np.ndarray]:
@@ -114,7 +125,7 @@ def collate_classify(samples) -> Dict[str, np.ndarray]:
 class DataLoader:
     """Iterable over the dataset's samples in batches of batch_size read by a
     thread pool. With shuffle, each pass takes the order
-    `random.Random(epoch)` gives and `epoch` then counts up; with
+    `random.Random(SEED + epoch)` gives and `epoch` then counts up; with
     drop_last a last partial batch is dropped, else it is padded by repeating
     its last sample, and its `pad_count` says how many repeats the validator
     skips. `collate_fn` takes the list of samples (default: collate_detect
@@ -137,7 +148,7 @@ class DataLoader:
     def _index_batches(self):
         idx = list(range(len(self.dataset)))
         if self.shuffle:
-            random.Random(self.epoch).shuffle(idx)  # the JAX loader's seed 0, plus the epoch
+            random.Random(SEED + self.epoch).shuffle(idx)  # the JAX loader's seed, plus the epoch
         batches = []
         for i in range(0, len(idx), self.batch_size):
             chunk = idx[i:i + self.batch_size]
@@ -149,6 +160,8 @@ class DataLoader:
 
     def __iter__(self) -> Iterator[Dict]:
         batches = self._index_batches()
+        if hasattr(self.dataset, "epoch"):
+            self.dataset.epoch = self.epoch
         with ThreadPoolExecutor(max_workers=self.workers) as pool:
             # one pool task per sample, batches assembled in order, up to 4 in flight
             pending = []
@@ -166,5 +179,7 @@ class DataLoader:
         return batch
 
     def reset(self):
-        """Called at close_mosaic, where the JAX loader has its dataset drop
-        its mosaic-type transforms. Without augmentation there are none."""
+        """close_mosaic: the dataset's Mosaic, MixUp, CutMix and CopyPaste off
+        (a dataset without them, such as classify's, is left as it is)."""
+        if hasattr(self.dataset, "close_mosaic"):
+            self.dataset.close_mosaic()

@@ -1,5 +1,5 @@
 """YOLO-format detect, segment, pose and obb datasets, and the folder-per-class
-classify dataset, for val and for train without augmentation.
+classify dataset, for val and for train, with or without augmentation.
 
 Counterpart of `ultralytics_pro_tpu/data/dataset.py` (`YOLODataset:34`):
 image scan (`get_img_files:140`, `IMG_FORMATS:25`), label paths
@@ -7,14 +7,14 @@ image scan (`get_img_files:140`, `IMG_FORMATS:25`), label paths
 segment polygons with their bounding boxes, pose boxes with `kpt_shape`
 keypoints from the dataset YAML, a missing visibility written as 2, obb's
 four corners), the
-long-side resize on load (`_read_resized:295` and `load_image:332` in one:
-area averaging to shrink, bilinear to grow), `get_image_and_label:344`, and
-the non-augment transforms (`build_transforms:386`) behind `__getitem__:414`;
-and `ClassificationDataset:422`: sorted class folders, the files inside
-each sorted, through `classify_transforms` (short side to imgsz, centre
-crop). Images are read by `data/image_io.imread`: PNG natively, other formats
-(the JPEG of ImageNet or imagenette) only where PIL imports.
-Images are read by `data/image_io.imread`, not OpenCV. An obb label's
+long-side resize on load (`_read_resized:295` and `load_image:332`),
+`get_image_and_label:344`, the transforms (`build_transforms:386`) behind
+`__getitem__:414` and `close_mosaic:404`; and `ClassificationDataset:422`:
+sorted class folders, the files inside each sorted, through
+`classify_transforms` (short side to imgsz, centre crop) or
+`classify_augmentations`. Images are read by `data/image_io.imread`, not
+OpenCV: PNG natively, other formats (the JPEG of ImageNet or imagenette)
+only where PIL imports. An obb label's
 corners become (cx, cy, w, h, rad) in the resized image's pixels through
 `data/geometry.poly2xywhr`, the copy of `_poly2xywhr:276` and of the
 `cv2.minAreaRect` it calls (`:360`).
@@ -36,11 +36,33 @@ unless the free memory looks too small for them (`_check_cache_ram:103`);
 in an `.npz` beside the image file, read back in place of the image (either
 package reads the other's).
 
-Augmentation (the JAX `v8_transforms`: Mosaic, RandomPerspective,
-RandomHSV, flips, MixUp), channel counts other than 3 and
-`ClassificationDataset(augment=True)` (RandAugment through cv2) raise
-NotImplementedError; the class filter and `fraction` of the JAX dataset are
-left out.
+`augment=True` (`build_transforms:386-402`): detect runs `v8_transforms`
+(Mosaic, CopyPaste, RandomPerspective, MixUp, CutMix, RandomHSV, the two
+flips) and a scale-up letterbox; segment, pose and obb a letterbox, RandomHSV
+and the left-right flip with the dataset's `flip_idx`; the `hyp` gains are
+the train arguments of those names. Images are then shrunk on load with
+bilinear interpolation (`imgproc.resize_linear`, cv2's INTER_LINEAR bit for
+bit), as the JAX dataset does under augmentation. `close_mosaic` sets the
+probability of Mosaic, MixUp, CutMix and CopyPaste to 0; they still draw
+their coin, as there. Each sample draws from its own generators,
+`random.Random(s)` and `np.random.RandomState(s)` with s from
+`np.random.SeedSequence([SEED, epoch, index])` (`data/build.py:sample_generators`,
+the loader's seed and its pass): an augmented
+epoch does not depend on the loader's threads, where the JAX loader's
+threads share the process-wide streams (ROADMAP.md section 3).
+`sample(i, rng, nprng)` takes the generators given, so a test seeds both
+packages alike.
+
+The dataset YAML's `channels` (`_read_resized:295-330`): 1 reads the image,
+turns it grey as cv2's BGR2GRAY does (`imgproc.bgr2gray`) and repeats it to
+3 channels; more than 3 reads the `.npy` band stack (H, W, channels) beside
+each image, or tiles the image's BGR channels to that count where there is
+none.
+
+`ClassificationDataset(augment=True)` runs `classify_augmentations`
+(RandomResizedCrop, the flip, RandAugment and RandomErasing at the JAX
+dataset's defaults: randaugment, erasing 0.4). The class filter and
+`fraction` of the JAX dataset are left out.
 """
 
 from __future__ import annotations
@@ -53,7 +75,11 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ultralytics_pro_tpu_torch.data.augment import Compose, LetterBox, classify_transforms, resize_area, resize_bilinear
+from ultralytics_pro_tpu_torch.data import imgproc
+from ultralytics_pro_tpu_torch.data.augment import (Compose, CopyPaste, CutMix, LetterBox, MixUp, Mosaic, RandomFlip,
+                                                    RandomHSV, classify_augmentations, classify_transforms, resize_area,
+                                                    resize_bilinear, v8_transforms)
+from ultralytics_pro_tpu_torch.data.build import sample_generators
 from ultralytics_pro_tpu_torch.data.geometry import poly2xywhr
 from ultralytics_pro_tpu_torch.data.image_io import imread, imsize
 from ultralytics_pro_tpu_torch.utils import LOGGER
@@ -76,27 +102,23 @@ def _poly2xywh(pts: np.ndarray) -> np.ndarray:
 
 
 class YOLODataset:
-    """Detect, segment, pose or obb dataset over YOLO-format labels (no augmentation)."""
+    """Detect, segment, pose or obb dataset over YOLO-format labels."""
 
-    def __init__(self, img_path, imgsz: int = 640, augment: bool = False, rect: bool = False,
-                 single_cls: bool = False, data: Optional[Dict] = None, task: str = "detect",
+    def __init__(self, img_path, imgsz: int = 640, augment: bool = False, hyp: Optional[Dict] = None,
+                 rect: bool = False, single_cls: bool = False, data: Optional[Dict] = None, task: str = "detect",
                  cache=None, batch_size: int = 16, stride: int = 32, pad: float = 0.5):
-        if augment:
-            raise NotImplementedError(
-                "YOLODataset(augment=True) is not implemented in ultralytics_pro_tpu_torch yet: the "
-                "train augmentations (the JAX package's data/augment.py v8_transforms) need cv2-free "
-                "forms, ROADMAP.md queue 1 (train augmentations); train with augment=False, the default")
         if task == "classify":
             raise NotImplementedError("YOLODataset(task='classify'): a classify set is a folder per class, "
                                       "read by ClassificationDataset (data/dataset.py) after check_cls_dataset")
         if task not in TASKS:
             raise NotImplementedError(f"YOLODataset(task={task!r}) is not implemented in ultralytics_pro_tpu_torch "
-                                      f"yet; it ports the {', '.join(TASKS)} paths without augmentation")
+                                      f"yet; it ports the {', '.join(TASKS)} paths")
         self.data = data or {}
-        ch = int(self.data.get("channels", 3) or 3)
-        if ch != 3:
-            raise NotImplementedError(f"datasets with channels={ch} are not implemented in "
-                                      "ultralytics_pro_tpu_torch yet (3 only)")
+        self.channels = int(self.data.get("channels", 3) or 3)
+        self.augment = bool(augment)
+        self.hyp = dict(hyp or {})
+        self.flip_idx = self.data.get("flip_idx")
+        self.epoch = 0  # the loader's pass, which it sets
         self.img_path = img_path
         self.imgsz = imgsz
         self.single_cls = single_cls
@@ -254,15 +276,29 @@ class YOLODataset:
         return self._read_resized(i)
 
     def _read_resized(self, i: int):
-        """Read + long-side resize to imgsz: area averaging to shrink, bilinear
-        to grow (the val path's INTER_AREA and INTER_LINEAR). Returns (image,
-        (h0, w0), (h, w))."""
-        im = imread(self.im_files[i])
+        """Read (with the `channels` conversion) + long-side resize to imgsz:
+        bilinear under augmentation (`imgproc.resize_linear`, bit for bit),
+        else area averaging to shrink and bilinear to grow (the val path's
+        INTER_AREA and INTER_LINEAR, `resize_area` and `resize_bilinear`).
+        Returns (image, (h0, w0), (h, w))."""
+        ch = self.channels
+        npy = Path(self.im_files[i]).with_suffix(".npy")
+        if ch > 3 and npy.exists():
+            im = np.load(str(npy))
+        else:
+            im = imread(self.im_files[i])
+            if ch > 3:  # no band stack: the BGR channels tiled to the count
+                im = np.tile(im, (1, 1, (ch + 2) // 3))[:, :, :ch]
+            elif ch == 1:
+                im = imgproc.gray2bgr(imgproc.bgr2gray(im))
         h0, w0 = im.shape[:2]
         r = self.imgsz / max(h0, w0)
         if r != 1:
             size = (min(round(w0 * r), self.imgsz), min(round(h0 * r), self.imgsz))
-            im = resize_bilinear(im, size).numpy() if r > 1 else resize_area(im, size)
+            if self.augment:
+                im = imgproc.resize_linear(im, size)
+            else:
+                im = resize_bilinear(im, size).numpy() if r > 1 else resize_area(im, size)
         return im, (h0, w0), im.shape[:2]
 
     def get_image_and_label(self, i: int) -> Dict:
@@ -303,16 +339,35 @@ class YOLODataset:
 
     # -- pipeline -------------------------------------------------------------
     def build_transforms(self) -> Compose:
-        return Compose([LetterBox((self.imgsz, self.imgsz), scaleup=False)])
+        size = (self.imgsz, self.imgsz)
+        if not self.augment:
+            return Compose([LetterBox(size, scaleup=False)])
+        if self.task in ("obb", "pose", "segment"):
+            return Compose([LetterBox(size, scaleup=True),
+                            RandomHSV(self.hyp.get("hsv_h", 0.015), self.hyp.get("hsv_s", 0.7),
+                                      self.hyp.get("hsv_v", 0.4)),
+                            RandomFlip(p=self.hyp.get("fliplr", 0.5), direction="horizontal",
+                                       flip_idx=self.flip_idx)])
+        return Compose(v8_transforms(self, self.imgsz, self.hyp).transforms + [LetterBox(size, scaleup=True)])
+
+    def close_mosaic(self):
+        """Mosaic, MixUp, CutMix and CopyPaste off for the last epochs (their p to 0)."""
+        for t in self.transforms.transforms:
+            if isinstance(t, (Mosaic, MixUp, CutMix, CopyPaste)):
+                t.p = 0.0
 
     def __len__(self):
         return self.ni
 
-    def __getitem__(self, i: int) -> Dict:
+    def sample(self, i: int, rng: random.Random, nprng: np.random.RandomState) -> Dict:
+        """Sample i through the transforms, drawing from rng and nprng."""
         labels = self.get_image_and_label(i)
         if self.rect:
             labels["rect_shape"] = tuple(int(v) for v in self.batch_shapes[self.batch_index[i]])
-        return self.transforms(labels)
+        return self.transforms(labels, rng, nprng)
+
+    def __getitem__(self, i: int) -> Dict:
+        return self.sample(i, *sample_generators(self.epoch, i))
 
 
 def _available_memory() -> float:
@@ -328,17 +383,16 @@ def _available_memory() -> float:
 class ClassificationDataset:
     """Folder-per-class dataset: root/<class>/<images>, the classes and the
     files inside each sorted. Items are {"img": (imgsz, imgsz, 3) uint8 BGR,
-    "cls": class index}."""
+    "cls": class index}; with augment, each sample's generators are drawn as
+    YOLODataset's (`sample_generators`, `sample`)."""
 
-    def __init__(self, root, imgsz: int = 224, augment: bool = False):
-        if augment:
-            raise NotImplementedError(
-                "ClassificationDataset(augment=True) is not implemented in ultralytics_pro_tpu_torch yet: "
-                "classify_augmentations (RandomResizedCrop, flips, RandAugment through cv2, RandomErasing) "
-                "comes with the train augmentations, ROADMAP.md queue 1 item 2a; train with augment=False, "
-                "the default")
+    def __init__(self, root, imgsz: int = 224, augment: bool = False, auto_augment: str = "randaugment",
+                 erasing: float = 0.4, hflip: float = 0.5, scale=(0.08, 1.0)):
         self.root = Path(root)
-        self.tf = classify_transforms(imgsz)
+        self.augment = bool(augment)
+        self.epoch = 0  # the loader's pass, which it sets
+        self.tf = (classify_augmentations(imgsz, scale=scale, hflip=hflip, auto_augment=auto_augment,
+                                          erasing=erasing) if augment else classify_transforms(imgsz))
         classes = sorted(d.name for d in self.root.iterdir() if d.is_dir())
         self.samples = [(str(f), i) for i, c in enumerate(classes) for f in sorted((self.root / c).rglob("*.*"))
                         if f.suffix[1:].lower() in IMG_FORMATS]
@@ -348,6 +402,10 @@ class ClassificationDataset:
     def __len__(self):
         return len(self.samples)
 
-    def __getitem__(self, i: int) -> Dict:
+    def sample(self, i: int, rng: random.Random, nprng: np.random.RandomState) -> Dict:
         path, cls = self.samples[i]
-        return {"img": np.ascontiguousarray(self.tf(imread(path))), "cls": cls}
+        im = imread(path)
+        return {"img": np.ascontiguousarray(self.tf(im, rng, nprng) if self.augment else self.tf(im)), "cls": cls}
+
+    def __getitem__(self, i: int) -> Dict:
+        return self.sample(i, *sample_generators(self.epoch, i))

@@ -21,6 +21,12 @@ Classify takes a folder-per-class dataset (`check_cls_dataset`): val reads
 its val folder, train rebuilds the model at its nc, trains at the merged
 `imgsz` (the JAX facade's too: 640 unless given) and validates each epoch
 with fitness (top1 + top5) / 2.
+
+A detection dataset's `channels` (`:155-160`, `:183-190`): 1 is read as
+grey repeated to 3 channels, so the model stays; any count but the
+model's rebuilds it with that many input channels (seeded weights, as
+the JAX facade re-initialises it) before val or train. `train(augment=True)`
+hands the dataset the `HYP_KEYS` gains (`:213-218`).
 """
 
 from __future__ import annotations
@@ -31,7 +37,7 @@ from typing import Mapping, Optional, Union
 
 import torch
 
-from ultralytics_pro_tpu_torch.cfg import DEFAULT_CFG_DICT
+from ultralytics_pro_tpu_torch.cfg import DEFAULT_CFG_DICT, HYP_KEYS
 from ultralytics_pro_tpu_torch.nn.tasks import guess_model_task, model_class_for, yaml_model_load
 from ultralytics_pro_tpu_torch.utils import LOGGER, select_device
 
@@ -53,9 +59,19 @@ class Model:
         else:
             self._new(model, task, verbose)
 
-    def _build(self, cfg: dict, nc: Optional[int] = None, verbose: bool = False):
+    def _build(self, cfg: dict, nc: Optional[int] = None, verbose: bool = False, ch: int = 3):
         gen = torch.Generator().manual_seed(self.seed)
-        return model_class_for(self.task)(cfg, nc=nc, verbose=verbose, generator=gen).to(self.device).eval()
+        return model_class_for(self.task)(cfg, ch=ch, nc=nc, verbose=verbose, generator=gen).to(self.device).eval()
+
+    def _restem(self, d: dict, nc: Optional[int] = None) -> bool:
+        """Rebuild the model at the dataset's channel count (1 counts as 3)
+        where it differs from the model's; returns whether it did."""
+        ch = int(d.get("channels", 3) or 3)
+        ch = 3 if ch == 1 else ch
+        if ch == getattr(self.model, "ch", 3):
+            return False
+        self.model = self._build(copy.deepcopy(self.model.yaml), nc=nc, ch=ch)
+        return True
 
     def _new(self, cfg, task: Optional[str], verbose: bool = False):
         d = cfg if isinstance(cfg, dict) else yaml_model_load(cfg)
@@ -112,12 +128,7 @@ class Model:
             raise ValueError("val and train need data=<dataset yaml or dict>; the port bundles no datasets")
         if self.task == "classify":
             return check_cls_dataset(data or args.get("data"))
-        d = check_det_dataset(data or args.get("data"))
-        ch = int(d.get("channels", 3) or 3)
-        if ch != 3:
-            raise NotImplementedError(f"a dataset with channels={ch} (which rebuilds the model's stem) "
-                                      "is not implemented in ultralytics_pro_tpu_torch yet")
-        return d
+        return check_det_dataset(data or args.get("data"))
 
     def val(self, data=None, **kwargs):
         """Evaluate on a dataset's `split` (default val; a classify set's val
@@ -133,6 +144,7 @@ class Model:
         d = self._dataset(data, args)
         if self.task == "classify":
             return Model._classify_val(self.model, d, args)
+        self._restem(d, nc=d["nc"])
         self.model.names = d["names"]
         imgsz, batch = int(args["imgsz"]), int(args["batch"])
         dataset = YOLODataset(d[args["split"]], imgsz=imgsz, augment=False, data=d, task=self.task,
@@ -161,8 +173,9 @@ class Model:
         d = self._dataset(data, args)
         if self.task == "classify":
             return self._train_classify(d, args)
-        y = copy.deepcopy(self.model.yaml)
+        self._restem(d, nc=d["nc"])  # whatever nc is, as the JAX facade re-stems
         rebuild = d["nc"] != self.model.nc
+        y = copy.deepcopy(self.model.yaml)
         if self.task == "pose" and d.get("kpt_shape") and \
                 tuple(self.model.model[-1].kpt_shape) != tuple(d["kpt_shape"]):
             for row in y.get("head", []):  # the Pose row takes the dataset's shape, so checkpoints carry it
@@ -170,10 +183,11 @@ class Model:
                     row[3] = [row[3][0], list(d["kpt_shape"])]
             rebuild = True
         if rebuild:
-            self.model = self._build(y, nc=d["nc"])
+            self.model = self._build(y, nc=d["nc"], ch=getattr(self.model, "ch", 3))
         self.model.names = d["names"]
         train_set = YOLODataset(d["train"], imgsz=int(args["imgsz"]), augment=bool(args["augment"]),
-                                data=d, task=self.task, cache=args.get("cache") or None)
+                                hyp={k: args[k] for k in HYP_KEYS if k in args}, data=d, task=self.task,
+                                cache=args.get("cache") or None)
         train_loader = DataLoader(train_set, batch_size=int(args["batch"]), shuffle=True, drop_last=True,
                                   max_gt=int(args["max_gt"]), workers=int(args["workers"]))
         self.trainer = task_map[self.task]["trainer"](self.model, args)
@@ -193,8 +207,10 @@ class Model:
 
     def _train_classify(self, d: dict, args: dict):
         """Classify training: the model rebuilt at the set's nc, the train
-        folder shuffled without augmentation (the default; augment=True
-        raises), the epoch-end val on the val folder."""
+        folder shuffled, through `classify_augmentations` with augment=True
+        (RandAugment, erasing 0.4: the dataset's defaults, which the JAX
+        facade keeps whatever `auto_augment` and `erasing` say), the
+        epoch-end val on the val folder."""
         from ultralytics_pro_tpu_torch.data import ClassificationDataset, DataLoader, collate_classify
         from ultralytics_pro_tpu_torch.models import task_map  # models/ imports this module
 

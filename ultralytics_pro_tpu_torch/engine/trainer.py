@@ -26,26 +26,38 @@ their criterion, and classify's batch holds only the images and classes):
 
 The whole step runs under `utils.full_f32` (TF32 off, flags restored).
 
+`multi_scale=True` (`_multi_scale:389-402`): each micro-batch ni takes a
+size from the 7-rung ladder of multiples of 32 over [0.5, 1.5] x imgsz,
+`random.Random(ni).choice`, and its uint8 images are resized on the model's
+device where the size differs (`F.interpolate` bilinear with antialias, as
+`jax.image.resize`'s bilinear; truncated to uint8 as `astype(jnp.uint8)`);
+labels are normalised and stay. `remat=True` (`:156-176`): every layer before
+the head runs under `torch.utils.checkpoint` (non-reentrant), its
+activations recomputed in the backward, BatchNorm's running statistics
+updated once (`nn/modules/conv.py:recomputing`). Images of 3 channels are
+flipped BGR to RGB; other channel counts keep their band order (`:161`).
+
 Checkpoints are the JAX package's pickle: numpy trees in flax layout
 (`params`, `batch_stats`, `ema`, `momentum_buffer`) beside `ema_updates`,
 `epoch`, `best_fitness`, `fitness`, `train_args`, `model_yaml`, `date` and
 the git fields, through `utils/weights.py`, so either package resumes or
 loads the other's. Left for later, each raising NotImplementedError:
-`remat=True`, `multi_scale=True`, `ckpt_format="orbax"`, and more than one
-device (data parallel). The wandb/MLflow integration callbacks are not
-ported.
+`ckpt_format="orbax"` and more than one device (data parallel). The
+wandb/MLflow integration callbacks are not ported.
 """
 
 from __future__ import annotations
 
 import math
 import pickle
+import random
 import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ultralytics_pro_tpu_torch.nn.modules.head import AnchorDetect, Detect
@@ -55,10 +67,7 @@ from ultralytics_pro_tpu_torch.utils.files import get_latest_run, increment_path
 from ultralytics_pro_tpu_torch.utils.git import GIT
 from ultralytics_pro_tpu_torch.utils.weights import jax_to_torch_state_dict, torch_state_dict_to_jax
 
-QUEUED_ARGS = {  # train arguments of the JAX trainer that the port takes up later
-    "multi_scale": "ROADMAP.md queue 1 (multi_scale, with an antialiased resize as jax.image.resize)",
-    "remat": "ROADMAP.md queue 1 (remat, through torch.utils.checkpoint)",
-}
+MULTI_SCALE_FACTORS = (0.5, 0.667, 0.833, 1.0, 1.167, 1.333, 1.5)
 
 
 def param_group(module: nn.Module, leaf: str) -> int:
@@ -97,15 +106,12 @@ class BaseTrainer(CallbackMixin):
     model: the port's DetectionModel (or a task's), on the device it trains on."""
 
     def __init__(self, model: nn.Module, args: Dict):
-        for key, where in QUEUED_ARGS.items():
-            if args.get(key):
-                raise NotImplementedError(f"train({key}=True) is not implemented in ultralytics_pro_tpu_torch "
-                                          f"yet: {where}")
         if str(args.get("ckpt_format", "pickle")) != "pickle":
             raise NotImplementedError(f"ckpt_format={args['ckpt_format']!r} is not implemented in "
                                       "ultralytics_pro_tpu_torch yet (ROADMAP.md queue 1, the orbax "
                                       "format); the pickle format is")
         self.model = model
+        model.remat = bool(args.get("remat", False))
         self.device = next(model.parameters()).device
         cap = args.get("device")
         if isinstance(cap, int) and not isinstance(cap, bool) and cap > 1:
@@ -133,6 +139,7 @@ class BaseTrainer(CallbackMixin):
         self.warmup_bias_lr = float(args.get("warmup_bias_lr", 0.1))
         self.cos_lr = bool(args.get("cos_lr", False))
         self.nbs = int(args.get("nbs", 64))
+        self.multi_scale = bool(args.get("multi_scale", False))
         self.close_mosaic = int(args.get("close_mosaic", 10))
         self.ema_decay = 0.9999
         self.max_grad_norm = 10.0
@@ -175,11 +182,17 @@ class BaseTrainer(CallbackMixin):
         raise NotImplementedError
 
     # -- the step -------------------------------------------------------------
+    def multi_scale_size(self, ni: int) -> int:
+        """Micro-batch ni's image size under multi_scale."""
+        ladder = sorted({max(32, round(self.imgsz * f / 32) * 32) for f in MULTI_SCALE_FACTORS})
+        return random.Random(ni).choice(ladder)
+
     def put_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        """Host batch -> tensors on the model's device; img as (B, 3, H, W)
-        RGB floats in [0, 1] (the JAX loss_fn's flip and scale); segment's
-        masks and pose's keypoints where the batch has them."""
-        out = {"img": device_images(batch["img"], self.device)}
+        """Host batch -> tensors on the model's device; img as (B, C, H, W)
+        floats in [0, 1], RGB where C is 3 (the JAX loss_fn's flip and
+        scale), resized to the batch's `imgsz` where multi_scale set one;
+        segment's masks and pose's keypoints where the batch has them."""
+        out = {"img": device_images(batch["img"], self.device, batch.get("imgsz"))}
         for k in ("cls", "bboxes", "mask_gt", "masks", "keypoints"):
             if k in batch:
                 out[k] = torch.from_numpy(np.asarray(batch[k])).to(self.device)
@@ -276,7 +289,10 @@ class BaseTrainer(CallbackMixin):
                 if do_step:
                     last_opt_step = ni
                     self.opt_steps += 1
-                _, parts = self.step(self.put_batch(batch), lr_by_group, momentum, do_step)
+                if self.multi_scale:
+                    batch = {**batch, "imgsz": self.multi_scale_size(ni)}
+                dev = self.put_batch(batch)
+                _, parts = self.step(dev, lr_by_group, momentum, do_step)
                 for k, v in zip(parts, torch.stack(list(parts.values())).tolist()):
                     losses_sum[k] = losses_sum.get(k, 0.0) + v
             self.epoch_train_seconds.append(time.perf_counter() - t_epoch)
@@ -394,17 +410,33 @@ def save_pickle(path, obj) -> None:
         pickle.dump(obj, f)
 
 
-def device_images(img: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A uint8 NHWC BGR batch -> (B, 3, H, W) RGB floats in [0, 1] on device
-    (the JAX loss_fn's flip and scale), contiguous. A permuted view would
+def resize_u8(x: torch.Tensor, size: int) -> torch.Tensor:
+    """(B, H, W, C) uint8 -> (B, size, size, C) uint8 on its device: bilinear
+    with antialias (`jax.image.resize(method="bilinear")`'s triangle filter),
+    truncated as `astype(jnp.uint8)` truncates."""
+    y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(size, size), mode="bilinear", align_corners=False,
+                      antialias=True)
+    return y.to(torch.uint8).permute(0, 2, 3, 1)
+
+
+def device_images(img: np.ndarray, device: torch.device, size: Optional[int] = None) -> torch.Tensor:
+    """A uint8 NHWC batch -> (B, C, H, W) floats in [0, 1] on device, first
+    resized on the device to size x size where a size other than its height
+    is given (multi_scale's `resize_u8`, on the uint8 values as the JAX
+    trainer resizes them), flipped BGR to RGB where C is 3 (the JAX loss_fn's
+    flip and scale; other band counts keep their order), contiguous. A permuted view would
     carry channels-last strides into the model: on the CPU, PyTorch's
     channels-last train-mode BatchNorm folds the normalisation into
     x * (g / s) + (b - m * g / s) and loses digits when a channel's mean is
     large against its spread (tools/torch_rtdetr_step_precision.py); on a
     card, channels-last is the faster layout for training
     (tools/torch_train_profile.py --layout), left for later (ROADMAP.md)."""
-    x = torch.from_numpy(img).to(device).flip(-1).permute(0, 3, 1, 2).float()
-    return x.contiguous() / 255.0
+    x = torch.from_numpy(img).to(device)
+    if size is not None and size != x.shape[1]:
+        x = resize_u8(x, size)
+    if x.shape[-1] == 3:
+        x = x.flip(-1)
+    return x.permute(0, 3, 1, 2).float().contiguous() / 255.0
 
 
 def load_pickle(path):
@@ -491,5 +523,5 @@ class ClassificationTrainer(BaseTrainer):
         return _ClassifyCriterion()
 
     def put_batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        return {"img": device_images(batch["img"], self.device),
+        return {"img": device_images(batch["img"], self.device, batch.get("imgsz")),
                 "cls": torch.from_numpy(np.asarray(batch["cls"])).to(self.device)}

@@ -171,14 +171,18 @@ class RTDETR(Model):
 
     def train(self, data=None, **kwargs):
         """RT-DETR training (the JAX facade's, `:172-196`): the model rebuilt
-        at the dataset's nc, the train split shuffled with drop_last (augment
-        as the arguments say: True raises, as YOLO's does), RTDETRTrainer,
+        at the dataset's nc, the train split shuffled with drop_last (without
+        augmentation: augment=True raises, ROADMAP.md queue 1 item 2a), RTDETRTrainer,
         and no epoch-end val, as there. `data` is kept in the checkpoints'
         `train_args`, as `Model.train` keeps it. Returns None; results are on
         `self.trainer` and in its save_dir (results.csv, weights/last.ckpt)."""
         from ultralytics_pro_tpu_torch.data import DataLoader, YOLODataset
 
         args = self._merged_args(**kwargs)
+        if args.get("augment"):
+            raise NotImplementedError("RTDETR(...).train(augment=True) is not implemented in ultralytics_pro_tpu_torch "
+                                      "yet: YOLO models train through v8_transforms; RT-DETR's augmented set (the JAX "
+                                      "facade's gains, no val) is ROADMAP.md queue 1 item 2a's remainder")
         if data is not None:
             args["data"] = data
         d = self._dataset(data, args)

@@ -11,7 +11,9 @@ default (`:109`).
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +21,21 @@ from torch import nn
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Marks the forward that a checkpointed layer re-runs in the backward
+    (`torch.utils.checkpoint`'s recompute context): BatchNorm2d normalises
+    with the batch statistics as before and leaves its running statistics,
+    updated by the first forward, alone. The JAX trainer's `jax.checkpoint`
+    likewise returns the statistics of the one forward."""
+    _RECOMPUTE.on = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.on = False
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -30,7 +47,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     The batch statistics come from the same `F.batch_norm` call that
     normalises (into scratch buffers at momentum 1), so train mode reads the
     activation no more often than torch's own layer. `num_batches_tracked`
-    stays as loaded: flax has no counterpart. Eval mode is torch's."""
+    stays as loaded: flax has no counterpart. Eval mode is torch's. Inside
+    `recomputing()` the running statistics are not updated."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -39,6 +57,8 @@ class BatchNorm2d(nn.BatchNorm2d):
         var = torch.ones_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
         n = x.numel() // x.shape[1]
+        if getattr(_RECOMPUTE, "on", False):
+            return y
         with torch.no_grad():  # var holds the unbiased batch variance
             self.running_mean.mul_(1 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1 - self.momentum).add_(var, alpha=self.momentum * (n - 1) / n)

@@ -46,12 +46,14 @@ Models are nn.Modules in NCHW whose parameter names are the reference's
 
 from __future__ import annotations
 
+import contextlib
 import math
 from pathlib import Path
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ultralytics_pro_tpu_torch.nn.modules.block import (
     C3,
@@ -68,7 +70,7 @@ from ultralytics_pro_tpu_torch.nn.modules.block import (
     RepC3,
     SCDown,
 )
-from ultralytics_pro_tpu_torch.nn.modules.conv import Concat, Conv, DWConv
+from ultralytics_pro_tpu_torch.nn.modules.conv import Concat, Conv, DWConv, recomputing
 from ultralytics_pro_tpu_torch.nn.modules.head import (
     OBB,
     V5_ANCHORS,
@@ -329,10 +331,12 @@ class BaseModel(nn.Module):
     later layers read (the reference's `_predict_once`)."""
 
     task = "detect"
+    remat = False  # train mode with gradients: every layer before the head under torch.utils.checkpoint
 
     def __init__(self, cfg="yolov8n.yaml", ch: int = 3, nc: Optional[int] = None,
                  verbose: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.ch = ch
         self.yaml = dict(cfg) if isinstance(cfg, dict) else yaml_model_load(cfg)
         if nc and nc != self.yaml.get("nc"):
             self.yaml["nc"] = nc
@@ -361,6 +365,7 @@ class BaseModel(nn.Module):
 
     def _run(self, x, stop_at_head: bool = False, decode: bool = True, aux: bool = True, dn=None):
         y = {}
+        remat = self.remat and self.training and torch.is_grad_enabled()
         for m in self.model:
             if m.f != -1:
                 x = y[m.f] if isinstance(m.f, int) else [x if j == -1 else y[j] for j in m.f]
@@ -370,7 +375,7 @@ class BaseModel(nn.Module):
                 return x if stop_at_head else m(x, decode=decode and not self.training)
             if isinstance(m, RTDETRDecoder):
                 return x if stop_at_head else m(x, aux=aux, dn=dn)
-            x = m(x)
+            x = checkpoint(m, x, use_reentrant=False, context_fn=_recompute_context) if remat else m(x)
             if m.i in self.save:
                 y[m.i] = x
         return x
@@ -412,6 +417,13 @@ class ClassificationModel(BaseModel):
 
 TASK2MODEL = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel, "obb": OBBModel,
               "classify": ClassificationModel}
+
+
+def _recompute_context():
+    """torch.utils.checkpoint's context_fn: nothing around the first forward,
+    `recomputing()` around the backward's re-run (BatchNorm2d updates its
+    running statistics once)."""
+    return contextlib.nullcontext(), recomputing()
 
 
 def model_class_for(task: str):
