@@ -301,6 +301,36 @@ exits non-zero):
           the band set on the card and on the CPU, every mAP within
           ZOO_VAL_TOL of each other and of the 3-channel val of the same
           images (mAP50 above 0.5, so a band order reversed anywhere fails)
+  track   tracking and file sources, three parts. accuracy: the
+          fixture image val0 panned TRACK_PAN px a frame over TRACK_FRAMES
+          PNG frames (pan_sequence), tracked by the trained fixture yolov8n
+          at 160 px with botsort.yaml (GMC on) and bytetrack.yaml, the
+          folder as the source, on the card and on the CPU: the ids of every
+          frame equal, boxes within TRACK_TOL px; distinct ids against the
+          label file's objects; GMC's affine per frame. full_width: seeded
+          yolov8s at 640 tracks TRACK_FULL_FRAMES panned 640 x 640 PNGs with
+          stream=True, conf 1e-6 and a BoT-SORT YAML whose three thresholds
+          are 0 and whose fuse_score is off, so each frame's 300 detections
+          reach the association and most of them live on as tracks (fails
+          unless every frame is tracked, with a median of live tracks at
+          least TRACK_FULL_LIVE of the detections): ms a frame (median, p10,
+          p90) and its decode, predict (device-synced) and tracker parts,
+          GMC's part of the tracker, the idle share of 8 profiled frames, K1
+          once a frame and its profiled ms, and K1 on one frame's rows bit
+          for bit against the plain version, timed, with the bound.
+          predict_files: seeded yolov8s predict_files of 128 PNGs (the
+          fixture images grown to 640) at batch FILES_BATCH, conf 1e-6:
+          images/s, the host ms a batch of the loader (decode on its
+          threads) and the letterbox on the card without the model (on
+          those PNGs and on the fixture PNGs as cv2 wrote them), K1 once
+          a batch, its profiled ms, its rows of one batch (B = 16, captured
+          in a call of its own) bit for bit against the plain version,
+          timed, with the bound; `imread` ms a file of those PNGs (written
+          by `imwrite`, row filter None) and of the fixture PNGs as cv2
+          wrote them (filtered rows), with the row filters counted; and the
+          trained fixture yolov8n's predict_files of the 128 fixture PNGs as
+          written at 160 against its per-image predict (same counts and
+          classes, boxes within FILES_TOL px)
   kernels the per-kernel summary line
 The last line is {"ok": true, "device": {...}}.
 """
@@ -312,10 +342,12 @@ import contextlib
 import copy
 import json
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -459,6 +491,14 @@ TTA_CALLS = (3, 1)  # timed and profiled warm TTA predict calls of the 4 images
 MULTI_SCALE_TOL = 1  # grey levels, the multi_scale resize on the card against the CPU
 AUG_PARITY_IMGSZ = 160
 BANDS = 10  # the channels phase's multi-band set
+TRACK_FRAMES = 30  # track phase: the fixture image panned over this many frames at 160 px
+TRACK_PAN = (2, 1)  # px a frame, (x, y)
+TRACK_TOL = 1e-4  # card vs CPU, tracked boxes (px)
+TRACK_FULL_FRAMES = 60  # yolov8s at 640 over this many 640 x 640 frames
+TRACK_FULL_LIVE = 0.8  # full_width: the median frame's live tracks, at least this share of its detections
+FILES_COPIES = 8  # predict_files: the 16 fixture images 8 times over, 128 files
+FILES_BATCH = 16
+FILES_TOL = 1e-3  # predict_files against per-image predict (px)
 
 
 def emit(phase: str, **fields) -> None:
@@ -2835,8 +2875,8 @@ def zoo_train_parity(YOLO, load_pickle, tmp: Path, card: str, smi: str) -> dict:
 
 def zoo_train(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
     """The ZOO_TRAIN models as phase train, or seg_train for a segment model
-    (train_run, micro_batch_measures): 640 px, batch 16, 2 epochs on 128
-    images of the task's fixture set with the epoch-end val, K1's launches
+    (train_run, micro_batch_measures): 640 px, batch 16, 2 epochs on
+    ZOO_COPIES x 16 images of the task's fixture set with the epoch-end val, K1's launches
     counted there (yolov10s: none), K1's device ms a launch from a profile
     of one more val of the trained model, and, as phase train does, K1 on the
     rows of another such val held to its plain version, timed, with its
@@ -3280,6 +3320,291 @@ def channels_phase(YOLO, yaml_model_load, nms_cuda, tmp: Path, card: str, smi: s
                 card=card, nvidia_smi=smi)
 
 
+def pan_sequence(root: Path, frames: int, size: int = 160) -> Path:
+    """A folder of frames PNGs: the fixture image val0 (grown to size x size by
+    the INTER_LINEAR copy where size is not 160) reflect-padded and cut at an
+    offset that moves TRACK_PAN px a frame, as a camera panning over a still
+    scene."""
+    from ultralytics_pro_tpu_torch.data import imread, imwrite
+    from ultralytics_pro_tpu_torch.data.imgproc import resize_linear
+
+    img = imread(FIXTURES / "torch_val_synth" / "images" / "val" / "val0.png")
+    if img.shape[:2] != (size, size):
+        img = resize_linear(img, (size, size))
+    dx, dy = TRACK_PAN
+    canvas = np.pad(img, ((0, dy * frames), (0, dx * frames), (0, 0)), mode="reflect")
+    root.mkdir(parents=True, exist_ok=True)
+    for t in range(frames):
+        imwrite(root / f"frame{t:03d}.png", canvas[dy * t:dy * t + size, dx * t:dx * t + size])
+    return root
+
+
+def tracked(results) -> tuple:
+    """(ids per frame, (n, 4) boxes per frame) of tracked Results (a frame
+    without tracks: no ids)."""
+    ids = [r.boxes.id.astype(int).tolist() if r.boxes is not None and r.boxes.is_track else [] for r in results]
+    boxes = [r.boxes.xyxy if r.boxes is not None and r.boxes.is_track else np.zeros((0, 4)) for r in results]
+    return ids, boxes
+
+
+def track_card_vs_cpu(YOLO, yaml_model_load, folder: Path, tracker: str, imgsz: int = 160) -> dict:
+    """The trained fixture yolov8n tracks the folder on the card and on the
+    CPU: the ids of every frame equal, the boxes within TRACK_TOL px."""
+    ref = json.loads((FIXTURES / "val_parity_ref.json").read_text())
+    runs = {d: tracked(parity_yolov8n(YOLO, yaml_model_load, ref, d).track(str(folder), imgsz=imgsz, tracker=tracker))
+            for d in ("cuda", "cpu")}
+    (ids, boxes), (cpu_ids, cpu_boxes) = runs["cuda"], runs["cpu"]
+    err = max((float(np.abs(a - b).max()) for a, b in zip(boxes, cpu_boxes) if len(a) and a.shape == b.shape),
+              default=0.0)
+    if ids != cpu_ids or not err <= TRACK_TOL:
+        raise AssertionError(f"{tracker}: card ids {ids} against the CPU's {cpu_ids}; boxes {err} px")
+    return {"ids_per_frame": ids, "max_abs_box_err_px": err, "distinct_ids": len({i for f in ids for i in f})}
+
+
+def track_fixture(YOLO, yaml_model_load, tmp: Path) -> dict:
+    """Accuracy: the panned fixture sequence tracked with botsort.yaml (GMC on)
+    and bytetrack.yaml, card against CPU; GMC's affine per frame."""
+    from ultralytics_pro_tpu_torch.data import imread
+    from ultralytics_pro_tpu_torch.trackers.bot_sort import GMC
+
+    folder = pan_sequence(tmp / "pan160", TRACK_FRAMES)
+    labels = (FIXTURES / "torch_val_synth" / "labels" / "val" / "val0.txt").read_text().split("\n")
+    objects = sum(1 for line in labels if line.strip())
+    out = {t: track_card_vs_cpu(YOLO, yaml_model_load, folder, t) for t in ("botsort.yaml", "bytetrack.yaml")}
+    gmc = GMC()
+    affines = [gmc.apply(imread(f)).round(6).tolist() for f in sorted(folder.glob("*.png"))]
+    return {"frames": TRACK_FRAMES, "pan_px_per_frame": list(TRACK_PAN), "imgsz": 160, "objects": objects,
+            "trackers": out, "gmc_affine_per_frame": affines, "tolerance_px": TRACK_TOL}
+
+
+@contextlib.contextmanager
+def track_timers():
+    """Host seconds of each frame's decode (`imread` in the loader), GMC and
+    tracker update (BOTSORT.update, GMC included), recorded in lists, and
+    the number of detections each update was given."""
+    from ultralytics_pro_tpu_torch.data import loaders
+    from ultralytics_pro_tpu_torch.trackers.bot_sort import BOTSORT, GMC
+
+    times = {"decode": [], "gmc": [], "tracker": [], "detections": []}
+    saved = loaders.imread, GMC.apply, BOTSORT.update
+
+    def timed(key, fn):
+        def call(*a, **k):
+            if fn is saved[2]:
+                times["detections"].append(len(a[2]))  # (self, xyxy, scores, cls)
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                times[key].append(time.perf_counter() - t0)
+        return call
+
+    loaders.imread, GMC.apply, BOTSORT.update = (timed("decode", saved[0]), timed("gmc", saved[1]),
+                                                 timed("tracker", saved[2]))
+    try:
+        yield times
+    finally:
+        loaders.imread, GMC.apply, BOTSORT.update = saved
+
+
+def track_full_width(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
+    """Seeded yolov8s at 640 tracks TRACK_FULL_FRAMES panned 640 x 640 PNGs
+    with stream=True, conf 1e-6 and a BoT-SORT YAML whose three thresholds are
+    0 and whose fuse_score is off, so each frame's 300 detections reach the
+    association and a crowd of tracks lives on: the seeded scores sit near
+    1e-5, and fuse_score's IoU-times-score similarity would match none, so
+    every track would be made and dropped again each frame. Fails unless
+    every frame comes back tracked with a median of live tracks at least
+    TRACK_FULL_LIVE of its detections. ms a frame split into decode, predict
+    and tracker (GMC apart), the idle share, K1 once a frame, its profiled
+    ms, and its rows of one frame bit for bit against the plain version,
+    timed, with the bound."""
+    folder = pan_sequence(tmp / "pan640", TRACK_FULL_FRAMES, size=VAL_IMGSZ)
+    (tmp / "thresholds0").mkdir()
+    cfg = tmp / "thresholds0" / "botsort.yaml"
+    cfg.write_text("tracker_type: botsort\ntrack_high_thresh: 0.0\ntrack_low_thresh: 0.0\nnew_track_thresh: 0.0\n"
+                   "track_buffer: 30\nmatch_thresh: 0.8\nfuse_score: false\ngmc_method: sparseOptFlow\n"
+                   "proximity_thresh: 0.5\nappearance_thresh: 0.25\nwith_reid: false\nmodel: auto\n")
+    model = YOLO("yolov8s.yaml", device="cuda", seed=0)
+    kw = dict(conf=CONF, tracker=str(cfg), stream=True)
+    files = sorted(folder.glob("*.png"))
+    warm = tmp / "warm640"
+    warm.mkdir()
+    for f in files[:2]:
+        shutil.copy(f, warm / f.name)
+    list(model.track(str(warm), **kw))  # first calls: cuDNN and allocator set-up
+    torch.cuda.synchronize()
+    nms_cuda.launches = 0
+    walls, predict, live, ids = [], [], [], set()
+    with track_timers() as times:
+        t0 = time.perf_counter()
+        for r in model.track(str(folder), **kw):
+            walls.append(time.perf_counter() - t0)
+            predict.append(sum(r.speed.values()) / 1e3)
+            live.append(len(r.boxes.data) if r.boxes.is_track else 0)
+            ids.update(r.boxes.id.astype(int).tolist() if r.boxes.is_track else [])
+            t0 = time.perf_counter()
+    launches, dets = nms_cuda.launches, times["detections"]
+    if launches != len(files) or len(dets) != len(files) or min(dets) != 300:
+        raise AssertionError(f"track: K1 launched {launches} times for {len(files)} frames; detections {dets}")
+    if min(live) == 0 or np.median(live) < TRACK_FULL_LIVE * np.median(dets):
+        raise AssertionError(f"track: live tracks a frame {live} of {dets} detections")
+    with capture_k1(ops_nms) as cap:
+        list(model.track(str(warm), **kw))
+    rows = val_k1(nms_cuda, cap["rows"], card, smi)
+    prof_frames = files[:8]
+    prof_dir = tmp / "prof640"
+    prof_dir.mkdir()
+    for f in prof_frames:
+        shutil.copy(f, prof_dir / f.name)
+    prof = profile_window(lambda: list(model.track(str(prof_dir), **kw)), reps=1, warmup=1)
+    q = lambda v: {"median": float(np.median(v)) * 1e3, "p10": float(np.percentile(v, 10)) * 1e3,  # noqa: E731
+                   "p90": float(np.percentile(v, 90)) * 1e3}
+    frame_ms = float(np.median(walls)) * 1e3
+    busy = prof["device_busy_ms_per_call"]
+    return dict(model="yolov8s", imgsz=VAL_IMGSZ, frames=len(files), conf=CONF,
+                tracker="botsort, thresholds 0, fuse_score off", frame_png="imwrite (row filter None)",
+                detections_per_frame=int(np.median(dets)), tracked_frames=sum(n > 0 for n in live),
+                live_tracks_per_frame={"min": min(live), "median": float(np.median(live)), "max": max(live)},
+                distinct_ids=len(ids), frame_ms=q(walls), decode_ms=q(times["decode"]), predict_ms=q(predict),
+                tracker_ms=q(times["tracker"]), gmc_ms=q(times["gmc"]),
+                device_busy_ms_per_frame=None if busy is None else busy / len(prof_frames),
+                device_idle_share=None if busy is None else max(0.0, 1 - busy / (frame_ms * len(prof_frames))),
+                k1_launches=launches, k1_launches_per_frame=launches / len(files),
+                k1_profiled_ms_per_launch=prof["device_ms_by_category"].get("k1_greedy_nms", 0.0) / len(prof_frames),
+                k1_on_frame_rows=rows, card=card, nvidia_smi=smi)
+
+
+def files_set(root: Path, size: int | None = None) -> list:
+    """The 16 fixture images FILES_COPIES times over as PNGs: the fixture
+    files copied as they were written (cv2's PNGs, rows filtered as libpng
+    chose), or, where size is given, grown to size on the long side by the
+    INTER_LINEAR copy and written by `imwrite` (row filter None)."""
+    from ultralytics_pro_tpu_torch.data import imread, imwrite
+    from ultralytics_pro_tpu_torch.data.imgproc import resize_linear
+
+    root.mkdir(parents=True, exist_ok=True)
+    files = []
+    for p in sorted((FIXTURES / "torch_val_synth" / "images" / "val").glob("*.png")):
+        if size:
+            img = imread(p)
+            r = size / max(img.shape[:2])
+            first = imwrite(root / f"{p.stem}_0.png",
+                            resize_linear(img, (round(img.shape[1] * r), round(img.shape[0] * r))))
+        else:
+            first = Path(shutil.copy(p, root / f"{p.stem}_0.png"))
+        files += [first] + [Path(shutil.copy(first, root / f"{p.stem}_{c}.png")) for c in range(1, FILES_COPIES)]
+    return sorted(files)
+
+
+def png_row_filters(path: Path) -> list:
+    """How many rows of a PNG use each filter: None, Sub, Up, Average, Paeth."""
+    data, pos, idat = path.read_bytes(), 8, []
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        if kind == b"IHDR":
+            w, h, _, colour = struct.unpack(">IIBB", data[pos + 8:pos + 18])
+        elif kind == b"IDAT":
+            idat.append(data[pos + 8:pos + 8 + n])
+        pos += 12 + n
+    stride = 1 + w * {0: 1, 2: 3, 6: 4}[colour]
+    return np.bincount(np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)[::stride][:h], minlength=5).tolist()
+
+
+def decode_ms(files) -> dict:
+    """`imread` ms a file, one after another on the calling thread: median
+    and the largest, with the files' row filters summed."""
+    from ultralytics_pro_tpu_torch.data import imread
+
+    times = []
+    for f in files:
+        t0 = time.perf_counter()
+        imread(f)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"files": len(files), "median_ms": float(np.median(times)), "max_ms": max(times),
+            "rows_by_filter": dict(zip(("none", "sub", "up", "average", "paeth"),
+                                       np.sum([png_row_filters(Path(f)) for f in files], 0).tolist()))}
+
+
+def files_match_predict(model, files, **kw) -> dict:
+    """predict_files at FILES_BATCH against per-image predict of the same
+    files: counts and classes equal, boxes within FILES_TOL px."""
+    batched = model.predict_files(files, batch=FILES_BATCH, **kw)
+    single = model.predict([str(f) for f in files], **kw)
+    err = 0.0
+    for b, s in zip(batched, single):
+        if len(b.boxes.data) != len(s.boxes.data) or not np.array_equal(b.boxes.cls, s.boxes.cls) or b.path != s.path:
+            raise AssertionError(f"predict_files {b.path}: {b.boxes.data} against predict's {s.boxes.data}")
+        if len(b.boxes.data):
+            err = max(err, float(np.abs(b.boxes.xyxy - s.boxes.xyxy).max()))
+    if len(batched) != len(files) or not err <= FILES_TOL:
+        raise AssertionError(f"predict_files: {len(batched)} Results for {len(files)} files, boxes {err} px")
+    return {"files": len(files), "detections": sum(len(r.boxes.data) for r in batched), "max_abs_box_err_px": err,
+            "tolerance_px": FILES_TOL}
+
+
+def predict_files_phase(YOLO, yaml_model_load, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
+    """Seeded yolov8s predict_files of 128 PNGs at 640 (the fixture images
+    grown to 640, written by `imwrite`), batch 16, conf 1e-6: images/s, the
+    host ms a batch of the loader and the letterbox without the model, K1
+    once a batch, and K1 on one batch's rows (B = 16, captured in a call of
+    its own) bit for bit against the plain version, timed, with the bound.
+    The loader's ms a batch and `imread`'s ms a file, of those files and of
+    the fixture files as cv2 wrote them (rows Sub, Up, Average and Paeth),
+    with their row filters counted. The
+    trained fixture yolov8n's predict_files of the fixture files as written
+    at 160 against its per-image predict (files_match_predict)."""
+    from ultralytics_pro_tpu_torch.data import DataLoader
+    from ultralytics_pro_tpu_torch.engine.predictor import FileImages
+
+    files = files_set(tmp / "files640", VAL_IMGSZ)
+    model = YOLO("yolov8s.yaml", device="cuda", seed=0)
+    model.predict_files(files[:FILES_BATCH], batch=FILES_BATCH, conf=CONF)  # cuDNN and allocator set-up
+    torch.cuda.synchronize()
+    nms_cuda.launches = 0
+    t0 = time.perf_counter()
+    res = model.predict_files(files, batch=FILES_BATCH, conf=CONF)
+    seconds = time.perf_counter() - t0
+    launches = nms_cuda.launches
+    batches = -(-len(files) // FILES_BATCH)
+    if launches != batches or len(res) != len(files) or min(len(r.boxes.data) for r in res) != 300:
+        raise AssertionError(f"predict_files: K1 launched {launches} times for {batches} batches")
+    with capture_k1(ops_nms) as cap:
+        model.predict_files(files[:FILES_BATCH], batch=FILES_BATCH, conf=CONF)
+    pred = model.predictor
+
+    def loader_ms(paths) -> float:  # the loader's threads decode, the loop letterboxes on the card
+        loader = DataLoader(FileImages([str(f) for f in paths]), batch_size=FILES_BATCH,
+                            workers=int(pred.args["workers"]), collate_fn=FileImages.collate)
+        t0 = time.perf_counter()
+        for b in loader:
+            pred.preprocess(b["orig"])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / len(loader)
+
+    as_written = files_set(tmp / "files160")
+    loader_host_ms = {"imwrite_640": loader_ms(files), "fixture_as_written": loader_ms(as_written)}
+    prof = profile_window(lambda: model.predict_files(files[:2 * FILES_BATCH], batch=FILES_BATCH, conf=CONF),
+                          reps=1, warmup=0)
+    rows = val_k1(nms_cuda, cap["rows"], card, smi)
+    ref = json.loads((FIXTURES / "val_parity_ref.json").read_text())
+    fixture = files_match_predict(parity_yolov8n(YOLO, yaml_model_load, ref, "cuda"), as_written, imgsz=160)
+    return dict(model="yolov8s", imgsz=VAL_IMGSZ, files=len(files), batch=FILES_BATCH, conf=CONF,
+                images_per_s=len(files) / seconds, loader_host_ms_per_batch=loader_host_ms,
+                decode={"imwrite_640": decode_ms(files[::FILES_COPIES]),
+                        "fixture_as_written": decode_ms(as_written[::FILES_COPIES])},
+                k1_launches=launches, k1_profiled_ms_per_launch=prof["device_ms_by_category"].get("k1_greedy_nms", 0.0) / 2,
+                device_busy_ms_per_batch=None if prof["device_busy_ms_per_call"] is None
+                else prof["device_busy_ms_per_call"] / 2,
+                k1_on_batch_rows=rows, fixture_vs_predict=fixture, card=card, nvidia_smi=smi)
+
+
+def track_phase(YOLO, yaml_model_load, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
+    return {"accuracy": track_fixture(YOLO, yaml_model_load, tmp),
+            "full_width": track_full_width(YOLO, nms_cuda, ops_nms, tmp, card, smi),
+            "predict_files": predict_files_phase(YOLO, yaml_model_load, nms_cuda, ops_nms, tmp, card, smi)}
+
+
 def tf32_seen(model, call) -> dict:
     """torch's TF32 flags (cudnn, cuda matmul) as found, inside model's forward
     during call(), and after it."""
@@ -3485,6 +3810,10 @@ def main() -> int:
         t = time.perf_counter()
         emit("channels", **channels_phase(YOLO, yaml_model_load, nms_cuda, Path(tmp), card, smi),
              seconds=time.perf_counter() - t)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        tr = track_phase(YOLO, yaml_model_load, nms_cuda, ops_nms, Path(tmp), card, smi)
+        emit("track", **tr, seconds=time.perf_counter() - t)
 
     pred, val_size = k1
     tk1 = train["k1_on_val_rows"]
@@ -3498,7 +3827,8 @@ def main() -> int:
                                         ("train_val", zt, "k1_on_val_rows"))
                 for name in runs["models"] if key in runs["models"][name]}
     captured = (vk1, tk1, *(rows for _, rows in task_k1.values()), *zoo_rows.values(), *ta["k1_on_rows"],
-                *vo["k1_on_rect_rows"], at["k1_on_val_rows"])
+                *vo["k1_on_rect_rows"], at["k1_on_val_rows"], tr["full_width"]["k1_on_frame_rows"],
+                tr["predict_files"]["k1_on_batch_rows"])
     kernels = [{
         "name": "greedy_nms", "route": "cuda",
         "source": "ultralytics_pro_tpu_torch/csrc/greedy_nms.cu",
@@ -3544,6 +3874,14 @@ def main() -> int:
         **{f"aug_train_rows_{key}": at["k1_on_val_rows"][key]
            for key in ("B", "K", "ms", "plain_ms", "bound_ms", "bound_by", "scanned_per_row")},
         **{f"rect_val_{key}": [r[key] for r in vo["k1_on_rect_rows"]]
+           for key in ("B", "K", "ms", "plain_ms", "bound_ms", "bound_by", "scanned_per_row")},
+        "track_path_launches": tr["full_width"]["k1_launches"],
+        "track_path_profiled_ms": tr["full_width"]["k1_profiled_ms_per_launch"],
+        **{f"track_rows_{key}": tr["full_width"]["k1_on_frame_rows"][key]
+           for key in ("B", "K", "ms", "plain_ms", "bound_ms", "bound_by", "scanned_per_row")},
+        "predict_files_path_launches": tr["predict_files"]["k1_launches"],
+        "predict_files_path_profiled_ms": tr["predict_files"]["k1_profiled_ms_per_launch"],
+        **{f"predict_files_rows_{key}": tr["predict_files"]["k1_on_batch_rows"][key]
            for key in ("B", "K", "ms", "plain_ms", "bound_ms", "bound_by", "scanned_per_row")},
     }, {
         "name": "msda_sample_fused", "route": "cuda",

@@ -12,7 +12,9 @@ forwards and predicts on the card against the CPU (v10 without NMS), K1 on
 yolov3-tiny's two-level rows and on the anchor head's 25,200-candidate rows,
 test-time augmentation and a rect val on the card against the CPU, the
 multi_scale resize of an augmented batch (alone and through the trainer's
-`device_images`) and one augmented train step on the card against the CPU.
+`device_images`) and one augmented train step on the card against the CPU,
+predict_files against per-image predict on the card, and the trackers' ids
+on the card against the CPU.
 
 These tests need a card and nvcc, and import neither JAX nor the JAX package
 nor `tests/conftest.py` (which imports JAX), so they run on a machine that has
@@ -800,3 +802,33 @@ def test_augmented_step_on_card_matches_cpu(card, tmp_path):
     info = one_step_diffs(*(train_one_step(YOLO, yaml_model_load, load_pickle, data, tmp_path / d, d, augment=True)
                             for d in ("cuda", "cpu")))
     assert info["ema_updates"] == [1, 1]
+
+
+@pytest.mark.cuda
+def test_predict_files_on_card_matches_per_image_predict(card, tmp_path):
+    """The trained fixture yolov8n's predict_files of 48 fixture PNGs at
+    batch 16 on the card against its per-image predict of the same files
+    (chip_smoke.files_match_predict: counts and classes equal, boxes within
+    1e-3 px): K1 once a batch, then once an image."""
+    from chip_smoke import files_match_predict, files_set
+
+    ref = json.loads((FIXTURES / "val_parity_ref.json").read_text())
+    model = parity_yolov8n(YOLO, yaml_model_load, ref, "cuda")
+    files = files_set(tmp_path / "files")[:48]
+    nms_cuda.launches = 0
+    info = files_match_predict(model, files, imgsz=160)
+    assert info["detections"] > 0 and nms_cuda.launches == 3 + len(files)
+
+
+@pytest.mark.cuda
+def test_tracker_ids_on_card_equal_cpu(card, tmp_path):
+    """The trained fixture yolov8n tracks an 8-frame panned sequence with
+    BoT-SORT (GMC) and ByteTrack on the card and on the CPU: the same ids
+    every frame, boxes within chip_smoke's TRACK_TOL (track_card_vs_cpu
+    raises otherwise)."""
+    from chip_smoke import pan_sequence, track_card_vs_cpu
+
+    folder = pan_sequence(tmp_path / "pan", 8)
+    for tracker in ("botsort.yaml", "bytetrack.yaml"):
+        out = track_card_vs_cpu(YOLO, yaml_model_load, folder, tracker)
+        assert sum(map(len, out["ids_per_frame"])) >= 8

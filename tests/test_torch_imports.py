@@ -8,8 +8,10 @@ classify predict, val and training and a narrow RT-DETR's val), segment val
 (minAreaRect, the rotated NMS, probiou matching) and predict run; with PIL
 refused as well, they import and `imread` still reads a PNG, equal to cv2's
 reading, and augmented training (the cv2 copies of data/imgproc.py) with
-multi_scale and remat, on a grey and on a 10-band set, goes through. An AST scan of the same
-files must find no import of the first names.
+multi_scale and remat, on a grey and on a 10-band set, goes through, and so
+do tracking (the cv2 copies of data/flow.py), file sources, predict_files,
+embed, the exports and Masks.xy (with pandas refused too). An AST scan of
+the same files must find no import of the first names.
 """
 
 import ast
@@ -253,6 +255,47 @@ def test_port_trains_augmented_with_jax_yaml_cv2_pil_blocked(tmp_path):
     out = subprocess.run([sys.executable, "-c", _blocker(BLOCKED + ("PIL",), then)], capture_output=True,
                          text=True, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
+
+
+def test_port_tracks_and_reads_files_with_jax_yaml_cv2_pil_blocked(tmp_path):
+    """The trackers (BoT-SORT with GMC through the numpy copies of cv2's
+    corners, optical flow and RANSAC; ByteTrack), predict of a folder, a
+    glob and a list of PNG paths, predict_files, embed, the Results' exports,
+    Masks.xy (the findContours copy) and save run in the blocking process,
+    with PIL refused too; a JPEG source raises naming PIL."""
+    from chip_smoke import pan_sequence
+
+    folder = pan_sequence(tmp_path / "pan", 4)
+    (tmp_path / "photo.jpg").write_bytes(b"\xff\xd8\xff")
+    then = ("import numpy as np, torch, json\n"
+            "torch.set_num_threads(2)\n"
+            "from chip_smoke import parity_yolov8n, FIXTURES\n"
+            "from ultralytics_pro_tpu_torch import YOLO\n"
+            "from ultralytics_pro_tpu_torch.nn.tasks import yaml_model_load\n"
+            "ref = json.loads((FIXTURES / 'val_parity_ref.json').read_text())\n"
+            "m = parity_yolov8n(YOLO, yaml_model_load, ref, 'cpu')\n"
+            f"src = {str(folder)!r}\n"
+            "for tracker in ('botsort.yaml', 'bytetrack.yaml'):\n"
+            "    r = m.track(src, imgsz=160, tracker=tracker)\n"
+            "    assert r[-1].boxes.is_track and len(r) == 4\n"
+            "files = sorted(__import__('glob').glob(src + '/*.png'))\n"
+            "a, b = m.predict(src + '/*.png', imgsz=160), m.predict_files(files, batch=3, imgsz=160)\n"
+            "assert [x.path for x in a] == [x.path for x in b] == files\n"
+            "assert m.embed(files, imgsz=64).shape[0] == 4\n"
+            f"a[0].save_txt({str(tmp_path / 'out.txt')!r}, save_conf=True)\n"
+            "assert json.loads(a[0].to_json()) and isinstance(a[0].to_df(), list)\n"
+            "seg = YOLO('yolov8n-seg.yaml', device='cpu').predict(files[0], imgsz=64, conf=1e-6)[0]\n"
+            "assert len(seg.masks.xy) == len(seg.boxes.data)\n"
+            f"m.save({str(tmp_path / 'm.ckpt')!r})\n"
+            "try:\n"
+            f"    m.predict({str(tmp_path / 'photo.jpg')!r}, imgsz=160)\n"
+            "    raise SystemExit('a JPEG was read without PIL')\n"
+            "except NotImplementedError as e:\n"
+            "    assert 'PIL' in str(e)\n")
+    out = subprocess.run([sys.executable, "-c", _blocker(BLOCKED + ("PIL", "pandas"), then)], capture_output=True,
+                         text=True, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert (tmp_path / "out.txt").read_text() and (tmp_path / "m.ckpt").is_file()
 
 
 def test_no_blocked_import_in_sources():

@@ -478,8 +478,13 @@ def test_results_masks_surface():
     r = YOLO("yolov8n-seg.yaml", device="cpu").predict(imgs, imgsz=64, conf=1e-6)[0]
     assert len(r.masks) == len(r.boxes) > 0 and r.masks.data.shape[1:] == (90, 70)
     assert r.masks[:2].data.shape == (2, 90, 70) and r.masks.cpu().numpy() is r.masks.data
-    with pytest.raises(NotImplementedError, match="findContours"):
-        r.masks.xy
+    xy, xyn = r.masks.xy, r.masks.xyn  # each mask's largest outer contour, as cv2 finds it
+    assert len(xy) == len(xyn) == len(r.masks)
+    for m, pts, ptsn in zip(r.masks.data.astype(np.uint8), xy, xyn):
+        found = cv2.findContours(m, cv2.RETR_EXTERNAL, cv2.CHAIN_APPROX_SIMPLE)[0]
+        want = max(found, key=cv2.contourArea).reshape(-1, 2) if found else np.zeros((0, 2))
+        np.testing.assert_array_equal(pts, want.astype(np.float32))
+        np.testing.assert_array_equal(ptsn, pts / np.array([70, 90], np.float32))
 
 
 if __name__ == "__main__":

@@ -11,9 +11,9 @@ from ultralytics_pro_tpu_torch.data.augment import (
 )
 from ultralytics_pro_tpu_torch.data.build import DataLoader, collate_classify, collate_detect
 from ultralytics_pro_tpu_torch.data.dataset import ClassificationDataset, YOLODataset
-from ultralytics_pro_tpu_torch.data.image_io import imread, imsize
+from ultralytics_pro_tpu_torch.data.image_io import imread, imsize, imwrite
 from ultralytics_pro_tpu_torch.data.utils import check_cls_dataset, check_det_dataset
 
 __all__ = ["ClassificationDataset", "Compose", "DataLoader", "LetterBox", "YOLODataset", "check_cls_dataset",
            "check_det_dataset", "classify_transforms", "collate_classify", "collate_detect", "imread", "imsize",
-           "resize_area", "resize_bilinear"]
+           "imwrite", "resize_area", "resize_bilinear"]

@@ -5,8 +5,9 @@
 
 - PNG with its own decoder (zlib and numpy): 8-bit gray, RGB or RGBA,
   non-interlaced, every row filter (None, Sub, Up, Average, Paeth). Gray is
-  replicated to three channels and alpha is dropped, as cv2 does. Sub and Up
-  are vectorised; Average and Paeth depend on the pixel to their left, so
+  replicated to three channels and alpha is dropped, as cv2 does. None and
+  Sub rows are reversed all at once and a run of Up rows as one running sum
+  down the columns; Average and Paeth depend on the pixel to their left, so
   they loop over the row's bytes in Python.
 - `.npy` with `np.load`.
 - anything else, and PNG variants outside the list above, through PIL when
@@ -16,6 +17,10 @@
 `imsize(path)` gives an image's (h, w) without decoding it: a PNG's from its
 IHDR chunk, any other file's through PIL (what the JAX dataset's rect
 batching reads, `ultralytics_pro_tpu/data/dataset.py:74-81`).
+
+`imwrite(path, img)` writes an (H, W, 3) uint8 BGR or (H, W) grey array as
+an 8-bit PNG (row filter None, zlib level 1), which `imread` and cv2 read
+back exactly.
 """
 
 from __future__ import annotations
@@ -58,6 +63,26 @@ def imsize(path) -> tuple:
     with Image.open(path) as im:
         w, h = im.size
     return h, w
+
+
+def imwrite(path, img: np.ndarray) -> Path:
+    """Write an (H, W, 3) uint8 BGR or (H, W) uint8 grey image as a PNG."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"imwrite takes (H, W, 3) or (H, W) uint8, got {img.shape} {img.dtype}")
+    h, w = img.shape[:2]
+    colour = 0 if img.ndim == 2 else 2
+    rows = img if img.ndim == 2 else img[..., ::-1].reshape(h, w * 3)  # BGR -> RGB
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], 1).tobytes()  # filter byte 0 a row
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    data = (PNG_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, colour, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+    path = Path(path)
+    path.write_bytes(data)
+    return path
 
 
 def _read_with_pil(path: Path) -> np.ndarray:
@@ -106,25 +131,30 @@ def _decode_png(data: bytes, path: Path):
 
 
 def _unfilter(rows: np.ndarray, bpp: int, path: Path) -> np.ndarray:
-    """Reverse the per-row filters: (H, 1 + stride) filtered -> (H, stride)."""
+    """Reverse the per-row filters: (H, 1 + stride) filtered -> (H, stride).
+    None and Sub rows need no other row, so all of them are reversed at once;
+    then, top to bottom, a run of Up rows is one running sum down the
+    columns from the row above it, and Average and Paeth rows go byte by
+    byte."""
+    kinds = rows[:, 0]
+    if kinds.max(initial=0) > 4:
+        y = int(np.argmax(kinds > 4))
+        raise ValueError(f"{path}: unknown PNG row filter {kinds[y]} in row {y}")
     h, stride = rows.shape[0], rows.shape[1] - 1
-    out = np.empty((h, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for y in range(h):
-        kind, cur = int(rows[y, 0]), rows[y, 1:]
-        if kind == 0:
-            line = cur.copy()
-        elif kind == 1:  # Sub: running sum over the pixels to the left, per sample
-            line = np.cumsum(cur.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
-        elif kind == 2:  # Up
-            line = cur + prior
+    out = rows[:, 1:].copy()
+    sub = kinds == 1
+    if sub.any():  # a running sum over the pixels to the left, per sample
+        out[sub] = np.cumsum(out[sub].reshape(-1, stride // bpp, bpp), axis=1, dtype=np.uint8).reshape(-1, stride)
+    zero = np.zeros(stride, np.uint8)
+    starts = np.flatnonzero(np.r_[True, kinds[1:] != kinds[:-1]])
+    for y, end in zip(starts, np.r_[starts[1:], h]):
+        kind = int(kinds[y])
+        if kind == 2:  # Up
+            out[y:end] = np.cumsum(np.vstack([out[y - 1] if y else zero, out[y:end]]), axis=0, dtype=np.uint8)[1:]
         elif kind in (3, 4):
-            line = np.frombuffer(_average_or_paeth(kind, bytearray(cur.tobytes()),
-                                                   prior.tobytes(), bpp), np.uint8)
-        else:
-            raise ValueError(f"{path}: unknown PNG row filter {kind} in row {y}")
-        out[y] = line
-        prior = out[y]
+            for r in range(y, end):
+                out[r] = np.frombuffer(_average_or_paeth(kind, bytearray(out[r].tobytes()),
+                                                         (out[r - 1] if r else zero).tobytes(), bpp), np.uint8)
     return out
 
 

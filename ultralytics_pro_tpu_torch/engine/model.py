@@ -22,6 +22,16 @@ its val folder, train rebuilds the model at its nc, trains at the merged
 `imgsz` (the JAX facade's too: 640 unless given) and validates each epoch
 with fitness (top1 + top5) / 2.
 
+Beside them: `track` (`:299`; BoT-SORT or ByteTrack over predict's
+one-frame calls, conf 0.1 unless given, `tracker=` a bundled name or a
+YAML path, `persist` to keep the tracker between calls), `embed` (`:114`;
+each image resized to imgsz x imgsz by `data/imgproc.py:resize_linear`, the
+copy of cv2's INTER_LINEAR, then the model's embed mode), `predict_files`
+(`:345`; batches of files, `BasePredictor.predict_files`), `names`
+(`:321`), `info` (`:324`) and `save` (`:327`, the pickle both packages
+read). Sources may be image files, folders, globs and lists of paths
+(`data/loaders.py`).
+
 A detection dataset's `channels` (`:155-160`, `:183-190`): 1 is read as
 grey repeated to 3 channels, so the model stays; any count but the
 model's rebuilds it with that many input channels (seeded weights, as
@@ -39,7 +49,7 @@ import torch
 
 from ultralytics_pro_tpu_torch.cfg import DEFAULT_CFG_DICT, HYP_KEYS
 from ultralytics_pro_tpu_torch.nn.tasks import guess_model_task, model_class_for, yaml_model_load
-from ultralytics_pro_tpu_torch.utils import LOGGER, select_device
+from ultralytics_pro_tpu_torch.utils import LOGGER, full_f32, select_device
 
 
 class Model:
@@ -104,14 +114,7 @@ class Model:
         return args
 
     def predict(self, source=None, stream: bool = False, **kwargs):
-        args = self._merged_args(**kwargs)
-        args["conf"] = args.get("conf") or 0.25
-        from ultralytics_pro_tpu_torch.models import predictor_for  # models/ imports this module
-
-        predictor_cls = predictor_for(self.model, self.task)
-        if self.predictor is None or self.predictor.args != args or self.predictor.model is not self.model:
-            self.predictor = predictor_cls(self.model, args)
-        return self.predictor(source, stream=stream)
+        return self._predictor(**kwargs)(source, stream=stream)
 
     def load_state_dict(self, state_dict: Mapping, strict: bool = True):
         """Load weights under the torch reference's names (`model.0.conv.weight`,
@@ -258,6 +261,68 @@ class Model:
 
     def __call__(self, source=None, stream: bool = False, **kwargs):
         return self.predict(source, stream, **kwargs)
+
+    def _predictor(self, **kwargs):
+        """The task's predictor for the merged args (conf 0.25 unless given),
+        kept while the args and the model stay the same."""
+        args = self._merged_args(**kwargs)
+        args["conf"] = args.get("conf") or 0.25
+        from ultralytics_pro_tpu_torch.models import predictor_for  # models/ imports this module
+
+        if self.predictor is None or self.predictor.args != args or self.predictor.model is not self.model:
+            self.predictor = predictor_for(self.model, self.task)(self.model, args)
+        return self.predictor
+
+    def predict_files(self, paths, batch: int = 16, **kwargs):
+        """One Results a file, the files read and predicted in batches of `batch`."""
+        return self._predictor(**kwargs).predict_files(paths, batch=batch)
+
+    def track(self, source=None, stream: bool = False, persist: bool = False, tracker="botsort.yaml", **kwargs):
+        """predict, one frame a call, then the tracker over the frames: each
+        frame's boxes become (n, 7) rows with their track ids. A list of
+        Results, or a generator with stream=True."""
+        from ultralytics_pro_tpu_torch.trackers.track import register_tracker
+
+        kwargs.setdefault("conf", 0.1)
+        results = self.predict(source, stream=stream, **kwargs)
+        return register_tracker(self, results, persist=persist, tracker_cfg=tracker)
+
+    @torch.no_grad()
+    def embed(self, source=None, imgsz: int = 224, **kwargs):
+        """(N, D) numpy features: each image (an array or a path) resized to
+        imgsz x imgsz, RGB / 255, the model's last neck maps pooled and
+        L2-normalised."""
+        import numpy as np
+
+        from ultralytics_pro_tpu_torch.data.image_io import imread
+        from ultralytics_pro_tpu_torch.data.imgproc import resize_linear
+        from ultralytics_pro_tpu_torch.engine.predictor import rgb01
+
+        imgs = source if isinstance(source, (list, tuple)) else [source]
+        batch = np.stack([resize_linear(im if isinstance(im, np.ndarray) else imread(im), (imgsz, imgsz))
+                          for im in imgs])
+        with full_f32():
+            return self.model(rgb01(torch.from_numpy(batch).to(self.device)), embed=True).cpu().numpy()
+
+    @property
+    def names(self):
+        return self.model.names
+
+    def info(self, verbose: bool = True):
+        """(layers, parameters), logged with verbose."""
+        return self.model.info(verbose=verbose)
+
+    def save(self, path="model.ckpt"):
+        """The model as the JAX facade's pickle (params and BN statistics as
+        flax trees, no EMA, the model YAML, `overrides` as train_args), which
+        `YOLO(path)` of either package reads."""
+        from ultralytics_pro_tpu_torch.engine.trainer import save_pickle
+        from ultralytics_pro_tpu_torch.utils.weights import torch_state_dict_to_jax
+
+        trees = torch_state_dict_to_jax(self.model.state_dict())
+        save_pickle(path, {"params": trees["params"], "ema": None, "batch_stats": trees["batch_stats"],
+                           "model_yaml": dict(self.model.yaml), "train_args": self.overrides})
+        return path
 
 
 class YOLO(Model):

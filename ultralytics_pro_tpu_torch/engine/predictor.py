@@ -39,8 +39,24 @@ NMS over the concatenation (K1 on the card), never the fused single-label
 path. The JAX predictor applies it to every task's head; the port's other
 predictors and heads raise on it (`tta_forward`).
 
-Sources are HWC uint8 BGR numpy arrays, or a list of them. Reading image
-files needs OpenCV and waits for a later slice.
+Sources (`load_images`, through `data/loaders.py:load_inference_source`,
+the JAX `load_images:175`): HWC uint8 BGR arrays or PIL images, an image
+file, a folder, a glob or a list of paths, read one frame a call (B = 1) in
+the JAX loader's order, each Results' `path` the file's; video files and
+streams raise NotImplementedError naming the missing decoder.
+
+`predict_files` (the JAX `predict_files:359`) runs real batches of `batch`
+files: the loader's thread pool (`data/build.py:DataLoader`) decodes the
+files, a batch ahead, the last batch padded by repeating its last file;
+each image is letterboxed on the model's device as predict letterboxes it
+(in the loop's thread: letterboxing inside the pool's threads on the card
+took 437 host ms a batch of 16 640-px PNGs, on an NVIDIA H100 80GB HBM3 at
+700 W and its host, against 24.5 ms this way; PERF.md);
+then one device call (one K1 launch) a batch, the boxes rescaled to each
+original image. Its Results'
+`orig_img` is the decoded original, as the JAX fallback path gives it (the
+JAX native loader hands back its letterboxed crop resized by cv2;
+ROADMAP.md section 3). There is no per-image fallback.
 """
 
 from __future__ import annotations
@@ -53,6 +69,9 @@ import torch
 import torch.nn.functional as F
 
 from ultralytics_pro_tpu_torch.data.augment import LetterBox, resize_bilinear
+from ultralytics_pro_tpu_torch.data.build import DataLoader
+from ultralytics_pro_tpu_torch.data.image_io import imread
+from ultralytics_pro_tpu_torch.data.loaders import load_inference_source
 from ultralytics_pro_tpu_torch.engine.results import Results
 from ultralytics_pro_tpu_torch.nn.modules.head import (
     OBB,
@@ -214,17 +233,25 @@ class BasePredictor:
         gen = self.stream_inference(source)
         return gen if stream else list(gen)
 
-    @staticmethod
-    def load_images(source) -> Iterator:
-        """(name, HWC uint8 array) pairs from an array or a list of arrays."""
-        imgs = source if isinstance(source, (list, tuple)) else [source]
-        for i, im in enumerate(imgs):
-            if not isinstance(im, np.ndarray):
-                raise NotImplementedError(
-                    f"source of type {type(im).__name__}: reading image files and streams needs "
-                    "OpenCV (cv2), which ultralytics_pro_tpu_torch does not use yet; pass HWC "
-                    "uint8 BGR numpy arrays")
-            yield f"image{i}", im
+    def load_images(self, source) -> Iterator:
+        """(path, HWC uint8 BGR array) pairs of the source, one frame at a time."""
+        yield from load_inference_source(source)
+
+    def predict_files(self, paths, batch: int = 16) -> List[Results]:
+        """One Results a file, in order, from batches of `batch` files: decoded
+        on the loader's threads, letterboxed as predict does, one device call
+        a batch."""
+        loader = DataLoader(FileImages([str(p) for p in paths]), batch_size=batch,
+                            workers=int(self.args.get("workers", 8) or 1), collate_fn=FileImages.collate)
+        results = []
+        for b in loader:
+            n = len(b["path"]) - b["pad_count"]
+            img = self.preprocess(b["orig"])
+            out = self.run(img)
+            if self.outputs_to_host:
+                out = _to_host(out)
+            results += self.postprocess(out, tuple(img.shape[1:3]), b["orig"][:n], b["path"][:n])
+        return results
 
     def stream_inference(self, source) -> Iterator[Results]:
         profilers = (Profile(device=self.device), Profile(device=self.device),
@@ -250,6 +277,23 @@ class BasePredictor:
             data = _detections(out, i, int(out["valid"][i].sum()), batch_shape, im0.shape[:2])
             results.append(Results(im0, paths[i], self.model.names, boxes=data.numpy()))
         return results
+
+
+class FileImages:
+    """`predict_files`' dataset: item i is file i's path and its decoded image (`imread`)."""
+
+    def __init__(self, files: List[str]):
+        self.files = files
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, i: int) -> dict:
+        return {"path": self.files[i], "orig": imread(self.files[i])}
+
+    @staticmethod
+    def collate(samples) -> dict:
+        return {"path": [s["path"] for s in samples], "orig": [s["orig"] for s in samples]}
 
 
 class DetectionPredictor(BasePredictor):

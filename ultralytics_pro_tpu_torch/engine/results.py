@@ -8,15 +8,28 @@ for detect, segment, pose, obb and classify: the same accessors
 oriented boxes' .xywhr/.xyxyxyxy/.xyxy, the probabilities'
 .top1/.top5/.top1conf/.top5conf, len and indexing). `Probs.top5` orders by a
 stable descending sort, ties to the lower class, where the JAX one reverses
-an ascending argsort (ties to the higher). `Masks.xy` (polygon contours,
-`cv2.findContours`) raises NotImplementedError, and drawing and saving need
-OpenCV too; they wait for a later slice.
+an ascending argsort (ties to the higher).
+
+A tracked frame's boxes have 7 columns, x1, y1, x2, y2, track id, conf,
+cls (`Boxes.id`, `is_track`). `Masks.xy` is each mask's largest outer
+contour (`data/contours.py`, cv2.findContours' copy), as the JAX property
+takes it. The exports (`save_txt:236`, `summary:254`, `to_json:276`,
+`to_df`) write what the JAX ones write on untracked rows, byte for byte. On
+a tracked row the JAX `summary` reads the id as the confidence and the
+confidence as the class (`row[:6]`, `:263`); this one reads `Boxes.conf`
+and `Boxes.cls` and adds the reference's `track_id` (ROADMAP.md section 3).
+Drawing (`plot`, `save`) waits for a later slice.
 """
 
 from __future__ import annotations
 
+import json
+from pathlib import Path
+from typing import Dict, List
+
 import numpy as np
 
+from ultralytics_pro_tpu_torch.data.contours import contour_area, find_contours
 from ultralytics_pro_tpu_torch.ops.boxes import xywhr2xyxyxyxy
 from ultralytics_pro_tpu_torch.utils import SimpleClass
 
@@ -42,7 +55,8 @@ class BaseTensor(SimpleClass):
 
 
 class Boxes(BaseTensor):
-    """Detection boxes: data (n, 6) = x1, y1, x2, y2, conf, cls."""
+    """Detection boxes: data (n, 6) = x1, y1, x2, y2, conf, cls, or (n, 7)
+    with the track id before conf."""
 
     @property
     def xyxy(self):
@@ -55,6 +69,14 @@ class Boxes(BaseTensor):
     @property
     def cls(self):
         return self.data[:, -1]
+
+    @property
+    def id(self):
+        return self.data[:, -3] if self.data.shape[1] == 7 else None
+
+    @property
+    def is_track(self) -> bool:
+        return self.data.shape[1] == 7
 
     @property
     def xywh(self):
@@ -77,13 +99,20 @@ class Masks(BaseTensor):
     """Instance masks: data (n, H, W) bool, in the original image's pixels."""
 
     @property
-    def xy(self):
-        raise NotImplementedError("Masks.xy (polygon contours) needs cv2.findContours, which "
-                                  "ultralytics_pro_tpu_torch does not use; read Masks.data")
+    def xy(self) -> list:
+        """Each mask's largest outer contour (the first of equal areas, in
+        cv2's order), (k, 2) f32 pixels; (0, 2) for an empty mask."""
+        out = []
+        for m in self.data.astype(np.uint8):
+            contours = find_contours(m)
+            out.append(max(contours, key=contour_area).reshape(-1, 2).astype(np.float32)
+                       if contours else np.zeros((0, 2), np.float32))
+        return out
 
     @property
-    def xyn(self):
-        return self.xy
+    def xyn(self) -> list:
+        h, w = self.orig_shape
+        return [p / np.array([w, h], np.float32) for p in self.xy]
 
 
 class Keypoints(BaseTensor):
@@ -173,3 +202,64 @@ class Results(SimpleClass):
             if v is not None:
                 return len(v)
         return 0
+
+    def new(self) -> "Results":
+        """An empty Results of the same image, path and names."""
+        return Results(self.orig_img, self.path, self.names)
+
+    def save_txt(self, txt_file, save_conf: bool = False) -> Path:
+        """Append YOLO-format lines to txt_file: `cls cx cy w h [conf]`
+        normalised to 6 decimals, or a classify result's top-5
+        `prob name` lines."""
+        lines = []
+        if self.probs is not None:
+            lines += [f"{self.probs.data[i]:.2f} {self.names.get(i, i)}" for i in self.probs.top5]
+        elif self.boxes is not None:
+            for row, xywhn in zip(self.boxes.data, self.boxes.xywhn):
+                c, cf = int(row[-1]), row[-2]
+                parts = [str(c), *(f"{x:.6f}" for x in xywhn)]
+                if save_conf:
+                    parts.append(f"{cf:.6f}")
+                lines.append(" ".join(parts))
+        p = Path(txt_file)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        with open(p, "a", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n" if lines else "")
+        return p
+
+    def summary(self, normalize: bool = False, decimals: int = 5) -> List[Dict]:
+        """One dict a detection: name, class, confidence and box (x1, y1, x2,
+        y2, divided by the image's width and height with normalize), plus
+        track_id on a tracked frame; a classify result's top-1 alone."""
+        if self.probs is not None:
+            return [{"name": self.names.get(self.probs.top1, ""), "class": self.probs.top1,
+                     "confidence": round(self.probs.top1conf, decimals)}]
+        out = []
+        if self.boxes is not None:
+            h, w = self.orig_shape
+            ids = self.boxes.id
+            for i, (row, cf, c) in enumerate(zip(self.boxes.data, self.boxes.conf, self.boxes.cls)):
+                x1, y1, x2, y2 = row[:4]
+                if normalize:
+                    x1, x2, y1, y2 = x1 / w, x2 / w, y1 / h, y2 / h
+                d = {"name": self.names.get(int(c), str(int(c))), "class": int(c),
+                     "confidence": round(float(cf), decimals),
+                     "box": {"x1": round(float(x1), decimals), "y1": round(float(y1), decimals),
+                             "x2": round(float(x2), decimals), "y2": round(float(y2), decimals)}}
+                if ids is not None:
+                    d["track_id"] = int(ids[i])
+                out.append(d)
+        return out
+
+    def to_json(self, normalize: bool = False, decimals: int = 5) -> str:
+        return json.dumps(self.summary(normalize=normalize, decimals=decimals), indent=2)
+
+    def to_df(self, normalize: bool = False, decimals: int = 5):
+        """The summary as a pandas DataFrame, or as the list of dicts where
+        pandas is not installed."""
+        rows = self.summary(normalize=normalize, decimals=decimals)
+        try:
+            import pandas as pd
+        except ImportError:
+            return rows
+        return pd.DataFrame(rows)

@@ -363,12 +363,16 @@ class BaseModel(nn.Module):
             feats = feats[:-1]
         return torch.tensor([s / x.shape[-2] for x in feats])
 
-    def _run(self, x, stop_at_head: bool = False, decode: bool = True, aux: bool = True, dn=None):
+    def _run(self, x, stop_at_head: bool = False, decode: bool = True, aux: bool = True, dn=None,
+             embed: bool = False):
         y = {}
         remat = self.remat and self.training and torch.is_grad_enabled()
         for m in self.model:
             if m.f != -1:
                 x = y[m.f] if isinstance(m.f, int) else [x if j == -1 else y[j] for j in m.f]
+            if embed and m is self.model[-1] and not isinstance(m.f, int):
+                pooled = torch.cat([fm.mean(dim=(2, 3)) for fm in x], -1)
+                return pooled / (torch.linalg.vector_norm(pooled, dim=-1, keepdim=True) + 1e-12)
             if isinstance(m, v10Detect):
                 return x if stop_at_head else m(x, decode=decode and not self.training, aux=aux)
             if isinstance(m, (Detect, AnchorDetect)):
@@ -380,7 +384,7 @@ class BaseModel(nn.Module):
                 y[m.i] = x
         return x
 
-    def forward(self, x: torch.Tensor, decode: bool = True, aux: bool = True, dn=None):
+    def forward(self, x: torch.Tensor, decode: bool = True, aux: bool = True, dn=None, embed: bool = False):
         """x (B, C, H, W) float. For a Detect model: (decoded (B, A, 4+nc), raw
         per-level maps), or the raw maps alone when decode=False or in train
         mode; a v10Detect model gives its head's (B, k, 6) rows and dict, the
@@ -391,8 +395,20 @@ class BaseModel(nn.Module):
         aux alone, with the denoising queries `dn` when given (see
         `RTDETRDecoder.forward`; the JAX model passes `dn` to its head as
         here, `nn/tasks.py:1241,1294`). For a classification model: (B, nc)
-        logits in train mode, their softmax in eval mode."""
-        return self._run(x, decode=decode, aux=aux, dn=dn)
+        logits in train mode, their softmax in eval mode. With embed, a model
+        whose head reads several maps gives (B, D) instead: each head input
+        averaged over H x W, concatenated and L2-normalised with eps 1e-12
+        (the JAX embed mode, `nn/tasks.py:1277-1283`); a head that reads one
+        map (classify) ignores it there and here."""
+        return self._run(x, decode=decode, aux=aux, dn=dn, embed=embed)
+
+    def info(self, verbose: bool = False):
+        """(layers, parameters) as the JAX `BaseModel.info` (`nn/tasks.py:1482`)
+        counts them: the parameters of its flax tree, which holds no DFL bins."""
+        n_params = sum(p.numel() for name, p in self.named_parameters() if not name.endswith("dfl.conv.weight"))
+        if verbose:
+            LOGGER.info(f"{self.__class__.__name__}: {len(self.model)} layers, {n_params:,} parameters")
+        return len(self.model), n_params
 
 
 class DetectionModel(BaseModel):
