@@ -23,7 +23,7 @@ exits non-zero):
           with K1's launch count read around the call; warm predict latency
           per image over PREDICT_CALLS calls (median and spread), the device's busy
           time, idle share and kernel launches per image on those calls (one
-          torch.profiler window of 20 calls against the unprofiled median),
+          torch.profiler window of PROFILED_CALLS calls against the unprofiled median),
           and the device function's images/s at batch 16
   parity  the same weights on the card and on the CPU: decoded outputs
           within boxes 1e-3 px / scores 1e-4, and NMS on the CPU's decoded
@@ -49,7 +49,7 @@ exits non-zero):
           default conf 0.25, with K2's launches read around the call (6 per
           image); warm predict latency per image over RTDETR_CALLS calls, the device
           idle share, kernel launches and comparison launches per image from
-          one profiled window of 10 calls, and the device function's
+          one profiled window of RTDETR_PROFILED_CALLS calls, and the device function's
           images/s at batch 16
   rtdetr_parity  the same weights and letterboxed batch on the card and on
           the CPU: aux under the JAX decoder's keys and shapes, dense
@@ -63,7 +63,7 @@ exits non-zero):
           beside val_parity_ref.json's, and the differences; fails if the
           card's mAP50 or mAP50-95 is more than 0.005 from the reference's
   val     detect val at full size: yolov8s, 80 classes, seeded weights, 640
-          px, on the fixture images copied 8 times (128 images, 16 a batch,
+          px, on the fixture images copied VAL_COPIES = 4 times (64 images, 16 a batch,
           grown by the bilinear branch), conf 1e-6 so every row of K1 holds
           K = 30000 candidates; images/s of the whole val() call, the
           validator's per-stage ms per image, K1's launches read around the
@@ -89,7 +89,7 @@ exits non-zero):
           box loss falls and every epoch's fitness is a number; the final
           EMA mAP50 and mAP50-95 on the set
   train   yolov8s at full width, 640 px, batch 16 (nbs 64, accumulate 4,
-          the JAX defaults otherwise), 2 epochs on the val phase's 128
+          the JAX defaults otherwise), 2 epochs on the val phase's 64
           images (train = val, 80 class names), val after each epoch: train
           images/s over epoch 2 (host clock, val excluded), device ms per
           micro-batch (CUDA events), the model's FLOPs per step against the
@@ -113,7 +113,7 @@ exits non-zero):
   seg_train, pose_train, obb_train  phase train for the other tasks:
           yolov8s-seg (80 classes) and yolov8s-pose (rebuilt at the set's nc
           3 and [5, 3]) at 640, yolov8s-obb (nc 15) at 1024, batch 16, the
-          JAX defaults, 2 epochs on 128 images of the task's set with val:
+          JAX defaults, 2 epochs on 64 images of the task's set with val:
           the same numbers as train (the criterion alone is the task's, its
           device ms by category too), K1's launches in the vals or the
           rotated NMS's calls, and the NMS's device ms a val batch
@@ -139,7 +139,7 @@ exits non-zero):
           bit against its plain version, timed, with its bound, and the NMS
           outputs, the `extra` payload among them, equal to the plain path's
   seg_val yolov8s-seg val at 640, 80 classes, seeded weights, the segment set
-          copied 8 times (128 images, batch 16), conf 1e-6: multi-label K1 at
+          copied 4 times (64 images, batch 16), conf 1e-6: multi-label K1 at
           K = 30000 with the 32-wide payload; images/s, idle share, `_topk`'s
           sort and K1 from one profiled call, and K1 on one batch's captured
           rows (bit for bit, timed, bound) with the payload's gather equal to
@@ -163,15 +163,15 @@ exits non-zero):
           against CPU on one image: decoded outputs within OBB_PARITY_TOL,
           and the rotated NMS on the CPU's outputs keeping the same
           candidates on both devices (rboxes, scores, cls, valid equal)
-  obb_val yolov8s-obb val at 1024 on the OBB set copied 8 times (128 images,
+  obb_val yolov8s-obb val at 1024 on the OBB set copied 4 times (64 images,
           batch 16, conf 1e-6): images/s, idle share and launches from one
           profiled call, the rotated NMS's device ms a batch there, and on
           one batch's decoded outputs alone its device ms, launches and peak
           memory
   rtdetr_val  RTDETR("rtdetr-l.yaml").val at 640, seeded weights, 80
-          classes, on the detect fixture images copied 8 times (128 images,
+          classes, on the detect fixture images copied 4 times (64 images,
           batch 16, conf 0.001): images/s, K2's launches read around the call
-          (48, 6 a batch), the idle share, the device ms a batch by kernel
+          (24, 6 a batch), the idle share, the device ms a batch by kernel
           class and K2's ms a launch from one profiled call; K2 on one val
           batch's captured inputs against its plain version, timed, with its
           bound and embedding_bag's time on the same corner rows; card
@@ -206,13 +206,13 @@ exits non-zero):
           through YOLO(...).val on tests/fixtures/torch_cls_synth at 64 px,
           batch 16, on the card and on the CPU: top1 and top5 equal to each
           other and to val_parity_cls_ref.json's
-  cls_val yolov8s-cls val at 224 on the fixture's val images 8 times over
-          (128 images, batch 16): images/s, idle share
+  cls_val yolov8s-cls val at 224 on the fixture's val images 4 times over
+          (64 images, batch 16): images/s, idle share
   cls_train_parity  one optimizer step of the fixture yolov8n-cls on 8
           images at 64 px, batch 8, nbs 8, with the epoch-end val, on the card
           and on the CPU, within TRAIN_PARITY_TOL and the same fitness
   cls_train  yolov8s-cls at 224 rebuilt at nc 3, batch 16, the JAX defaults,
-          2 epochs on 128 images: the numbers of phase train (images/s, device
+          2 epochs on 64 images: the numbers of phase train (images/s, device
           ms a micro-batch, idle share, the criterion's ms and launches, the
           FLOP share)
   zoo_predict  YOLO("yolo11s.yaml"), "yolov10s.yaml", "yolov5s.yaml" and
@@ -234,8 +234,8 @@ exits non-zero):
           images' captured rows bit for bit against its plain version, timed,
           with its bound
   zoo_val yolo11s, yolov10s, yolov5-anchor, yolov9c, gelan-c-dseg (on
-          the segment set) and yolov13s val at 640 on ZOO_COPIES x 16 = 64
-          images (batch 16, conf 1e-6): images/s, K1's launches (4, none and no NMS for
+          the segment set) and yolov13s val at 640 on ZOO_COPIES x 16 = 32
+          images (batch 16, conf 1e-6): images/s, K1's launches (2, none and no NMS for
           yolov10s), idle share and K1's ms a launch from one profiled call,
           K1 on each first batch of rows (K = 30000); card against CPU on the
           first ZOO_PARITY_IMAGES = 8 images, every mAP within ZOO_VAL_TOL
@@ -245,14 +245,31 @@ exits non-zero):
           batch 8, nbs 8, on the card and on the CPU, within ZOO_TRAIN_PARITY_TOL
           (gelan-c-dseg in float64 on both: ZOO_TRAIN_PARITY_DTYPE)
   zoo_train  yolo11s, yolov10s, yolov5-anchor, gelan-c-dseg (segment) and
-          yolov13s as phase train: 640 px, batch 16, 2 epochs on 64 images
-          with the epoch-end val (K1 8 launches, none for yolov10s), train images/s
+          yolov13s as phase train: 640 px, batch 16, 2 epochs on 32 images
+          with the epoch-end val (K1 4 launches, none for yolov10s), train images/s
           in epoch 2, device ms a micro-batch, the idle share, the
           criterion's device ms and launches, K1's ms a launch from one more
           profiled val, and K1 on the rows of another val bit for bit
           against its plain version, timed, with its bound
   (the zoo phases' YOLOv13 models have each FullPAD gate set to a seeded
   value in GATE_RANGE by seed_gates: at 0 the gates cut HyperACE off)
+  attn_zoo_predict  the attention zoo (ATTN_PREDICT: the 40 YAMLs of the
+          20 attention modules after SPPF of yolov8s and yolov5s, scale s,
+          beside the plain yolov8s and yolov5s) at 640 px: each built on the
+          CPU with its zero-initialised parameters seeded (CrissCross's
+          gamma, ShuffleAttention's cweight and sweight, FocusedLinear's
+          pos: seed_gates), its weights carried to the card; one predict of
+          the 4 images through K1 (one launch an image) with the detections
+          checked, the device function's ms a call on the 4-image batch,
+          card against CPU (zoo_parity), and K1 on the batch's rows bit for
+          bit against its plain version (timed, with its bound and a
+          profiled predict, for ATTN_K1_TIMED)
+  attn_zoo_val  ATTN_VAL (yolov8s with MHSA, DAttention and
+          BiLevelRoutingAttention, yolov5s with CrissCrossAttention) as
+          zoo_val on the fixture's 16 images
+  attn_zoo_train_parity  one step of yolov8n with DAttention at 160 px and
+          with BiLevelRoutingAttention at 256 px as zoo_train_parity
+  attn_zoo_train  yolov8s with BiLevelRoutingAttention as zoo_train
   tta     yolov8s (seeded) predict(augment=True) on the 4 images at 640 px,
           conf 1e-6: K1 once an image over the three passes' candidates
           (K = 15,049 at a 640 x 640 letterbox), every image's rows bit for bit
@@ -276,15 +293,15 @@ exits non-zero):
           the card and on the CPU within TRAIN_PARITY_TOL; the multi_scale
           resize of that batch at each rung of the 160 px ladder, card
           against CPU, within MULTI_SCALE_TOL grey levels
-  aug_train  yolov8s at 640, batch 16, 2 epochs on 128 images with
+  aug_train  yolov8s at 640, batch 16, 2 epochs on 64 images with
           augment=True at the default gains and close_mosaic=1 (epoch 2
           without Mosaic: the loader's reset): train images/s in each
           epoch, the loader's host ms a batch with Mosaic on and off
           (8 threads, no model, half the set), the device's busy ms a micro-batch and the
-          idle share of each epoch, K1 16 launches in the epoch-end vals,
+          idle share of each epoch, K1 8 launches in the epoch-end vals,
           K1's ms a launch from one more profiled val, and its rows of
           another val bit for bit against the plain version
-  aug_cls_train  yolov8s-cls at 224, batch 16, 2 epochs on 128 images with
+  aug_cls_train  yolov8s-cls at 224, batch 16, 2 epochs on 64 images with
           augment=True (RandomResizedCrop, flip, RandAugment, erasing 0.4):
           images/s in each epoch and the loader's host ms a batch
   remat   one yolov8s micro-batch at 640, batch 16, with its optimizer step,
@@ -366,16 +383,16 @@ NMS_JITTER = 0.02  # std of a copy's centre and log size, relative to its object
 CONF = 1e-6  # random-init class logits sit near log(5/nc/(640/s)^2), i.e. scores ~1e-5
 MIN_CANDIDATES = 1000
 IMAGE_SHAPES = ((480, 640), (720, 1280), (640, 640), (333, 500))
-PREDICT_CALLS = 30  # timed warm predict calls of the 4 images, one at a time (the *_CALLS: PERF.md section 6)
-PROFILED_CALLS = 8  # predict calls traced by torch.profiler for the device's busy time
-RTDETR_CALLS = 15  # the same for RT-DETR
-RTDETR_PROFILED_CALLS = 4
+PREDICT_CALLS = 15  # timed warm predict calls of the 4 images, one at a time (the *_CALLS: PERF.md section 6)
+PROFILED_CALLS = 4  # predict calls traced by torch.profiler for the device's busy time
+RTDETR_CALLS = 8  # the same for RT-DETR
+RTDETR_PROFILED_CALLS = 2
 RTDETR_LEVELS = ((80, 80), (40, 40), (20, 20))  # rtdetr-l's P3-P5 at 640 px: V = 8400 value rows
 PARITY_TOL = 1e-3  # card vs CPU, rtdetr-l encoder scores and final outputs
 FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
 VAL_FIXTURE_TOL = 0.005  # card vs val_parity_ref.json, the tolerance of tests/test_val_parity.py
-VAL_COPIES = 8  # the val phase's data: the fixture's 16 images 8 times over
-ZOO_COPIES = 4  # zoo_val's and zoo_train's: 4 times over, to keep the run inside its limit (PERF.md section 6)
+VAL_COPIES = 4  # the val phase's data: the fixture's 16 images 4 times over (PERF.md section 6)
+ZOO_COPIES = 2  # zoo_val's and zoo_train's: 2 times over, to keep the run inside its limit (PERF.md section 6)
 ZOO_PARITY_IMAGES = 8  # zoo_val's card-against-CPU val: the first 8 images
 VAL_BATCH = 16
 VAL_IMGSZ = 640
@@ -394,8 +411,8 @@ TRAIN_PARITY_TOL = {"loss": 1e-4, "params": 1e-4, "ema": 1e-4, "batch_stats": 1e
 TRAIN_PARITY_IMAGES = 8
 TRAIN_IMGSZ, TRAIN_BATCH, TRAIN_EPOCHS = 640, 16, 2
 TASK_FIXTURE_TOL = 1e-4  # card vs CPU, each mAP on the segment, pose and obb fixture sets
-TASK_CALLS = 8  # timed warm predict calls of yolov8s-seg, yolov8s-pose and yolov8s-obb
-TASK_PROFILED_CALLS = 3
+TASK_CALLS = 4  # timed warm predict calls of yolov8s-seg, yolov8s-pose and yolov8s-obb
+TASK_PROFILED_CALLS = 2
 MASK_TOL, MASK_EDGE_SHARE = 1e-5, 1e-3  # mask step, card vs CPU: probabilities, and > 0.5 bits that flip
 # the other tasks: the reference-trained fixture model and set, the served
 # model, the mAPs against the reference's keys, and the K1 launches and
@@ -446,8 +463,8 @@ RTDETR_PARITY_IMGSZ = 160
 RTDETR_TRAIN_PARITY_TOL = {**TRAIN_PARITY_TOL, "momentum_buffer": 0.1, "momentum_leaf": 0.2}
 MOMENTUM_LEAF_FLOOR = 1e-8  # rtdetr_step_diffs: leaves below this share of the largest norm hold rounding only
 CLS_IMGSZ = 224  # yolov8s-cls's ImageNet size
-CLS_CALLS = 30  # timed warm predict calls of yolov8s-cls
-CLS_PROFILED_CALLS = 4
+CLS_CALLS = 15  # timed warm predict calls of yolov8s-cls
+CLS_PROFILED_CALLS = 2
 CLS_TOL = 1e-5  # card vs CPU, yolov8s-cls probabilities
 CLS_SET = "torch_cls_synth"  # the classify fixture set: 3 classes, 24 train and 16 val PNGs of 80 x 64
 # The YOLO11, YOLOv10, YOLOv5 and YOLOv3-tiny detect families at full width
@@ -466,7 +483,7 @@ ZOO_TRAIN_PARITY = ("yolo11n", "yolov10n", "yolov5-anchor", "yolo12n", "gelan-c-
 ZOO_TRAIN = ("yolo11s", "yolov10s", "yolov5-anchor", "gelan-c-dseg", "yolov13s")
 # a model's timed warm predict calls of the 4 images, and its profiled ones:
 # the YOLO11/v10/v5/v3-tiny models at their counts, the later ones fewer
-ZOO_CALLS = dict.fromkeys(ZOO_PREDICT[:4], (3, 1))
+ZOO_CALLS = dict.fromkeys(ZOO_PREDICT[:4], (2, 1))
 ZOO_CALLS_DEFAULT = (2, 1)
 ZOO_SRC = {"detect": "torch_val_synth", "segment": "torch_val_synth_segment"}  # a task's fixture set
 ZOO_PARITY_TOL = {"boxes_px": 1e-3, "scores": 1e-4}  # card vs CPU, decoded outputs of one image at 640 px
@@ -485,16 +502,33 @@ ZOO_TRAIN_PARITY_TOL = {**TRAIN_PARITY_TOL, "momentum_leaf": TRAIN_PARITY_TOL["m
 # step, so the bounds above hold it as they hold the float32 steps of the rest.
 ZOO_TRAIN_PARITY_DTYPE = {"gelan-c-dseg": torch.float64}
 # FullPAD_Tunnel's gates start at 0, which cuts every path from HyperACE to the
-# head; every YOLOv13 model here sets them to seeded values in this range.
+# head; every YOLOv13 model here sets them to seeded values in this range, and
+# every attention-zoo model its zero-initialised parameters (seed_gates).
 GATE_RANGE = (0.5, 1.5)
-TTA_CALLS = (3, 1)  # timed and profiled warm TTA predict calls of the 4 images
+# The attention zoo: each of the 20 attention modules after SPPF (layer 10) of
+# yolov8s and of yolov5s (the 40 YAMLs of cfg/models/v8 and v5, scale s, the
+# widest they ship, at 640 px), predicted beside the two plain models.
+ATTN_MODULES = ("BiLevelRoutingAttention", "CBAM", "CPCA", "CoordAtt", "CrissCrossAttention", "DAttention",
+                "ECAAttention", "EMA", "EffectiveSE", "FocusedLinearAttention", "GAMAttention", "LSKA", "LSKblock",
+                "MHSA", "SEAttention", "SKAttention", "SegNext_Attention", "ShuffleAttention", "SimAM",
+                "TripletAttention")
+ATTN_PREDICT = ("yolov8s", "yolov5s", *(f"yolov{v}s-{m}" for m in ATTN_MODULES for v in (8, 5)))
+ATTN_DEVICE_CALLS = 3  # timed device-function calls of a model's 4-image batch
+ATTN_K1_TIMED = ("yolov8s-DAttention", "yolov5s-DAttention")  # K1 timed on their rows, one predict profiled
+ATTN_VAL = ("yolov8s-MHSA", "yolov8s-DAttention", "yolov8s-BiLevelRoutingAttention", "yolov5s-CrissCrossAttention")
+ATTN_VAL_COPIES = 1  # their val's data: the fixture's 16 images once
+# one step on card and CPU at nc 3; BiLevelRoutingAttention at 256 px, where P5
+# (8 x 8) splits into 4 x 4 windows and routes to 4 of 16 (at 160 px, 5 x 5: one window)
+ATTN_TRAIN_PARITY = {"yolov8n-DAttention": 160, "yolov8n-BiLevelRoutingAttention": 256}
+ATTN_TRAIN = ("yolov8s-BiLevelRoutingAttention",)
+TTA_CALLS = (2, 1)  # timed and profiled warm TTA predict calls of the 4 images
 MULTI_SCALE_TOL = 1  # grey levels, the multi_scale resize on the card against the CPU
 AUG_PARITY_IMGSZ = 160
 BANDS = 10  # the channels phase's multi-band set
 TRACK_FRAMES = 30  # track phase: the fixture image panned over this many frames at 160 px
 TRACK_PAN = (2, 1)  # px a frame, (x, y)
 TRACK_TOL = 1e-4  # card vs CPU, tracked boxes (px)
-TRACK_FULL_FRAMES = 60  # yolov8s at 640 over this many 640 x 640 frames
+TRACK_FULL_FRAMES = 30  # yolov8s at 640 over this many 640 x 640 frames
 TRACK_FULL_LIVE = 0.8  # full_width: the median frame's live tracks, at least this share of its detections
 FILES_COPIES = 8  # predict_files: the 16 fixture images 8 times over, 128 files
 FILES_BATCH = 16
@@ -2616,14 +2650,25 @@ def zoo_task(name: str) -> str:
 
 
 def seed_gates(model, seed: int = 0) -> int:
-    """Set every FullPAD_Tunnel gate of a port model (an nn.Module) to a
-    seeded value in GATE_RANGE; returns how many there are."""
+    """Set every parameter of a port model (an nn.Module) that starts at 0
+    and so cuts or idles a path to seeded values in GATE_RANGE:
+    FullPAD_Tunnel's gate, CrissCrossAttention's gamma, ShuffleAttention's
+    cweight and sweight, FocusedLinearAttention's pos. Returns how many
+    tensors it set."""
+    from ultralytics_pro_tpu_torch.nn.modules.attention import (
+        CrissCrossAttention,
+        FocusedLinearAttention,
+        ShuffleAttention,
+    )
     from ultralytics_pro_tpu_torch.nn.modules.v13 import FullPAD_Tunnel
 
-    gates = [m.gate for m in model.modules() if isinstance(m, FullPAD_Tunnel)]
+    zeros = {FullPAD_Tunnel: ("gate",), CrissCrossAttention: ("gamma",), ShuffleAttention: ("cweight", "sweight"),
+             FocusedLinearAttention: ("pos",)}
+    gates = [getattr(m, name) for m in model.modules() for name in zeros.get(type(m), ())]
+    rng = np.random.default_rng(seed)
     with torch.no_grad():
-        for g, v in zip(gates, np.random.default_rng(seed).uniform(*GATE_RANGE, len(gates))):
-            g.fill_(float(v))
+        for g in gates:
+            g.copy_(torch.from_numpy(rng.uniform(*GATE_RANGE, tuple(g.shape)).astype(np.float32)))
     return len(gates)
 
 
@@ -2786,18 +2831,18 @@ def zoo_val_parity(YOLO, model, name: str, data16: Path) -> dict:
             "cpu_threads": torch.get_num_threads()}
 
 
-def zoo_val(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
-    """The ZOO_VAL models as phase val on their task's fixture set (val_path:
-    K1 once a batch, no NMS for yolov10s), K1 on each first batch of rows
-    (captured_k1), and card against CPU on ZOO_PARITY_IMAGES images
-    (zoo_val_parity); on ZOO_COPIES x 16 images."""
+def zoo_val(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str, names=ZOO_VAL, copies: int = ZOO_COPIES) -> dict:
+    """The zoo models `names` as phase val on their task's fixture set
+    (val_path: K1 once a batch, no NMS for yolov10s), K1 on each first batch
+    of rows (captured_k1), and card against CPU on ZOO_PARITY_IMAGES images
+    (zoo_val_parity); on copies x 16 images."""
     models = {}
-    for name in ZOO_VAL:
+    for name in names:
         t0 = time.perf_counter()
         src = ZOO_SRC[zoo_task(name)]
         data16 = val_set_640(tmp / f"zoo_val_16_{name}", src, copies=1, first=ZOO_PARITY_IMAGES)
         model = zoo_yolo(YOLO, name, "cuda")
-        info, cap = val_path(YOLO, nms_cuda, ops_nms, tmp / name, card, smi, name, src, model, copies=ZOO_COPIES)
+        info, cap = val_path(YOLO, nms_cuda, ops_nms, tmp / name, card, smi, name, src, model, copies=copies)
         info["parity"] = zoo_val_parity(YOLO, model, name, data16)
         if cap:
             info["k1_on_batch_rows"] = captured_k1(ops_nms, nms_cuda, cap, card, smi)
@@ -2806,9 +2851,10 @@ def zoo_val(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
     return {"models": models, "card": card, "nvidia_smi": smi}
 
 
-def zoo_one_step(YOLO, load_pickle, tmp: Path, name: str, device: str, dtype: torch.dtype = torch.float32):
+def zoo_one_step(YOLO, load_pickle, tmp: Path, name: str, device: str, dtype: torch.dtype = torch.float32,
+                 imgsz: int = 160):
     """One optimizer step of the seeded zoo model name at nc 3, the model and
-    the images in dtype, on 8 images of its task's fixture set at 160 px,
+    the images in dtype, on 8 images of its task's fixture set at imgsz,
     batch 8, nbs 8, no warmup, no val, through YOLO(...).train. Returns
     ((loss parts, last.ckpt), the model)."""
     from ultralytics_pro_tpu_torch.engine.trainer import BaseTrainer
@@ -2822,7 +2868,7 @@ def zoo_one_step(YOLO, load_pickle, tmp: Path, name: str, device: str, dtype: to
     put = BaseTrainer.put_batch
     BaseTrainer.put_batch = lambda self, batch: {**(out := put(self, batch)), "img": out["img"].to(dtype)}
     try:
-        model.train(data=str(data), epochs=1, imgsz=160, batch=TRAIN_PARITY_IMAGES, nbs=TRAIN_PARITY_IMAGES,
+        model.train(data=str(data), epochs=1, imgsz=imgsz, batch=TRAIN_PARITY_IMAGES, nbs=TRAIN_PARITY_IMAGES,
                     warmup_epochs=0.0, val=False, workers=4, max_gt=32,
                     project=str(tmp / f"zoo_{name}_{device}_{str(dtype)[6:]}"))
     finally:
@@ -2833,8 +2879,9 @@ def zoo_one_step(YOLO, load_pickle, tmp: Path, name: str, device: str, dtype: to
     return (tr.loss_history[0], load_pickle(tr.wdir / "last.ckpt")), model
 
 
-def zoo_train_parity(YOLO, load_pickle, tmp: Path, card: str, smi: str) -> dict:
-    """zoo_one_step of each ZOO_TRAIN_PARITY model on the card and on the
+def zoo_train_parity(YOLO, load_pickle, tmp: Path, card: str, smi: str, models=None) -> dict:
+    """zoo_one_step of each model of `models` (name -> image size; the
+    ZOO_TRAIN_PARITY models at 160 px by default) on the card and on the
     CPU, in its ZOO_TRAIN_PARITY_DTYPE; yolov10n trains with E2EDetectLoss, yolov5-anchor with
     v5AnchorLoss, gelan-c-dseg with v8SegmentationLoss. Held within
     ZOO_TRAIN_PARITY_TOL as rtdetr_step_diffs measures them (params, EMA
@@ -2847,11 +2894,12 @@ def zoo_train_parity(YOLO, load_pickle, tmp: Path, card: str, smi: str) -> dict:
     furthest from the CPU's are reported with their norm's share of the
     largest leaf's."""
     out = {}
-    for name in ZOO_TRAIN_PARITY:
+    models = models or dict.fromkeys(ZOO_TRAIN_PARITY, 160)
+    for name, imgsz in models.items():
         t0 = time.perf_counter()
         dtype = ZOO_TRAIN_PARITY_DTYPE.get(name, torch.float32)
-        card_run, _ = zoo_one_step(YOLO, load_pickle, tmp, name, "cuda", dtype)
-        cpu_run, model = zoo_one_step(YOLO, load_pickle, tmp, name, "cpu", dtype)
+        card_run, _ = zoo_one_step(YOLO, load_pickle, tmp, name, "cuda", dtype, imgsz)
+        cpu_run, model = zoo_one_step(YOLO, load_pickle, tmp, name, "cpu", dtype, imgsz)
         runs = [card_run, cpu_run]
         diffs = rtdetr_step_diffs(*runs)
         got, want = dict(tree_leaves(runs[0][1]["momentum_buffer"])), dict(tree_leaves(runs[1][1]["momentum_buffer"]))
@@ -2862,19 +2910,20 @@ def zoo_train_parity(YOLO, load_pickle, tmp: Path, card: str, smi: str) -> dict:
         bad = {k: v for k, v in diffs.items()
                if not v[0] <= ZOO_TRAIN_PARITY_TOL["loss" if k.startswith("loss") else k]}
         out[name] = {"criterion": type(model.trainer.criterion).__name__, "task": model.task, "dtype": str(dtype),
+                     "imgsz": imgsz,
                      "loss_card": runs[0][0], "loss_cpu": runs[1][0], "max_diff": diffs,
                      "momentum_leaves_furthest": [{"rel_l2": d, "leaf": k, "norm_share": n} for d, k, n in worst]}
         out[name]["seconds"] = time.perf_counter() - t0
         if bad:
             raise AssertionError(f"{name} card vs CPU after one step beyond {ZOO_TRAIN_PARITY_TOL}: {bad}; {out[name]}")
-    return {"models": out, "images": TRAIN_PARITY_IMAGES, "imgsz": 160, "batch": TRAIN_PARITY_IMAGES,
+    return {"models": out, "images": TRAIN_PARITY_IMAGES, "batch": TRAIN_PARITY_IMAGES,
             "nbs": TRAIN_PARITY_IMAGES, "warmup_epochs": 0.0, "tolerance": ZOO_TRAIN_PARITY_TOL,
             "momentum_leaf_floor": MOMENTUM_LEAF_FLOOR, "cpu_threads": torch.get_num_threads(),
             "card": card, "nvidia_smi": smi}
 
 
-def zoo_train(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
-    """The ZOO_TRAIN models as phase train, or seg_train for a segment model
+def zoo_train(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str, names=ZOO_TRAIN) -> dict:
+    """The zoo models `names` as phase train, or seg_train for a segment model
     (train_run, micro_batch_measures): 640 px, batch 16, 2 epochs on
     ZOO_COPIES x 16 images of the task's fixture set with the epoch-end val, K1's launches
     counted there (yolov10s: none), K1's device ms a launch from a profile
@@ -2882,7 +2931,7 @@ def zoo_train(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
     rows of another such val held to its plain version, timed, with its
     bound (val_k1)."""
     out = {}
-    for name in ZOO_TRAIN:
+    for name in names:
         t0 = time.perf_counter()
         tr, data, info = train_run(YOLO, nms_cuda, tmp, task=zoo_task(name), served=name, copies=ZOO_COPIES)
         info["criterion"] = type(tr.criterion).__name__
@@ -2898,6 +2947,86 @@ def zoo_train(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
         info["seconds"] = time.perf_counter() - t0
         out[name] = info
     return {"models": out, "card": card, "nvidia_smi": smi}
+
+
+def k1_rows_equal(ops_nms, nms_cuda, cap) -> dict:
+    """K1 on captured rows, as the path handed them over, against its plain
+    version on the card (keep indices, valid flags and kept boxes), and the
+    NMS outputs gathered around it against the plain path's, untimed;
+    raises if any entry differs."""
+    k = cap["k1_kwargs"]
+    boxes, scores = cap["rows"]
+    keep, valid = nms_cuda.greedy_nms(boxes, scores, **k)
+    ref_k, ref_v = nms_cuda.greedy_nms_plain(boxes, scores, k["max_det"], k["iou_thres"])
+    mismatch = int((keep != ref_k).sum() + (valid != ref_v).sum())
+    max_abs_err = max(float((x - y).abs().max()) for x, y in zip(kept_outputs(boxes.cpu(), keep.cpu(), valid.cpu()),
+                                                                 kept_outputs(boxes.cpu(), ref_k.cpu(), ref_v.cpu())))
+    gathered = gather_mismatch(ops_nms, nms_cuda, cap)
+    if mismatch or max_abs_err or gathered:
+        raise AssertionError(f"K1 on captured rows: {mismatch} entries differ from the plain version (max abs "
+                             f"error {max_abs_err}), {gathered} gathered outputs from the plain path's")
+    return dict(B=int(scores.shape[0]), K=int(scores.shape[1]), max_mismatch=mismatch, max_abs_err=max_abs_err,
+                gather_mismatch_vs_plain=gathered)
+
+
+def attn_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name: str, card: str, smi: str) -> dict:
+    """One model of ATTN_PREDICT at 640 px: built on the CPU (seed 0, its
+    zero-initialised parameters seeded: zoo_yolo) and on the card with the
+    CPU's weights loaded; one predict of the 4 seeded images at conf 1e-6
+    with K1's launches read around it (one an image) and the detections
+    checked; the device function's ms a call on the 4-image batch (CUDA
+    events, ATTN_DEVICE_CALLS calls); card against CPU on the first image
+    (zoo_parity); K1 on the batch's captured rows bit for bit against its
+    plain version (k1_rows_equal), and for ATTN_K1_TIMED also timed with its
+    bound (captured_k1) and one predict profiled for K1's device ms a
+    launch."""
+    t0 = time.perf_counter()
+    marks = {}
+
+    def mark(part):  # host seconds of each part
+        marks[part] = time.perf_counter() - t0 - sum(marks.values())
+
+    imgs = seeded_images()
+    cpu = zoo_yolo(YOLO, name, "cpu")
+    model = YOLO(zoo_spec(name)[0], device="cuda", seed=0)
+    model.load_state_dict(cpu.model.state_dict())
+    mark("build")
+    nms_cuda.launches = 0
+    results = model.predict(imgs, conf=CONF)
+    torch.cuda.synchronize()
+    launches = nms_cuda.launches
+    if launches != len(imgs):
+        raise AssertionError(f"{name}: K1 launched {launches} times for {len(imgs)} images")
+    dets = check_detections(results, imgs)
+    mark("predict")
+    pred = model.predictor
+    batch = pred.preprocess(imgs)
+    info = dict(model=name, yaml=zoo_spec(name)[0], layer_10=type(model.model.model[10]).__name__,
+                parameters=sum(p.numel() for p in model.model.parameters()), imgsz=640, conf=CONF,
+                k1_launches=launches, detections=dets,
+                device_ms_per_call=cuda_ms(lambda: pred.run(batch), iters=ATTN_DEVICE_CALLS, warmup=1),
+                images_per_call=len(imgs))
+    mark("device_ms")
+    info["parity"] = zoo_parity(YOLO, ops_nms, full_f32, name, model, batch, cpu)
+    mark("parity")
+    with capture_k1(ops_nms) as cap:  # one batch of the 4 images: K1's rows and the gather around it
+        pred.run(batch)
+    if name in ATTN_K1_TIMED:
+        prof = profile_window(lambda: model.predict(imgs, conf=CONF), 1)
+        info.update(device_busy_ms_per_call=prof["device_busy_ms_per_call"],
+                    k1_profiled_ms_per_launch=prof["device_ms_by_category"].get("k1_greedy_nms", 0.0) / len(imgs),
+                    k1_on_batch_rows=captured_k1(ops_nms, nms_cuda, cap, card, smi))
+    else:
+        info["k1_on_batch_rows"] = k1_rows_equal(ops_nms, nms_cuda, cap)
+    mark("k1")
+    info.update(seconds=time.perf_counter() - t0, seconds_by_part=marks)
+    return info
+
+
+def attn_predict(YOLO, nms_cuda, ops_nms, full_f32, card: str, smi: str) -> dict:
+    models = {name: attn_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name, card, smi) for name in ATTN_PREDICT}
+    return {"models": models, "device_ms_per_call": {k: v["device_ms_per_call"] for k, v in models.items()},
+            "card": card, "nvidia_smi": smi}
 
 
 def tta_parity(YOLO, ops_nms, full_f32, model, batch) -> dict:
@@ -3789,6 +3918,20 @@ def main() -> int:
         emit("zoo_train", **zt, seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
+    ap = attn_predict(YOLO, nms_cuda, ops_nms, full_f32, card, smi)
+    emit("attn_zoo_predict", **ap, seconds=time.perf_counter() - t)
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        av = zoo_val(YOLO, nms_cuda, ops_nms, Path(tmp), card, smi, ATTN_VAL, ATTN_VAL_COPIES)
+        emit("attn_zoo_val", **av, seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        emit("attn_zoo_train_parity", **zoo_train_parity(YOLO, load_pickle, Path(tmp), card, smi, ATTN_TRAIN_PARITY),
+             seconds=time.perf_counter() - t)
+        t = time.perf_counter()
+        atr = zoo_train(YOLO, nms_cuda, ops_nms, Path(tmp), card, smi, ATTN_TRAIN)
+        emit("attn_zoo_train", **atr, seconds=time.perf_counter() - t)
+
+    t = time.perf_counter()
     ta = tta(YOLO, yaml_model_load, nms_cuda, ops_nms, full_f32, card, smi)
     emit("tta", **ta, seconds=time.perf_counter() - t)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3822,10 +3965,12 @@ def main() -> int:
                "seg_val": (seg_val, seg_val["k1_on_batch_rows"]),
                "seg_train": (task_train["seg_parity"], task_train["seg_parity"]["k1_on_val_rows"]),
                "pose_train": (task_train["pose_parity"], task_train["pose_parity"]["k1_on_val_rows"])}
+    zoo_paths = (("predict", zp, "k1_on_batch_rows"), ("val", zv, "k1_on_batch_rows"),
+                 ("train_val", zt, "k1_on_val_rows"), ("attn_predict", ap, "k1_on_batch_rows"),
+                 ("attn_val", av, "k1_on_batch_rows"), ("attn_train_val", atr, "k1_on_val_rows"))
     zoo_rows = {f"zoo_{name.replace('-', '_')}_{path}": runs["models"][name][key]
-                for path, runs, key in (("predict", zp, "k1_on_batch_rows"), ("val", zv, "k1_on_batch_rows"),
-                                        ("train_val", zt, "k1_on_val_rows"))
-                for name in runs["models"] if key in runs["models"][name]}
+                for path, runs, key in zoo_paths for name in runs["models"] if key in runs["models"][name]}
+    timed_rows = {k: rows for k, rows in zoo_rows.items() if "ms" in rows}  # the attention zoo's others: untimed
     captured = (vk1, tk1, *(rows for _, rows in task_k1.values()), *zoo_rows.values(), *ta["k1_on_rows"],
                 *vo["k1_on_rect_rows"], at["k1_on_val_rows"], tr["full_width"]["k1_on_frame_rows"],
                 tr["predict_files"]["k1_on_batch_rows"])
@@ -3861,9 +4006,10 @@ def main() -> int:
         **{f"{short}_train_full_width_profiled_ms": task_train[short]["nms_profiled_ms_per_val_batch"]
            for short in ("seg", "pose")},
         **{f"zoo_{name.replace('-', '_')}_{path}_path_{key}": runs["models"][name][src]
-           for path, runs in (("predict", zp), ("val", zv), ("train_val", zt)) for name in runs["models"]
-           for key, src in (("launches", "k1_launches"), ("profiled_ms", "k1_profiled_ms_per_launch"))},
-        **{f"{name}_{key}": rows[key] for name, rows in zoo_rows.items()
+           for path, runs, _ in zoo_paths for name in runs["models"]
+           for key, src in (("launches", "k1_launches"), ("profiled_ms", "k1_profiled_ms_per_launch"))
+           if src in runs["models"][name]},
+        **{f"{name}_{key}": rows[key] for name, rows in timed_rows.items()
            for key in ("B", "K", "ms", "plain_ms", "bound_ms", "bound_by", "scanned_per_row")},
         "tta_predict_path_launches": ta["k1_launches"], "tta_predict_path_profiled_ms": ta["k1_profiled_ms_per_launch"],
         **{f"tta_predict_{key}": [r[key] for r in ta["k1_on_rows"]]

@@ -8,7 +8,8 @@ predict and val and rtdetr-l val (K2 on the val path) against the CPU, K2's
 backward kernel against the plain version's autograd, a narrow RT-DETR
 training epoch through K2 forward and backward, the YOLO11, YOLOv10, v5
 anchor-head, YOLO12, GELAN-DSegment and YOLOv13 (seeded FullPAD gates)
-forwards and predicts on the card against the CPU (v10 without NMS), K1 on
+forwards and predicts on the card against the CPU (v10 without NMS), two
+attention-zoo models' predict at 640 px against the CPU, K1 on
 yolov3-tiny's two-level rows and on the anchor head's 25,200-candidate rows,
 test-time augmentation and a rect val on the card against the CPU, the
 multi_scale resize of an augmented batch (alone and through the trainer's
@@ -726,6 +727,33 @@ def test_v13_forward_and_predict_on_card_match_cpu(card):
     assert nms_cuda.launches == before + len(imgs)
     check_detections(res, imgs)
     info = zoo_parity(YOLO, ops_nms, full_f32, "yolov13n", m, m.predictor.preprocess(imgs))
+    assert info["final_rows_mismatch"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["yolov8s-DAttention", "yolov8s-ShuffleAttention"])
+def test_attention_zoo_predict_on_card_matches_cpu(card, name):
+    """An attention-zoo model at scale s (its zero-initialised parameters
+    seeded, chip_smoke.zoo_yolo) predicts on the card at 640 px through K1,
+    once an image, with 1-300 finite detections inside each image; the same
+    weights on the card and the CPU as chip_smoke.zoo_parity holds them; K1
+    on the captured rows equals its plain version bit for bit."""
+    from ultralytics_pro_tpu_torch.ops import nms as ops_nms
+    from ultralytics_pro_tpu_torch.utils import full_f32
+
+    m = zoo_yolo(YOLO, name, "cuda")
+    imgs = [np.random.default_rng(i).integers(0, 256, (480, 640, 3), dtype=np.uint8) for i in range(2)]
+    before = nms_cuda.launches
+    with capture_k1(ops_nms) as cap:
+        res = m.predict(imgs, conf=1e-6)
+    assert nms_cuda.launches == before + len(imgs)
+    check_detections(res, imgs)
+    boxes, scores = cap["rows"]
+    kw = cap["k1_kwargs"]
+    keep, valid = nms_cuda.greedy_nms(boxes, scores, **kw)
+    rk, rv = nms_cuda.greedy_nms_plain(boxes, scores, kw["max_det"], kw["iou_thres"])
+    assert torch.equal(keep, rk) and torch.equal(valid, rv)
+    info = zoo_parity(YOLO, ops_nms, full_f32, name, m, m.predictor.preprocess(imgs))
     assert info["final_rows_mismatch"] == 0
 
 

@@ -10,7 +10,8 @@ refused as well, they import and `imread` still reads a PNG, equal to cv2's
 reading, and augmented training (the cv2 copies of data/imgproc.py) with
 multi_scale and remat, on a grey and on a 10-band set, goes through, and so
 do tracking (the cv2 copies of data/flow.py), file sources, predict_files,
-embed, the exports and Masks.xy (with pandas refused too). An AST scan of
+embed, the exports and Masks.xy (with pandas refused too), and the 20
+attention modules predict (MHSA's model trains). An AST scan of
 the same files must find no import of the first names.
 """
 
@@ -296,6 +297,36 @@ def test_port_tracks_and_reads_files_with_jax_yaml_cv2_pil_blocked(tmp_path):
                          text=True, cwd=REPO, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert (tmp_path / "out.txt").read_text() and (tmp_path / "m.ckpt").is_file()
+
+
+def test_port_serves_the_attention_zoo_with_jax_yaml_cv2_pil_blocked(tmp_path):
+    """Each of the 20 attention modules predicts at 64 px in the blocking
+    process, with PIL refused too (in yolov5n and yolov8n by turns), and a
+    yolov8n with MHSA trains an epoch (rebuilt at the train size) and loads
+    what it wrote."""
+    import shutil
+
+    data = shutil.copytree(REPO / "tests" / "fixtures" / "torch_val_synth", tmp_path / "set")
+    (data / "train.yaml").write_text("train: images/val\nval: images/val\nnames:\n  0: a\n  1: b\n  2: c\n")
+    then = ("import numpy as np, torch\n"
+            "torch.set_num_threads(2)\n"
+            "from ultralytics_pro_tpu_torch import YOLO\n"
+            "from ultralytics_pro_tpu_torch.nn.tasks import ATTENTION\n"
+            "img = np.zeros((48, 64, 3), np.uint8)\n"
+            "names = sorted(ATTENTION)\n"
+            "assert len(names) == 20\n"
+            "for i, name in enumerate(names):\n"
+            "    m = YOLO(f'yolov{5 + 3 * (i % 2)}n-{name}.yaml', device='cpu')\n"
+            "    r = m.predict([img], imgsz=64, conf=1e-6)[0]\n"
+            "    assert r.boxes.data.shape[1] == 6\n"
+            "m = YOLO('yolov8n-MHSA.yaml', device='cpu')\n"
+            f"m.train(data={str(data / 'train.yaml')!r}, epochs=1, imgsz=32, batch=8, nbs=8, workers=2, "
+            f"max_gt=16, warmup_epochs=0.0, conf=1e-6, project={str(tmp_path / 'runs')!r})\n"
+            "assert m.trainer.last_fitness is not None and m.model.imgsz == 32\n"
+            "YOLO(str(m.trainer.wdir / 'last.ckpt'), device='cpu')")
+    out = subprocess.run([sys.executable, "-c", _blocker(BLOCKED + ("PIL",), then)], capture_output=True,
+                         text=True, cwd=REPO, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
 
 
 def test_no_blocked_import_in_sources():

@@ -32,6 +32,16 @@ copy of cv2's INTER_LINEAR, then the model's embed mode), `predict_files`
 read). Sources may be image files, folders, globs and lists of paths
 (`data/loaders.py`).
 
+A model with an MHSA layer holds parameters sized by its map (its
+`model.imgsz`, 640 unless the model was built otherwise). The JAX facade
+initialises a model's variables at its first call's imgsz, and a later call
+at another size fails on their shape. So here a model that is still as
+built (seeded, never run or loaded) is rebuilt, from its seed, at the first
+predict, val, train or embed call's imgsz (`_bind_size`); later calls at
+another size raise (`MHSA.forward`), as the JAX package's do; TTA's
+shrunk passes and rect val's batch shapes are such sizes. A checkpoint's
+model is bound to its `train_args` imgsz.
+
 A detection dataset's `channels` (`:155-160`, `:183-190`): 1 is read as
 grey repeated to 3 channels, so the model stays; any count but the
 model's rebuilds it with that many input channels (seeded weights, as
@@ -64,14 +74,26 @@ class Model:
         self.trainer = None
         self.ckpt = None
         self.overrides = {}
+        self._fresh = False  # as built from a YAML: not yet run, loaded or trained (`_bind_size`)
         if str(model).endswith((".ckpt", ".pkl")):
             self._load(str(model), task)
         else:
             self._new(model, task, verbose)
 
-    def _build(self, cfg: dict, nc: Optional[int] = None, verbose: bool = False, ch: int = 3):
+    def _build(self, cfg: dict, nc: Optional[int] = None, verbose: bool = False, ch: int = 3,
+               imgsz: Optional[int] = None):
         gen = torch.Generator().manual_seed(self.seed)
-        return model_class_for(self.task)(cfg, ch=ch, nc=nc, verbose=verbose, generator=gen).to(self.device).eval()
+        if imgsz is None:
+            imgsz = getattr(getattr(self, "model", None), "imgsz", None) or 640
+        return model_class_for(self.task)(cfg, ch=ch, nc=nc, verbose=verbose, generator=gen,
+                                          imgsz=imgsz).to(self.device).eval()
+
+    def _bind_size(self, imgsz: int) -> None:
+        """Rebuild a model that is still as built at imgsz where its MHSA
+        layers are bound to another size; the model is no longer as built."""
+        if self._fresh and self.model.imgsz not in (None, imgsz):
+            self.model = self._build(copy.deepcopy(self.model.yaml), nc=self.model.nc, ch=self.model.ch, imgsz=imgsz)
+        self._fresh = False
 
     def _restem(self, d: dict, nc: Optional[int] = None) -> bool:
         """Rebuild the model at the dataset's channel count (1 counts as 3)
@@ -87,6 +109,7 @@ class Model:
         d = cfg if isinstance(cfg, dict) else yaml_model_load(cfg)
         self.task = task or guess_model_task(d)
         self.model = self._build(d, verbose=verbose)
+        self._fresh = True
 
     def _load(self, weights: str, task: Optional[str] = None):
         """A checkpoint of either package: the model from its `model_yaml`, its
@@ -100,7 +123,7 @@ class Model:
             raise ValueError(f"checkpoint {weights} carries no model yaml")
         self.ckpt = ckpt
         self.task = task or guess_model_task(d)
-        self.model = self._build(d)
+        self.model = self._build(d, imgsz=int((ckpt.get("train_args") or {}).get("imgsz") or 640))
         self.load_state_dict(jax_to_torch_state_dict({"params": ckpt.get("ema") or ckpt["params"],
                                                       "batch_stats": ckpt["batch_stats"]}))
         self.overrides = dict(ckpt.get("train_args") or {})
@@ -111,6 +134,7 @@ class Model:
         """The defaults, then the checkpoint's overrides, then the caller's arguments."""
         args = {**DEFAULT_CFG_DICT, **self.overrides, **kwargs}
         args.pop("mode", None)
+        self._bind_size(int(args["imgsz"]))
         return args
 
     def predict(self, source=None, stream: bool = False, **kwargs):
@@ -119,6 +143,7 @@ class Model:
     def load_state_dict(self, state_dict: Mapping, strict: bool = True):
         """Load weights under the torch reference's names (`model.0.conv.weight`,
         ...), as numpy arrays or tensors, onto the model's device."""
+        self._fresh = False
         return self.model.load_state_dict({k: torch.as_tensor(v) for k, v in state_dict.items()},
                                           strict=strict)
 
@@ -298,6 +323,7 @@ class Model:
         from ultralytics_pro_tpu_torch.data.imgproc import resize_linear
         from ultralytics_pro_tpu_torch.engine.predictor import rgb01
 
+        self._bind_size(imgsz)
         imgs = source if isinstance(source, (list, tuple)) else [source]
         batch = np.stack([resize_linear(im if isinstance(im, np.ndarray) else imread(im), (imgsz, imgsz))
                           for im in imgs])

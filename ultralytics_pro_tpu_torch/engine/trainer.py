@@ -71,13 +71,17 @@ MULTI_SCALE_FACTORS = (0.5, 0.667, 0.833, 1.0, 1.167, 1.333, 1.5)
 
 
 def param_group(module: nn.Module, leaf: str) -> int:
-    """0: conv, linear and attention weights and embeddings (decayed), 1:
-    BatchNorm and LayerNorm weights, 2: biases (attention's `in_proj_bias`
-    among them), as the JAX package groups flax's `kernel` (and bare params
-    such as `denoising_class_embed`), `scale` and `bias` leaves."""
-    if leaf.endswith("bias"):
+    """The JAX trainer's group of the flax leaf a parameter is carried to,
+    by that leaf's name: `bias` 2 (attention's `in_proj_bias` among them),
+    `scale` 1 (BatchNorm, LayerNorm and GroupNorm weights, and
+    FocusedLinearAttention's bare `scale`), anything else 0 (decayed:
+    kernels, embeddings, and bare params such as ShuffleAttention's `cbias`
+    and `sbias`, whose names only end in "bias")."""
+    if leaf in ("bias", "in_proj_bias"):
         return 2
-    return 1 if isinstance(module, (nn.BatchNorm2d, nn.LayerNorm)) else 0
+    if leaf == "scale" or leaf == "weight" and isinstance(module, (nn.BatchNorm2d, nn.LayerNorm, nn.GroupNorm)):
+        return 1
+    return 0
 
 
 class EarlyStopping:

@@ -2,7 +2,8 @@
 
 Counterpart of `ultralytics_pro_tpu/nn/modules/conv.py` (`autopad:39`,
 `Conv:86`, `DWConv:131`, `LightConv:254`, `Concat:305`, `Upsample:328`,
-`RepConv:383`, and the model-wide `activation:` override at `:102-128`).
+`RepConv:383`, `ChannelAttention:266`, `SpatialAttention:277`, `CBAM:293`,
+and the model-wide `activation:` override at `:102-128`).
 BatchNorm uses eps 1e-3 and momentum 0.03 (`:27-28`), and in train mode
 updates its running statistics as flax's `nn.BatchNorm` does (`:73-80`):
 see `BatchNorm2d`. "gelu" is the tanh form, as `jax.nn.gelu` computes it by
@@ -160,3 +161,37 @@ class Concat(nn.Module):
 
     def forward(self, xs):
         return torch.cat(xs, self.d)
+
+
+class ChannelAttention(nn.Module):
+    """x times the sigmoid of a biased 1x1 conv (`fc`) of its spatial mean."""
+
+    def __init__(self, c1: int):
+        super().__init__()
+        self.fc = nn.Conv2d(c1, c1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * torch.sigmoid(self.fc(x.mean((2, 3), keepdim=True)))
+
+
+class SpatialAttention(nn.Module):
+    """x times the sigmoid of a k x k conv (`cv1`, no bias) of its channel mean and max."""
+
+    def __init__(self, k: int = 7):
+        super().__init__()
+        self.cv1 = nn.Conv2d(2, 1, k, padding=k // 2, bias=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * torch.sigmoid(self.cv1(torch.cat([x.mean(1, keepdim=True), x.amax(1, keepdim=True)], 1)))
+
+
+class CBAM(nn.Module):
+    """ChannelAttention then SpatialAttention; the output has the input's channels."""
+
+    def __init__(self, c1: int, k: int = 7):
+        super().__init__()
+        self.channel_attention = ChannelAttention(c1)
+        self.spatial_attention = SpatialAttention(k)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.spatial_attention(self.channel_attention(x))

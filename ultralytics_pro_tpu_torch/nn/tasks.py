@@ -16,7 +16,11 @@ YAMLs (Bottleneck `:228`, SPP `:255`, torch's own nn.ConvTranspose2d with its
 bias `:274-277`, RepNCSPELAN4, ADown and SPPELAN `:338-345`, A2C2f `:127`,
 DDetect and DSegment `:459-460`, AnchorDetect `:185`), and that of the
 YOLOv13 YAML (DSConv `:317`, DSC3k2, HyperACE, DownsampleConv and
-FullPAD_Tunnel `:399-413`; its Conv rows with a padding and a group). As in
+FullPAD_Tunnel `:399-413`; its Conv rows with a padding and a group), and
+the attention modules of the v5/v8 attention YAMLs (CBAM `:266`, MHSA to
+EMA `:286-322`, LSKA, CPCA and FocusedLinearAttention `:580-583`,
+BiLevelRoutingAttention `:708-709`; `ATTENTION`), each with its input's
+channels out, its YAML arguments read as the JAX builders read them. As in
 the JAX parse_model, a YAML with C3k2, C2fCIB, A2C2f, HyperACE or v10Detect
 in any row builds
 its detect head with legacy=False (the pre-scan `:1152-1155`), and the
@@ -42,12 +46,20 @@ and a box tower for each of P3-P5, so its strides repeat: 8, 8, 16, 16, 32, 32.
 Models are nn.Modules in NCHW whose parameter names are the reference's
 (`model.N.cv1.conv.weight`). Weights are initialised from an explicit
 `torch.Generator`, so a seed fixes them.
+
+An MHSA layer's `rel_h` and `rel_w` take the size of its map at the image
+size `imgsz` the model is built for (640 unless given), as the JAX model's
+`init_params(imgsz=...)` sizes them (`:1421`): the stride probe records the
+map it sees at 256 px, and the layer is bound to ceil(imgsz x that / 256).
+The model then runs at that image size only (an MHSA raises at another, as
+flax does); `BaseModel.imgsz` is None for a model without such a layer.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+from functools import partial
 from pathlib import Path
 from typing import Optional
 
@@ -70,7 +82,9 @@ from ultralytics_pro_tpu_torch.nn.modules.block import (
     RepC3,
     SCDown,
 )
-from ultralytics_pro_tpu_torch.nn.modules.conv import Concat, Conv, DWConv, recomputing
+from ultralytics_pro_tpu_torch.nn.modules import attention as A
+from ultralytics_pro_tpu_torch.nn.modules.conv import CBAM, Concat, Conv, DWConv, recomputing
+from ultralytics_pro_tpu_torch.nn.modules.families import BiLevelRoutingAttention
 from ultralytics_pro_tpu_torch.nn.modules.head import (
     OBB,
     V5_ANCHORS,
@@ -106,8 +120,42 @@ HEADS = {"Detect": Detect, "Segment": Segment, "OBB": OBB, "Pose": Pose, "v10Det
          "DDetect": DDetect, "DSegment": DSegment, "AnchorDetect": AnchorDetect}
 POOLS = {"nn.MaxPool2d": nn.MaxPool2d, "nn.ZeroPad2d": nn.ZeroPad2d}  # torch's own, args as the YAML gives them
 NON_LEGACY = {"C3k2", "C2fCIB", "A2C2f", "HyperACE", "v10Detect"}  # any of these in a YAML: the light class branch
+
+
+def _a(args, i: int, default=None):
+    return args[i] if len(args) > i else default
+
+
+# module name -> fn(c1, args, scale) -> a module with c1 channels out (GAMAttention's
+# c2, scaled, where given); `scale` width-scales a channel count. The arguments are
+# read as the JAX builders read them: CBAM [c2, k], CoordAtt [c2, reduction],
+# MHSA [heads], TripletAttention [no_spatial] (the YAMLs' 1024 is True),
+# BiLevelRoutingAttention [num_heads, topk], FocusedLinearAttention [.., .., num_heads].
+ATTENTION = {
+    "CBAM": lambda c1, a, sc: CBAM(c1, _a(a, 1, 7)),
+    "MHSA": lambda c1, a, sc: A.MHSA(c1, _a(a, 0, 4)),
+    "CoordAtt": lambda c1, a, sc: A.CoordAtt(c1, _a(a, 1, 32)),
+    "SEAttention": lambda c1, a, sc: A.SEAttention(c1, _a(a, 1, 16)),
+    "ECAAttention": lambda c1, a, sc: A.ECAAttention(_a(a, 1, 3)),
+    "SimAM": lambda c1, a, sc: A.SimAM(),
+    "GAMAttention": lambda c1, a, sc: A.GAMAttention(c1, sc(a[0]) if a else 0, bool(_a(a, 1, True)),
+                                                     _a(a, 2, 4)),
+    "CrissCrossAttention": lambda c1, a, sc: A.CrissCrossAttention(c1),
+    "SKAttention": lambda c1, a, sc: A.SKAttention(c1, reduction=_a(a, 1, 16)),
+    "TripletAttention": lambda c1, a, sc: A.TripletAttention(_a(a, 0, False)),
+    "ShuffleAttention": lambda c1, a, sc: A.ShuffleAttention(c1, _a(a, 1, 8)),
+    "LSKblock": lambda c1, a, sc: A.LSKblock(c1),
+    "EffectiveSE": lambda c1, a, sc: A.EffectiveSE(c1),
+    "SegNext_Attention": lambda c1, a, sc: A.SegNext_Attention(c1),
+    "DAttention": lambda c1, a, sc: A.DAttention(c1),
+    "EMA": lambda c1, a, sc: A.EMA(c1, _a(a, 1, 8)),
+    "LSKA": lambda c1, a, sc: A.LSKA(c1, _a(a, 1, 11)),
+    "CPCA": lambda c1, a, sc: A.CPCA(c1),
+    "FocusedLinearAttention": lambda c1, a, sc: A.FocusedLinearAttention(c1, _a(a, 2, 8)),
+    "BiLevelRoutingAttention": lambda c1, a, sc: BiLevelRoutingAttention(c1, _a(a, 0, 8), topk=_a(a, 1, 4)),
+}
 MODULES = (*SCALED, *ELAN, *POOLS, "HGStem", "HGBlock", "AIFI", "nn.Upsample", "Concat", "HyperACE",
-           "DownsampleConv", "FullPAD_Tunnel", *HEADS, "Classify", "RTDETRDecoder")
+           "DownsampleConv", "FullPAD_Tunnel", *ATTENTION, *HEADS, "Classify", "RTDETRDecoder")
 
 
 def make_divisible(x, divisor: int = 8) -> int:
@@ -130,6 +178,10 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
     else:
         depth, width, max_channels = d.get("depth_multiple", 1.0), d.get("width_multiple", 1.0), float("inf")
     nc = d.get("nc", 80)
+
+    def sc(c):  # a width-scaled channel count
+        return make_divisible(min(c, max_channels) * width, 8)
+
     act = d.get("activation")
     if act:
         Conv.default_act = act
@@ -195,6 +247,9 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
                 c2, m, args = c1 * 2 if adjust else c1, DownsampleConv, [c1, adjust]
             elif m_name == "FullPAD_Tunnel":
                 c2, m, args = chs[f[0]], FullPAD_Tunnel, []
+            elif m_name in ATTENTION:
+                c2 = sc(args[0]) if m_name == "GAMAttention" and args and args[0] else c1
+                m, args = partial(ATTENTION[m_name], c1, args, sc), []
             elif m_name in HEADS:
                 c2, m = None, HEADS[m_name]
                 extra = []
@@ -300,19 +355,24 @@ def _lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation, as flax initialises the JAX modules: conv and
     dense kernels (attention projections too) lecun-normal, their biases
-    zero, BatchNorm and LayerNorm at identity, embeddings normal(1.0),
+    zero, BatchNorm, LayerNorm and GroupNorm at identity, embeddings and
+    MHSA's `rel_h`, `rel_w` normal(1.0),
     AdaHGComputation's prototypes xavier-uniform (FullPAD_Tunnel's gates stay
     0); then MSDeformAttn's own offset and attention init."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) and m.weight.requires_grad:
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) and m.weight.requires_grad:
             _lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
         elif isinstance(m, MultiheadAttention):
             _lecun_normal_(m.in_proj_weight, generator)
             nn.init.zeros_(m.in_proj_bias)
-        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm, nn.GroupNorm)):
             m.reset_parameters()
+        elif isinstance(m, A.MHSA) and m.rel_h is not None:
+            with torch.no_grad():
+                for p in (m.rel_h, m.rel_w):
+                    p.copy_(torch.empty(p.shape).normal_(generator=generator))
         elif isinstance(m, nn.Embedding):
             with torch.no_grad():
                 m.weight.copy_(torch.empty(m.weight.shape).normal_(generator=generator))
@@ -334,7 +394,7 @@ class BaseModel(nn.Module):
     remat = False  # train mode with gradients: every layer before the head under torch.utils.checkpoint
 
     def __init__(self, cfg="yolov8n.yaml", ch: int = 3, nc: Optional[int] = None,
-                 verbose: bool = False, generator: Optional[torch.Generator] = None):
+                 verbose: bool = False, generator: Optional[torch.Generator] = None, imgsz: int = 640):
         super().__init__()
         self.ch = ch
         self.yaml = dict(cfg) if isinstance(cfg, dict) else yaml_model_load(cfg)
@@ -345,23 +405,41 @@ class BaseModel(nn.Module):
         self.names = {i: f"class{i}" for i in range(self.nc)}
         self.eval()
         self.stride = torch.tensor([32.0])
+        bound = [m for m in self.modules() if isinstance(m, A.MHSA) and m.pos_emb]
+        self.imgsz = imgsz if bound else None
         head = self.model[-1]
-        if isinstance(head, (Detect, AnchorDetect, RTDETRDecoder)):
-            head.stride = self._infer_strides(ch)
-            self.stride = head.stride
+        if isinstance(head, (Detect, AnchorDetect, RTDETRDecoder)) or bound:
+            strides = self._probe(ch, bound, imgsz)
+            if isinstance(head, (Detect, AnchorDetect, RTDETRDecoder)):
+                head.stride = self.stride = strides
         init_weights(self, generator if generator is not None else torch.Generator().manual_seed(0))
         if isinstance(head, Detect):
             head.bias_init()
 
-    def _infer_strides(self, ch: int) -> torch.Tensor:
+    def _probe(self, ch: int, bound=(), imgsz: int = 640) -> torch.Tensor:
         """Strides from the head's input map sizes on a 256 px dry run (the
-        detection inputs of a DSegment head: its last is the prototypes' source)."""
+        detection inputs of a DSegment head: its last is the prototypes'
+        source); each MHSA of `bound` is bound to the map it sees there, then
+        to ceil(imgsz / 256 x that)."""
         s = 256
-        with torch.no_grad():
-            feats = self._run(torch.zeros(1, ch, s, s), stop_at_head=True)
+        seen = {}
+
+        def bind(m, inputs):
+            seen[m] = inputs[0].shape[-2:]
+            m.bind(*seen[m])
+
+        hooks = [m.register_forward_pre_hook(bind) for m in bound]
+        try:
+            with torch.no_grad():
+                feats = self._run(torch.zeros(1, ch, s, s), stop_at_head=True)
+        finally:
+            for h in hooks:
+                h.remove()
+        for m, (h, w) in seen.items():
+            m.bind(math.ceil(imgsz * h / s), math.ceil(imgsz * w / s))
         if isinstance(self.model[-1], DSegment):
             feats = feats[:-1]
-        return torch.tensor([s / x.shape[-2] for x in feats])
+        return torch.tensor([s / x.shape[-2] for x in feats]) if isinstance(feats, (list, tuple)) else self.stride
 
     def _run(self, x, stop_at_head: bool = False, decode: bool = True, aux: bool = True, dn=None,
              embed: bool = False):

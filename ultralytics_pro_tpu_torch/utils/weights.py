@@ -31,7 +31,13 @@ reference's `cv2.0`, `cv2.1`, `cv3.0` and `cv3.1` (`ELAN_NAMES`), which a
 Detect head's `cv2.0.0` does not match: there a digit follows. A2C2f's
 `gamma`, FullPAD_Tunnel's 0-d `gate` and AdaHGComputation's
 `prototype_base` are bare parameters under their own names (`PARAM_LEAVES`),
-carried as they are. The YOLOv13 blocks' other names take the generic rule
+carried as they are; so are the attention modules' `rel_h`, `rel_w` (MHSA),
+`cweight`, `cbias`, `sweight`, `sbias` (ShuffleAttention), `pos` and `scale`
+(FocusedLinearAttention) and CrissCrossAttention's `gamma`.
+FocusedLinearAttention's `scale` is a bare (1, 1, C) parameter, where every
+other flax `scale` is a norm's 1-D weight: a `scale` leaf of one dimension
+is a norm's `weight`, any other keeps its name both ways. ECAAttention's
+1-D conv kernel, flax (k, in, out), is a Conv1d's (out, in, k). The YOLOv13 blocks' other names take the generic rule
 (`dwconv`, `pwconv`, `m_0` -> `m.0`, `fuse_conv`, `branch1`, `channel_adjust`,
 the AdaHGComputation's dense layers `context_net`, `pre_head_proj`,
 `edge_proj`, `node_proj`).
@@ -66,8 +72,10 @@ HEAD_NAMES = (
 )
 BARE_PARAMS = ("denoising_class_embed",)  # flax `self.param` leaves: a module's one `weight`
 # flax `self.param` leaves kept under their name: A2C2f's `model.N.gamma`,
-# FullPAD_Tunnel's 0-d `model.N.gate`, AdaHGComputation's `prototype_base` (ne, C)
-PARAM_LEAVES = ("gamma", "gate", "prototype_base")
+# FullPAD_Tunnel's 0-d `model.N.gate`, AdaHGComputation's `prototype_base` (ne, C),
+# and the attention modules' (nn/modules/attention.py); so is a `scale` of more
+# than one dimension (FocusedLinearAttention's)
+PARAM_LEAVES = ("gamma", "gate", "prototype_base", "rel_h", "rel_w", "cweight", "cbias", "sweight", "sbias", "pos")
 # RepNCSPELAN4's children (flax name, torch name); torch -> flax only where a
 # non-digit token follows, so that a Detect head's `cv2.0.0` keeps its name
 ELAN_NAMES = (("cv2_csp", "cv2.0"), ("cv2_conv", "cv2.1"), ("cv3_csp", "cv3.0"), ("cv3_conv", "cv3.1"))
@@ -168,8 +176,8 @@ def _to_torch_array(w: np.ndarray, leaf: str, attention_part: str = "") -> np.nd
         return w.reshape(-1)  # bias (nh, hd) -> rows of in_proj_bias
     if leaf == "kernel" and w.ndim == 4:
         return w.transpose(3, 2, 0, 1)  # HWIO -> OIHW; a transposed conv's (kh, kw, out, in) -> (in, out, kh, kw)
-    if leaf == "kernel" and w.ndim == 2:
-        return w.transpose(1, 0)
+    if leaf == "kernel" and w.ndim in (2, 3):
+        return w.transpose(*range(w.ndim - 1, -1, -1))  # dense (in, out); a 1-D conv's (k, in, out)
     return w
 
 
@@ -193,7 +201,7 @@ def jax_to_torch_state_dict(variables: dict, reg_max: int = 16) -> Dict[str, tor
             if coll == "params" and leaf in BARE_PARAMS:
                 sd[f"{_flax_path_to_torch((*mods, leaf))}.weight"] = torch.from_numpy(arr.copy())
                 continue
-            if coll == "params" and leaf in PARAM_LEAVES:
+            if coll == "params" and (leaf in PARAM_LEAVES or leaf == "scale" and arr.ndim != 1):
                 sd[".".join(filter(None, (_flax_path_to_torch(mods), leaf)))] = torch.from_numpy(arr.copy())
                 continue
             if leaf not in leaf_names[coll]:
@@ -250,8 +258,8 @@ def torch_state_dict_to_jax(state_dict: Dict[str, torch.Tensor], num_heads: int 
             w = w.T.reshape(num_heads, -1, w.shape[0])  # (C, nh*hd) -> (nh, hd, C)
         elif fleaf == "kernel" and w.ndim == 4:
             w = w.transpose(2, 3, 1, 0)  # OIHW -> HWIO
-        elif fleaf == "kernel" and w.ndim == 2:
-            w = w.transpose(1, 0)
+        elif fleaf == "kernel" and w.ndim in (2, 3):
+            w = w.transpose(*range(w.ndim - 1, -1, -1))
         _put(out[coll], path, fleaf, w)
     return out
 
