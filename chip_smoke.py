@@ -63,7 +63,7 @@ exits non-zero):
           beside val_parity_ref.json's, and the differences; fails if the
           card's mAP50 or mAP50-95 is more than 0.005 from the reference's
   val     detect val at full size: yolov8s, 80 classes, seeded weights, 640
-          px, on the fixture images copied VAL_COPIES = 4 times (64 images, 16 a batch,
+          px, on the fixture images copied VAL_COPIES = 2 times (32 images, 16 a batch,
           grown by the bilinear branch), conf 1e-6 so every row of K1 holds
           K = 30000 candidates; images/s of the whole val() call, the
           validator's per-stage ms per image, K1's launches read around the
@@ -113,7 +113,7 @@ exits non-zero):
   seg_train, pose_train, obb_train  phase train for the other tasks:
           yolov8s-seg (80 classes) and yolov8s-pose (rebuilt at the set's nc
           3 and [5, 3]) at 640, yolov8s-obb (nc 15) at 1024, batch 16, the
-          JAX defaults, 2 epochs on 64 images of the task's set with val:
+          JAX defaults, 2 epochs on 32 images of the task's set with val:
           the same numbers as train (the criterion alone is the task's, its
           device ms by category too), K1's launches in the vals or the
           rotated NMS's calls, and the NMS's device ms a val batch
@@ -139,7 +139,7 @@ exits non-zero):
           bit against its plain version, timed, with its bound, and the NMS
           outputs, the `extra` payload among them, equal to the plain path's
   seg_val yolov8s-seg val at 640, 80 classes, seeded weights, the segment set
-          copied 4 times (64 images, batch 16), conf 1e-6: multi-label K1 at
+          copied 2 times (32 images, batch 16), conf 1e-6: multi-label K1 at
           K = 30000 with the 32-wide payload; images/s, idle share, `_topk`'s
           sort and K1 from one profiled call, and K1 on one batch's captured
           rows (bit for bit, timed, bound) with the payload's gather equal to
@@ -163,15 +163,15 @@ exits non-zero):
           against CPU on one image: decoded outputs within OBB_PARITY_TOL,
           and the rotated NMS on the CPU's outputs keeping the same
           candidates on both devices (rboxes, scores, cls, valid equal)
-  obb_val yolov8s-obb val at 1024 on the OBB set copied 4 times (64 images,
+  obb_val yolov8s-obb val at 1024 on the OBB set copied 2 times (32 images,
           batch 16, conf 1e-6): images/s, idle share and launches from one
           profiled call, the rotated NMS's device ms a batch there, and on
           one batch's decoded outputs alone its device ms, launches and peak
           memory
   rtdetr_val  RTDETR("rtdetr-l.yaml").val at 640, seeded weights, 80
-          classes, on the detect fixture images copied 4 times (64 images,
+          classes, on the detect fixture images copied 2 times (32 images,
           batch 16, conf 0.001): images/s, K2's launches read around the call
-          (24, 6 a batch), the idle share, the device ms a batch by kernel
+          (12, 6 a batch), the idle share, the device ms a batch by kernel
           class and K2's ms a launch from one profiled call; K2 on one val
           batch's captured inputs against its plain version, timed, with its
           bound and embedding_bag's time on the same corner rows; card
@@ -188,7 +188,7 @@ exits non-zero):
           worst leaf's), and the card's own top-k indices and matched
           queries that differ from the CPU's, reported with their gaps
   rtdetr_train  RTDETR("rtdetr-l.yaml").train at 640, 80 classes, batch 16,
-          the JAX defaults, 2 epochs on the fixture images 8 times over (no
+          the JAX defaults, 2 epochs on the fixture images 2 times over (no
           epoch-end val, as the JAX RT-DETR trainer): K2's forward and
           backward launches read around the run (6 + 6 a micro-batch), the
           matcher's host ms a step, train images/s in epoch 2, device ms a
@@ -206,13 +206,13 @@ exits non-zero):
           through YOLO(...).val on tests/fixtures/torch_cls_synth at 64 px,
           batch 16, on the card and on the CPU: top1 and top5 equal to each
           other and to val_parity_cls_ref.json's
-  cls_val yolov8s-cls val at 224 on the fixture's val images 4 times over
-          (64 images, batch 16): images/s, idle share
+  cls_val yolov8s-cls val at 224 on the fixture's val images 2 times over
+          (32 images, batch 16): images/s, idle share
   cls_train_parity  one optimizer step of the fixture yolov8n-cls on 8
           images at 64 px, batch 8, nbs 8, with the epoch-end val, on the card
           and on the CPU, within TRAIN_PARITY_TOL and the same fitness
   cls_train  yolov8s-cls at 224 rebuilt at nc 3, batch 16, the JAX defaults,
-          2 epochs on 64 images: the numbers of phase train (images/s, device
+          2 epochs on 32 images: the numbers of phase train (images/s, device
           ms a micro-batch, idle share, the criterion's ms and launches, the
           FLOP share)
   zoo_predict  YOLO("yolo11s.yaml"), "yolov10s.yaml", "yolov5s.yaml" and
@@ -234,8 +234,8 @@ exits non-zero):
           images' captured rows bit for bit against its plain version, timed,
           with its bound
   zoo_val yolo11s, yolov10s, yolov5-anchor, yolov9c, gelan-c-dseg (on
-          the segment set) and yolov13s val at 640 on ZOO_COPIES x 16 = 32
-          images (batch 16, conf 1e-6): images/s, K1's launches (2, none and no NMS for
+          the segment set) and yolov13s val at 640 on ZOO_COPIES x 16 = 16
+          images (batch 16, conf 1e-6): images/s, K1's launches (1, none and no NMS for
           yolov10s), idle share and K1's ms a launch from one profiled call,
           K1 on each first batch of rows (K = 30000); card against CPU on the
           first ZOO_PARITY_IMAGES = 8 images, every mAP within ZOO_VAL_TOL
@@ -245,8 +245,8 @@ exits non-zero):
           batch 8, nbs 8, on the card and on the CPU, within ZOO_TRAIN_PARITY_TOL
           (gelan-c-dseg in float64 on both: ZOO_TRAIN_PARITY_DTYPE)
   zoo_train  yolo11s, yolov10s, yolov5-anchor, gelan-c-dseg (segment) and
-          yolov13s as phase train: 640 px, batch 16, 2 epochs on 32 images
-          with the epoch-end val (K1 4 launches, none for yolov10s), train images/s
+          yolov13s as phase train: 640 px, batch 16, 2 epochs on 16 images
+          with the epoch-end val (K1 2 launches, none for yolov10s), train images/s
           in epoch 2, device ms a micro-batch, the idle share, the
           criterion's device ms and launches, K1's ms a launch from one more
           profiled val, and K1 on the rows of another val bit for bit
@@ -270,6 +270,23 @@ exits non-zero):
   attn_zoo_train_parity  one step of yolov8n with DAttention at 160 px and
           with BiLevelRoutingAttention at 256 px as zoo_train_parity
   attn_zoo_train  yolov8s with BiLevelRoutingAttention as zoo_train
+  csp_zoo_predict  RTMDet (rtmdet-s, -s-seg, -s-pose), YOLOv7 (yolov7 with
+          IDetect, yolov7-anchor with the implicit anchor head and K =
+          25,200, yolov7-seg with ISegment, yolov7-pose with IPose),
+          yolov4-csp, yolov4-csp-seg and yolor-csp (CSP_PREDICT) at their
+          full widths at 640 px, as attn_zoo_predict: K1 once an image, bit
+          for bit on each batch's rows (timed, with the bound and a profiled
+          predict, for CSP_K1_TIMED), card against CPU
+  csp_zoo_obb_predict  yolov7-obb (IOBB) at 1024 px: no K1 launch, the
+          rotated NMS once an image, card against CPU within
+          ZOO_PARITY_TOL's bounds (obb_parity)
+  csp_zoo_val  yolov7, yolov7-anchor, yolov7-seg and rtmdet-s as zoo_val
+          on the fixture's 16 images (one K1 launch), card against CPU on
+          the first CSP_VAL_PARITY_IMAGES = 4
+  csp_zoo_train_parity  one step of rtmdet-t, yolov7, yolov7-anchor
+          (v5AnchorLoss), yolov4-csp and yolor-csp (both in float64) at 160
+          px as zoo_train_parity
+  csp_zoo_train  yolov7 as zoo_train on CSP_TRAIN_COPIES x 16 = 64 images
   tta     yolov8s (seeded) predict(augment=True) on the 4 images at 640 px,
           conf 1e-6: K1 once an image over the three passes' candidates
           (K = 15,049 at a 640 x 640 letterbox), every image's rows bit for bit
@@ -293,15 +310,15 @@ exits non-zero):
           the card and on the CPU within TRAIN_PARITY_TOL; the multi_scale
           resize of that batch at each rung of the 160 px ladder, card
           against CPU, within MULTI_SCALE_TOL grey levels
-  aug_train  yolov8s at 640, batch 16, 2 epochs on 64 images with
+  aug_train  yolov8s at 640, batch 16, 2 epochs on 32 images with
           augment=True at the default gains and close_mosaic=1 (epoch 2
           without Mosaic: the loader's reset): train images/s in each
           epoch, the loader's host ms a batch with Mosaic on and off
           (8 threads, no model, half the set), the device's busy ms a micro-batch and the
-          idle share of each epoch, K1 8 launches in the epoch-end vals,
+          idle share of each epoch, K1 4 launches in the epoch-end vals,
           K1's ms a launch from one more profiled val, and its rows of
           another val bit for bit against the plain version
-  aug_cls_train  yolov8s-cls at 224, batch 16, 2 epochs on 64 images with
+  aug_cls_train  yolov8s-cls at 224, batch 16, 2 epochs on 32 images with
           augment=True (RandomResizedCrop, flip, RandAugment, erasing 0.4):
           images/s in each epoch and the loader's host ms a batch
   remat   one yolov8s micro-batch at 640, batch 16, with its optimizer step,
@@ -383,16 +400,16 @@ NMS_JITTER = 0.02  # std of a copy's centre and log size, relative to its object
 CONF = 1e-6  # random-init class logits sit near log(5/nc/(640/s)^2), i.e. scores ~1e-5
 MIN_CANDIDATES = 1000
 IMAGE_SHAPES = ((480, 640), (720, 1280), (640, 640), (333, 500))
-PREDICT_CALLS = 15  # timed warm predict calls of the 4 images, one at a time (the *_CALLS: PERF.md section 6)
-PROFILED_CALLS = 4  # predict calls traced by torch.profiler for the device's busy time
-RTDETR_CALLS = 8  # the same for RT-DETR
-RTDETR_PROFILED_CALLS = 2
+PREDICT_CALLS = 8  # timed warm predict calls of the 4 images, one at a time (the *_CALLS: PERF.md section 6)
+PROFILED_CALLS = 2  # predict calls traced by torch.profiler for the device's busy time
+RTDETR_CALLS = 4  # the same for RT-DETR
+RTDETR_PROFILED_CALLS = 1
 RTDETR_LEVELS = ((80, 80), (40, 40), (20, 20))  # rtdetr-l's P3-P5 at 640 px: V = 8400 value rows
 PARITY_TOL = 1e-3  # card vs CPU, rtdetr-l encoder scores and final outputs
 FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures"
 VAL_FIXTURE_TOL = 0.005  # card vs val_parity_ref.json, the tolerance of tests/test_val_parity.py
-VAL_COPIES = 4  # the val phase's data: the fixture's 16 images 4 times over (PERF.md section 6)
-ZOO_COPIES = 2  # zoo_val's and zoo_train's: 2 times over, to keep the run inside its limit (PERF.md section 6)
+VAL_COPIES = 2  # the val phase's data: the fixture's 16 images 2 times over (PERF.md section 6)
+ZOO_COPIES = 1  # zoo_val's and zoo_train's: once, to keep the run inside its limit (PERF.md section 6)
 ZOO_PARITY_IMAGES = 8  # zoo_val's card-against-CPU val: the first 8 images
 VAL_BATCH = 16
 VAL_IMGSZ = 640
@@ -411,8 +428,8 @@ TRAIN_PARITY_TOL = {"loss": 1e-4, "params": 1e-4, "ema": 1e-4, "batch_stats": 1e
 TRAIN_PARITY_IMAGES = 8
 TRAIN_IMGSZ, TRAIN_BATCH, TRAIN_EPOCHS = 640, 16, 2
 TASK_FIXTURE_TOL = 1e-4  # card vs CPU, each mAP on the segment, pose and obb fixture sets
-TASK_CALLS = 4  # timed warm predict calls of yolov8s-seg, yolov8s-pose and yolov8s-obb
-TASK_PROFILED_CALLS = 2
+TASK_CALLS = 2  # timed warm predict calls of yolov8s-seg, yolov8s-pose and yolov8s-obb
+TASK_PROFILED_CALLS = 1
 MASK_TOL, MASK_EDGE_SHARE = 1e-5, 1e-3  # mask step, card vs CPU: probabilities, and > 0.5 bits that flip
 # the other tasks: the reference-trained fixture model and set, the served
 # model, the mAPs against the reference's keys, and the K1 launches and
@@ -463,8 +480,8 @@ RTDETR_PARITY_IMGSZ = 160
 RTDETR_TRAIN_PARITY_TOL = {**TRAIN_PARITY_TOL, "momentum_buffer": 0.1, "momentum_leaf": 0.2}
 MOMENTUM_LEAF_FLOOR = 1e-8  # rtdetr_step_diffs: leaves below this share of the largest norm hold rounding only
 CLS_IMGSZ = 224  # yolov8s-cls's ImageNet size
-CLS_CALLS = 15  # timed warm predict calls of yolov8s-cls
-CLS_PROFILED_CALLS = 2
+CLS_CALLS = 8  # timed warm predict calls of yolov8s-cls
+CLS_PROFILED_CALLS = 1
 CLS_TOL = 1e-5  # card vs CPU, yolov8s-cls probabilities
 CLS_SET = "torch_cls_synth"  # the classify fixture set: 3 classes, 24 train and 16 val PNGs of 80 x 64
 # The YOLO11, YOLOv10, YOLOv5 and YOLOv3-tiny detect families at full width
@@ -475,7 +492,8 @@ CLS_SET = "torch_cls_synth"  # the classify fixture set: 3 classes, 24 train and
 # its head's. The fixed-width YAMLs (yolov9c, gelan-c-dseg, yolov5-anchor with
 # the s multiples, yolov3-spp) run at their own widths.
 # YOLOv13 (yolov13s, yolov13n) runs with its FullPAD gates seeded (seed_gates).
-ZOO_SPECS = {"yolov8s-p6": ("yolov8s-p6.yaml", None, 1280), "yoloX-s": ("yoloX.yaml", "s", 640)}
+ZOO_SPECS = {"yolov8s-p6": ("yolov8s-p6.yaml", None, 1280), "yoloX-s": ("yoloX.yaml", "s", 640),
+             "yolov7-obb": ("yolov7-obb.yaml", None, 1024)}
 ZOO_PREDICT = ("yolo11s", "yolov10s", "yolov5s", "yolov3-tiny", "yolov8s-p6", "yolov6s", "yolov3-spp", "yoloX-s",
                "yolov9c", "yolo12s", "yolov5-anchor", "gelan-c-dseg", "yolov13s")
 ZOO_VAL = ("yolo11s", "yolov10s", "yolov5-anchor", "yolov9c", "gelan-c-dseg", "yolov13s")
@@ -483,8 +501,8 @@ ZOO_TRAIN_PARITY = ("yolo11n", "yolov10n", "yolov5-anchor", "yolo12n", "gelan-c-
 ZOO_TRAIN = ("yolo11s", "yolov10s", "yolov5-anchor", "gelan-c-dseg", "yolov13s")
 # a model's timed warm predict calls of the 4 images, and its profiled ones:
 # the YOLO11/v10/v5/v3-tiny models at their counts, the later ones fewer
-ZOO_CALLS = dict.fromkeys(ZOO_PREDICT[:4], (2, 1))
-ZOO_CALLS_DEFAULT = (2, 1)
+ZOO_CALLS = dict.fromkeys(ZOO_PREDICT[:4], (1, 1))
+ZOO_CALLS_DEFAULT = (1, 1)
 ZOO_SRC = {"detect": "torch_val_synth", "segment": "torch_val_synth_segment"}  # a task's fixture set
 ZOO_PARITY_TOL = {"boxes_px": 1e-3, "scores": 1e-4}  # card vs CPU, decoded outputs of one image at 640 px
 # (the mask coefficients and prototypes of a segment head: `scores` of their largest magnitude)
@@ -500,7 +518,19 @@ ZOO_TRAIN_PARITY_TOL = {**TRAIN_PARITY_TOL, "momentum_leaf": TRAIN_PARITY_TOL["m
 # its float64 step there, and the card's (cuDNN off or on) 3.7e-3 to 4.4e-3
 # (tools/torch_zoo_step_precision.py). In float64 both devices resolve the
 # step, so the bounds above hold it as they hold the float32 steps of the rest.
-ZOO_TRAIN_PARITY_DTYPE = {"gelan-c-dseg": torch.float64}
+# yolov4-csp likewise: in float32 the card's momentum leaves of the
+# BN scales and biases of layers 23-29 (BottleneckCSP2 and the Conv after it,
+# 9.3e-5 to 3.5e-4 of the largest leaf's norm) sat 2.3e-3 to 2.4e-3 from the
+# CPU's, the tree 1.5e-3; from the same host-made images (zoo_one_step's
+# host_images) still 2.2e-3, the card's float32 step 1.7e-3 and the CPU's
+# 1.0e-3 from the float64 step (tools/torch_zoo_step_precision.py yolov4-csp).
+# yolor-csp: in float32 its card step sat 3.5e-2 (tree) and 7.1e-2
+# (leaf) from the CPU's, 5.8e-2 (leaf) from the same images, and the CPU's
+# own float32 step 1.9e-2 and 4.9e-2 from its float64 step: at random
+# initialisation its train-mode forward grows an input's rounding 1e4-fold
+# by layer 28 (1.7e-7 of layer 0's largest value to 1.3e-3), yolov4-csp's
+# 300-fold, yolov7's 100-fold (tools/torch_zoo_step_precision.py --layers).
+ZOO_TRAIN_PARITY_DTYPE = {"gelan-c-dseg": torch.float64, "yolov4-csp": torch.float64, "yolor-csp": torch.float64}
 # FullPAD_Tunnel's gates start at 0, which cuts every path from HyperACE to the
 # head; every YOLOv13 model here sets them to seeded values in this range, and
 # every attention-zoo model its zero-initialised parameters (seed_gates).
@@ -521,14 +551,29 @@ ATTN_VAL_COPIES = 1  # their val's data: the fixture's 16 images once
 # (8 x 8) splits into 4 x 4 windows and routes to 4 of 16 (at 160 px, 5 x 5: one window)
 ATTN_TRAIN_PARITY = {"yolov8n-DAttention": 160, "yolov8n-BiLevelRoutingAttention": 256}
 ATTN_TRAIN = ("yolov8s-BiLevelRoutingAttention",)
-TTA_CALLS = (2, 1)  # timed and profiled warm TTA predict calls of the 4 images
+# RTMDet (scale s; rtmdet-t in the step), YOLOv7 with IDetect, the implicit
+# anchor head, ISegment, IPose and IOBB, YOLOv4-CSP (detect, segment) and
+# YOLOR-CSP at their own full widths, 640 px (yolov7-obb 1024), seeded
+# weights, 80 classes: each predicts as the attention zoo's models do
+# (attn_predict_one; yolov7-obb through the rotated NMS, csp_obb_predict).
+CSP_PREDICT = ("rtmdet-s", "rtmdet-s-seg", "rtmdet-s-pose", "yolov7", "yolov7-anchor", "yolov7-seg", "yolov7-pose",
+               "yolov4-csp", "yolov4-csp-seg", "yolor-csp")
+CSP_OBB = "yolov7-obb"
+CSP_K1_TIMED = ("yolov7", "yolov7-anchor", "yolov7-seg")  # K1 timed on their rows, one predict profiled
+CSP_VAL = ("yolov7", "yolov7-anchor", "yolov7-seg", "rtmdet-s")
+CSP_VAL_COPIES = 1  # their val's data: the fixture's 16 images once
+CSP_VAL_PARITY_IMAGES = 4  # their card-against-CPU val: the first 4 images (the CPU side of these models is slow)
+CSP_TRAIN_PARITY = dict.fromkeys(("rtmdet-t", "yolov7", "yolov7-anchor", "yolov4-csp", "yolor-csp"), 160)
+CSP_TRAIN = ("yolov7",)
+CSP_TRAIN_COPIES = 4  # yolov7's two epochs: the fixture's 16 images 4 times over, 64 images
+TTA_CALLS = (1, 1)  # timed and profiled warm TTA predict calls of the 4 images
 MULTI_SCALE_TOL = 1  # grey levels, the multi_scale resize on the card against the CPU
 AUG_PARITY_IMGSZ = 160
 BANDS = 10  # the channels phase's multi-band set
 TRACK_FRAMES = 30  # track phase: the fixture image panned over this many frames at 160 px
 TRACK_PAN = (2, 1)  # px a frame, (x, y)
 TRACK_TOL = 1e-4  # card vs CPU, tracked boxes (px)
-TRACK_FULL_FRAMES = 30  # yolov8s at 640 over this many 640 x 640 frames
+TRACK_FULL_FRAMES = 20  # yolov8s at 640 over this many 640 x 640 frames
 TRACK_FULL_LIVE = 0.8  # full_width: the median frame's live tracks, at least this share of its detections
 FILES_COPIES = 8  # predict_files: the 16 fixture images 8 times over, 128 files
 FILES_BATCH = 16
@@ -1542,7 +1587,7 @@ def train_run(YOLO, nms_cuda, tmp: Path, task: str = "detect", served: str | Non
     """Two epochs of the task's served model at full width (yolov8s,
     yolov8s-seg and yolov8s-pose at 640, yolov8s-obb at 1024), batch 16
     and the JAX defaults otherwise (nbs 64, warmup 3 epochs, val=True), on
-    128 images of the task's fixture set (train = val; 80 class names for
+    `copies` x 16 images of the task's fixture set (train = val; 80 class names for
     detect and segment, DOTA's 15 for obb, the set's 3 and [5, 3] keypoints
     for pose); the model is rebuilt at the set's nc (and pose's shape).
     served names another detect model (the zoo's). K1's launches (or the
@@ -1877,28 +1922,30 @@ def rotated_nms_alone(ops_nms, rboxes, scores, iou: float) -> dict:
             "peak_memory_bytes": peak, "top_kernels": prof["top_kernels"][:6]}
 
 
-def obb_parity(YOLO, ops_nms, model, img_u8) -> dict:
-    """One image's decoded outputs on the card and on the CPU (same weights):
-    largest differences of xywh, scores and angle, within OBB_PARITY_TOL; and
-    the rotated NMS on the CPU's outputs on both devices: the same
-    candidates kept (rboxes, scores, cls and valid equal)."""
-    cpu = YOLO(model.model.yaml, device="cpu")
-    cpu.model.load_state_dict({k: v.cpu() for k, v in model.model.state_dict().items()})
+def obb_parity(YOLO, ops_nms, model, img_u8, tol=OBB_PARITY_TOL, cpu=None) -> dict:
+    """One image's decoded outputs on the card and on the CPU (same weights;
+    `cpu` the CPU's model where built already): largest differences of
+    xywh, scores and angle, within `tol`; and the rotated NMS on the CPU's
+    outputs on both devices: the same candidates kept (rboxes, scores, cls
+    and valid equal)."""
+    if cpu is None:
+        cpu = YOLO(model.model.yaml, device="cpu")
+        cpu.model.load_state_dict({k: v.cpu() for k, v in model.model.state_dict().items()})
     nc = model.model.nc
     rb_c, sc_c = obb_decoded(model, img_u8)
     rb_h, sc_h = obb_decoded(cpu, img_u8.cpu())
     diff = {"xywh_px": float((rb_c[..., :4].cpu() - rb_h[..., :4]).abs().max()),
             "scores": float((sc_c.cpu() - sc_h).abs().max()),
             "angle_rad": float((rb_c[..., 4].cpu() - rb_h[..., 4]).abs().max())}
-    bad = {k: v for k, v in diff.items() if not v <= OBB_PARITY_TOL[k]}
+    bad = {k: v for k, v in diff.items() if not v <= tol[k]}
     kw = dict(conf_thres=CONF, iou_thres=0.7, max_det=300, max_nms=OBB_MAX_NMS)
     on_card = ops_nms.non_max_suppression_rotated(rb_h.cuda(), sc_h.cuda(), **kw)
     on_cpu = ops_nms.non_max_suppression_rotated(rb_h, sc_h, **kw)
     differ = {k: int((on_card[k].cpu() != on_cpu[k]).sum()) for k in on_cpu}
     if bad or any(differ.values()):
-        raise AssertionError(f"obb card vs CPU: decoded outputs beyond {OBB_PARITY_TOL}: {bad}; "
+        raise AssertionError(f"obb card vs CPU: decoded outputs beyond {tol}: {bad}; "
                              f"NMS entries that differ: {differ}")
-    return {"nc": nc, "max_abs_diff": diff, "tolerance": OBB_PARITY_TOL, "nms_entries_that_differ": differ,
+    return {"nc": nc, "max_abs_diff": diff, "tolerance": tol, "nms_entries_that_differ": differ,
             "kept": int(on_cpu["valid"].sum())}
 
 
@@ -1954,7 +2001,7 @@ def obb_predict(YOLO, nms_cuda, ops_nms, card: str, smi: str) -> dict:
 
 
 def obb_val(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
-    """yolov8s-obb val at 1024 on 128 images of the OBB set (phase obb_val)."""
+    """yolov8s-obb val at 1024 on VAL_COPIES x 16 images of the OBB set (phase obb_val)."""
     from ultralytics_pro_tpu_torch.engine import validator as eng_val
 
     data = val_set_640(tmp / "obb_1024", "torch_val_synth_obb", nc=15)
@@ -2088,7 +2135,7 @@ def rtdetr_val_parity(RTDETR, full_f32, model, data16: Path, kw: dict) -> dict:
 
 
 def rtdetr_val(RTDETR, msda_cuda, full_f32, tmp: Path, card: str, smi: str) -> dict:
-    """rtdetr-l val at 640 on 128 images of the detect fixture set (batch 16,
+    """rtdetr-l val at 640 on VAL_COPIES x 16 images of the detect fixture set (batch 16,
     conf 0.001, seeded weights, 80 classes): images/s, K2's launches (6 a
     batch) read around the call, the idle share, the device ms a batch by
     kernel class and K2's ms a launch from one profiled call; K2 on one
@@ -2391,7 +2438,7 @@ def capture_k2_grad(transformer):
 def rtdetr_train(RTDETR, msda_cuda, detr_loss, tmp: Path, card: str, smi: str) -> dict:
     """rtdetr-l at 640 (80 classes), batch 16, the JAX defaults otherwise
     (nbs 64, warmup 3 epochs, max_gt 128, num_dn 100), 2 epochs on the
-    detect fixture images 8 times over (128, train = val), no epoch-end val
+    detect fixture images VAL_COPIES times over (32, train = val), no epoch-end val
     (the JAX RT-DETR trainer runs none). K2's forward and backward launches
     are read around the run (6 + 6 a micro-batch); the matcher's host ms a
     step; then micro_batch_measures (device ms, idle share, the criterion's
@@ -2557,8 +2604,8 @@ def cls_fixture(YOLO, yaml_model_load, card: str, smi: str) -> dict:
 
 
 def cls_val(YOLO, tmp: Path, card: str, smi: str) -> dict:
-    """yolov8s-cls (nc 1000, seeded) val at 224 on the fixture's val images 8
-    times over (128 images, batch 16): images/s of a warm call, the idle
+    """yolov8s-cls (nc 1000, seeded) val at 224 on the fixture's val images
+    VAL_COPIES times over (batch 16): images/s of a warm call, the idle
     share and the device ms by kernel class from one profiled call."""
     root = cls_set(tmp / "cls_val_set", VAL_COPIES)
     kw = dict(data=str(root), imgsz=CLS_IMGSZ, batch=VAL_BATCH)
@@ -2685,6 +2732,16 @@ def zoo_yolo(YOLO, name: str, device: str, **over):
     return model
 
 
+def moved(model, device: str):
+    """A copy of a facade model on another device, its weights as they are
+    (nothing rebuilt or re-seeded): the same weights on the card and the
+    CPU without a second seeded build."""
+    out = copy.deepcopy(model)
+    out.device = torch.device(device)
+    out.model.to(out.device)
+    return out
+
+
 def zoo_parity(YOLO, ops_nms, full_f32, name: str, model, batch, cpu=None) -> dict:
     """The same seeded weights on the card and on the CPU (cpu, or the zoo
     model name built there), full f32, on the
@@ -2719,10 +2776,13 @@ def zoo_parity(YOLO, ops_nms, full_f32, name: str, model, batch, cpu=None) -> di
     info = dict(decoded_shape=list(dense_cpu.shape), max_abs_box_err_px=box_err, max_abs_score_err=score_err,
                 tolerance=ZOO_PARITY_TOL)
     extra_rel = 0.0
-    if dense_cpu.shape[-1] > 4 + nc:  # mask coefficients, and the prototypes beside them
-        pairs = [(dense_gpu[..., 4 + nc:], dense_cpu[..., 4 + nc:]), (aux_gpu["protos"].cpu(), aux_cpu["protos"])]
+    if dense_cpu.shape[-1] > 4 + nc:  # mask coefficients and the prototypes beside them, or keypoints
+        pairs = [(dense_gpu[..., 4 + nc:], dense_cpu[..., 4 + nc:])]
+        protos = isinstance(aux_cpu, dict) and "protos" in aux_cpu
+        if protos:
+            pairs.append((aux_gpu["protos"].cpu(), aux_cpu["protos"]))
         extra_rel = max(float((g - c).abs().max() / c.abs().max()) for g, c in pairs)
-        info["max_rel_mask_coef_and_proto_err"] = extra_rel
+        info["max_rel_mask_coef_and_proto_err" if protos else "max_rel_keypoint_err"] = extra_rel
     if head.end2end:
         final_gpu = head.postprocess_topk(dense_cpu.cuda()).cpu()
         final_cpu = cpu_head.postprocess_topk(dense_cpu)
@@ -2786,7 +2846,7 @@ def zoo_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name: str, card: str, smi
     busy = prof["device_busy_ms_per_call"]
     pred = model.predictor
     batch = pred.preprocess(imgs)
-    ms16 = cuda_ms(lambda: pred.run(batch.repeat(4, 1, 1, 1)), iters=5)
+    ms16 = cuda_ms(lambda: pred.run(batch.repeat(4, 1, 1, 1)), iters=3)
     info = dict(model=name, yaml=zoo_spec(name)[0], task=model.task, head=type(model.model.model[-1]).__name__,
                 parameters=sum(p.numel() for p in model.model.parameters()),
                 stride=model.model.stride.tolist(), end2end=end2end, imgsz=imgsz, conf=CONF, k1_launches=launches,
@@ -2811,13 +2871,15 @@ def zoo_predict(YOLO, nms_cuda, ops_nms, full_f32, card: str, smi: str) -> dict:
                        for name in ZOO_PREDICT}, "card": card, "nvidia_smi": smi}
 
 
-def zoo_val_parity(YOLO, model, name: str, data16: Path) -> dict:
-    """A zoo model's val of the first ZOO_PARITY_IMAGES images on the card
-    and on the CPU (the same seeded weights): every mAP within ZOO_VAL_TOL."""
-    kw = dict(imgsz=VAL_IMGSZ, batch=VAL_BATCH, conf=CONF, iou=0.7, max_det=300)
+def zoo_val_parity(YOLO, model, name: str, data16: Path, cpu=None, images: int = ZOO_PARITY_IMAGES) -> dict:
+    """A zoo model's val of the first `images` images (data16) on the card
+    and on the CPU (the same seeded weights; `cpu` the CPU's model where
+    built already), in one batch of those images (no padded rows to run on
+    the CPU): every mAP within ZOO_VAL_TOL."""
+    kw = dict(imgsz=VAL_IMGSZ, batch=images, conf=CONF, iou=0.7, max_det=300)
     maps = {}
     for device in ("cuda", "cpu"):
-        m = model if device == "cuda" else zoo_yolo(YOLO, name, "cpu")
+        m = model if device == "cuda" else cpu or zoo_yolo(YOLO, name, "cpu")
         t0 = time.perf_counter()
         r = m.val(data=str(data16), **kw)
         maps[device] = {"map50": float(r.box.map50), "map50_95": float(r.box.map), "precision": float(r.box.mp),
@@ -2825,25 +2887,28 @@ def zoo_val_parity(YOLO, model, name: str, data16: Path) -> dict:
                         "seconds": time.perf_counter() - t0}
     diff = {k: abs(maps["cuda"][k] - maps["cpu"][k]) for k in ("map50", "map50_95")}
     if not max(diff.values()) <= ZOO_VAL_TOL:
-        raise AssertionError(f"{name} val of {ZOO_PARITY_IMAGES} images, card vs CPU: {maps} "
+        raise AssertionError(f"{name} val of {images} images, card vs CPU: {maps} "
                              f"(tolerance {ZOO_VAL_TOL})")
-    return {"images": ZOO_PARITY_IMAGES, "card": maps["cuda"], "cpu": maps["cpu"], "abs_diff": diff, "tolerance": ZOO_VAL_TOL,
+    return {"images": images, "card": maps["cuda"], "cpu": maps["cpu"], "abs_diff": diff, "tolerance": ZOO_VAL_TOL,
             "cpu_threads": torch.get_num_threads()}
 
 
-def zoo_val(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str, names=ZOO_VAL, copies: int = ZOO_COPIES) -> dict:
+def zoo_val(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str, names=ZOO_VAL, copies: int = ZOO_COPIES,
+            parity_images: int = ZOO_PARITY_IMAGES) -> dict:
     """The zoo models `names` as phase val on their task's fixture set
     (val_path: K1 once a batch, no NMS for yolov10s), K1 on each first batch
-    of rows (captured_k1), and card against CPU on ZOO_PARITY_IMAGES images
-    (zoo_val_parity); on copies x 16 images."""
+    of rows (captured_k1), and card against CPU on `parity_images` images
+    (zoo_val_parity); on copies x 16 images. Each model is built once, on
+    the CPU, and copied to the card (moved)."""
     models = {}
     for name in names:
         t0 = time.perf_counter()
         src = ZOO_SRC[zoo_task(name)]
-        data16 = val_set_640(tmp / f"zoo_val_16_{name}", src, copies=1, first=ZOO_PARITY_IMAGES)
-        model = zoo_yolo(YOLO, name, "cuda")
+        data16 = val_set_640(tmp / f"zoo_val_16_{name}", src, copies=1, first=parity_images)
+        cpu = zoo_yolo(YOLO, name, "cpu")
+        model = moved(cpu, "cuda")
         info, cap = val_path(YOLO, nms_cuda, ops_nms, tmp / name, card, smi, name, src, model, copies=copies)
-        info["parity"] = zoo_val_parity(YOLO, model, name, data16)
+        info["parity"] = zoo_val_parity(YOLO, model, name, data16, cpu, parity_images)
         if cap:
             info["k1_on_batch_rows"] = captured_k1(ops_nms, nms_cuda, cap, card, smi)
         info["seconds"] = time.perf_counter() - t0
@@ -2852,21 +2917,36 @@ def zoo_val(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str, names=ZOO_V
 
 
 def zoo_one_step(YOLO, load_pickle, tmp: Path, name: str, device: str, dtype: torch.dtype = torch.float32,
-                 imgsz: int = 160):
-    """One optimizer step of the seeded zoo model name at nc 3, the model and
-    the images in dtype, on 8 images of its task's fixture set at imgsz,
-    batch 8, nbs 8, no warmup, no val, through YOLO(...).train. Returns
-    ((loss parts, last.ckpt), the model)."""
+                 imgsz: int = 160, model=None, host_images: bool | None = None):
+    """One optimizer step of the seeded zoo model name at nc 3 (or of
+    `model`, such a model on device), the model and the images in dtype, on
+    8 images of its task's fixture set at imgsz, batch 8, nbs 8, no warmup,
+    no val, through YOLO(...).train. Returns ((loss parts, last.ckpt), the
+    model). A float32 step takes the trainer's own images, divided by 255 on
+    the device, as users train. With host_images (by default outside
+    float32) the images are made on the host in dtype from the uint8 batch
+    and copied to the device, so both devices step from the same inputs: the
+    card divides through a reciprocal, a float32 rounding apart from the
+    CPU's quotient in 126 of the 256 grey levels, which a float64 step would
+    carry as its inputs' difference."""
     from ultralytics_pro_tpu_torch.engine.trainer import BaseTrainer
 
-    model = zoo_yolo(YOLO, name, device, nc=3)
+    model = model or zoo_yolo(YOLO, name, device, nc=3)
     model.model.to(dtype)
     src = ZOO_SRC[model.task]
     data = tmp / f"zoo_train_parity_{src}" / "data.yaml"
     if not data.exists():
         fixture_train_set(data.parent, TRAIN_PARITY_IMAGES, src)
     put = BaseTrainer.put_batch
-    BaseTrainer.put_batch = lambda self, batch: {**(out := put(self, batch)), "img": out["img"].to(dtype)}
+
+    def put_on_host(self, batch):  # the images made on the host in dtype from the uint8 batch
+        x = torch.from_numpy(batch["img"])
+        x = x.flip(-1) if x.shape[-1] == 3 else x
+        return {**put(self, batch), "img": (x.permute(0, 3, 1, 2).to(dtype) / 255.0).contiguous().to(self.device)}
+
+    if host_images is None:
+        host_images = dtype != torch.float32
+    BaseTrainer.put_batch = put_on_host if host_images else put
     try:
         model.train(data=str(data), epochs=1, imgsz=imgsz, batch=TRAIN_PARITY_IMAGES, nbs=TRAIN_PARITY_IMAGES,
                     warmup_epochs=0.0, val=False, workers=4, max_gt=32,
@@ -2898,8 +2978,9 @@ def zoo_train_parity(YOLO, load_pickle, tmp: Path, card: str, smi: str, models=N
     for name, imgsz in models.items():
         t0 = time.perf_counter()
         dtype = ZOO_TRAIN_PARITY_DTYPE.get(name, torch.float32)
-        card_run, _ = zoo_one_step(YOLO, load_pickle, tmp, name, "cuda", dtype, imgsz)
-        cpu_run, model = zoo_one_step(YOLO, load_pickle, tmp, name, "cpu", dtype, imgsz)
+        cpu_model = zoo_yolo(YOLO, name, "cpu", nc=3)  # built once, copied to the card before either step
+        card_run, _ = zoo_one_step(YOLO, load_pickle, tmp, name, "cuda", dtype, imgsz, moved(cpu_model, "cuda"))
+        cpu_run, model = zoo_one_step(YOLO, load_pickle, tmp, name, "cpu", dtype, imgsz, cpu_model)
         runs = [card_run, cpu_run]
         diffs = rtdetr_step_diffs(*runs)
         got, want = dict(tree_leaves(runs[0][1]["momentum_buffer"])), dict(tree_leaves(runs[1][1]["momentum_buffer"]))
@@ -2922,10 +3003,11 @@ def zoo_train_parity(YOLO, load_pickle, tmp: Path, card: str, smi: str, models=N
             "card": card, "nvidia_smi": smi}
 
 
-def zoo_train(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str, names=ZOO_TRAIN) -> dict:
+def zoo_train(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str, names=ZOO_TRAIN,
+              copies: int = ZOO_COPIES) -> dict:
     """The zoo models `names` as phase train, or seg_train for a segment model
     (train_run, micro_batch_measures): 640 px, batch 16, 2 epochs on
-    ZOO_COPIES x 16 images of the task's fixture set with the epoch-end val, K1's launches
+    copies x 16 images of the task's fixture set with the epoch-end val, K1's launches
     counted there (yolov10s: none), K1's device ms a launch from a profile
     of one more val of the trained model, and, as phase train does, K1 on the
     rows of another such val held to its plain version, timed, with its
@@ -2933,7 +3015,7 @@ def zoo_train(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str, names=ZOO
     out = {}
     for name in names:
         t0 = time.perf_counter()
-        tr, data, info = train_run(YOLO, nms_cuda, tmp, task=zoo_task(name), served=name, copies=ZOO_COPIES)
+        tr, data, info = train_run(YOLO, nms_cuda, tmp, task=zoo_task(name), served=name, copies=copies)
         info["criterion"] = type(tr.criterion).__name__
         info.update(micro_batch_measures(tr, det_host_batch(tr, data, TRAIN_IMGSZ), TRAIN_IMGSZ,
                                          info["micro_batches_per_epoch"]))
@@ -2969,17 +3051,18 @@ def k1_rows_equal(ops_nms, nms_cuda, cap) -> dict:
                 gather_mismatch_vs_plain=gathered)
 
 
-def attn_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name: str, card: str, smi: str) -> dict:
+def attn_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name: str, card: str, smi: str,
+                     timed=ATTN_K1_TIMED) -> dict:
     """One model of ATTN_PREDICT at 640 px: built on the CPU (seed 0, its
-    zero-initialised parameters seeded: zoo_yolo) and on the card with the
-    CPU's weights loaded; one predict of the 4 seeded images at conf 1e-6
+    zero-initialised parameters seeded: zoo_yolo) and copied to the card
+    (moved); one predict of the 4 seeded images at conf 1e-6
     with K1's launches read around it (one an image) and the detections
     checked; the device function's ms a call on the 4-image batch (CUDA
     events, ATTN_DEVICE_CALLS calls); card against CPU on the first image
     (zoo_parity); K1 on the batch's captured rows bit for bit against its
-    plain version (k1_rows_equal), and for ATTN_K1_TIMED also timed with its
-    bound (captured_k1) and one predict profiled for K1's device ms a
-    launch."""
+    plain version (k1_rows_equal), and for the `timed` models also timed
+    with its bound (captured_k1) and one predict profiled for K1's device ms
+    a launch. The layer-10 module and the head are named in the result."""
     t0 = time.perf_counter()
     marks = {}
 
@@ -2988,8 +3071,7 @@ def attn_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name: str, card: str, sm
 
     imgs = seeded_images()
     cpu = zoo_yolo(YOLO, name, "cpu")
-    model = YOLO(zoo_spec(name)[0], device="cuda", seed=0)
-    model.load_state_dict(cpu.model.state_dict())
+    model = moved(cpu, "cuda")
     mark("build")
     nms_cuda.launches = 0
     results = model.predict(imgs, conf=CONF)
@@ -3001,7 +3083,8 @@ def attn_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name: str, card: str, sm
     mark("predict")
     pred = model.predictor
     batch = pred.preprocess(imgs)
-    info = dict(model=name, yaml=zoo_spec(name)[0], layer_10=type(model.model.model[10]).__name__,
+    info = dict(model=name, yaml=zoo_spec(name)[0], task=model.task, layer_10=type(model.model.model[10]).__name__,
+                head=type(model.model.model[-1]).__name__,
                 parameters=sum(p.numel() for p in model.model.parameters()), imgsz=640, conf=CONF,
                 k1_launches=launches, detections=dets,
                 device_ms_per_call=cuda_ms(lambda: pred.run(batch), iters=ATTN_DEVICE_CALLS, warmup=1),
@@ -3011,7 +3094,7 @@ def attn_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name: str, card: str, sm
     mark("parity")
     with capture_k1(ops_nms) as cap:  # one batch of the 4 images: K1's rows and the gather around it
         pred.run(batch)
-    if name in ATTN_K1_TIMED:
+    if name in timed:
         prof = profile_window(lambda: model.predict(imgs, conf=CONF), 1)
         info.update(device_busy_ms_per_call=prof["device_busy_ms_per_call"],
                     k1_profiled_ms_per_launch=prof["device_ms_by_category"].get("k1_greedy_nms", 0.0) / len(imgs),
@@ -3028,6 +3111,65 @@ def attn_predict(YOLO, nms_cuda, ops_nms, full_f32, card: str, smi: str) -> dict
     return {"models": models, "device_ms_per_call": {k: v["device_ms_per_call"] for k, v in models.items()},
             "card": card, "nvidia_smi": smi}
 
+
+def csp_predict(YOLO, nms_cuda, ops_nms, full_f32, card: str, smi: str) -> dict:
+    """Each model of CSP_PREDICT as the attention zoo's predict
+    (attn_predict_one; K1 timed on the rows of CSP_K1_TIMED)."""
+    models = {name: attn_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name, card, smi, CSP_K1_TIMED)
+              for name in CSP_PREDICT}
+    return {"models": models, "device_ms_per_call": {k: v["device_ms_per_call"] for k, v in models.items()},
+            "card": card, "nvidia_smi": smi}
+
+
+def csp_obb_predict(YOLO, nms_cuda, ops_nms, card: str, smi: str) -> dict:
+    """yolov7-obb (IOBB) at 1024 px on the 4 seeded images, conf 1e-6, its
+    YAML's 80 classes: built on the CPU (seed 0) and copied to the card
+    (moved); one predict with K1's launches (none: the rotated
+    NMS is plain PyTorch, as the JAX package's is plain XLA) and the rotated
+    NMS's calls (one an image) read around it; the device function's ms a
+    call on the 4-image batch (CUDA events); card against CPU on the first
+    image (obb_parity at ZOO_PARITY_TOL's bounds: boxes, and scores and
+    angles)."""
+    from ultralytics_pro_tpu_torch.engine import predictor as eng_pred
+
+    imgs = seeded_images()
+    src, _, imgsz = zoo_spec(CSP_OBB)
+    cpu = zoo_yolo(YOLO, CSP_OBB, "cpu")
+    model = moved(cpu, "cuda")
+    kw = dict(imgsz=imgsz, conf=CONF)
+    nms_cuda.launches = 0
+    with capture_rotated(eng_pred) as rot:
+        results = model.predict(imgs, **kw)
+        torch.cuda.synchronize()
+    if nms_cuda.launches or rot["calls"] != len(imgs):
+        raise AssertionError(f"{CSP_OBB}: K1 launched {nms_cuda.launches} times, the rotated NMS called "
+                             f"{rot['calls']} times, for {len(imgs)} images")
+    dets = check_obb_results(results)
+    pred = model.predictor
+    batch = pred.preprocess(imgs)
+    tol = {"xywh_px": ZOO_PARITY_TOL["boxes_px"], "scores": ZOO_PARITY_TOL["scores"],
+           "angle_rad": ZOO_PARITY_TOL["scores"]}
+    return dict(model=CSP_OBB, yaml=src, task=model.task, head=type(model.model.model[-1]).__name__,
+                parameters=sum(p.numel() for p in model.model.parameters()), nc=model.model.nc, imgsz=imgsz,
+                conf=CONF, anchors=int(rot["args"][0].shape[1]), k1_launches=nms_cuda.launches,
+                rotated_nms_calls=rot["calls"], rboxes=dets,
+                device_ms_per_call=cuda_ms(lambda: pred.run(batch), iters=ATTN_DEVICE_CALLS, warmup=1),
+                images_per_call=len(imgs), parity=obb_parity(YOLO, ops_nms, model, batch[:1], tol, cpu),
+                card=card, nvidia_smi=smi)
+
+
+def csp_phases(YOLO, nms_cuda, ops_nms, full_f32, load_pickle, card: str, smi: str) -> dict:
+    """The CSP zoo's phases in the order main runs them (and
+    tools/torch_csp_zoo_phases.py, any of them alone): phase name -> a call
+    of the temporary directory that returns the phase's fields."""
+    return {
+        "csp_zoo_predict": lambda tmp: csp_predict(YOLO, nms_cuda, ops_nms, full_f32, card, smi),
+        "csp_zoo_obb_predict": lambda tmp: csp_obb_predict(YOLO, nms_cuda, ops_nms, card, smi),
+        "csp_zoo_val": lambda tmp: zoo_val(YOLO, nms_cuda, ops_nms, tmp, card, smi, CSP_VAL, CSP_VAL_COPIES,
+                                           CSP_VAL_PARITY_IMAGES),
+        "csp_zoo_train_parity": lambda tmp: zoo_train_parity(YOLO, load_pickle, tmp, card, smi, CSP_TRAIN_PARITY),
+        "csp_zoo_train": lambda tmp: zoo_train(YOLO, nms_cuda, ops_nms, tmp, card, smi, CSP_TRAIN, CSP_TRAIN_COPIES),
+    }
 
 def tta_parity(YOLO, ops_nms, full_f32, model, batch) -> dict:
     """Seeded yolov8s's three augmented forwards (`tta_forward`) of one
@@ -3279,7 +3421,7 @@ def aug_train(YOLO, nms_cuda, ops_nms, tmp: Path, card: str, smi: str) -> dict:
     nb = info["micro_batches_per_epoch"]
     d = check_det_dataset(str(data))
     hyp = {k: DEFAULT_CFG_DICT[k] for k in HYP_KEYS}
-    half = data.parent / "half.txt"  # the loader alone reads half the set: 4 batches (PERF.md section 6)
+    half = data.parent / "half.txt"  # the loader alone reads half the set: 1 batch (PERF.md section 6)
     pngs = sorted(str(p) for p in (data.parent / "images" / "val").glob("*.png"))
     half.write_text("\n".join(pngs[:nb * TRAIN_BATCH // 2]))
     host_ms = {}
@@ -3931,6 +4073,13 @@ def main() -> int:
         atr = zoo_train(YOLO, nms_cuda, ops_nms, Path(tmp), card, smi, ATTN_TRAIN)
         emit("attn_zoo_train", **atr, seconds=time.perf_counter() - t)
 
+    csp = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for phase, run in csp_phases(YOLO, nms_cuda, ops_nms, full_f32, load_pickle, card, smi).items():
+            t = time.perf_counter()
+            csp[phase] = run(Path(tmp))
+            emit(phase, **csp[phase], seconds=time.perf_counter() - t)
+
     t = time.perf_counter()
     ta = tta(YOLO, yaml_model_load, nms_cuda, ops_nms, full_f32, card, smi)
     emit("tta", **ta, seconds=time.perf_counter() - t)
@@ -3967,10 +4116,13 @@ def main() -> int:
                "pose_train": (task_train["pose_parity"], task_train["pose_parity"]["k1_on_val_rows"])}
     zoo_paths = (("predict", zp, "k1_on_batch_rows"), ("val", zv, "k1_on_batch_rows"),
                  ("train_val", zt, "k1_on_val_rows"), ("attn_predict", ap, "k1_on_batch_rows"),
-                 ("attn_val", av, "k1_on_batch_rows"), ("attn_train_val", atr, "k1_on_val_rows"))
+                 ("attn_val", av, "k1_on_batch_rows"), ("attn_train_val", atr, "k1_on_val_rows"),
+                 ("csp_predict", csp["csp_zoo_predict"], "k1_on_batch_rows"),
+                 ("csp_val", csp["csp_zoo_val"], "k1_on_batch_rows"),
+                 ("csp_train_val", csp["csp_zoo_train"], "k1_on_val_rows"))
     zoo_rows = {f"zoo_{name.replace('-', '_')}_{path}": runs["models"][name][key]
                 for path, runs, key in zoo_paths for name in runs["models"] if key in runs["models"][name]}
-    timed_rows = {k: rows for k, rows in zoo_rows.items() if "ms" in rows}  # the attention zoo's others: untimed
+    timed_rows = {k: rows for k, rows in zoo_rows.items() if "ms" in rows}  # the attention, CSP zoos' others: untimed
     captured = (vk1, tk1, *(rows for _, rows in task_k1.values()), *zoo_rows.values(), *ta["k1_on_rows"],
                 *vo["k1_on_rect_rows"], at["k1_on_val_rows"], tr["full_width"]["k1_on_frame_rows"],
                 tr["predict_files"]["k1_on_batch_rows"])

@@ -1,0 +1,7 @@
+"""The RTMDet YAMLs (rtmdet, -seg, -pose at scale t) whole against the JAX
+package, on the CPU: tests/torch_csp_zoo.py says what they hold."""
+
+from tests.test_torch_modules import torch_threads  # noqa: F401 (autouse fixture)
+from tests.torch_csp_zoo import model_tests
+
+test_model_forward_matches_jax = model_tests(["rtmdet-t.yaml", "rtmdet-t-seg.yaml", "rtmdet-t-pose.yaml"])

@@ -1,6 +1,7 @@
 """Where the port's predict time goes on one CUDA card.
 
-    python3 tools/torch_predict_profile.py [--model yolov8s|yolov8s-seg|yolov8s-pose|yolov8s-obb|rtdetr-l]
+    python3 tools/torch_predict_profile.py [--model yolov8s|yolov8s-seg|yolov8s-pose|yolov8s-obb|rtdetr-l|
+                                                    yolov7|yolov7-anchor|yolov4-csp|yolor-csp|rtmdet-s]
                                            [--imgsz 640] [--reps 5]
 
 (yolov8s-obb at its DOTAv1 size: --model yolov8s-obb --imgsz 1024)
@@ -10,8 +11,8 @@ device="cuda") (seeded random weights, in the predictors' full f32 with TF32
 off) on chip_smoke.py's workload (its images, its `conf` for the YOLO models
 and the default 0.25 for rtdetr-l, as its phases `main`, `seg`, `pose` and
 `rtdetr` run them): `predict` on the 4 seeded images one at a time, and the
-device function `predictor.run` at batch 1 and 16; for yolov8s-seg also the
-postprocess of the 4 images' batch-1 outputs (the mask step on the card and
+device function `predictor.run` at batch 1, 4 (the 4 images) and 16; for
+yolov8s-seg also the postprocess of the 4 images' batch-1 outputs (the mask step on the card and
 the copy of the masks to the host). Each is traced with torch.profiler over
 `--reps` warm repetitions. Prints one JSON line per workload: wall ms per
 call, device busy ms (sum of kernel times on the one stream), idle share and
@@ -40,7 +41,8 @@ from chip_smoke import CONF, ROTATED_NMS_SCOPE, nvidia_smi, profile_window, seed
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("yolov8s", "yolov8s-seg", "yolov8s-pose", "yolov8s-obb", "rtdetr-l"),
+    ap.add_argument("--model", choices=("yolov8s", "yolov8s-seg", "yolov8s-pose", "yolov8s-obb", "rtdetr-l",
+                                        "yolov7", "yolov7-anchor", "yolov4-csp", "yolor-csp", "rtmdet-s"),
                     default="yolov8s")
     ap.add_argument("--imgsz", type=int, default=640)
     ap.add_argument("--reps", type=int, default=5)
@@ -63,6 +65,7 @@ def main() -> int:
     batch1 = batch16[:1].contiguous()
     workloads = [("predict_4_images", lambda: model.predict(imgs, **kw)),
                  ("device_fn_batch1", lambda: pred.run(batch1)),
+                 ("device_fn_batch4", lambda: pred.run(batch)),
                  ("device_fn_batch16", lambda: pred.run(batch16))]
     if args.model == "yolov8s-seg":
         outs = [pred.run(batch[i:i + 1]) for i in range(len(imgs))]

@@ -36,9 +36,14 @@ A model with an MHSA layer holds parameters sized by its map (its
 `model.imgsz`, 640 unless the model was built otherwise). The JAX facade
 initialises a model's variables at its first call's imgsz, and a later call
 at another size fails on their shape. So here a model that is still as
-built (seeded, never run or loaded) is rebuilt, from its seed, at the first
-predict, val, train or embed call's imgsz (`_bind_size`); later calls at
-another size raise (`MHSA.forward`), as the JAX package's do; TTA's
+built (never run or loaded, and its parameters and buffers still the
+seed's: a digest taken at build time says so) is rebuilt, from its seed, at
+the first predict, val, train or embed call's imgsz (`_bind_size`). Weights
+written to `model.model` directly (its `load_state_dict`, an in-place
+write) are never swapped for the seed's: that first call at another size
+raises ValueError, as the JAX facade raises ScopeParamShapeError on
+variables written at one size and called at another. Later calls at
+another size raise too (`MHSA.forward`), as the JAX package's do; TTA's
 shrunk passes and rect val's batch shapes are such sizes. A checkpoint's
 model is bound to its `train_args` imgsz.
 
@@ -52,6 +57,7 @@ hands the dataset the `HYP_KEYS` gains (`:213-218`).
 from __future__ import annotations
 
 import copy
+import hashlib
 from pathlib import Path
 from typing import Mapping, Optional, Union
 
@@ -75,6 +81,7 @@ class Model:
         self.ckpt = None
         self.overrides = {}
         self._fresh = False  # as built from a YAML: not yet run, loaded or trained (`_bind_size`)
+        self._seed_digest = None  # `_digest()` of a model with MHSA layers as built
         if str(model).endswith((".ckpt", ".pkl")):
             self._load(str(model), task)
         else:
@@ -88,10 +95,23 @@ class Model:
         return model_class_for(self.task)(cfg, ch=ch, nc=nc, verbose=verbose, generator=gen,
                                           imgsz=imgsz).to(self.device).eval()
 
+    def _digest(self) -> bytes:
+        """A digest of the model's parameters and buffers, names and bytes."""
+        h = hashlib.blake2b(digest_size=16)
+        for k, t in self.model.state_dict().items():
+            h.update(k.encode())
+            h.update(t.detach().cpu().reshape(-1).view(torch.uint8).numpy().tobytes())
+        return h.digest()
+
     def _bind_size(self, imgsz: int) -> None:
         """Rebuild a model that is still as built at imgsz where its MHSA
-        layers are bound to another size; the model is no longer as built."""
+        layers are bound to another size; the model is no longer as built.
+        Raises instead where its weights were written since it was built."""
         if self._fresh and self.model.imgsz not in (None, imgsz):
+            if self._digest() != self._seed_digest:
+                raise ValueError(f"the model's weights were written since it was built, and its MHSA layers' rel_h "
+                                 f"and rel_w are sized for imgsz={self.model.imgsz}, not {imgsz}: call it at "
+                                 f"imgsz={self.model.imgsz} (the JAX facade raises ScopeParamShapeError here)")
             self.model = self._build(copy.deepcopy(self.model.yaml), nc=self.model.nc, ch=self.model.ch, imgsz=imgsz)
         self._fresh = False
 
@@ -110,6 +130,8 @@ class Model:
         self.task = task or guess_model_task(d)
         self.model = self._build(d, verbose=verbose)
         self._fresh = True
+        if self.model.imgsz is not None:
+            self._seed_digest = self._digest()
 
     def _load(self, weights: str, task: Optional[str] = None):
         """A checkpoint of either package: the model from its `model_yaml`, its

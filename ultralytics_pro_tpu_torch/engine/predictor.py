@@ -8,8 +8,8 @@ function here, in full f32 with TF32 off (`utils.full_f32`), as the JAX
 package computes it: uint8 BGR batch -> RGB/255 -> forward -> NMS (kernel K1
 on the card). For a Detect head (the one head whose `fused_single_label`
 is set) it takes the fused single-label decode (the branch `:136-148`
-takes); for any other head (DDetect, AnchorDetect,
-Segment, DSegment, Pose) the generic decode and `non_max_suppression`, with
+takes); for any other head (DDetect, AnchorDetect, IDetect,
+Segment, DSegment, ISegment, Pose, IPose) the generic decode and `non_max_suppression`, with
 the head's extra columns as its payload (`:149-159`): 32 mask coefficients
 a candidate, or the decoded keypoints. Letterboxing runs
 on the model's device. A v10Detect head is end-to-end (`:62,125-135`): no
@@ -27,7 +27,7 @@ level), runs RGB/255 and the forward in full f32, and brings only the
 (B, nc) probabilities to the host.
 
 Test-time augmentation (`augment=True`, the JAX `tta_forward:76-116`) runs
-on a Detect, DDetect or AnchorDetect head that is not end-to-end: three
+on a Detect, DDetect, IDetect or AnchorDetect head that is not end-to-end: three
 forwards at scales 1, 0.83 and 0.67 (each side `ceil(s * scale / 32) * 32`),
 the second flipped left-right before its resize, the resize
 `F.interpolate(bilinear, antialias=True)` as `jax.image.resize` shrinks; the
@@ -80,6 +80,10 @@ from ultralytics_pro_tpu_torch.nn.modules.head import (
     DDetect,
     Detect,
     DSegment,
+    IDetect,
+    IOBB,
+    IPose,
+    ISegment,
     Pose,
     Segment,
     decode_single_label,
@@ -156,7 +160,7 @@ def letterbox_pad(batch_shape, orig_shape):
 class BasePredictor:
     """Single-model streaming inference on the model's device."""
 
-    head_types = (Detect, v10Detect, DDetect, AnchorDetect)  # the heads whose outputs run and postprocess read
+    head_types = (Detect, v10Detect, DDetect, AnchorDetect, IDetect)  # the heads run and postprocess read
     tta_heads = ()  # the heads whose predict takes augment=True
     outputs_to_host = True  # False: postprocess takes run's outputs on the device
 
@@ -180,7 +184,7 @@ class BasePredictor:
             raise NotImplementedError(
                 f"test-time augmentation (augment=True) is not implemented in ultralytics_pro_tpu_torch for "
                 f"{type(self).__name__} with a{'n end-to-end' if end2end else ''} {type(head).__name__} head: "
-                "it takes the detect heads Detect, DDetect and AnchorDetect")
+                "it takes the detect heads Detect, DDetect, IDetect and AnchorDetect")
         self.device = next(model.parameters()).device
         self.letterbox = LetterBox((self.imgsz, self.imgsz), scaleup=False)
         self.classes_mask = None
@@ -297,14 +301,14 @@ class FileImages:
 
 
 class DetectionPredictor(BasePredictor):
-    tta_heads = (Detect, DDetect, AnchorDetect)
+    tta_heads = (Detect, DDetect, AnchorDetect, IDetect)
 
 
 class SegmentationPredictor(BasePredictor):
     """Boxes and instance masks; `run` adds 'extra' (B, max_det, nm) mask
     coefficients and 'protos' (B, nm, H/4, W/4)."""
 
-    head_types = (Segment, DSegment)
+    head_types = (Segment, DSegment, ISegment)
     outputs_to_host = False
 
     @torch.no_grad()
@@ -356,7 +360,7 @@ class PosePredictor(BasePredictor):
     """Boxes and keypoints; `run` adds 'extra' (B, max_det, nk) keypoints,
     decoded in the letterboxed image's pixels."""
 
-    head_types = (Pose,)
+    head_types = (Pose, IPose)
 
     @torch.no_grad()
     def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -388,7 +392,7 @@ class OBBPredictor(BasePredictor):
     xywhr, 'scores', 'cls' and 'valid'. Like the JAX predictor it takes
     neither `classes` nor `agnostic_nms`."""
 
-    head_types = (OBB,)
+    head_types = (OBB, IOBB)
 
     @torch.no_grad()
     def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -4,7 +4,8 @@ Counterpart of `ultralytics_pro_tpu/nn/modules/block.py` (`Bottleneck:32`,
 `C2f:86`, `SPP:159`, `SPPF:173`, `DFL:251`, `Proto:270`, and RT-DETR's `HGStem:413`, `HGBlock:437`,
 `RepC3:505`), and the v5, v10 and YOLO11 blocks (`C3:110`, `C3k:131`,
 `C3k2:147`, `Attention:287`, `PSABlock:316`, `PSA:334`, `C2PSA:352`,
-`SCDown:369`, `CIB:382`, `C2fCIB:404`).
+`SCDown:369`, `CIB:382`, `C2fCIB:404`), and the YOLOv4/v7 CSP blocks
+(`BottleneckCSP:226`, `BottleneckCSP2:540`, `SPPCSPC:562`).
 
 Where the JAX blocks differ from the torch reference, the port follows the
 JAX package: C3k2's plain inner Bottleneck keeps its width (e = 1.0, where
@@ -18,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ultralytics_pro_tpu_torch.nn.modules.conv import Conv, LightConv, RepConv
+from ultralytics_pro_tpu_torch.nn.modules.conv import BN_EPS, BN_MOMENTUM, BatchNorm2d, Conv, LightConv, RepConv
 
 
 def dfl_expectation(box: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
@@ -331,3 +332,70 @@ class RepC3(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.cv3(self.m(self.cv1(x)) + self.cv2(x))
+
+
+class BottleneckCSP(nn.Module):
+    """The original CSP bottleneck: `cv1` (Conv 1x1) and n full-width
+    Bottlenecks (`m`), then `cv3`, a plain bias-free 1x1 conv, beside `cv2`,
+    a plain bias-free 1x1 conv of the input; the two concatenated through
+    their own BatchNorm (`bn`, eps 1e-3, flax momentum 0.97, which is torch's
+    0.03) and SiLU (whatever the model's activation), then `cv4`."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = nn.Conv2d(c1, c_, 1, bias=False)
+        self.cv3 = nn.Conv2d(c_, c_, 1, bias=False)
+        self.cv4 = Conv(2 * c_, c2, 1, 1)
+        self.bn = BatchNorm2d(2 * c_, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.act = nn.SiLU()
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.cat([self.cv3(self.m(self.cv1(x))), self.cv2(x)], 1)
+        return self.cv4(self.act(self.bn(y)))
+
+
+class BottleneckCSP2(nn.Module):
+    """Scaled-YOLOv4's CSP2: hidden width c2, both branches from `cv1`: n
+    full-width Bottlenecks (`m`) beside `cv2`, a plain bias-free 1x1 conv;
+    concatenated through `bn` and Mish (x tanh(softplus(x)), as JAX computes
+    it), then `cv3`."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, g: int = 1):
+        super().__init__()
+        c_ = c2
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = nn.Conv2d(c_, c_, 1, bias=False)
+        self.cv3 = Conv(2 * c_, c2, 1, 1)
+        self.bn = BatchNorm2d(2 * c_, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.act = nn.Mish()
+        self.m = nn.Sequential(*(Bottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1 = self.cv1(x)
+        return self.cv3(self.act(self.bn(torch.cat([self.m(x1), self.cv2(x1)], 1))))
+
+
+class SPPCSPC(nn.Module):
+    """YOLOv7's CSP-wrapped SPP, hidden width 2 c2 e: `cv1`, `cv3` (3x3),
+    `cv4`, then max pools of k at stride 1 with 'same' padding beside it,
+    `cv5`, `cv6` (3x3); concatenated with `cv2` of the input, then `cv7`."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5, k=(5, 9, 13)):
+        super().__init__()
+        c_ = int(2 * c2 * e)
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c1, c_, 1, 1)
+        self.cv3 = Conv(c_, c_, 3, 1)
+        self.cv4 = Conv(c_, c_, 1, 1)
+        self.m = nn.ModuleList(nn.MaxPool2d(x, 1, x // 2) for x in k)
+        self.cv5 = Conv((len(k) + 1) * c_, c_, 1, 1)
+        self.cv6 = Conv(c_, c_, 3, 1)
+        self.cv7 = Conv(2 * c_, c2, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1 = self.cv4(self.cv3(self.cv1(x)))
+        y1 = self.cv6(self.cv5(torch.cat([x1, *(m(x1) for m in self.m)], 1)))
+        return self.cv7(torch.cat([y1, self.cv2(x)], 1))

@@ -3,7 +3,8 @@
 Counterpart of `ultralytics_pro_tpu/nn/modules/conv.py` (`autopad:39`,
 `Conv:86`, `DWConv:131`, `LightConv:254`, `Concat:305`, `Upsample:328`,
 `RepConv:383`, `ChannelAttention:266`, `SpatialAttention:277`, `CBAM:293`,
-and the model-wide `activation:` override at `:102-128`).
+YOLOR's `ImplicitA:153` and `ImplicitM:167`, and the model-wide
+`activation:` override at `:102-128`).
 BatchNorm uses eps 1e-3 and momentum 0.03 (`:27-28`), and in train mode
 updates its running statistics as flax's `nn.BatchNorm` does (`:73-80`):
 see `BatchNorm2d`. "gelu" is the tanh form, as `jax.nn.gelu` computes it by
@@ -195,3 +196,29 @@ class CBAM(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.spatial_attention(self.channel_attention(x))
+
+
+class ImplicitA(nn.Module):
+    """YOLOR's additive implicit knowledge: x plus a learned per-channel
+    offset `implicit`, (1, C, 1, 1) as the reference holds it (the flax leaf
+    is (1, 1, 1, C)), initialised N(0, 0.02)."""
+
+    mean = 0.0
+    std = 0.02
+
+    def __init__(self, c1: int):
+        super().__init__()
+        self.implicit = nn.Parameter(torch.empty(1, c1, 1, 1).normal_(self.mean, self.std))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.implicit
+
+
+class ImplicitM(ImplicitA):
+    """YOLOR's multiplicative implicit knowledge: x times a learned
+    per-channel gain `implicit` (1, C, 1, 1), initialised N(1, 0.02)."""
+
+    mean = 1.0
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.implicit

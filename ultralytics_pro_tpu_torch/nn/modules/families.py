@@ -1,9 +1,13 @@
-"""BiFormer's bi-level routing attention, NCHW outside, under the JAX
-package's parameter names.
+"""Model-family modules, NCHW, under the JAX package's parameter names:
+RTMDet's CSPNeXt stage, the YOLOR (R family) CSP blocks and stem, and
+BiFormer's bi-level routing attention.
 
 Counterpart of `ultralytics_pro_tpu/nn/modules/families.py`
-(`BiLevelRoutingAttention:895`). The routing's top-k is a stable descending
-sort, so ties go to the lower region index as `lax.top_k` breaks them.
+(`CSPNeXtBlock:48`, `RTMBlock:62`, `ResBottleneck:644`,
+`BottleneckCSPB:660`, `ResCSPB:683`, `BottleneckCSPC:689`, `ResCSPC:712`,
+`Stem:718`, `BiLevelRoutingAttention:895`). The routing's top-k is a stable
+descending sort, so ties go to the lower region index as `lax.top_k` breaks
+them.
 """
 
 from __future__ import annotations
@@ -14,6 +18,137 @@ import torch
 from torch import nn
 
 from ultralytics_pro_tpu_torch.nn.modules.attention import nchw, nhwc
+from ultralytics_pro_tpu_torch.nn.modules.block import Bottleneck
+from ultralytics_pro_tpu_torch.nn.modules.conv import BN_EPS, BN_MOMENTUM, BatchNorm2d, Conv, DWConv, conv_act
+
+
+class CSPNeXtBlock(nn.Module):
+    """A k0 x k0 Conv (`cv1`) then a depth-wise k1 x k1 DWConv (`cv2`), with
+    the residual where shortcut and c1 == c2."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, k=(3, 5)):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, k[0])
+        self.cv2 = DWConv(c2, c2, k[1])
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class RTMBlock(nn.Module):
+    """RTMDet's CSPNeXt stage: n CSPNeXtBlocks (`m`) after `cv1` beside `cv2`,
+    both 1x1 to c2 e; the concatenated branches times the sigmoid of a biased
+    1x1 conv (`attn_fc`) of their spatial mean, before the fusing `cv3` (the
+    mmdet CSPLayer order)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1)
+        self.cv2 = Conv(c1, c_, 1)
+        self.m = nn.Sequential(*(CSPNeXtBlock(c_, c_, shortcut) for _ in range(n)))
+        self.attn_fc = nn.Conv2d(2 * c_, 2 * c_, 1)
+        self.cv3 = Conv(2 * c_, c2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1)
+        return self.cv3(y * torch.sigmoid(self.attn_fc(y.mean((2, 3), keepdim=True))))
+
+
+class ResBottleneck(nn.Module):
+    """A 1x1, 3x3, 1x1 Conv chain (`cv1`, `cv2`, `cv3`), hidden width c2 e,
+    with the residual where shortcut and c1 == c2."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1)
+        self.cv2 = Conv(c_, c_, 3)
+        self.cv3 = Conv(c_, c2, 1)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv3(self.cv2(self.cv1(x)))
+        return x + y if self.add else y
+
+
+def _inner(cls, c: int, n: int, shortcut: bool) -> nn.Sequential:
+    """n inner blocks of width c (`m`): a Bottleneck keeps its width (e 1.0),
+    a ResBottleneck halves it inside (e 0.5), as the JAX CSP-B and CSP-C do."""
+    return nn.Sequential(*(cls(c, c, shortcut=shortcut, e=1.0 if cls is Bottleneck else 0.5) for _ in range(n)))
+
+
+class BottleneckCSPB(nn.Module):
+    """CSP-B, hidden width c2: `cv1` (Conv 1x1), then n inner blocks (`m`)
+    beside `cv2`, a plain bias-free 1x1 conv of cv1's output; concatenated
+    through `bn` and the model's activation, then `cv3`."""
+
+    inner = Bottleneck
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False):
+        super().__init__()
+        c_ = c2
+        self.cv1 = Conv(c1, c_, 1)
+        self.m = _inner(self.inner, c_, n, shortcut)
+        self.cv2 = nn.Conv2d(c_, c_, 1, bias=False)
+        self.bn = BatchNorm2d(2 * c_, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.act = conv_act(True)
+        self.cv3 = Conv(2 * c_, c2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1 = self.cv1(x)
+        return self.cv3(self.act(self.bn(torch.cat([self.m(x1), self.cv2(x1)], 1))))
+
+
+class ResCSPB(BottleneckCSPB):
+    """CSP-B over ResBottlenecks."""
+
+    inner = ResBottleneck
+
+
+class BottleneckCSPC(nn.Module):
+    """CSP-C, hidden width c2 // 2: `cv1` (Conv 1x1), n inner blocks (`m`)
+    and `cv3`, a plain bias-free 1x1 conv, beside `cv2`, a plain bias-free
+    1x1 conv of the input; concatenated through `bn` and the model's
+    activation, then `cv4`."""
+
+    inner = Bottleneck
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False):
+        super().__init__()
+        c_ = int(c2 * 0.5)
+        self.cv1 = Conv(c1, c_, 1)
+        self.cv2 = nn.Conv2d(c1, c_, 1, bias=False)
+        self.m = _inner(self.inner, c_, n, shortcut)
+        self.cv3 = nn.Conv2d(c_, c_, 1, bias=False)
+        self.bn = BatchNorm2d(2 * c_, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.act = conv_act(True)
+        self.cv4 = Conv(2 * c_, c2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.cat([self.cv3(self.m(self.cv1(x))), self.cv2(x)], 1)
+        return self.cv4(self.act(self.bn(y)))
+
+
+class ResCSPC(BottleneckCSPC):
+    """CSP-C over ResBottlenecks."""
+
+    inner = ResBottleneck
+
+
+class Stem(nn.Module):
+    """The R family's stem: a 3x3 Conv to c2 // 2 (`cv1`), then a 3x3
+    stride-2 Conv to c2 (`cv2`)."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.cv1 = Conv(c1, c2 // 2, 3)
+        self.cv2 = Conv(c2 // 2, c2, 3, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv2(self.cv1(x))
 
 
 def top_regions(aff: torch.Tensor, k: int) -> torch.Tensor:

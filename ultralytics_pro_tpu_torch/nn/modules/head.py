@@ -3,7 +3,8 @@ heads, the Classify head, and the RT-DETR decoder head.
 
 Counterpart of `ultralytics_pro_tpu/nn/modules/head.py` (`_branch:30`,
 `Detect:48`, `_decode:87`, `decode_single_label:127`, `Segment:170`,
-`OBB:193`, `Pose:222`, `DDetect:278`, `DSegment:312`, `Classify:418`,
+`OBB:193`, `Pose:222`, `IDetect:259`, `DDetect:278`, `ISegment:300`,
+`IOBB:304`, `IPose:308`, `DSegment:312`, `Classify:418`,
 `RTDETRDecoder:440`, `v10Detect:709`, `AnchorDetect:795` with
 `V5_ANCHORS:788`). Module names follow the
 torch reference (`cv2.i.0.conv.weight`, `cv3.i.2.bias`, `dfl.conv.weight`,
@@ -29,7 +30,15 @@ import torch
 from torch import nn
 
 from ultralytics_pro_tpu_torch.nn.modules.block import DFL, Proto, dfl_expectation
-from ultralytics_pro_tpu_torch.nn.modules.conv import BN_EPS, BN_MOMENTUM, BatchNorm2d, Conv, DWConv
+from ultralytics_pro_tpu_torch.nn.modules.conv import (
+    BN_EPS,
+    BN_MOMENTUM,
+    BatchNorm2d,
+    Conv,
+    DWConv,
+    ImplicitA,
+    ImplicitM,
+)
 from ultralytics_pro_tpu_torch.nn.modules.transformer import LN_EPS, MLP, DeformableTransformerDecoderLayer
 from ultralytics_pro_tpu_torch.ops.anchors import dist2bbox, dist2rbox, make_anchors
 from ultralytics_pro_tpu_torch.ops.nms import _topk
@@ -298,6 +307,57 @@ class Pose(Detect):
         return xy.reshape(b, a, -1)
 
 
+class IDetect(Detect):
+    """YOLOR's and YOLOv7's anchor-free detect head: Detect with YOLOR's
+    implicit knowledge around each level's branches, an ImplicitA before the
+    box and the class branch (`ia2.i`, `ia3.i`) and an ImplicitM after them
+    (`im2.i`, `im3.i`). The box branch is Detect's (always the legacy one).
+    Not the fused single-label path: the JAX predictor takes that for a head
+    named Detect alone."""
+
+    fused_single_label = False
+
+    def __init__(self, nc: int = 80, ch=(), reg_max: int = 16, legacy: bool = True):
+        super().__init__(nc, ch, reg_max, legacy)
+        self._implicit(ch)
+
+    def _implicit(self, ch) -> None:
+        self.ia2 = nn.ModuleList(ImplicitA(x) for x in ch)
+        self.ia3 = nn.ModuleList(ImplicitA(x) for x in ch)
+        self.im2 = nn.ModuleList(ImplicitM(4 * self.reg_max) for _ in ch)
+        self.im3 = nn.ModuleList(ImplicitM(self.nc) for _ in ch)
+
+    def raw(self, feats):
+        return [torch.cat([self.im2[i](self.cv2[i](self.ia2[i](x))), self.im3[i](self.cv3[i](self.ia3[i](x)))], 1)
+                for i, x in enumerate(feats)]
+
+
+class ISegment(IDetect, Segment):
+    """IDetect plus Segment's mask coefficients and prototypes, which read
+    the plain maps (no implicit layers)."""
+
+    def __init__(self, nc: int = 80, ch=(), nm: int = 32, npr: int = 256, reg_max: int = 16,
+                 legacy: bool = True):
+        Segment.__init__(self, nc, ch, nm, npr, reg_max, legacy)
+        self._implicit(ch)
+
+
+class IOBB(IDetect, OBB):
+    """IDetect plus OBB's angle branch, which reads the plain maps."""
+
+    def __init__(self, nc: int = 80, ch=(), ne: int = 1, reg_max: int = 16, legacy: bool = True):
+        OBB.__init__(self, nc, ch, ne, reg_max, legacy)
+        self._implicit(ch)
+
+
+class IPose(IDetect, Pose):
+    """IDetect plus Pose's keypoint branch, which reads the plain maps."""
+
+    def __init__(self, nc: int = 80, ch=(), kpt_shape=(17, 3), reg_max: int = 16, legacy: bool = True):
+        Pose.__init__(self, nc, ch, kpt_shape, reg_max, legacy)
+        self._implicit(ch)
+
+
 V5_ANCHORS = (  # pixels, per level (P3, P4, P5): the COCO anchors of the YOLOv5 YAMLs
     ((10, 13), (16, 30), (33, 23)),
     ((30, 61), (62, 45), (59, 119)),
@@ -314,22 +374,30 @@ class AnchorDetect(nn.Module):
     Detect's. Train mode (decode=False) returns {'feats': raw, 'anchor_feats':
     raw}, the maps `v5AnchorLoss` reads. Not a Detect subclass: it has none
     of Detect's branches; the model, the detect validator and trainer, and
-    the predictor name it beside Detect."""
+    the predictor name it beside Detect.
+
+    implicit=True is YOLOv7's anchor head: an ImplicitA before each level's
+    conv (`ia.i`) and an ImplicitM after it (`im.i`), the same decode."""
 
     end2end = False
     fused_single_label = False
 
-    def __init__(self, nc: int = 80, ch=(), anchors=V5_ANCHORS, legacy: bool = True):
+    def __init__(self, nc: int = 80, ch=(), anchors=V5_ANCHORS, implicit: bool = False, legacy: bool = True):
         super().__init__()
-        self.nc, self.nl, self.legacy = nc, len(ch), legacy
+        self.nc, self.nl, self.legacy, self.implicit = nc, len(ch), legacy, implicit
         self.na = len(anchors[0])
         self.no = 5 + nc
         self.stride = torch.zeros(self.nl)
         self.anchor_list = tuple(tuple(tuple(float(v) for v in a) for a in lvl) for lvl in anchors)
         self.register_buffer("anchors", torch.tensor(self.anchor_list, dtype=torch.float32), persistent=False)
         self.m = nn.ModuleList(nn.Conv2d(x, self.na * self.no, 1) for x in ch)
+        if implicit:
+            self.ia = nn.ModuleList(ImplicitA(x) for x in ch)
+            self.im = nn.ModuleList(ImplicitM(self.na * self.no) for _ in ch)
 
     def raw(self, feats):
+        if self.implicit:
+            return [im(m(ia(x))) for m, ia, im, x in zip(self.m, self.ia, self.im, feats)]
         return [m(x) for m, x in zip(self.m, feats)]
 
     def decode(self, raw) -> torch.Tensor:

@@ -19,8 +19,13 @@ YOLOv13 YAML (DSConv `:317`, DSC3k2, HyperACE, DownsampleConv and
 FullPAD_Tunnel `:399-413`; its Conv rows with a padding and a group), and
 the attention modules of the v5/v8 attention YAMLs (CBAM `:266`, MHSA to
 EMA `:286-322`, LSKA, CPCA and FocusedLinearAttention `:580-583`,
-BiLevelRoutingAttention `:708-709`; `ATTENTION`), each with its input's
-channels out, its YAML arguments read as the JAX builders read them. As in
+BiLevelRoutingAttention `:708-709`; `ATTENTION`), and that of the RTMDet,
+YOLOv7, YOLOv4-CSP and YOLOR-CSP YAMLs (BottleneckCSP, BottleneckCSP2 and
+SPPCSPC `:245-251`, MP `:278`, RepConv_v7 `:438` as the port's RepConv,
+IDetect, ISegment, IOBB and IPose `:455-458`, RTMBlock `:640`, the CSP-B/C
+blocks, ResCSPB/C and Stem `:686-694`, AnchorDetect's implicit flag), each
+with its input's channels out, its YAML arguments read as the JAX builders
+read them (`ARITY`: the arguments a builder ignores are dropped). As in
 the JAX parse_model, a YAML with C3k2, C2fCIB, A2C2f, HyperACE or v10Detect
 in any row builds
 its detect head with legacy=False (the pre-scan `:1152-1155`), and the
@@ -30,11 +35,11 @@ stacked n times in an nn.Sequential (`:1208-1213`). HyperACE reads three
 layers and gives args[0] channels; DownsampleConv gives twice its input's
 channels (its input's with channel_adjust False); FullPAD_Tunnel gives its
 first input's. A2C2f at scales l and x
-takes residual=True and mlp_ratio=1.2. Segment's and DSegment's
-args are [nc, nm, npr] with npr width-scaled, OBB's [nc, ne], Pose's [nc,
-kpt_shape] with the YAML's top-level `kpt_shape` substituted, AnchorDetect's
-[nc, anchors], as the JAX package's `parse_model` reads them (`:206-212`,
-`:1179-1181`). Any other module raises NotImplementedError naming it.
+takes residual=True and mlp_ratio=1.2. Segment's, DSegment's and ISegment's
+args are [nc, nm, npr] with npr width-scaled, OBB's and IOBB's [nc, ne],
+Pose's and IPose's [nc, kpt_shape] with the YAML's top-level `kpt_shape`
+substituted, AnchorDetect's [nc, anchors, implicit], as the JAX package's
+`parse_model` reads them (`:206-212`, `:1179-1181`). Any other module raises NotImplementedError naming it.
 
 In train mode (`model.train()`) a Detect model returns the head's raw
 per-level maps, NCHW, as the JAX head returns `{"feats": raw}` when
@@ -71,8 +76,11 @@ from ultralytics_pro_tpu_torch.nn.modules.block import (
     C3,
     PSA,
     SPP,
+    SPPCSPC,
     SPPF,
     Bottleneck,
+    BottleneckCSP,
+    BottleneckCSP2,
     C2f,
     C2fCIB,
     C2PSA,
@@ -83,8 +91,16 @@ from ultralytics_pro_tpu_torch.nn.modules.block import (
     SCDown,
 )
 from ultralytics_pro_tpu_torch.nn.modules import attention as A
-from ultralytics_pro_tpu_torch.nn.modules.conv import CBAM, Concat, Conv, DWConv, recomputing
-from ultralytics_pro_tpu_torch.nn.modules.families import BiLevelRoutingAttention
+from ultralytics_pro_tpu_torch.nn.modules.conv import CBAM, Concat, Conv, DWConv, ImplicitA, RepConv, recomputing
+from ultralytics_pro_tpu_torch.nn.modules.families import (
+    BiLevelRoutingAttention,
+    BottleneckCSPB,
+    BottleneckCSPC,
+    ResCSPB,
+    ResCSPC,
+    RTMBlock,
+    Stem,
+)
 from ultralytics_pro_tpu_torch.nn.modules.head import (
     OBB,
     V5_ANCHORS,
@@ -93,6 +109,10 @@ from ultralytics_pro_tpu_torch.nn.modules.head import (
     DDetect,
     Detect,
     DSegment,
+    IDetect,
+    IOBB,
+    IPose,
+    ISegment,
     Pose,
     RTDETRDecoder,
     Segment,
@@ -113,12 +133,23 @@ from ultralytics_pro_tpu_torch.utils import LOGGER, PKG_ROOT, miniyaml
 SCALED = {"Conv": Conv, "DWConv": DWConv, "C2f": C2f, "SPPF": SPPF, "RepC3": RepC3, "C3": C3, "C3k2": C3k2,
           "C2fCIB": C2fCIB, "PSA": PSA, "C2PSA": C2PSA, "SCDown": SCDown, "Bottleneck": Bottleneck, "SPP": SPP,
           "nn.ConvTranspose2d": nn.ConvTranspose2d, "ADown": ADown, "A2C2f": A2C2f, "DSConv": DSConv,
-          "DSC3k2": DSC3k2}  # c2 is width-scaled
-REPEAT_MODULES = {"C2f", "RepC3", "C3", "C3k2", "C2fCIB", "C2PSA", "A2C2f", "DSC3k2"}  # of SCALED, n is the repeats
+          "DSC3k2": DSC3k2, "RTMBlock": RTMBlock, "BottleneckCSP": BottleneckCSP, "BottleneckCSP2": BottleneckCSP2,
+          "SPPCSPC": SPPCSPC, "RepConv_v7": RepConv, "BottleneckCSPB": BottleneckCSPB,
+          "BottleneckCSPC": BottleneckCSPC, "ResCSPB": ResCSPB, "ResCSPC": ResCSPC, "Stem": Stem}  # c2 width-scaled
+REPEAT_MODULES = {"C2f", "RepC3", "C3", "C3k2", "C2fCIB", "C2PSA", "A2C2f", "DSC3k2", "RTMBlock", "BottleneckCSP",
+                  "BottleneckCSP2", "BottleneckCSPB", "BottleneckCSPC", "ResCSPB",
+                  "ResCSPC"}  # of SCALED, n is the repeats
+# of SCALED, how many YAML arguments the JAX builder reads (it ignores the rest):
+# RTMBlock, BottleneckCSP2 and the CSP-B/C blocks [c2, shortcut], ResCSPB/C and
+# Stem [c2], SPPCSPC [c2, e], RepConv_v7 [c2, k, s]
+ARITY = {"RTMBlock": 2, "BottleneckCSP2": 2, "BottleneckCSPB": 2, "BottleneckCSPC": 2, "ResCSPB": 1, "ResCSPC": 1,
+         "Stem": 1, "SPPCSPC": 2, "RepConv_v7": 3}
 ELAN = {"RepNCSPELAN4": RepNCSPELAN4, "SPPELAN": SPPELAN}  # [c2, c3(, c4, n)]: every width scaled
 HEADS = {"Detect": Detect, "Segment": Segment, "OBB": OBB, "Pose": Pose, "v10Detect": v10Detect,
-         "DDetect": DDetect, "DSegment": DSegment, "AnchorDetect": AnchorDetect}
-POOLS = {"nn.MaxPool2d": nn.MaxPool2d, "nn.ZeroPad2d": nn.ZeroPad2d}  # torch's own, args as the YAML gives them
+         "DDetect": DDetect, "DSegment": DSegment, "AnchorDetect": AnchorDetect, "IDetect": IDetect,
+         "ISegment": ISegment, "IOBB": IOBB, "IPose": IPose}
+POOLS = {"nn.MaxPool2d": nn.MaxPool2d, "nn.ZeroPad2d": nn.ZeroPad2d,
+         "MP": nn.MaxPool2d}  # torch's own, args as the YAML gives them; MP [k] is k x k at stride k
 NON_LEGACY = {"C3k2", "C2fCIB", "A2C2f", "HyperACE", "v10Detect"}  # any of these in a YAML: the light class branch
 
 
@@ -207,7 +238,7 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
             c1 = chs[f] if isinstance(f, int) else None
             if m_name in SCALED:
                 c2 = make_divisible(min(args[0], max_channels) * width, 8)
-                args = [c1, c2, *args[1:]]
+                args = [c1, c2, *args[1:ARITY.get(m_name, len(args))]]
                 if m_name in REPEAT_MODULES:  # the repeats are the block's own n
                     args.insert(2, n)
                     n = 1
@@ -225,6 +256,8 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
                 c2, m = c1, POOLS[m_name]
                 if m_name == "nn.ZeroPad2d":
                     args = [tuple(args[0])]
+                elif m_name == "MP":
+                    args = [args[0] if args else 2] * 2
             elif m_name in ("HGStem", "HGBlock"):  # [cm, c2, ...], not width-scaled
                 c2, m = args[1], HGStem
                 if m_name == "HGBlock":  # [cm, c2, k, lightconv, shortcut]; n as the JAX builder takes it
@@ -254,18 +287,16 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
                 c2, m = None, HEADS[m_name]
                 extra = []
                 kwargs = {"legacy": legacy}
-                if m_name in ("Segment", "DSegment"):  # [nc, nm, npr], npr width-scaled
+                if issubclass(m, Segment):  # [nc, nm, npr], npr width-scaled
                     npr = args[2] if len(args) > 2 else 256
                     extra = [args[1] if len(args) > 1 else 32, make_divisible(min(npr, max_channels) * width, 8)]
-                elif m_name == "OBB":  # [nc, ne]
+                elif issubclass(m, OBB):  # [nc, ne]
                     extra = [args[1] if len(args) > 1 else 1]
-                elif m_name == "Pose":  # [nc, kpt_shape]
+                elif issubclass(m, Pose):  # [nc, kpt_shape]
                     extra = [tuple(args[1] if len(args) > 1 else (17, 3))]
                 elif m_name == "AnchorDetect":  # [nc, anchors, implicit]
-                    if len(args) > 2 and args[2]:
-                        raise NotImplementedError(f"AnchorDetect with implicit=True (layer {i}, the YOLOv7 "
-                                                  "IDetect form) is not implemented in ultralytics_pro_tpu_torch")
-                    extra = [args[1] if len(args) > 1 and isinstance(args[1], (list, tuple)) else V5_ANCHORS]
+                    extra = [args[1] if len(args) > 1 and isinstance(args[1], (list, tuple)) else V5_ANCHORS,
+                             bool(_a(args, 2, False))]
                 args = [args[0], [chs[x] for x in f], *extra]
             elif m_name == "Classify":  # [c2, k, s, p, g], the inputs' channels summed
                 c2, m = args[0], Classify
@@ -358,7 +389,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     zero, BatchNorm, LayerNorm and GroupNorm at identity, embeddings and
     MHSA's `rel_h`, `rel_w` normal(1.0),
     AdaHGComputation's prototypes xavier-uniform (FullPAD_Tunnel's gates stay
-    0); then MSDeformAttn's own offset and attention init."""
+    0), ImplicitA's and ImplicitM's `implicit` N(0, 0.02) and N(1, 0.02);
+    then MSDeformAttn's own offset and attention init."""
     for m in model.modules():
         if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) and m.weight.requires_grad:
             _lecun_normal_(m.weight, generator)
@@ -376,6 +408,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, nn.Embedding):
             with torch.no_grad():
                 m.weight.copy_(torch.empty(m.weight.shape).normal_(generator=generator))
+        elif isinstance(m, ImplicitA):  # ImplicitM too
+            with torch.no_grad():
+                m.implicit.copy_(m.mean + m.std * torch.empty(m.implicit.shape).normal_(generator=generator))
         elif isinstance(m, AdaHGComputation):
             ne, c = m.prototype_base.shape
             bound = math.sqrt(6.0 / (ne + c))

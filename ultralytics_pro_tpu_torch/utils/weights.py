@@ -33,7 +33,11 @@ Detect head's `cv2.0.0` does not match: there a digit follows. A2C2f's
 `prototype_base` are bare parameters under their own names (`PARAM_LEAVES`),
 carried as they are; so are the attention modules' `rel_h`, `rel_w` (MHSA),
 `cweight`, `cbias`, `sweight`, `sbias` (ShuffleAttention), `pos` and `scale`
-(FocusedLinearAttention) and CrissCrossAttention's `gamma`.
+(FocusedLinearAttention) and CrissCrossAttention's `gamma`. ImplicitA's and
+ImplicitM's `implicit` (YOLOR's implicit knowledge: `ia2_0`, `im3_0` in an
+IDetect head, `ia_0`, `im_0` in the implicit AnchorDetect) is also carried
+under its name, its flax (1, 1, 1, C) reshaped to the reference's
+(1, C, 1, 1) and back (`IMPLICIT`).
 FocusedLinearAttention's `scale` is a bare (1, 1, C) parameter, where every
 other flax `scale` is a norm's 1-D weight: a `scale` leaf of one dimension
 is a norm's `weight`, any other keeps its name both ways. ECAAttention's
@@ -76,6 +80,7 @@ BARE_PARAMS = ("denoising_class_embed",)  # flax `self.param` leaves: a module's
 # and the attention modules' (nn/modules/attention.py); so is a `scale` of more
 # than one dimension (FocusedLinearAttention's)
 PARAM_LEAVES = ("gamma", "gate", "prototype_base", "rel_h", "rel_w", "cweight", "cbias", "sweight", "sbias", "pos")
+IMPLICIT = "implicit"  # ImplicitA/ImplicitM's leaf: flax (1, 1, 1, C), torch (1, C, 1, 1)
 # RepNCSPELAN4's children (flax name, torch name); torch -> flax only where a
 # non-digit token follows, so that a Detect head's `cv2.0.0` keeps its name
 ELAN_NAMES = (("cv2_csp", "cv2.0"), ("cv2_conv", "cv2.1"), ("cv3_csp", "cv3.0"), ("cv3_conv", "cv3.1"))
@@ -150,7 +155,7 @@ def torch_key_to_flax(key: str, ndim: int) -> Tuple[Tuple[str, ...], str, str]:
     """A torch state_dict key of an array with ndim dims -> (flax path, leaf
     name, collection). A 1-D `weight` is a norm's `scale`. Attention's packed
     `in_proj_*` keys have no single flax leaf; see torch_state_dict_to_jax."""
-    name, leaf = key.rsplit(".", 1)
+    name, _, leaf = key.rpartition(".")  # a bare module's own parameter has no module name
     path = _torch_name_to_flax(name)
     if path and path[-1] == "out_proj":
         path = (*path[:-1], "out")
@@ -201,7 +206,9 @@ def jax_to_torch_state_dict(variables: dict, reg_max: int = 16) -> Dict[str, tor
             if coll == "params" and leaf in BARE_PARAMS:
                 sd[f"{_flax_path_to_torch((*mods, leaf))}.weight"] = torch.from_numpy(arr.copy())
                 continue
-            if coll == "params" and (leaf in PARAM_LEAVES or leaf == "scale" and arr.ndim != 1):
+            if coll == "params" and leaf == IMPLICIT:
+                arr = arr.reshape(1, -1, 1, 1)
+            if coll == "params" and (leaf in (*PARAM_LEAVES, IMPLICIT) or leaf == "scale" and arr.ndim != 1):
                 sd[".".join(filter(None, (_flax_path_to_torch(mods), leaf)))] = torch.from_numpy(arr.copy())
                 continue
             if leaf not in leaf_names[coll]:
@@ -244,7 +251,7 @@ def torch_state_dict_to_jax(state_dict: Dict[str, torch.Tensor], num_heads: int 
         if key.endswith("num_batches_tracked") or key.endswith("dfl.conv.weight"):
             continue
         w = t.detach().cpu().numpy().copy()  # on the CPU .numpy() would alias the model's tensor
-        name, leaf = key.rsplit(".", 1)
+        name, _, leaf = key.rpartition(".")
         if leaf in ("in_proj_weight", "in_proj_bias"):
             path = _torch_name_to_flax(name)
             for part, rows in zip(MHA_PARTS, np.split(w, 3)):
@@ -260,6 +267,8 @@ def torch_state_dict_to_jax(state_dict: Dict[str, torch.Tensor], num_heads: int 
             w = w.transpose(2, 3, 1, 0)  # OIHW -> HWIO
         elif fleaf == "kernel" and w.ndim in (2, 3):
             w = w.transpose(*range(w.ndim - 1, -1, -1))
+        elif fleaf == IMPLICIT:
+            w = w.reshape(1, 1, 1, -1)
         _put(out[coll], path, fleaf, w)
     return out
 
