@@ -287,6 +287,28 @@ exits non-zero):
           (v5AnchorLoss), yolov4-csp and yolor-csp (both in float64) at 160
           px as zoo_train_parity
   csp_zoo_train  yolov7 as zoo_train on CSP_TRAIN_COPIES x 16 = 64 images
+  att_maf_hyper_predict  yolov8s-att (BoT3, CoordAtt, C2f_DCN, C2f_DLKA on
+          the plain deformable conv), MAF-YOLOv2 (maf-yolov2s with v10Detect,
+          -mafdetect, -mafseg, -mafpose with the MAF heads) and Hyper-YOLO
+          (hyper-yolo-s, -s-seg, -s-pose) at scale s and 640 px, GRN's and the
+          layer scale's parameters seeded, as attn_zoo_predict: K1 once an
+          image, bit for bit on each batch's rows (timed, with the bound and
+          a profiled predict, for AMH_K1_TIMED), none and no NMS call for
+          maf-yolov2s (end to end), card against CPU, the hypergraph layer's
+          incidence on both devices reported (share, pairs within
+          HYPERGRAPH_NEAR of the threshold, pairs that differ); and
+          maf-yolov2s-mafobb at 1024 px through the rotated NMS, no K1
+          launch, as csp_zoo_obb_predict
+  att_maf_hyper_val  yolov8s-att, maf-yolov2s-mafdetect and hyper-yolo-s as
+          zoo_val on the fixture's 16 images (one K1 launch), card against
+          CPU on the first AMH_VAL_PARITY_IMAGES = 4
+  att_maf_hyper_train_parity  one step of yolov8s-att (its MHSA bound at
+          160 before seeding), maf-yolov2s (E2EDetectLoss),
+          maf-yolov2s-mafdetect and hyper-yolo-s at 160 px as
+          zoo_train_parity
+  att_maf_hyper_train  yolov8s-att as zoo_train on AMH_TRAIN_COPIES x 16 =
+          64 images (its backward runs through the deformable gathers; the
+          run's peak memory in max_memory_allocated_gb)
   tta     yolov8s (seeded) predict(augment=True) on the 4 images at 640 px,
           conf 1e-6: K1 once an image over the three passes' candidates
           (K = 15,049 at a 640 x 640 letterbox), every image's rows bit for bit
@@ -493,7 +515,8 @@ CLS_SET = "torch_cls_synth"  # the classify fixture set: 3 classes, 24 train and
 # the s multiples, yolov3-spp) run at their own widths.
 # YOLOv13 (yolov13s, yolov13n) runs with its FullPAD gates seeded (seed_gates).
 ZOO_SPECS = {"yolov8s-p6": ("yolov8s-p6.yaml", None, 1280), "yoloX-s": ("yoloX.yaml", "s", 640),
-             "yolov7-obb": ("yolov7-obb.yaml", None, 1024)}
+             "yolov7-obb": ("yolov7-obb.yaml", None, 1024),
+             "maf-yolov2s-mafobb": ("maf-yolov2s-mafobb.yaml", None, 1024)}
 ZOO_PREDICT = ("yolo11s", "yolov10s", "yolov5s", "yolov3-tiny", "yolov8s-p6", "yolov6s", "yolov3-spp", "yoloX-s",
                "yolov9c", "yolo12s", "yolov5-anchor", "gelan-c-dseg", "yolov13s")
 ZOO_VAL = ("yolo11s", "yolov10s", "yolov5-anchor", "yolov9c", "gelan-c-dseg", "yolov13s")
@@ -530,7 +553,16 @@ ZOO_TRAIN_PARITY_TOL = {**TRAIN_PARITY_TOL, "momentum_leaf": TRAIN_PARITY_TOL["m
 # initialisation its train-mode forward grows an input's rounding 1e4-fold
 # by layer 28 (1.7e-7 of layer 0's largest value to 1.3e-3), yolov4-csp's
 # 300-fold, yolov7's 100-fold (tools/torch_zoo_step_precision.py --layers).
-ZOO_TRAIN_PARITY_DTYPE = {"gelan-c-dseg": torch.float64, "yolov4-csp": torch.float64, "yolor-csp": torch.float64}
+# yolov8s-att: in float32 its card step sat 5.1e-3 (tree) and 7.1e-3 (leaf:
+# layers_13/m_0_cv2/conv_offset_mask/bias, C2f_DCN's offset conv) from the
+# CPU's, from the trainer's own images; from the same host-made images 4.5e-4
+# and 6.6e-4 (D-LKA's offset_net bias), the CPU's own float32 step 3.5e-4 (leaf)
+# from its float64 step (tools/torch_zoo_step_precision.py yolov8s-att). The
+# offsets' gradient is a difference of bilinear corners summed over every tap
+# and pixel, which grows the card's `x / 255` rounding; in float64 (images made
+# on the host) the devices agree to 1e-8.
+ZOO_TRAIN_PARITY_DTYPE = {"gelan-c-dseg": torch.float64, "yolov4-csp": torch.float64, "yolor-csp": torch.float64,
+                          "yolov8s-att": torch.float64}
 # FullPAD_Tunnel's gates start at 0, which cuts every path from HyperACE to the
 # head; every YOLOv13 model here sets them to seeded values in this range, and
 # every attention-zoo model its zero-initialised parameters (seed_gates).
@@ -566,6 +598,25 @@ CSP_VAL_PARITY_IMAGES = 4  # their card-against-CPU val: the first 4 images (the
 CSP_TRAIN_PARITY = dict.fromkeys(("rtmdet-t", "yolov7", "yolov7-anchor", "yolov4-csp", "yolor-csp"), 160)
 CSP_TRAIN = ("yolov7",)
 CSP_TRAIN_COPIES = 4  # yolov7's two epochs: the fixture's 16 images 4 times over, 64 images
+# yolov8-att (BoT3, CoordAtt, C2f_DCN, C2f_DLKA), MAF-YOLOv2 (v10Detect and
+# the four MAF heads) and Hyper-YOLO (detect, segment, pose) at scale s, the
+# widest these YAMLs give, 640 px (maf-yolov2s-mafobb 1024), seeded weights, 80
+# classes, GRN's and the layer scale's parameters seeded (seed_gates): each
+# predicts as the attention zoo's models do (attn_predict_one; maf-yolov2s
+# end to end, no NMS; maf-yolov2s-mafobb through the rotated NMS, obb_predict_one).
+AMH_PREDICT = ("yolov8s-att", "maf-yolov2s", "maf-yolov2s-mafdetect", "maf-yolov2s-mafseg", "maf-yolov2s-mafpose",
+               "hyper-yolo-s", "hyper-yolo-s-seg", "hyper-yolo-s-pose")
+AMH_OBB = "maf-yolov2s-mafobb"
+AMH_K1_TIMED = ("yolov8s-att", "hyper-yolo-s")  # K1 timed on their rows, one predict profiled
+AMH_VAL = ("yolov8s-att", "maf-yolov2s-mafdetect", "hyper-yolo-s")
+AMH_VAL_COPIES = 1  # their val's data: the fixture's 16 images once
+AMH_VAL_PARITY_IMAGES = 4  # their card-against-CPU val: the first 4 images
+# one step on card and CPU at nc 3 and 160 px (yolov8s-att's MHSA bound there
+# before its weights are seeded: zoo_yolo's imgsz)
+AMH_TRAIN_PARITY = dict.fromkeys(("yolov8s-att", "maf-yolov2s", "maf-yolov2s-mafdetect", "hyper-yolo-s"), 160)
+AMH_TRAIN = ("yolov8s-att",)  # its backward runs through the deformable gathers
+AMH_TRAIN_COPIES = 4  # its two epochs: the fixture's 16 images 4 times over, 64 images
+HYPERGRAPH_NEAR = 1e-4  # a token pair within this share of the threshold may change membership between devices
 TTA_CALLS = (1, 1)  # timed and profiled warm TTA predict calls of the 4 images
 MULTI_SCALE_TOL = 1  # grey levels, the multi_scale resize on the card against the CPU
 AUG_PARITY_IMGSZ = 160
@@ -2698,19 +2749,21 @@ def zoo_task(name: str) -> str:
 
 def seed_gates(model, seed: int = 0) -> int:
     """Set every parameter of a port model (an nn.Module) that starts at 0
-    and so cuts or idles a path to seeded values in GATE_RANGE:
-    FullPAD_Tunnel's gate, CrissCrossAttention's gamma, ShuffleAttention's
-    cweight and sweight, FocusedLinearAttention's pos. Returns how many
-    tensors it set."""
+    (or, as a layer scale, at 1e-6) and so cuts or idles a path to seeded
+    values in GATE_RANGE: FullPAD_Tunnel's gate, CrissCrossAttention's
+    gamma, ShuffleAttention's cweight and sweight, FocusedLinearAttention's
+    pos, GRN's gamma and beta, UniRepLKNetBlock's layer-scale gamma.
+    Returns how many tensors it set."""
     from ultralytics_pro_tpu_torch.nn.modules.attention import (
         CrissCrossAttention,
         FocusedLinearAttention,
         ShuffleAttention,
     )
+    from ultralytics_pro_tpu_torch.nn.modules.reparam import GRN, UniRepLKNetBlock
     from ultralytics_pro_tpu_torch.nn.modules.v13 import FullPAD_Tunnel
 
     zeros = {FullPAD_Tunnel: ("gate",), CrissCrossAttention: ("gamma",), ShuffleAttention: ("cweight", "sweight"),
-             FocusedLinearAttention: ("pos",)}
+             FocusedLinearAttention: ("pos",), GRN: ("gamma", "beta"), UniRepLKNetBlock: ("gamma",)}
     gates = [getattr(m, name) for m in model.modules() for name in zeros.get(type(m), ())]
     rng = np.random.default_rng(seed)
     with torch.no_grad():
@@ -2719,15 +2772,19 @@ def seed_gates(model, seed: int = 0) -> int:
     return len(gates)
 
 
-def zoo_yolo(YOLO, name: str, device: str, **over):
-    """A zoo model, seed 0, on device, its FullPAD gates (if any) seeded;
-    `over` overrides its YAML's keys (nc)."""
+def zoo_yolo(YOLO, name: str, device: str, imgsz: int | None = None, **over):
+    """A zoo model, seed 0, on device, its zero-initialised parameters (if
+    any) seeded (seed_gates); `over` overrides its YAML's keys (nc). With
+    imgsz, a model with MHSA layers is first bound at that image size (the
+    seeding then fixes it there, as written weights do)."""
     from ultralytics_pro_tpu_torch.nn.tasks import yaml_model_load
 
     src, scale, _ = zoo_spec(name)
     if scale:
         over["scale"] = scale
     model = YOLO({**yaml_model_load(src), **over} if over else src, device=device, seed=0)
+    if imgsz:
+        model._bind_size(imgsz)
     seed_gates(model.model)
     return model
 
@@ -2931,7 +2988,7 @@ def zoo_one_step(YOLO, load_pickle, tmp: Path, name: str, device: str, dtype: to
     carry as its inputs' difference."""
     from ultralytics_pro_tpu_torch.engine.trainer import BaseTrainer
 
-    model = model or zoo_yolo(YOLO, name, device, nc=3)
+    model = model or zoo_yolo(YOLO, name, device, imgsz, nc=3)
     model.model.to(dtype)
     src = ZOO_SRC[model.task]
     data = tmp / f"zoo_train_parity_{src}" / "data.yaml"
@@ -2978,7 +3035,7 @@ def zoo_train_parity(YOLO, load_pickle, tmp: Path, card: str, smi: str, models=N
     for name, imgsz in models.items():
         t0 = time.perf_counter()
         dtype = ZOO_TRAIN_PARITY_DTYPE.get(name, torch.float32)
-        cpu_model = zoo_yolo(YOLO, name, "cpu", nc=3)  # built once, copied to the card before either step
+        cpu_model = zoo_yolo(YOLO, name, "cpu", imgsz, nc=3)  # built once, copied to the card before either step
         card_run, _ = zoo_one_step(YOLO, load_pickle, tmp, name, "cuda", dtype, imgsz, moved(cpu_model, "cuda"))
         cpu_run, model = zoo_one_step(YOLO, load_pickle, tmp, name, "cpu", dtype, imgsz, cpu_model)
         runs = [card_run, cpu_run]
@@ -3051,18 +3108,61 @@ def k1_rows_equal(ops_nms, nms_cuda, cap) -> dict:
                 gather_mismatch_vs_plain=gathered)
 
 
+def hypergraph_incidence(full_f32, model, cpu, x) -> list:
+    """Each HyperComputeModule of a model on the card and of its copy on the
+    CPU, on the tokens it sees in a forward of x (full f32): the incidence
+    share on each device, the token pairs whose distance lies within
+    HYPERGRAPH_NEAR of the threshold (in float64 on the CPU's tokens), and
+    the pairs whose membership differs between the devices, in all and
+    outside those near ones. Reported, not held: the outputs are held by
+    zoo_parity."""
+    from ultralytics_pro_tpu_torch.nn.modules.families import HyperComputeModule
+
+    pairs = [(g, c) for g, c in zip(model.model.modules(), cpu.model.modules()) if isinstance(c, HyperComputeModule)]
+    seen = {}
+
+    def grab(m, args):  # the layer's input tokens (B, N, C)
+        seen[m] = args[0].flatten(2).transpose(1, 2)
+
+    hooks = [m.register_forward_pre_hook(grab) for pair in pairs for m in pair]
+    try:
+        with torch.no_grad(), full_f32():
+            model.model(x.cuda())
+            cpu.model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    out = []
+    for g, c in pairs:
+        with torch.no_grad(), full_f32():
+            hg, hc = g.incidence(seen[g]).bool().cpu(), c.incidence(seen[c]).bool()
+        t = seen[c].double()
+        sq = (t * t).sum(-1)
+        d = (sq[:, :, None] + sq[:, None, :] - 2.0 * t @ t.transpose(1, 2)).clamp(min=0).sqrt()
+        near = (d - c.threshold).abs() <= HYPERGRAPH_NEAR * c.threshold
+        out.append(dict(tokens=list(t.shape), threshold=c.threshold, share_card=float(hg.double().mean()),
+                        share_cpu=float(hc.double().mean()), pairs_near_threshold=int(near.sum()),
+                        pairs_differ=int((hg != hc).sum()), pairs_differ_outside_near=int(((hg != hc) & ~near).sum()),
+                        distance_min=float(d.min()), distance_median=float(d.median()), distance_max=float(d.max())))
+    return out
+
+
 def attn_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name: str, card: str, smi: str,
                      timed=ATTN_K1_TIMED) -> dict:
     """One model of ATTN_PREDICT at 640 px: built on the CPU (seed 0, its
     zero-initialised parameters seeded: zoo_yolo) and copied to the card
     (moved); one predict of the 4 seeded images at conf 1e-6
-    with K1's launches read around it (one an image) and the detections
+    with K1's launches read around it (one an image; none, and no NMS call
+    at all, for an end-to-end head) and the detections
     checked; the device function's ms a call on the 4-image batch (CUDA
     events, ATTN_DEVICE_CALLS calls); card against CPU on the first image
-    (zoo_parity); K1 on the batch's captured rows bit for bit against its
+    (zoo_parity; a hypergraph layer's incidence reported beside it,
+    hypergraph_incidence); K1 on the batch's captured rows bit for bit against its
     plain version (k1_rows_equal), and for the `timed` models also timed
     with its bound (captured_k1) and one predict profiled for K1's device ms
     a launch. The layer-10 module and the head are named in the result."""
+    from ultralytics_pro_tpu_torch.engine.predictor import rgb01
+
     t0 = time.perf_counter()
     marks = {}
 
@@ -3072,13 +3172,17 @@ def attn_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name: str, card: str, sm
     imgs = seeded_images()
     cpu = zoo_yolo(YOLO, name, "cpu")
     model = moved(cpu, "cuda")
+    end2end = model.model.model[-1].end2end
     mark("build")
     nms_cuda.launches = 0
-    results = model.predict(imgs, conf=CONF)
-    torch.cuda.synchronize()
+    with capture_k1(ops_nms) as cap:
+        results = model.predict(imgs, conf=CONF)
+        torch.cuda.synchronize()
     launches = nms_cuda.launches
-    if launches != len(imgs):
-        raise AssertionError(f"{name}: K1 launched {launches} times for {len(imgs)} images")
+    want = 0 if end2end else len(imgs)
+    if launches != want or end2end and cap:
+        raise AssertionError(f"{name}: K1 launched {launches} times for {len(imgs)} images, want {want}; "
+                             f"NMS reached: {bool(cap)}")
     dets = check_detections(results, imgs)
     mark("predict")
     pred = model.predictor
@@ -3086,12 +3190,18 @@ def attn_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name: str, card: str, sm
     info = dict(model=name, yaml=zoo_spec(name)[0], task=model.task, layer_10=type(model.model.model[10]).__name__,
                 head=type(model.model.model[-1]).__name__,
                 parameters=sum(p.numel() for p in model.model.parameters()), imgsz=640, conf=CONF,
-                k1_launches=launches, detections=dets,
+                end2end=end2end, k1_launches=launches, detections=dets,
                 device_ms_per_call=cuda_ms(lambda: pred.run(batch), iters=ATTN_DEVICE_CALLS, warmup=1),
                 images_per_call=len(imgs))
     mark("device_ms")
     info["parity"] = zoo_parity(YOLO, ops_nms, full_f32, name, model, batch, cpu)
+    hyper = hypergraph_incidence(full_f32, model, cpu, rgb01(batch[:1].cpu()))
+    if hyper:
+        info["hypergraph_incidence"] = hyper
     mark("parity")
+    if end2end:
+        info.update(seconds=time.perf_counter() - t0, seconds_by_part=marks)
+        return info
     with capture_k1(ops_nms) as cap:  # one batch of the 4 images: K1's rows and the gather around it
         pred.run(batch)
     if name in timed:
@@ -3121,8 +3231,8 @@ def csp_predict(YOLO, nms_cuda, ops_nms, full_f32, card: str, smi: str) -> dict:
             "card": card, "nvidia_smi": smi}
 
 
-def csp_obb_predict(YOLO, nms_cuda, ops_nms, card: str, smi: str) -> dict:
-    """yolov7-obb (IOBB) at 1024 px on the 4 seeded images, conf 1e-6, its
+def csp_obb_predict(YOLO, nms_cuda, ops_nms, card: str, smi: str, name: str = CSP_OBB) -> dict:
+    """yolov7-obb (IOBB; or the OBB zoo model `name`) at 1024 px on the 4 seeded images, conf 1e-6, its
     YAML's 80 classes: built on the CPU (seed 0) and copied to the card
     (moved); one predict with K1's launches (none: the rotated
     NMS is plain PyTorch, as the JAX package's is plain XLA) and the rotated
@@ -3133,8 +3243,8 @@ def csp_obb_predict(YOLO, nms_cuda, ops_nms, card: str, smi: str) -> dict:
     from ultralytics_pro_tpu_torch.engine import predictor as eng_pred
 
     imgs = seeded_images()
-    src, _, imgsz = zoo_spec(CSP_OBB)
-    cpu = zoo_yolo(YOLO, CSP_OBB, "cpu")
+    src, _, imgsz = zoo_spec(name)
+    cpu = zoo_yolo(YOLO, name, "cpu")
     model = moved(cpu, "cuda")
     kw = dict(imgsz=imgsz, conf=CONF)
     nms_cuda.launches = 0
@@ -3142,14 +3252,14 @@ def csp_obb_predict(YOLO, nms_cuda, ops_nms, card: str, smi: str) -> dict:
         results = model.predict(imgs, **kw)
         torch.cuda.synchronize()
     if nms_cuda.launches or rot["calls"] != len(imgs):
-        raise AssertionError(f"{CSP_OBB}: K1 launched {nms_cuda.launches} times, the rotated NMS called "
+        raise AssertionError(f"{name}: K1 launched {nms_cuda.launches} times, the rotated NMS called "
                              f"{rot['calls']} times, for {len(imgs)} images")
     dets = check_obb_results(results)
     pred = model.predictor
     batch = pred.preprocess(imgs)
     tol = {"xywh_px": ZOO_PARITY_TOL["boxes_px"], "scores": ZOO_PARITY_TOL["scores"],
            "angle_rad": ZOO_PARITY_TOL["scores"]}
-    return dict(model=CSP_OBB, yaml=src, task=model.task, head=type(model.model.model[-1]).__name__,
+    return dict(model=name, yaml=src, task=model.task, head=type(model.model.model[-1]).__name__,
                 parameters=sum(p.numel() for p in model.model.parameters()), nc=model.model.nc, imgsz=imgsz,
                 conf=CONF, anchors=int(rot["args"][0].shape[1]), k1_launches=nms_cuda.launches,
                 rotated_nms_calls=rot["calls"], rboxes=dets,
@@ -3169,6 +3279,33 @@ def csp_phases(YOLO, nms_cuda, ops_nms, full_f32, load_pickle, card: str, smi: s
                                            CSP_VAL_PARITY_IMAGES),
         "csp_zoo_train_parity": lambda tmp: zoo_train_parity(YOLO, load_pickle, tmp, card, smi, CSP_TRAIN_PARITY),
         "csp_zoo_train": lambda tmp: zoo_train(YOLO, nms_cuda, ops_nms, tmp, card, smi, CSP_TRAIN, CSP_TRAIN_COPIES),
+    }
+
+
+def amh_predict(YOLO, nms_cuda, ops_nms, full_f32, card: str, smi: str) -> dict:
+    """Each model of AMH_PREDICT as the attention zoo's predict
+    (attn_predict_one; K1 timed on the rows of AMH_K1_TIMED; none for
+    maf-yolov2s), and AMH_OBB through the rotated NMS (csp_obb_predict)."""
+    models = {name: attn_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name, card, smi, AMH_K1_TIMED)
+              for name in AMH_PREDICT}
+    models[AMH_OBB] = csp_obb_predict(YOLO, nms_cuda, ops_nms, card, smi, AMH_OBB)
+    return {"models": models, "device_ms_per_call": {k: v["device_ms_per_call"] for k, v in models.items()},
+            "card": card, "nvidia_smi": smi}
+
+
+def amh_phases(YOLO, nms_cuda, ops_nms, full_f32, load_pickle, card: str, smi: str) -> dict:
+    """The yolov8-att, MAF-YOLOv2 and Hyper-YOLO phases in the order main
+    runs them (and tools/torch_csp_zoo_phases.py --zoo att_maf_hyper, any of
+    them alone): phase name -> a call of the temporary directory that
+    returns the phase's fields."""
+    return {
+        "att_maf_hyper_predict": lambda tmp: amh_predict(YOLO, nms_cuda, ops_nms, full_f32, card, smi),
+        "att_maf_hyper_val": lambda tmp: zoo_val(YOLO, nms_cuda, ops_nms, tmp, card, smi, AMH_VAL, AMH_VAL_COPIES,
+                                                 AMH_VAL_PARITY_IMAGES),
+        "att_maf_hyper_train_parity": lambda tmp: zoo_train_parity(YOLO, load_pickle, tmp, card, smi,
+                                                                   AMH_TRAIN_PARITY),
+        "att_maf_hyper_train": lambda tmp: zoo_train(YOLO, nms_cuda, ops_nms, tmp, card, smi, AMH_TRAIN,
+                                                     AMH_TRAIN_COPIES),
     }
 
 def tta_parity(YOLO, ops_nms, full_f32, model, batch) -> dict:
@@ -4079,6 +4216,12 @@ def main() -> int:
             t = time.perf_counter()
             csp[phase] = run(Path(tmp))
             emit(phase, **csp[phase], seconds=time.perf_counter() - t)
+    amh = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for phase, run in amh_phases(YOLO, nms_cuda, ops_nms, full_f32, load_pickle, card, smi).items():
+            t = time.perf_counter()
+            amh[phase] = run(Path(tmp))
+            emit(phase, **amh[phase], seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
     ta = tta(YOLO, yaml_model_load, nms_cuda, ops_nms, full_f32, card, smi)
@@ -4119,7 +4262,10 @@ def main() -> int:
                  ("attn_val", av, "k1_on_batch_rows"), ("attn_train_val", atr, "k1_on_val_rows"),
                  ("csp_predict", csp["csp_zoo_predict"], "k1_on_batch_rows"),
                  ("csp_val", csp["csp_zoo_val"], "k1_on_batch_rows"),
-                 ("csp_train_val", csp["csp_zoo_train"], "k1_on_val_rows"))
+                 ("csp_train_val", csp["csp_zoo_train"], "k1_on_val_rows"),
+                 ("amh_predict", amh["att_maf_hyper_predict"], "k1_on_batch_rows"),
+                 ("amh_val", amh["att_maf_hyper_val"], "k1_on_batch_rows"),
+                 ("amh_train_val", amh["att_maf_hyper_train"], "k1_on_val_rows"))
     zoo_rows = {f"zoo_{name.replace('-', '_')}_{path}": runs["models"][name][key]
                 for path, runs, key in zoo_paths for name in runs["models"] if key in runs["models"][name]}
     timed_rows = {k: rows for k, rows in zoo_rows.items() if "ms" in rows}  # the attention, CSP zoos' others: untimed

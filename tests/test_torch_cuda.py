@@ -12,8 +12,9 @@ forwards and predicts on the card against the CPU (v10 without NMS), two
 attention-zoo models' predict at 640 px against the CPU, K1 on
 yolov3-tiny's two-level rows, on the anchor head's 25,200-candidate rows and
 on a narrowed yolov7's and yolov7-anchor's (IDetect, the implicit anchor
-head), their forwards on the card against the CPU,
-test-time augmentation and a rect val on the card against the CPU, the
+head), their forwards on the card against the CPU, K1 on yolov8n-att's and
+hyper-yolo-n's rows (the plain deformable conv, the hypergraph conv) with
+their forwards against the CPU, test-time augmentation and a rect val on the card against the CPU, the
 multi_scale resize of an augmented batch (alone and through the trainer's
 `device_images`) and one augmented train step on the card against the CPU,
 predict_files against per-image predict on the card, and the trackers' ids
@@ -732,6 +733,33 @@ def test_k1_on_yolov7_rows_equals_plain(card, name, k):
     assert nms_cuda.launches == before + 1 and 0 < len(res[0]) <= 300
     boxes, scores = cap["rows"]
     assert tuple(scores.shape) == (1, k)
+    keep, valid = nms_cuda.greedy_nms(boxes, scores, 300, 0.7, presorted=cap["k1_kwargs"].get("presorted", False))
+    rk, rv = nms_cuda.greedy_nms_plain(boxes, scores, 300, 0.7)
+    assert torch.equal(keep, rk) and torch.equal(valid, rv)
+    info = zoo_parity(YOLO, ops_nms, full_f32, name, m, m.predictor.preprocess([img]), cpu)
+    assert info["final_rows_mismatch"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["yolov8n-att", "hyper-yolo-n"])
+def test_k1_on_att_and_hyper_rows_equals_plain(card, name):
+    """yolov8n-att (BoT3, the deformable C2f_DCN and C2f_DLKA on the plain
+    deformable conv) and hyper-yolo-n (MANet, the hypergraph conv) predict at
+    640 through K1, once an image; K1 on the captured rows (K = 8400) equals
+    its plain version bit for bit; the same weights on the card and the CPU
+    as chip_smoke.zoo_parity holds them."""
+    from ultralytics_pro_tpu_torch.ops import nms as ops_nms
+    from ultralytics_pro_tpu_torch.utils import full_f32
+
+    m = YOLO(f"{name}.yaml", device="cuda", seed=0)
+    cpu = YOLO(f"{name}.yaml", device="cpu", seed=0)
+    img = np.random.default_rng(3).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    before = nms_cuda.launches
+    with capture_k1(ops_nms) as cap:
+        res = m.predict([img], conf=1e-6)
+    assert nms_cuda.launches == before + 1 and 0 < len(res[0]) <= 300
+    boxes, scores = cap["rows"]
+    assert tuple(scores.shape) == (1, 8400)
     keep, valid = nms_cuda.greedy_nms(boxes, scores, 300, 0.7, presorted=cap["k1_kwargs"].get("presorted", False))
     rk, rv = nms_cuda.greedy_nms_plain(boxes, scores, 300, 0.7)
     assert torch.equal(keep, rk) and torch.equal(valid, rv)

@@ -1,8 +1,10 @@
 """The CSP zoo phases of chip_smoke.py alone, on one CUDA card: RTMDet,
 YOLOv7 (IDetect, the implicit anchor head, ISegment, IPose, IOBB),
-YOLOv4-CSP and YOLOR-CSP.
+YOLOv4-CSP and YOLOR-CSP; or, with --zoo att_maf_hyper, the yolov8-att,
+MAF-YOLOv2 and Hyper-YOLO phases.
 
     python3 tools/torch_csp_zoo_phases.py [--phases csp_zoo_predict csp_zoo_train_parity ...]
+    python3 tools/torch_csp_zoo_phases.py --zoo att_maf_hyper [--phases att_maf_hyper_predict ...]
 
 Builds the kernels (csrc/, nvcc), then runs the named phases of
 chip_smoke.csp_phases (all five by default, in its order) as chip_smoke.main
@@ -11,9 +13,12 @@ once an image and bit for bit on the batch's rows, card against CPU),
 `csp_zoo_obb_predict` (yolov7-obb at 1024 px through the rotated NMS, no
 K1), `csp_zoo_val` (chip_smoke.CSP_VAL on the fixture's 16 images, card
 against CPU), `csp_zoo_train_parity` (one step on card and CPU at 160 px)
-and `csp_zoo_train` (yolov7, two epochs at 640 px on 64 images). Prints one
-JSON line a phase and the card's nvidia-smi line, and exits non-zero if a
-check fails or there is no card.
+and `csp_zoo_train` (yolov7, two epochs at 640 px on 64 images); with --zoo
+att_maf_hyper those of chip_smoke.amh_phases: `att_maf_hyper_predict` (the
+nine models, maf-yolov2s-mafobb at 1024), `att_maf_hyper_val`,
+`att_maf_hyper_train_parity` and `att_maf_hyper_train` (yolov8s-att). Prints
+one JSON line a phase and the card's nvidia-smi line, and exits non-zero if
+a check fails or there is no card.
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ import chip_smoke as cs  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", nargs="+", help="names of chip_smoke.csp_phases (all by default)")
+    ap.add_argument("--zoo", choices=("csp", "att_maf_hyper"), default="csp",
+                    help="the table: chip_smoke.csp_phases or chip_smoke.amh_phases")
+    ap.add_argument("--phases", nargs="+", help="names of the table's phases (all by default)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_csp_zoo_phases: needs a CUDA card", file=sys.stderr)
@@ -47,7 +54,8 @@ def main() -> int:
 
     build.build()
     card, smi = torch.cuda.get_device_name(0), cs.nvidia_smi()
-    runs = cs.csp_phases(YOLO, nms_cuda, ops_nms, full_f32, load_pickle, card, smi)
+    table = cs.csp_phases if args.zoo == "csp" else cs.amh_phases
+    runs = table(YOLO, nms_cuda, ops_nms, full_f32, load_pickle, card, smi)
     names = args.phases or list(runs)
     if set(names) - set(runs):
         ap.error(f"unknown phases {sorted(set(names) - set(runs))}; the phases are {list(runs)}")

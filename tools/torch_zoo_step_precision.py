@@ -115,7 +115,7 @@ def layers(models) -> None:
         host = next(iter(DataLoader(YOLODataset(d["train"], imgsz=160, data=d, task="detect"),
                                     batch_size=cs.TRAIN_PARITY_IMAGES, workers=0, max_gt=32)))
     for name in models:
-        cpu = cs.zoo_yolo(YOLO, name, "cpu", nc=3)
+        cpu = cs.zoo_yolo(YOLO, name, "cpu", 160, nc=3)  # an MHSA model bound at the batch's 160 px
         card = cs.moved(cpu, "cuda")
         nets = {"cpu": cpu.model.double().train(), "cuda": card.model.double().train()}
         for way in ("trainer", "float64"):

@@ -8,8 +8,8 @@ function here, in full f32 with TF32 off (`utils.full_f32`), as the JAX
 package computes it: uint8 BGR batch -> RGB/255 -> forward -> NMS (kernel K1
 on the card). For a Detect head (the one head whose `fused_single_label`
 is set) it takes the fused single-label decode (the branch `:136-148`
-takes); for any other head (DDetect, AnchorDetect, IDetect,
-Segment, DSegment, ISegment, Pose, IPose) the generic decode and `non_max_suppression`, with
+takes); for any other head (DDetect, AnchorDetect, IDetect, MAFDetect,
+Segment, DSegment, ISegment, MAFSegment, Pose, IPose, MAFPose) the generic decode and `non_max_suppression`, with
 the head's extra columns as its payload (`:149-159`): 32 mask coefficients
 a candidate, or the decoded keypoints. Letterboxing runs
 on the model's device. A v10Detect head is end-to-end (`:62,125-135`): no
@@ -26,8 +26,15 @@ the model's device (the JAX package's cv2 INTER_LINEAR, within a grey
 level), runs RGB/255 and the forward in full f32, and brings only the
 (B, nc) probabilities to the host.
 
+A predictor takes a head by the task its class serves (`head.task`, read in
+`BasePredictor.__init__` alone): the detect predictor every detect head
+(Detect and its detect subclasses, AnchorDetect), the segment predictor
+Segment and its subclasses, and so on; a Segment head, a Detect subclass,
+still goes to the segment predictor only.
+
 Test-time augmentation (`augment=True`, the JAX `tta_forward:76-116`) runs
-on a Detect, DDetect, IDetect or AnchorDetect head that is not end-to-end: three
+on a head whose class sets `tta` (the detect heads: Detect, DDetect, IDetect,
+MAFDetect, AnchorDetect) and that is not end-to-end: three
 forwards at scales 1, 0.83 and 0.67 (each side `ceil(s * scale / 32) * 32`),
 the second flipped left-right before its resize, the resize
 `F.interpolate(bilinear, antialias=True)` as `jax.image.resize` shrinks; the
@@ -73,22 +80,7 @@ from ultralytics_pro_tpu_torch.data.build import DataLoader
 from ultralytics_pro_tpu_torch.data.image_io import imread
 from ultralytics_pro_tpu_torch.data.loaders import load_inference_source
 from ultralytics_pro_tpu_torch.engine.results import Results
-from ultralytics_pro_tpu_torch.nn.modules.head import (
-    OBB,
-    AnchorDetect,
-    Classify,
-    DDetect,
-    Detect,
-    DSegment,
-    IDetect,
-    IOBB,
-    IPose,
-    ISegment,
-    Pose,
-    Segment,
-    decode_single_label,
-    v10Detect,
-)
+from ultralytics_pro_tpu_torch.nn.modules.head import decode_single_label
 from ultralytics_pro_tpu_torch.ops.boxes import scale_boxes, xywh2xyxy
 from ultralytics_pro_tpu_torch.ops.masks import process_mask_native
 from ultralytics_pro_tpu_torch.ops.nms import non_max_suppression, non_max_suppression_fused, non_max_suppression_rotated
@@ -160,8 +152,7 @@ def letterbox_pad(batch_shape, orig_shape):
 class BasePredictor:
     """Single-model streaming inference on the model's device."""
 
-    head_types = (Detect, v10Detect, DDetect, AnchorDetect, IDetect)  # the heads run and postprocess read
-    tta_heads = ()  # the heads whose predict takes augment=True
+    task = "detect"  # the `task` of the heads whose outputs run and postprocess read
     outputs_to_host = True  # False: postprocess takes run's outputs on the device
 
     def __init__(self, model, args: Dict | None = None):
@@ -176,15 +167,15 @@ class BasePredictor:
         self.agnostic = bool(self.args.get("agnostic_nms", False))
         self.augment = bool(self.args.get("augment", False))
         head = model.model[-1]
-        if type(head) not in self.head_types:
-            wanted = " or ".join(t.__name__ for t in self.head_types)
-            raise NotImplementedError(f"{type(self).__name__} needs a {wanted} head, got {type(head).__name__}")
+        if getattr(head, "task", None) != self.task:
+            raise NotImplementedError(f"{type(self).__name__} needs a head of task '{self.task}', got "
+                                      f"{type(head).__name__} (task {getattr(head, 'task', None)!r})")
         end2end = getattr(head, "end2end", False)
-        if self.augment and (type(head) not in self.tta_heads or end2end):
+        if self.augment and (not head.tta or end2end):
             raise NotImplementedError(
                 f"test-time augmentation (augment=True) is not implemented in ultralytics_pro_tpu_torch for "
                 f"{type(self).__name__} with a{'n end-to-end' if end2end else ''} {type(head).__name__} head: "
-                "it takes the detect heads Detect, DDetect, IDetect and AnchorDetect")
+                "it takes the detect heads Detect, DDetect, IDetect, MAFDetect and AnchorDetect")
         self.device = next(model.parameters()).device
         self.letterbox = LetterBox((self.imgsz, self.imgsz), scaleup=False)
         self.classes_mask = None
@@ -301,14 +292,14 @@ class FileImages:
 
 
 class DetectionPredictor(BasePredictor):
-    tta_heads = (Detect, DDetect, AnchorDetect, IDetect)
+    """Boxes: the detect heads, TTA on those whose class sets `tta`."""
 
 
 class SegmentationPredictor(BasePredictor):
     """Boxes and instance masks; `run` adds 'extra' (B, max_det, nm) mask
     coefficients and 'protos' (B, nm, H/4, W/4)."""
 
-    head_types = (Segment, DSegment, ISegment)
+    task = "segment"
     outputs_to_host = False
 
     @torch.no_grad()
@@ -339,7 +330,7 @@ class SegmentationPredictor(BasePredictor):
 class ClassificationPredictor(BasePredictor):
     """Class probabilities; `run` returns (B, nc) softmax rows."""
 
-    head_types = (Classify,)
+    task = "classify"
 
     @torch.no_grad()
     def run(self, img_u8: torch.Tensor) -> torch.Tensor:
@@ -360,7 +351,7 @@ class PosePredictor(BasePredictor):
     """Boxes and keypoints; `run` adds 'extra' (B, max_det, nk) keypoints,
     decoded in the letterboxed image's pixels."""
 
-    head_types = (Pose, IPose)
+    task = "pose"
 
     @torch.no_grad()
     def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -392,7 +383,7 @@ class OBBPredictor(BasePredictor):
     xywhr, 'scores', 'cls' and 'valid'. Like the JAX predictor it takes
     neither `classes` nor `agnostic_nms`."""
 
-    head_types = (OBB, IOBB)
+    task = "obb"
 
     @torch.no_grad()
     def run(self, img_u8: torch.Tensor) -> Dict[str, torch.Tensor]:

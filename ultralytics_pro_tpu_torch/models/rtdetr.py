@@ -109,7 +109,7 @@ class RTDETRValidator(DetectionValidator):
 class RTDETRPredictor(BasePredictor):
     """NMS-free predictor for an RTDETRDecoder model."""
 
-    head_types = (RTDETRDecoder,)
+    task = "rtdetr"
 
     @torch.no_grad()
     def run(self, img_u8: torch.Tensor) -> torch.Tensor:

@@ -7,13 +7,19 @@ Counterpart of `ultralytics_pro_tpu/nn/modules/attention.py` (`_bn:23`,
 `SKAttention:368`, `_ZPoolGate:392`, `TripletAttention:402`,
 `ShuffleAttention:420`, `LSKblock:445`, `EffectiveSE:512`,
 `SegNext_Attention:586`, `DAttention:606`, `LSKA:670`, `CPCA:694`,
-`FocusedLinearAttention:725`). Each module's output has its input's
-channels. Parameter names are those `utils/weights.py` gives the flax
+`FocusedLinearAttention:725`), and the blocks of yolov8-att.yaml
+(`BottleneckTransformer:58`, `BoT3:71`, `DCNv2:109`, `C2f_DCN:138`,
+`C3_DCN:158`, `DeformConvDW:178`, `deformable_LKA:199`,
+`deformable_LKA_Attention:211`, `C2f_DLKA:224`). Each attention module's
+output has its input's channels. Parameter names are those `utils/weights.py` gives the flax
 names: `fc_0` is `fc.0`, `conv_offset_1` is `conv_offset.1`, a name whose
 last token is not a number (`convs_0_conv`, `strip0_h`) stays as it is.
 SegNext_Attention's `conv0_1` and `conv0_2` are therefore children `1` and
 `2` of its `conv0`, and its `conv1_*`, `conv2_*` children of containers
-`conv1`, `conv2`.
+`conv1`, `conv2`; deformable_LKA_Attention's `proj_1`, `proj_2` children of
+`proj`; C2f_DCN's and C3_DCN's `m_0_cv1`, `m_0_cv2` keep their names.
+DCNv2's and DeformConvDW's kernels are bare `weight` parameters with a
+`bias`, as flax holds them (HWIO there, OIHW here: `utils/weights.py`).
 
 Where the JAX modules depart from the torch reference, the port follows
 them:
@@ -33,7 +39,12 @@ them:
 
 Zero-initialised parameters: CrissCrossAttention's `gamma` (the module is
 the identity until it moves), ShuffleAttention's `cweight` and `sweight`,
-FocusedLinearAttention's `pos` and `scale`.
+FocusedLinearAttention's `pos` and `scale`. DCNv2's `conv_offset_mask` and
+DeformConvDW's `offset_net` start lecun-normal, as flax starts them, not at
+zero as the reference's do: the sampling points move from the first step.
+
+The deformable convs sample through `ops/deform.py:deform_conv2d`, plain
+torch (plain XLA in the JAX package).
 """
 
 from __future__ import annotations
@@ -44,7 +55,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ultralytics_pro_tpu_torch.nn.modules.conv import BN_EPS, BN_MOMENTUM, BatchNorm2d
+from ultralytics_pro_tpu_torch.nn.modules.conv import BN_EPS, BN_MOMENTUM, BatchNorm2d, Conv, conv_act
+from ultralytics_pro_tpu_torch.ops.deform import deform_conv2d
 
 NORM_EPS = 1e-6  # flax's GroupNorm and LayerNorm
 
@@ -559,3 +571,165 @@ class FocusedLinearAttention(nn.Module):
         out = out.transpose(1, 2).reshape(b, n, c)
         out = out + self.dwc(v.transpose(1, 2).reshape(b, c, h, w)).flatten(2).transpose(1, 2)
         return self.proj(out).transpose(1, 2).reshape(b, c, h, w)
+
+
+class BottleneckTransformer(nn.Module):
+    """A 1x1 Conv (`cv1`) then MHSA (`mhsa`), with the residual where c1 == c2."""
+
+    def __init__(self, c1: int, c2: int, heads: int = 4):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 1)
+        self.mhsa = MHSA(c2, heads)
+        self.add = c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.mhsa(self.cv1(x))
+        return x + y if self.add else y
+
+
+class BoT3(nn.Module):
+    """C3 over n BottleneckTransformers (`m`): `cv1` through them beside
+    `cv2`, both 1x1 to c2 e, concatenated into `cv3`."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, 1)
+        self.cv2 = Conv(c1, c_, 1)
+        self.m = nn.Sequential(*(BottleneckTransformer(c_, c_) for _ in range(n)))
+        self.cv3 = Conv(2 * c_, c2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(torch.cat([self.m(self.cv1(x)), self.cv2(x)], 1))
+
+
+class DCNv2(nn.Module):
+    """Modulated deformable conv: a biased k x k conv (`conv_offset_mask`)
+    gives 3K channels, K = k * k: the first 2K the (dy, dx) offsets, the
+    rest the mask through a sigmoid; the deformable conv with the bare
+    `weight` (c2, c1, k, k) and `bias`, padding (k - 1) // 2, then `bn` and
+    the activation."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, act=True):
+        super().__init__()
+        self.k, self.s, self.p = k, s, (k - 1) // 2
+        self.conv_offset_mask = nn.Conv2d(c1, 3 * k * k, k, s, self.p)
+        self.weight = nn.Parameter(torch.empty(c2, c1, k, k))
+        self.bias = nn.Parameter(torch.zeros(c2))
+        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
+        self.bn = _bn(c2)
+        self.act = conv_act(act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kk = self.k * self.k
+        om = self.conv_offset_mask(x)
+        y = deform_conv2d(x, om[:, :2 * kk], self.weight, torch.sigmoid(om[:, 2 * kk:]), self.bias, self.s, self.p)
+        return self.act(self.bn(y))
+
+
+class C2f_DCN(nn.Module):
+    """C2f whose n inner blocks are a 3x3 Conv (`m_i_cv1`) then DCNv2
+    (`m_i_cv2`), with the residual where shortcut."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, e: float = 0.5):
+        super().__init__()
+        self.c, self.n, self.shortcut = int(c2 * e), n, shortcut
+        self.cv1 = Conv(c1, 2 * self.c, 1)
+        for i in range(n):
+            self.add_module(f"m_{i}_cv1", Conv(self.c, self.c, 3))
+            self.add_module(f"m_{i}_cv2", DCNv2(self.c, self.c, 3))
+        self.cv2 = Conv((2 + n) * self.c, c2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ys = list(self.cv1(x).chunk(2, 1))
+        for i in range(self.n):
+            z = self._modules[f"m_{i}_cv2"](self._modules[f"m_{i}_cv1"](ys[-1]))
+            ys.append(ys[-1] + z if self.shortcut else z)
+        return self.cv2(torch.cat(ys, 1))
+
+
+class C3_DCN(nn.Module):
+    """C3 whose n inner blocks are a 1x1 Conv (`m_i_cv1`) then DCNv2
+    (`m_i_cv2`), with the residual where shortcut."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.n, self.shortcut = n, shortcut
+        self.cv1 = Conv(c1, c_, 1)
+        self.cv2 = Conv(c1, c_, 1)
+        for i in range(n):
+            self.add_module(f"m_{i}_cv1", Conv(c_, c_, 1))
+            self.add_module(f"m_{i}_cv2", DCNv2(c_, c_, 3))
+        self.cv3 = Conv(2 * c_, c2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a = self.cv1(x)
+        for i in range(self.n):
+            z = self._modules[f"m_{i}_cv2"](self._modules[f"m_{i}_cv1"](a))
+            a = a + z if self.shortcut else z
+        return self.cv3(torch.cat([a, self.cv2(x)], 1))
+
+
+class DeformConvDW(nn.Module):
+    """Depth-wise deformable conv: a biased k x k conv at dilation d
+    (`offset_net`, padding d (k - 1) / 2) gives the (dy, dx) offsets of the
+    K taps, then the deformable conv with the bare depth-wise `weight`
+    (C, 1, k, k) and `bias`, at the same padding and dilation."""
+
+    def __init__(self, c1: int, k: int = 5, d: int = 1):
+        super().__init__()
+        self.k, self.d, self.p = k, d, d * (k - 1) // 2
+        self.offset_net = nn.Conv2d(c1, 2 * k * k, k, padding=self.p, dilation=d)
+        self.weight = nn.Parameter(torch.empty(c1, 1, k, k))
+        self.bias = nn.Parameter(torch.zeros(c1))
+        nn.init.kaiming_uniform_(self.weight, a=math.sqrt(5))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return deform_conv2d(x, self.offset_net(x), self.weight, None, self.bias, 1, self.p, self.d, x.shape[1])
+
+
+class deformable_LKA(nn.Module):  # noqa: N801 (the reference's name)
+    """Deformable large-kernel attention: a 5x5 DeformConvDW (`conv0`), a 7x7
+    one at dilation 3 (`conv_spatial`), a biased 1x1 conv (`conv1`), gating x."""
+
+    def __init__(self, c1: int):
+        super().__init__()
+        self.conv0 = DeformConvDW(c1, 5, 1)
+        self.conv_spatial = DeformConvDW(c1, 7, 3)
+        self.conv1 = nn.Conv2d(c1, c1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.conv1(self.conv_spatial(self.conv0(x)))
+
+
+class deformable_LKA_Attention(nn.Module):  # noqa: N801 (the reference's name)
+    """A biased 1x1 conv (`proj.1`), tanh GELU, deformable_LKA
+    (`spatial_gating_unit`), a biased 1x1 conv (`proj.2`), plus x."""
+
+    def __init__(self, c1: int):
+        super().__init__()
+        self.proj = nn.ModuleDict({"1": nn.Conv2d(c1, c1, 1), "2": nn.Conv2d(c1, c1, 1)})
+        self.spatial_gating_unit = deformable_LKA(c1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.gelu(self.proj["1"](x), approximate="tanh")
+        return x + self.proj["2"](self.spatial_gating_unit(y))
+
+
+class C2f_DLKA(nn.Module):
+    """C2f whose n inner blocks are deformable_LKA_Attention (`m`); shortcut
+    is taken and unused, as the JAX block takes it."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1)
+        self.m = nn.ModuleList(deformable_LKA_Attention(self.c) for _ in range(n))
+        self.cv2 = Conv((2 + n) * self.c, c2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ys = list(self.cv1(x).chunk(2, 1))
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        return self.cv2(torch.cat(ys, 1))

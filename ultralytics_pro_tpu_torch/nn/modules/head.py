@@ -4,7 +4,8 @@ heads, the Classify head, and the RT-DETR decoder head.
 Counterpart of `ultralytics_pro_tpu/nn/modules/head.py` (`_branch:30`,
 `Detect:48`, `_decode:87`, `decode_single_label:127`, `Segment:170`,
 `OBB:193`, `Pose:222`, `IDetect:259`, `DDetect:278`, `ISegment:300`,
-`IOBB:304`, `IPose:308`, `DSegment:312`, `Classify:418`,
+`IOBB:304`, `IPose:308`, `DSegment:312`, `MAFDetect:342`,
+`MAFSegment:406`, `MAFOBB:410`, `MAFPose:414`, `Classify:418`,
 `RTDETRDecoder:440`, `v10Detect:709`, `AnchorDetect:795` with
 `V5_ANCHORS:788`). Module names follow the
 torch reference (`cv2.i.0.conv.weight`, `cv3.i.2.bias`, `dfl.conv.weight`,
@@ -20,6 +21,13 @@ rotated (cx, cy, w, h), the class scores, then the angle in radians. Segment's p
 eval rows are (B, k, 6): xywh, conf, cls. AnchorDetect's raw maps are
 (B, na * (5 + nc), H, W) and its decoded rows (B, A, 4 + nc), A = H * W * na
 a level, anchors in (h, w, na) order.
+
+Each head class says which task it serves (`task`: "detect", "segment",
+"pose", "obb", "classify", or "rtdetr" for RT-DETR's NMS-free decoder) and
+whether its predict takes test-time augmentation (`tta`); the predictors
+read these and nothing else of a head's type. A head that combines two
+(ISegment, MAFPose) takes both from its task's class through the MRO: the
+I- and MAF- detect bases set neither.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ from ultralytics_pro_tpu_torch.nn.modules.conv import (
     ImplicitA,
     ImplicitM,
 )
+from ultralytics_pro_tpu_torch.nn.modules.reparam import UniRepLKNetBlock
 from ultralytics_pro_tpu_torch.nn.modules.transformer import LN_EPS, MLP, DeformableTransformerDecoderLayer
 from ultralytics_pro_tpu_torch.ops.anchors import dist2bbox, dist2rbox, make_anchors
 from ultralytics_pro_tpu_torch.ops.nms import _topk
@@ -61,6 +70,8 @@ class Detect(nn.Module):
     with `decode_single_label` and the fused NMS; True for this class only,
     as the JAX predictor takes that branch for a head named Detect alone."""
 
+    task = "detect"
+    tta = True  # predict(augment=True) runs the three-scale forward (not for an end-to-end head)
     end2end = False
     fused_single_label = True
 
@@ -84,9 +95,9 @@ class Detect(nn.Module):
     def _box_branch(self, x: int) -> nn.Sequential:
         return nn.Sequential(Conv(x, self.c2, 3), Conv(self.c2, self.c2, 3), nn.Conv2d(self.c2, 4 * self.reg_max, 1))
 
-    def _cls_branch(self, x: int) -> nn.Sequential:
+    def _cls_branch(self, x: int, legacy: bool | None = None) -> nn.Sequential:
         c3 = self.c3
-        if self.legacy:
+        if self.legacy if legacy is None else legacy:
             return nn.Sequential(Conv(x, c3, 3), Conv(c3, c3, 3), nn.Conv2d(c3, self.nc, 1))
         return nn.Sequential(nn.Sequential(DWConv(x, x, 3), Conv(x, c3, 1)),
                              nn.Sequential(DWConv(c3, c3, 3), Conv(c3, c3, 1)), nn.Conv2d(c3, self.nc, 1))
@@ -202,6 +213,8 @@ class Segment(Detect):
     (B, nm, H/4, W/4)}); with decode=False (and in train mode) the dict alone.
     """
 
+    task = "segment"
+    tta = False
     fused_single_label = False
 
     def __init__(self, nc: int = 80, ch=(), nm: int = 32, npr: int = 256, reg_max: int = 16,
@@ -247,6 +260,8 @@ class OBB(Detect):
     in train mode) the dict alone.
     """
 
+    task = "obb"
+    tta = False
     fused_single_label = False
 
     def __init__(self, nc: int = 80, ch=(), ne: int = 1, reg_max: int = 16, legacy: bool = True):
@@ -280,6 +295,8 @@ class Pose(Detect):
     in train mode) the dict alone.
     """
 
+    task = "pose"
+    tta = False
     fused_single_label = False
 
     def __init__(self, nc: int = 80, ch=(), kpt_shape=(17, 3), reg_max: int = 16, legacy: bool = True):
@@ -358,6 +375,36 @@ class IPose(IDetect, Pose):
         self._implicit(ch)
 
 
+class MAFDetect(Detect):
+    """MAF-YOLO's detect head: the box branch a 1x1 Conv, a UniRepLKNetBlock
+    (k 5), a 1x1 Conv (`cv2.i.0`-`.2`) and the 1x1 conv to 4 reg_max
+    (`cv2.i.3`, bias 1.0); the class branch always the light one (`cv3.i.0.0`
+    to `cv3.i.2`), whatever the YAML's legacy flag. Not the fused
+    single-label path (the JAX predictor takes that for a head named Detect
+    alone)."""
+
+    fused_single_label = False
+
+    def _box_branch(self, x: int) -> nn.Sequential:
+        return nn.Sequential(Conv(x, self.c2, 1), UniRepLKNetBlock(self.c2, 5), Conv(self.c2, self.c2, 1),
+                             nn.Conv2d(self.c2, 4 * self.reg_max, 1))
+
+    def _cls_branch(self, x: int, legacy: bool | None = None) -> nn.Sequential:
+        return super()._cls_branch(x, legacy=False)
+
+
+class MAFSegment(MAFDetect, Segment):
+    """MAFDetect plus Segment's mask coefficients and prototypes."""
+
+
+class MAFOBB(MAFDetect, OBB):
+    """MAFDetect plus OBB's angle branch."""
+
+
+class MAFPose(MAFDetect, Pose):
+    """MAFDetect plus Pose's keypoint branch."""
+
+
 V5_ANCHORS = (  # pixels, per level (P3, P4, P5): the COCO anchors of the YOLOv5 YAMLs
     ((10, 13), (16, 30), (33, 23)),
     ((30, 61), (62, 45), (59, 119)),
@@ -379,6 +426,8 @@ class AnchorDetect(nn.Module):
     implicit=True is YOLOv7's anchor head: an ImplicitA before each level's
     conv (`ia.i`) and an ImplicitM after it (`im.i`), the same decode."""
 
+    task = "detect"
+    tta = True
     end2end = False
     fused_single_label = False
 
@@ -425,6 +474,9 @@ class Classify(nn.Module):
     then a Linear to c2 classes; logits in train mode, their softmax in eval
     mode. Several inputs are concatenated along the channels first."""
 
+    task = "classify"
+    tta = False
+
     def __init__(self, c1: int, c2: int = 1000, k=1, s=1, p=None, g: int = 1):
         super().__init__()
         c_ = 1280
@@ -464,6 +516,9 @@ class RTDETRDecoder(nn.Module):
 
     Output (B, nq, 4 + nc): normalised cxcywh boxes and sigmoid scores. No NMS.
     """
+
+    task = "rtdetr"
+    tta = False
 
     def __init__(self, nc: int = 80, ch=(), hd: int = 256, nq: int = 300, ndl: int = 6, nh: int = 8,
                  ndp: int = 4, d_ffn: int = 1024):

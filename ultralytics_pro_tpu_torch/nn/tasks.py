@@ -23,7 +23,11 @@ BiLevelRoutingAttention `:708-709`; `ATTENTION`), and that of the RTMDet,
 YOLOv7, YOLOv4-CSP and YOLOR-CSP YAMLs (BottleneckCSP, BottleneckCSP2 and
 SPPCSPC `:245-251`, MP `:278`, RepConv_v7 `:438` as the port's RepConv,
 IDetect, ISegment, IOBB and IPose `:455-458`, RTMBlock `:640`, the CSP-B/C
-blocks, ResCSPB/C and Stem `:686-694`, AnchorDetect's implicit flag), each
+blocks, ResCSPB/C and Stem `:686-694`, AnchorDetect's implicit flag), and
+that of the yolov8-att, MAF-YOLOv2 and Hyper-YOLO YAMLs (BoT3, C2f_DCN,
+C3_DCN and C2f_DLKA `:285-293`, MAFDetect, MAFSegment, MAFOBB and MAFPose
+`:463-466`, MANet, HyperComputeModule, AVG, torch's own nn.AvgPool2d and
+RepHMS `:662-673`), each
 with its input's channels out, its YAML arguments read as the JAX builders
 read them (`ARITY`: the arguments a builder ignores are dropped). As in
 the JAX parse_model, a YAML with C3k2, C2fCIB, A2C2f, HyperACE or v10Detect
@@ -31,7 +35,12 @@ in any row builds
 its detect head with legacy=False (the pre-scan `:1152-1155`), and the
 modules of REPEAT_MODULES (`:1103-1107`) take the repeats as their own n,
 RepNCSPELAN4 ignores them (its n is its fourth argument), and any other is
-stacked n times in an nn.Sequential (`:1208-1213`). HyperACE reads three
+stacked n times in an nn.Sequential (`:1208-1213`); MANet takes them as
+its n too, as its builder passes them. AVG and nn.AvgPool2d are a VALID
+k x k average pool at stride s (k = args[0] or 2, s = args[1] or k; a third
+argument, the YAMLs' 0, is ignored as the JAX builder ignores it), and
+HyperComputeModule [c2, threshold] gives its input's channels (the JAX
+module ignores c2). HyperACE reads three
 layers and gives args[0] channels; DownsampleConv gives twice its input's
 channels (its input's with channel_adjust False); FullPAD_Tunnel gives its
 first input's. A2C2f at scales l and x
@@ -96,6 +105,9 @@ from ultralytics_pro_tpu_torch.nn.modules.families import (
     BiLevelRoutingAttention,
     BottleneckCSPB,
     BottleneckCSPC,
+    HyperComputeModule,
+    MANet,
+    RepHMS,
     ResCSPB,
     ResCSPC,
     RTMBlock,
@@ -113,6 +125,10 @@ from ultralytics_pro_tpu_torch.nn.modules.head import (
     IOBB,
     IPose,
     ISegment,
+    MAFDetect,
+    MAFOBB,
+    MAFPose,
+    MAFSegment,
     Pose,
     RTDETRDecoder,
     Segment,
@@ -135,21 +151,28 @@ SCALED = {"Conv": Conv, "DWConv": DWConv, "C2f": C2f, "SPPF": SPPF, "RepC3": Rep
           "nn.ConvTranspose2d": nn.ConvTranspose2d, "ADown": ADown, "A2C2f": A2C2f, "DSConv": DSConv,
           "DSC3k2": DSC3k2, "RTMBlock": RTMBlock, "BottleneckCSP": BottleneckCSP, "BottleneckCSP2": BottleneckCSP2,
           "SPPCSPC": SPPCSPC, "RepConv_v7": RepConv, "BottleneckCSPB": BottleneckCSPB,
-          "BottleneckCSPC": BottleneckCSPC, "ResCSPB": ResCSPB, "ResCSPC": ResCSPC, "Stem": Stem}  # c2 width-scaled
+          "BottleneckCSPC": BottleneckCSPC, "ResCSPB": ResCSPB, "ResCSPC": ResCSPC, "Stem": Stem,
+          "BoT3": A.BoT3, "C2f_DCN": A.C2f_DCN, "C3_DCN": A.C3_DCN, "C2f_DLKA": A.C2f_DLKA, "MANet": MANet,
+          "RepHMS": RepHMS}  # c2 width-scaled
 REPEAT_MODULES = {"C2f", "RepC3", "C3", "C3k2", "C2fCIB", "C2PSA", "A2C2f", "DSC3k2", "RTMBlock", "BottleneckCSP",
-                  "BottleneckCSP2", "BottleneckCSPB", "BottleneckCSPC", "ResCSPB",
-                  "ResCSPC"}  # of SCALED, n is the repeats
+                  "BottleneckCSP2", "BottleneckCSPB", "BottleneckCSPC", "ResCSPB", "ResCSPC", "BoT3", "C2f_DCN",
+                  "C3_DCN", "C2f_DLKA", "MANet"}  # of SCALED, n is the repeats
 # of SCALED, how many YAML arguments the JAX builder reads (it ignores the rest):
 # RTMBlock, BottleneckCSP2 and the CSP-B/C blocks [c2, shortcut], ResCSPB/C and
-# Stem [c2], SPPCSPC [c2, e], RepConv_v7 [c2, k, s]
+# Stem [c2], SPPCSPC [c2, e], RepConv_v7 [c2, k, s], BoT3 [c2, e], C2f_DCN, C3_DCN and
+# C2f_DLKA [c2, shortcut], MANet [c2, shortcut, p, k], RepHMS [c2, width, depth, depth_e, k]
 ARITY = {"RTMBlock": 2, "BottleneckCSP2": 2, "BottleneckCSPB": 2, "BottleneckCSPC": 2, "ResCSPB": 1, "ResCSPC": 1,
-         "Stem": 1, "SPPCSPC": 2, "RepConv_v7": 3}
+         "Stem": 1, "SPPCSPC": 2, "RepConv_v7": 3, "BoT3": 2, "C2f_DCN": 2, "C3_DCN": 2, "C2f_DLKA": 2, "MANet": 4,
+         "RepHMS": 5}
 ELAN = {"RepNCSPELAN4": RepNCSPELAN4, "SPPELAN": SPPELAN}  # [c2, c3(, c4, n)]: every width scaled
 HEADS = {"Detect": Detect, "Segment": Segment, "OBB": OBB, "Pose": Pose, "v10Detect": v10Detect,
          "DDetect": DDetect, "DSegment": DSegment, "AnchorDetect": AnchorDetect, "IDetect": IDetect,
-         "ISegment": ISegment, "IOBB": IOBB, "IPose": IPose}
-POOLS = {"nn.MaxPool2d": nn.MaxPool2d, "nn.ZeroPad2d": nn.ZeroPad2d,
-         "MP": nn.MaxPool2d}  # torch's own, args as the YAML gives them; MP [k] is k x k at stride k
+         "ISegment": ISegment, "IOBB": IOBB, "IPose": IPose, "MAFDetect": MAFDetect, "MAFSegment": MAFSegment,
+         "MAFOBB": MAFOBB, "MAFPose": MAFPose}
+# torch's own, args as the YAML gives them; MP [k] is k x k at stride k; AVG and
+# nn.AvgPool2d [k, s] (by default 2, k) with no padding
+POOLS = {"nn.MaxPool2d": nn.MaxPool2d, "nn.ZeroPad2d": nn.ZeroPad2d, "MP": nn.MaxPool2d,
+         "AVG": nn.AvgPool2d, "nn.AvgPool2d": nn.AvgPool2d}
 NON_LEGACY = {"C3k2", "C2fCIB", "A2C2f", "HyperACE", "v10Detect"}  # any of these in a YAML: the light class branch
 
 
@@ -186,6 +209,7 @@ ATTENTION = {
     "BiLevelRoutingAttention": lambda c1, a, sc: BiLevelRoutingAttention(c1, _a(a, 0, 8), topk=_a(a, 1, 4)),
 }
 MODULES = (*SCALED, *ELAN, *POOLS, "HGStem", "HGBlock", "AIFI", "nn.Upsample", "Concat", "HyperACE",
+           "HyperComputeModule",
            "DownsampleConv", "FullPAD_Tunnel", *ATTENTION, *HEADS, "Classify", "RTDETRDecoder")
 
 
@@ -258,6 +282,9 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
                     args = [tuple(args[0])]
                 elif m_name == "MP":
                     args = [args[0] if args else 2] * 2
+                elif m_name in ("AVG", "nn.AvgPool2d"):
+                    k = int(_a(args, 0, 2))
+                    args = [k, int(_a(args, 1, k))]
             elif m_name in ("HGStem", "HGBlock"):  # [cm, c2, ...], not width-scaled
                 c2, m = args[1], HGStem
                 if m_name == "HGBlock":  # [cm, c2, k, lightconv, shortcut]; n as the JAX builder takes it
@@ -280,6 +307,8 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
                 c2, m, args = c1 * 2 if adjust else c1, DownsampleConv, [c1, adjust]
             elif m_name == "FullPAD_Tunnel":
                 c2, m, args = chs[f[0]], FullPAD_Tunnel, []
+            elif m_name == "HyperComputeModule":  # [c2, threshold]: the input's channels out
+                c2, m, args = c1, HyperComputeModule, [c1, _a(args, 1, 10.0)]
             elif m_name in ATTENTION:
                 c2 = sc(args[0]) if m_name == "GAMAttention" and args and args[0] else c1
                 m, args = partial(ATTENTION[m_name], c1, args, sc), []
@@ -389,7 +418,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     zero, BatchNorm, LayerNorm and GroupNorm at identity, embeddings and
     MHSA's `rel_h`, `rel_w` normal(1.0),
     AdaHGComputation's prototypes xavier-uniform (FullPAD_Tunnel's gates stay
-    0), ImplicitA's and ImplicitM's `implicit` N(0, 0.02) and N(1, 0.02);
+    0), DCNv2's and DeformConvDW's bare `weight` lecun-normal and `bias`
+    zero (GRN's `gamma`, `beta` stay 0, UniRepLKNetBlock's `gamma` 1e-6),
+    ImplicitA's and ImplicitM's `implicit` N(0, 0.02) and N(1, 0.02);
     then MSDeformAttn's own offset and attention init."""
     for m in model.modules():
         if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) and m.weight.requires_grad:
@@ -401,6 +432,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             nn.init.zeros_(m.in_proj_bias)
         elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm, nn.GroupNorm)):
             m.reset_parameters()
+        elif isinstance(m, (A.DCNv2, A.DeformConvDW)):  # bare kernels: flax's lecun-normal `weight`, zero `bias`
+            _lecun_normal_(m.weight, generator)
+            nn.init.zeros_(m.bias)
         elif isinstance(m, A.MHSA) and m.rel_h is not None:
             with torch.no_grad():
                 for p in (m.rel_h, m.rel_w):

@@ -38,6 +38,15 @@ ImplicitM's `implicit` (YOLOR's implicit knowledge: `ia2_0`, `im3_0` in an
 IDetect head, `ia_0`, `im_0` in the implicit AnchorDetect) is also carried
 under its name, its flax (1, 1, 1, C) reshaped to the reference's
 (1, C, 1, 1) and back (`IMPLICIT`).
+GRN's `beta` (with its `gamma`) and UniRepLKNetBlock's layer-scale `gamma`
+are bare 1-D parameters too; its dense layers (`se_fc0`, `se_fc1`,
+`pwconv1`, `pwconv2`) and HyperComputeModule's `fc` take the generic dense
+rule to an `nn.Linear`. DCNv2's and DeformConvDW's kernels are bare `weight`
+leaves, flax HWIO (k, k, Cin, Co) and (k, k, 1, C), torch OIHW, with a bare
+`bias`: a flax `weight` is always such a kernel; a torch `weight` is one
+where its module is named as these modules are (`BARE_WEIGHT`: C2f_DCN's
+and C3_DCN's `m_i_cv2`, deformable_LKA's `conv0` and `conv_spatial` under a
+`spatial_gating_unit`), every other 4-D `weight` a conv's `kernel`.
 FocusedLinearAttention's `scale` is a bare (1, 1, C) parameter, where every
 other flax `scale` is a norm's 1-D weight: a `scale` leaf of one dimension
 is a norm's `weight`, any other keeps its name both ways. ECAAttention's
@@ -79,7 +88,11 @@ BARE_PARAMS = ("denoising_class_embed",)  # flax `self.param` leaves: a module's
 # FullPAD_Tunnel's 0-d `model.N.gate`, AdaHGComputation's `prototype_base` (ne, C),
 # and the attention modules' (nn/modules/attention.py); so is a `scale` of more
 # than one dimension (FocusedLinearAttention's)
-PARAM_LEAVES = ("gamma", "gate", "prototype_base", "rel_h", "rel_w", "cweight", "cbias", "sweight", "sbias", "pos")
+PARAM_LEAVES = ("gamma", "gate", "prototype_base", "rel_h", "rel_w", "cweight", "cbias", "sweight", "sbias", "pos",
+                "beta")
+BARE_KERNEL = "weight"  # DCNv2's and DeformConvDW's flax leaf: an HWIO kernel
+# the torch modules whose `weight` is that bare kernel (DCNv2, DeformConvDW)
+BARE_WEIGHT = re.compile(r"(?:^|\.)(?:m_\d+_cv2|spatial_gating_unit\.(?:conv0|conv_spatial))$")
 IMPLICIT = "implicit"  # ImplicitA/ImplicitM's leaf: flax (1, 1, 1, C), torch (1, C, 1, 1)
 # RepNCSPELAN4's children (flax name, torch name); torch -> flax only where a
 # non-digit token follows, so that a Detect head's `cv2.0.0` keeps its name
@@ -161,6 +174,8 @@ def torch_key_to_flax(key: str, ndim: int) -> Tuple[Tuple[str, ...], str, str]:
         path = (*path[:-1], "out")
     if path and path[-1] in BARE_PARAMS:
         return path[:-1], path[-1], "params"
+    if leaf == "weight" and ndim == 4 and BARE_WEIGHT.search(name):
+        return path, BARE_KERNEL, "params"
     if len(path) == 1 and path[0].startswith("layers_") and leaf in ("weight", "bias"):
         path = (*path, TRANSPOSED)  # a bare layer with a weight: nn.ConvTranspose2d
     if leaf == "weight":
@@ -208,7 +223,10 @@ def jax_to_torch_state_dict(variables: dict, reg_max: int = 16) -> Dict[str, tor
                 continue
             if coll == "params" and leaf == IMPLICIT:
                 arr = arr.reshape(1, -1, 1, 1)
-            if coll == "params" and (leaf in (*PARAM_LEAVES, IMPLICIT) or leaf == "scale" and arr.ndim != 1):
+            if coll == "params" and leaf == BARE_KERNEL:
+                arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            if coll == "params" and (leaf in (*PARAM_LEAVES, IMPLICIT, BARE_KERNEL)
+                                     or leaf == "scale" and arr.ndim != 1):
                 sd[".".join(filter(None, (_flax_path_to_torch(mods), leaf)))] = torch.from_numpy(arr.copy())
                 continue
             if leaf not in leaf_names[coll]:
@@ -221,7 +239,7 @@ def jax_to_torch_state_dict(variables: dict, reg_max: int = 16) -> Dict[str, tor
                 continue
             if part == "out":
                 mods = [*mods[:-1], "out_proj"]
-            key = f"{_flax_path_to_torch(mods)}.{leaf_names[coll][leaf]}"
+            key = ".".join(filter(None, (_flax_path_to_torch(mods), leaf_names[coll][leaf])))  # a bare module's own
             sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
             if coll == "batch_stats" and leaf == "mean":
                 sd[key.rsplit(".", 1)[0] + ".num_batches_tracked"] = torch.tensor(0)
@@ -263,7 +281,7 @@ def torch_state_dict_to_jax(state_dict: Dict[str, torch.Tensor], num_heads: int 
         path, fleaf, coll = torch_key_to_flax(key, w.ndim)
         if fleaf == "kernel" and path[-1] == "out" and name.endswith(".out_proj"):
             w = w.T.reshape(num_heads, -1, w.shape[0])  # (C, nh*hd) -> (nh, hd, C)
-        elif fleaf == "kernel" and w.ndim == 4:
+        elif fleaf in ("kernel", BARE_KERNEL) and w.ndim == 4:
             w = w.transpose(2, 3, 1, 0)  # OIHW -> HWIO
         elif fleaf == "kernel" and w.ndim in (2, 3):
             w = w.transpose(*range(w.ndim - 1, -1, -1))
