@@ -309,6 +309,22 @@ exits non-zero):
   att_maf_hyper_train  yolov8s-att as zoo_train on AMH_TRAIN_COPIES x 16 =
           64 images (its backward runs through the deformable gathers; the
           run's peak memory in max_memory_allocated_gb)
+  yolo11_bb_predict  the fourteen 11/ YAMLs (YOLO11 on ConvNeXt, Swin,
+          PVTv2, EfficientViT, FasterNet, RepViT, StarNet, LSKNet,
+          MobileNetV4, EfficientNetV2, GhostNetV2 and EfficientFormerV2;
+          yolo11-bifpn; yolo11-slimneck) at scale s and 640 px, the layer
+          scales seeded, as attn_zoo_predict: K1 once an image, bit for bit
+          on each batch's rows (timed, with the bound and a profiled
+          predict, for BB_K1_TIMED), card against CPU
+  yolo11_bb_val  yolo11s-convnext, -swin and -efficientformerv2 as zoo_val
+          on the fixture's 16 images (one K1 launch), card against CPU on
+          the first BB_VAL_PARITY_IMAGES = 4
+  yolo11_bb_train_parity  one step of yolo11s-swin, -efficientformerv2
+          (its attention biases bound at 160 before seeding), -ghostnetv2
+          and -lsknet at 160 px as zoo_train_parity, in float64
+          (ZOO_TRAIN_PARITY_DTYPE)
+  yolo11_bb_train  yolo11s-swin as zoo_train on BB_TRAIN_COPIES x 16 = 64
+          images
   tta     yolov8s (seeded) predict(augment=True) on the 4 images at 640 px,
           conf 1e-6: K1 once an image over the three passes' candidates
           (K = 15,049 at a 640 x 640 letterbox), every image's rows bit for bit
@@ -561,8 +577,24 @@ ZOO_TRAIN_PARITY_TOL = {**TRAIN_PARITY_TOL, "momentum_leaf": TRAIN_PARITY_TOL["m
 # offsets' gradient is a difference of bilinear corners summed over every tap
 # and pixel, which grows the card's `x / 255` rounding; in float64 (images made
 # on the host) the devices agree to 1e-8.
+# The whole-backbone zoo's four: a conv's or a norm's bias right before a
+# train-mode BatchNorm has a gradient of 0 but for rounding, as the BN takes
+# the batch mean out (Swin's `out_norm_3`, ahead of SPPF's conv and BN; the
+# biased convs before EfficientFormerV2's, GhostNetV2's and LSKNet's BNs),
+# and in float32 such a leaf sits above MOMENTUM_LEAF_FLOOR: yolo11s-swin's
+# `layers_0/out_norm_3/bias`, 2.5e-8 of the largest leaf's norm, lay 1.90
+# (relative L2) from the CPU's while the tree held at 1.3e-4. From the same
+# host-made images the card's float32 leaves sat 1.74 (swin,
+# out_norm_3/bias), 1.13 (efficientformerv2, stem1/bias), 1.20 (ghostnetv2,
+# b3/short_dw_bn/bias) and 1.13 (lsknet, embed0/bias) from the CPU's, and
+# three of the float32 steps lie 7e-3 to 9e-3 (tree) from the float64 one
+# on one device or the other: the CPU's for swin, the card's for
+# efficientformerv2 and ghostnetv2 (tools/torch_zoo_step_precision.py). In
+# float64 the devices agree to 1.2e-7 (tree).
 ZOO_TRAIN_PARITY_DTYPE = {"gelan-c-dseg": torch.float64, "yolov4-csp": torch.float64, "yolor-csp": torch.float64,
-                          "yolov8s-att": torch.float64}
+                          "yolov8s-att": torch.float64,
+                          **dict.fromkeys(("yolo11s-swin", "yolo11s-efficientformerv2", "yolo11s-ghostnetv2",
+                                           "yolo11s-lsknet"), torch.float64)}
 # FullPAD_Tunnel's gates start at 0, which cuts every path from HyperACE to the
 # head; every YOLOv13 model here sets them to seeded values in this range, and
 # every attention-zoo model its zero-initialised parameters (seed_gates).
@@ -617,6 +649,22 @@ AMH_TRAIN_PARITY = dict.fromkeys(("yolov8s-att", "maf-yolov2s", "maf-yolov2s-maf
 AMH_TRAIN = ("yolov8s-att",)  # its backward runs through the deformable gathers
 AMH_TRAIN_COPIES = 4  # its two epochs: the fixture's 16 images 4 times over, 64 images
 HYPERGRAPH_NEAR = 1e-4  # a token pair within this share of the threshold may change membership between devices
+# YOLO11's whole-backbone zoo, Bi_FPN and the slim neck: the fourteen 11/ YAMLs
+# at scale s, the widest they ship, 640 px, seeded weights, 80 classes; each
+# predicts as the attention zoo's models do (attn_predict_one).
+BB_PREDICT = tuple(f"yolo11s-{name}" for name in (
+    "convnext", "swin", "pvtv2", "efficientvit", "fasternet", "repvit", "starnet", "lsknet", "mobilenetv4",
+    "efficientnetv2", "ghostnetv2", "efficientformerv2", "bifpn", "slimneck"))
+BB_K1_TIMED = ("yolo11s-swin", "yolo11s-efficientformerv2")  # K1 timed on their rows, one predict profiled
+BB_VAL = ("yolo11s-convnext", "yolo11s-swin", "yolo11s-efficientformerv2")
+BB_VAL_COPIES = 1  # their val's data: the fixture's 16 images once
+BB_VAL_PARITY_IMAGES = 4  # their card-against-CPU val: the first 4 images
+# one step on card and CPU at nc 3 and 160 px (yolo11s-efficientformerv2's
+# attention biases bound there before its weights are seeded: zoo_yolo's imgsz)
+BB_TRAIN_PARITY = dict.fromkeys(("yolo11s-swin", "yolo11s-efficientformerv2", "yolo11s-ghostnetv2",
+                                 "yolo11s-lsknet"), 160)
+BB_TRAIN = ("yolo11s-swin",)  # window attention with the -100 shift masks in its backward
+BB_TRAIN_COPIES = 4  # its two epochs: the fixture's 16 images 4 times over, 64 images
 TTA_CALLS = (1, 1)  # timed and profiled warm TTA predict calls of the 4 images
 MULTI_SCALE_TOL = 1  # grey levels, the multi_scale resize on the card against the CPU
 AUG_PARITY_IMGSZ = 160
@@ -2752,18 +2800,22 @@ def seed_gates(model, seed: int = 0) -> int:
     (or, as a layer scale, at 1e-6) and so cuts or idles a path to seeded
     values in GATE_RANGE: FullPAD_Tunnel's gate, CrissCrossAttention's
     gamma, ShuffleAttention's cweight and sweight, FocusedLinearAttention's
-    pos, GRN's gamma and beta, UniRepLKNetBlock's layer-scale gamma.
+    pos, GRN's gamma and beta, UniRepLKNetBlock's and ConvNeXt's layer-scale
+    gamma, EfficientFormerV2's layer scales (1e-5).
     Returns how many tensors it set."""
     from ultralytics_pro_tpu_torch.nn.modules.attention import (
         CrissCrossAttention,
         FocusedLinearAttention,
         ShuffleAttention,
     )
+    from ultralytics_pro_tpu_torch.nn.modules.backbones import ConvNeXtBlock
+    from ultralytics_pro_tpu_torch.nn.modules.efficientformer import EFV2FFN, EFV2AttnFFN
     from ultralytics_pro_tpu_torch.nn.modules.reparam import GRN, UniRepLKNetBlock
     from ultralytics_pro_tpu_torch.nn.modules.v13 import FullPAD_Tunnel
 
     zeros = {FullPAD_Tunnel: ("gate",), CrissCrossAttention: ("gamma",), ShuffleAttention: ("cweight", "sweight"),
-             FocusedLinearAttention: ("pos",), GRN: ("gamma", "beta"), UniRepLKNetBlock: ("gamma",)}
+             FocusedLinearAttention: ("pos",), GRN: ("gamma", "beta"), UniRepLKNetBlock: ("gamma",),
+             ConvNeXtBlock: ("gamma",), EFV2AttnFFN: ("layer_scale_1", "layer_scale_2"), EFV2FFN: ("layer_scale_2",)}
     gates = [getattr(m, name) for m in model.modules() for name in zeros.get(type(m), ())]
     rng = np.random.default_rng(seed)
     with torch.no_grad():
@@ -3307,6 +3359,31 @@ def amh_phases(YOLO, nms_cuda, ops_nms, full_f32, load_pickle, card: str, smi: s
         "att_maf_hyper_train": lambda tmp: zoo_train(YOLO, nms_cuda, ops_nms, tmp, card, smi, AMH_TRAIN,
                                                      AMH_TRAIN_COPIES),
     }
+
+def bb_predict(YOLO, nms_cuda, ops_nms, full_f32, card: str, smi: str) -> dict:
+    """Each model of BB_PREDICT as the attention zoo's predict
+    (attn_predict_one; K1 timed on the rows of BB_K1_TIMED)."""
+    models = {name: attn_predict_one(YOLO, nms_cuda, ops_nms, full_f32, name, card, smi, BB_K1_TIMED)
+              for name in BB_PREDICT}
+    return {"models": models, "device_ms_per_call": {k: v["device_ms_per_call"] for k, v in models.items()},
+            "card": card, "nvidia_smi": smi}
+
+
+def bb_phases(YOLO, nms_cuda, ops_nms, full_f32, load_pickle, card: str, smi: str) -> dict:
+    """The whole-backbone zoo's phases (YOLO11 with ConvNeXt, Swin, PVTv2,
+    EfficientViT, FasterNet, RepViT, StarNet, LSKNet, MobileNetV4,
+    EfficientNetV2, GhostNetV2, EfficientFormerV2; Bi_FPN; the slim neck) in
+    the order main runs them (and tools/torch_csp_zoo_phases.py --zoo
+    yolo11_bb, any of them alone): phase name -> a call of the temporary
+    directory that returns the phase's fields."""
+    return {
+        "yolo11_bb_predict": lambda tmp: bb_predict(YOLO, nms_cuda, ops_nms, full_f32, card, smi),
+        "yolo11_bb_val": lambda tmp: zoo_val(YOLO, nms_cuda, ops_nms, tmp, card, smi, BB_VAL, BB_VAL_COPIES,
+                                             BB_VAL_PARITY_IMAGES),
+        "yolo11_bb_train_parity": lambda tmp: zoo_train_parity(YOLO, load_pickle, tmp, card, smi, BB_TRAIN_PARITY),
+        "yolo11_bb_train": lambda tmp: zoo_train(YOLO, nms_cuda, ops_nms, tmp, card, smi, BB_TRAIN, BB_TRAIN_COPIES),
+    }
+
 
 def tta_parity(YOLO, ops_nms, full_f32, model, batch) -> dict:
     """Seeded yolov8s's three augmented forwards (`tta_forward`) of one
@@ -4222,6 +4299,12 @@ def main() -> int:
             t = time.perf_counter()
             amh[phase] = run(Path(tmp))
             emit(phase, **amh[phase], seconds=time.perf_counter() - t)
+    bb = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for phase, run in bb_phases(YOLO, nms_cuda, ops_nms, full_f32, load_pickle, card, smi).items():
+            t = time.perf_counter()
+            bb[phase] = run(Path(tmp))
+            emit(phase, **bb[phase], seconds=time.perf_counter() - t)
 
     t = time.perf_counter()
     ta = tta(YOLO, yaml_model_load, nms_cuda, ops_nms, full_f32, card, smi)
@@ -4265,7 +4348,10 @@ def main() -> int:
                  ("csp_train_val", csp["csp_zoo_train"], "k1_on_val_rows"),
                  ("amh_predict", amh["att_maf_hyper_predict"], "k1_on_batch_rows"),
                  ("amh_val", amh["att_maf_hyper_val"], "k1_on_batch_rows"),
-                 ("amh_train_val", amh["att_maf_hyper_train"], "k1_on_val_rows"))
+                 ("amh_train_val", amh["att_maf_hyper_train"], "k1_on_val_rows"),
+                 ("bb_predict", bb["yolo11_bb_predict"], "k1_on_batch_rows"),
+                 ("bb_val", bb["yolo11_bb_val"], "k1_on_batch_rows"),
+                 ("bb_train_val", bb["yolo11_bb_train"], "k1_on_val_rows"))
     zoo_rows = {f"zoo_{name.replace('-', '_')}_{path}": runs["models"][name][key]
                 for path, runs, key in zoo_paths for name in runs["models"] if key in runs["models"][name]}
     timed_rows = {k: rows for k, rows in zoo_rows.items() if "ms" in rows}  # the attention, CSP zoos' others: untimed

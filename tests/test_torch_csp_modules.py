@@ -59,7 +59,7 @@ def close(got, want, tol: float = TOL):
 # -- the reader ------------------------------------------------------------------------
 
 def test_the_jax_package_has_126_model_yamls_and_the_port_79():
-    assert len(JAX_YAMLS) == 126 and len(PORT_YAMLS) == 88
+    assert len(JAX_YAMLS) == 126 and len(PORT_YAMLS) == 102
 
 
 @pytest.mark.parametrize("rel", JAX_YAMLS)

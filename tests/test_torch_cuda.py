@@ -768,6 +768,17 @@ def test_k1_on_att_and_hyper_rows_equals_plain(card, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["yolo11n-swin", "yolo11n-efficientformerv2", "yolo11n-ghostnetv2"])
+def test_k1_on_whole_backbone_rows_equals_plain(card, name):
+    """YOLO11 on Swin (shifted window attention), EfficientFormerV2 (its
+    attention biases bound at 640) and GhostNetV2 (the DFC gates) predicts
+    at 640 through K1, once an image; K1 on the captured rows (K = 8400)
+    equals its plain version bit for bit; the same weights on the card and
+    the CPU as chip_smoke.zoo_parity holds them."""
+    test_k1_on_att_and_hyper_rows_equals_plain(card, name)
+
+
+@pytest.mark.cuda
 def test_v13_forward_and_predict_on_card_match_cpu(card):
     """yolov13n with its FullPAD gates seeded (chip_smoke.zoo_yolo) predicts
     on the card at 160 px through K1, once an image; the same weights on the

@@ -97,11 +97,11 @@ def test_unported_modules_raise_by_name():
     from ultralytics_pro_tpu_torch.nn.tasks import yaml_model_load
 
     d = yaml_model_load("yolov8n.yaml")
-    d["backbone"][2] = [-1, 1, "GSConv", [128]]
-    with pytest.raises(NotImplementedError, match="GSConv"):
+    d["backbone"][2] = [-1, 1, "CSPStage", [128]]
+    with pytest.raises(NotImplementedError, match="CSPStage"):
         DetectionModel(d)
-    with pytest.raises(FileNotFoundError, match="yolo11-slimneck"):
-        DetectionModel("yolo11-slimneck.yaml")
+    with pytest.raises(FileNotFoundError, match="bgf-yolo"):
+        DetectionModel("bgf-yolo.yaml")
 
 
 def test_yaml_activation_override_is_model_wide_and_restored():

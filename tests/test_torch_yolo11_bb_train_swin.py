@@ -1,0 +1,8 @@
+"""One trainer step of yolo11n-swin.yaml at 64 px in the port, in the port at float64 and in the JAX
+trainer, on the CPU, the shifted window block of stage 2 (flax ("layers_0", "s2_b1")) moved in each:
+tests/torch_yolo11_bb.py's `train_tests` says what it holds."""
+
+from tests.test_torch_modules import torch_threads  # noqa: F401 (autouse fixture)
+from tests.torch_yolo11_bb import train_tests
+
+trained, test_trainer_step_matches_jax = train_tests("yolo11n-swin.yaml", 64, ("layers_0", "s2_b1"))

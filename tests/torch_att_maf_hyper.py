@@ -225,7 +225,14 @@ DETECT_PARTS = ["box", "cls", "dfl"]
 E2E_PARTS = [f"{a}_{p}" for a in ("o2m", "o2o") for p in DETECT_PARTS]
 
 
-def train_tests(cfg: str, imgsz: int, parts, layer: str):
+def subtree(tree: dict, path):
+    """tree[path] for a key, tree[path[0]][path[1]]... for a tuple of keys."""
+    for key in (path,) if isinstance(path, str) else path:
+        tree = tree[key]
+    return tree
+
+
+def train_tests(cfg: str, imgsz: int, parts, layer):
     """The trainer test of YAML cfg at imgsz, as tests/torch_attn_zoo.py's
     `train_tests` holds the attention zoo's: both facades from the port's
     seed-3 weights at nc 3 (a model with MHSA layers bound at imgsz first),
@@ -235,7 +242,8 @@ def train_tests(cfg: str, imgsz: int, parts, layer: str):
     (`parts`) within 1e-3 relative; parameters, EMA and BN statistics within
     1e-4 of the tree's largest magnitude; momentum buffers within
     JAX_STEP_TOL; every parameter of the flax layer `layer` (the deformable
-    block, RepHMS, the hypergraph conv) moved in both steps."""
+    block, RepHMS, the hypergraph conv; a tuple of keys names a module inside
+    a layer) moved in both steps."""
     from tests.test_torch_rtdetr_train import JAX_STEP_TOL, rel_l2
     from tests.test_torch_train import same_images_as_jax, task_data_yaml
     from tests.test_torch_zoo_train import tree_max_rel
@@ -279,9 +287,9 @@ def train_tests(cfg: str, imgsz: int, parts, layer: str):
             assert tree_max_rel(cp[key], cj[key]) <= 1e-4, key
         tree, (leaf, where) = rel_l2(cp["momentum_buffer"], cj["momentum_buffer"])
         assert tree <= JAX_STEP_TOL["tree"] and leaf <= JAX_STEP_TOL["leaf"], (tree, leaf, where)
-        before = dict(leaves(start["params"][layer]))
+        before = dict(leaves(subtree(start["params"], layer)))
         for ckpt in (cp, cj):
-            after = dict(leaves(ckpt["params"][layer]))
+            after = dict(leaves(subtree(ckpt["params"], layer)))
             assert after.keys() == before.keys()
             assert all(np.abs(after[k] - w).max() > 0 for k, w in before.items()), \
                 [k for k, w in before.items() if not np.abs(after[k] - w).max() > 0]

@@ -1,10 +1,12 @@
 """The CSP zoo phases of chip_smoke.py alone, on one CUDA card: RTMDet,
 YOLOv7 (IDetect, the implicit anchor head, ISegment, IPose, IOBB),
 YOLOv4-CSP and YOLOR-CSP; or, with --zoo att_maf_hyper, the yolov8-att,
-MAF-YOLOv2 and Hyper-YOLO phases.
+MAF-YOLOv2 and Hyper-YOLO phases; or, with --zoo yolo11_bb, those of the
+fourteen 11/ YAMLs (YOLO11 on whole backbones, Bi_FPN, the slim neck).
 
     python3 tools/torch_csp_zoo_phases.py [--phases csp_zoo_predict csp_zoo_train_parity ...]
     python3 tools/torch_csp_zoo_phases.py --zoo att_maf_hyper [--phases att_maf_hyper_predict ...]
+    python3 tools/torch_csp_zoo_phases.py --zoo yolo11_bb [--phases yolo11_bb_predict ...]
 
 Builds the kernels (csrc/, nvcc), then runs the named phases of
 chip_smoke.csp_phases (all five by default, in its order) as chip_smoke.main
@@ -16,7 +18,11 @@ against CPU), `csp_zoo_train_parity` (one step on card and CPU at 160 px)
 and `csp_zoo_train` (yolov7, two epochs at 640 px on 64 images); with --zoo
 att_maf_hyper those of chip_smoke.amh_phases: `att_maf_hyper_predict` (the
 nine models, maf-yolov2s-mafobb at 1024), `att_maf_hyper_val`,
-`att_maf_hyper_train_parity` and `att_maf_hyper_train` (yolov8s-att). Prints
+`att_maf_hyper_train_parity` and `att_maf_hyper_train` (yolov8s-att); with
+--zoo yolo11_bb those of chip_smoke.bb_phases: `yolo11_bb_predict` (the
+fourteen at scale s, 640 px), `yolo11_bb_val` (yolo11s-convnext, -swin,
+-efficientformerv2), `yolo11_bb_train_parity` (swin, efficientformerv2,
+ghostnetv2, lsknet at 160 px) and `yolo11_bb_train` (yolo11s-swin). Prints
 one JSON line a phase and the card's nvidia-smi line, and exits non-zero if
 a check fails or there is no card.
 """
@@ -36,11 +42,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
 
+TABLES = {"csp": "csp_phases", "att_maf_hyper": "amh_phases", "yolo11_bb": "bb_phases"}  # --zoo -> chip_smoke's table
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--zoo", choices=("csp", "att_maf_hyper"), default="csp",
-                    help="the table: chip_smoke.csp_phases or chip_smoke.amh_phases")
+    ap.add_argument("--zoo", choices=tuple(TABLES), default="csp",
+                    help="the table: chip_smoke.csp_phases, amh_phases or bb_phases")
     ap.add_argument("--phases", nargs="+", help="names of the table's phases (all by default)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -54,8 +62,7 @@ def main() -> int:
 
     build.build()
     card, smi = torch.cuda.get_device_name(0), cs.nvidia_smi()
-    table = cs.csp_phases if args.zoo == "csp" else cs.amh_phases
-    runs = table(YOLO, nms_cuda, ops_nms, full_f32, load_pickle, card, smi)
+    runs = getattr(cs, TABLES[args.zoo])(YOLO, nms_cuda, ops_nms, full_f32, load_pickle, card, smi)
     names = args.phases or list(runs)
     if set(names) - set(runs):
         ap.error(f"unknown phases {sorted(set(names) - set(runs))}; the phases are {list(runs)}")

@@ -32,7 +32,8 @@ copy of cv2's INTER_LINEAR, then the model's embed mode), `predict_files`
 read). Sources may be image files, folders, globs and lists of paths
 (`data/loaders.py`).
 
-A model with an MHSA layer holds parameters sized by its map (its
+A model with an MHSA layer, or EfficientFormerV2's attention, holds
+parameters sized by its map (`rel_h` and `rel_w`, `attention_biases`; its
 `model.imgsz`, 640 unless the model was built otherwise). The JAX facade
 initialises a model's variables at its first call's imgsz, and a later call
 at another size fails on their shape. So here a model that is still as
@@ -43,7 +44,7 @@ written to `model.model` directly (its `load_state_dict`, an in-place
 write) are never swapped for the seed's: that first call at another size
 raises ValueError, as the JAX facade raises ScopeParamShapeError on
 variables written at one size and called at another. Later calls at
-another size raise too (`MHSA.forward`), as the JAX package's do; TTA's
+another size raise too (`MHSA.forward`, `SizeBound.check`), as the JAX package's do; TTA's
 shrunk passes and rect val's batch shapes are such sizes. A checkpoint's
 model is bound to its `train_args` imgsz.
 
@@ -64,7 +65,7 @@ from typing import Mapping, Optional, Union
 import torch
 
 from ultralytics_pro_tpu_torch.cfg import DEFAULT_CFG_DICT, HYP_KEYS
-from ultralytics_pro_tpu_torch.nn.tasks import guess_model_task, model_class_for, yaml_model_load
+from ultralytics_pro_tpu_torch.nn.tasks import guess_model_task, model_class_for, size_bound, yaml_model_load
 from ultralytics_pro_tpu_torch.utils import LOGGER, full_f32, select_device
 
 
@@ -81,7 +82,7 @@ class Model:
         self.ckpt = None
         self.overrides = {}
         self._fresh = False  # as built from a YAML: not yet run, loaded or trained (`_bind_size`)
-        self._seed_digest = None  # `_digest()` of a model with MHSA layers as built
+        self._seed_digest = None  # `_digest()` of a model with size-bound layers as built
         if str(model).endswith((".ckpt", ".pkl")):
             self._load(str(model), task)
         else:
@@ -104,14 +105,17 @@ class Model:
         return h.digest()
 
     def _bind_size(self, imgsz: int) -> None:
-        """Rebuild a model that is still as built at imgsz where its MHSA
-        layers are bound to another size; the model is no longer as built.
-        Raises instead where its weights were written since it was built."""
+        """Rebuild a model that is still as built at imgsz where its
+        size-bound layers (`nn/tasks.py:size_bound`) are bound to another
+        size; the model is no longer as built. Raises instead where its
+        weights were written since it was built."""
         if self._fresh and self.model.imgsz not in (None, imgsz):
             if self._digest() != self._seed_digest:
-                raise ValueError(f"the model's weights were written since it was built, and its MHSA layers' rel_h "
-                                 f"and rel_w are sized for imgsz={self.model.imgsz}, not {imgsz}: call it at "
-                                 f"imgsz={self.model.imgsz} (the JAX facade raises ScopeParamShapeError here)")
+                params = ", ".join(dict.fromkeys(f"{type(m).__name__}'s {' and '.join(m.size_params)}"
+                                                 for m in size_bound(self.model)))
+                raise ValueError(f"the model's weights were written since it was built, and its size-bound "
+                                 f"parameters ({params}) are sized for imgsz={self.model.imgsz}, not {imgsz}: call "
+                                 f"it at imgsz={self.model.imgsz} (the JAX facade raises ScopeParamShapeError here)")
             self.model = self._build(copy.deepcopy(self.model.yaml), nc=self.model.nc, ch=self.model.ch, imgsz=imgsz)
         self._fresh = False
 

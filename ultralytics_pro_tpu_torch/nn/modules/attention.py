@@ -92,6 +92,11 @@ class MHSA(nn.Module):
         self.value = nn.Conv2d(c1, c1, 1)
         self.rel_h = self.rel_w = None
 
+    @property
+    def size_params(self) -> tuple:
+        """The parameters sized by the map (`nn/tasks.py:size_bound`)."""
+        return ("rel_h", "rel_w") if self.pos_emb else ()
+
     def bind(self, h: int, w: int) -> None:
         """(Re)create `rel_h` and `rel_w` (zeros) for an h x w map."""
         if self.pos_emb:

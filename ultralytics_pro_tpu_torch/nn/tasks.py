@@ -27,20 +27,26 @@ blocks, ResCSPB/C and Stem `:686-694`, AnchorDetect's implicit flag), and
 that of the yolov8-att, MAF-YOLOv2 and Hyper-YOLO YAMLs (BoT3, C2f_DCN,
 C3_DCN and C2f_DLKA `:285-293`, MAFDetect, MAFSegment, MAFOBB and MAFPose
 `:463-466`, MANet, HyperComputeModule, AVG, torch's own nn.AvgPool2d and
-RepHMS `:662-673`), each
+RepHMS `:662-673`), and that of the 11/ YAMLs (the whole backbones of
+`BACKBONES`, the JAX `_backbone_builder`s `:960-1013`; Bi_FPN, GSConv and
+VoVGSCSP `:375-383`), each
 with its input's channels out, its YAML arguments read as the JAX builders
 read them (`ARITY`: the arguments a builder ignores are dropped). As in
 the JAX parse_model, a YAML with C3k2, C2fCIB, A2C2f, HyperACE or v10Detect
 in any row builds
 its detect head with legacy=False (the pre-scan `:1152-1155`), and the
 modules of REPEAT_MODULES (`:1103-1107`) take the repeats as their own n,
-RepNCSPELAN4 ignores them (its n is its fourth argument), and any other is
+RepNCSPELAN4 ignores them (its n is its fourth argument; VoVGSCSP takes them
+as its n), and any other is
 stacked n times in an nn.Sequential (`:1208-1213`); MANet takes them as
 its n too, as its builder passes them. AVG and nn.AvgPool2d are a VALID
 k x k average pool at stride s (k = args[0] or 2, s = args[1] or k; a third
 argument, the YAMLs' 0, is ignored as the JAX builder ignores it), and
 HyperComputeModule [c2, threshold] gives its input's channels (the JAX
-module ignores c2). HyperACE reads three
+module ignores c2). A whole backbone takes no arguments and gives its 4
+stage maps, which fill 4 feature slots (`MULTI`, the JAX `multi_output`
+`:1201-1206`); Bi_FPN sums its inputs with one weight each and gives the
+first input's channels. HyperACE reads three
 layers and gives args[0] channels; DownsampleConv gives twice its input's
 channels (its input's with channel_adjust False); FullPAD_Tunnel gives its
 first input's. A2C2f at scales l and x
@@ -61,12 +67,14 @@ Models are nn.Modules in NCHW whose parameter names are the reference's
 (`model.N.cv1.conv.weight`). Weights are initialised from an explicit
 `torch.Generator`, so a seed fixes them.
 
-An MHSA layer's `rel_h` and `rel_w` take the size of its map at the image
-size `imgsz` the model is built for (640 unless given), as the JAX model's
-`init_params(imgsz=...)` sizes them (`:1421`): the stride probe records the
-map it sees at 256 px, and the layer is bound to ceil(imgsz x that / 256).
-The model then runs at that image size only (an MHSA raises at another, as
-flax does); `BaseModel.imgsz` is None for a model without such a layer.
+An MHSA layer's `rel_h` and `rel_w`, and the `attention_biases` of
+EfficientFormerV2's Attention4D and Attention4DDownsample, take the size of
+their map at the image size `imgsz` the model is built for (640 unless
+given), as the JAX model's `init_params(imgsz=...)` sizes them (`:1421`):
+the stride probe records the map each sees at 256 px, and the layer is
+bound to ceil(imgsz x that / 256) (`size_bound`). The model then runs at
+that image size only (such a layer raises at another, as flax does);
+`BaseModel.imgsz` is None for a model without one.
 """
 
 from __future__ import annotations
@@ -100,6 +108,11 @@ from ultralytics_pro_tpu_torch.nn.modules.block import (
     SCDown,
 )
 from ultralytics_pro_tpu_torch.nn.modules import attention as A
+from ultralytics_pro_tpu_torch.nn.modules.backbones import ConvNeXt, EfficientViT, PVTv2, SwinTransformer
+from ultralytics_pro_tpu_torch.nn.modules.backbones2 import EfficientNetV2, FasterNet, LSKNet, MobileNetV4, RepViT, StarNet
+from ultralytics_pro_tpu_torch.nn.modules.backbones5 import GhostNetV2Backbone
+from ultralytics_pro_tpu_torch.nn.modules.efficientformer import EfficientFormerV2
+from ultralytics_pro_tpu_torch.nn.modules.necks import Bi_FPN, GSConv, VoVGSCSP
 from ultralytics_pro_tpu_torch.nn.modules.conv import CBAM, Concat, Conv, DWConv, ImplicitA, RepConv, recomputing
 from ultralytics_pro_tpu_torch.nn.modules.families import (
     BiLevelRoutingAttention,
@@ -153,17 +166,18 @@ SCALED = {"Conv": Conv, "DWConv": DWConv, "C2f": C2f, "SPPF": SPPF, "RepC3": Rep
           "SPPCSPC": SPPCSPC, "RepConv_v7": RepConv, "BottleneckCSPB": BottleneckCSPB,
           "BottleneckCSPC": BottleneckCSPC, "ResCSPB": ResCSPB, "ResCSPC": ResCSPC, "Stem": Stem,
           "BoT3": A.BoT3, "C2f_DCN": A.C2f_DCN, "C3_DCN": A.C3_DCN, "C2f_DLKA": A.C2f_DLKA, "MANet": MANet,
-          "RepHMS": RepHMS}  # c2 width-scaled
+          "RepHMS": RepHMS, "GSConv": GSConv, "VoVGSCSP": VoVGSCSP}  # c2 width-scaled
 REPEAT_MODULES = {"C2f", "RepC3", "C3", "C3k2", "C2fCIB", "C2PSA", "A2C2f", "DSC3k2", "RTMBlock", "BottleneckCSP",
                   "BottleneckCSP2", "BottleneckCSPB", "BottleneckCSPC", "ResCSPB", "ResCSPC", "BoT3", "C2f_DCN",
-                  "C3_DCN", "C2f_DLKA", "MANet"}  # of SCALED, n is the repeats
+                  "C3_DCN", "C2f_DLKA", "MANet", "VoVGSCSP"}  # of SCALED, n is the repeats
 # of SCALED, how many YAML arguments the JAX builder reads (it ignores the rest):
 # RTMBlock, BottleneckCSP2 and the CSP-B/C blocks [c2, shortcut], ResCSPB/C and
 # Stem [c2], SPPCSPC [c2, e], RepConv_v7 [c2, k, s], BoT3 [c2, e], C2f_DCN, C3_DCN and
-# C2f_DLKA [c2, shortcut], MANet [c2, shortcut, p, k], RepHMS [c2, width, depth, depth_e, k]
+# C2f_DLKA [c2, shortcut], MANet [c2, shortcut, p, k], RepHMS [c2, width, depth, depth_e, k], GSConv
+# [c2, k, s], VoVGSCSP [c2]
 ARITY = {"RTMBlock": 2, "BottleneckCSP2": 2, "BottleneckCSPB": 2, "BottleneckCSPC": 2, "ResCSPB": 1, "ResCSPC": 1,
          "Stem": 1, "SPPCSPC": 2, "RepConv_v7": 3, "BoT3": 2, "C2f_DCN": 2, "C3_DCN": 2, "C2f_DLKA": 2, "MANet": 4,
-         "RepHMS": 5}
+         "RepHMS": 5, "GSConv": 3, "VoVGSCSP": 1}
 ELAN = {"RepNCSPELAN4": RepNCSPELAN4, "SPPELAN": SPPELAN}  # [c2, c3(, c4, n)]: every width scaled
 HEADS = {"Detect": Detect, "Segment": Segment, "OBB": OBB, "Pose": Pose, "v10Detect": v10Detect,
          "DDetect": DDetect, "DSegment": DSegment, "AnchorDetect": AnchorDetect, "IDetect": IDetect,
@@ -208,9 +222,26 @@ ATTENTION = {
     "FocusedLinearAttention": lambda c1, a, sc: A.FocusedLinearAttention(c1, _a(a, 2, 8)),
     "BiLevelRoutingAttention": lambda c1, a, sc: BiLevelRoutingAttention(c1, _a(a, 0, 8), topk=_a(a, 1, 4)),
 }
+# whole backbones (the JAX BACKBONE_VARIANTS* aliases of the 11/ YAMLs): name -> (class, keyword arguments);
+# one module, no YAML arguments, whose 4 stage maps take 4 feature slots
+BACKBONES = {
+    "convnext_tiny": (ConvNeXt, {"depths": (3, 3, 9, 3), "dims": (96, 192, 384, 768)}),
+    "SwinTransformer_Tiny": (SwinTransformer, {}),
+    "pvt_v2_b0": (PVTv2, {}),
+    "efficientvit_backbone_b0": (EfficientViT, {}),
+    "fasternet_t0": (FasterNet, {}),
+    "repvit_m0_9": (RepViT, {}),
+    "starnet_s1": (StarNet, {}),
+    "lsknet_t": (LSKNet, {}),
+    "mobilenetv4_conv_small": (MobileNetV4, {}),
+    "efficientnetv2_s": (EfficientNetV2, {}),
+    "ghostnetv2": (GhostNetV2Backbone, {}),
+    "efficientformerv2_s0": (EfficientFormerV2, {"variant": "s0"}),
+}
+MULTI = 4  # a whole backbone's outputs (P2-P5)
 MODULES = (*SCALED, *ELAN, *POOLS, "HGStem", "HGBlock", "AIFI", "nn.Upsample", "Concat", "HyperACE",
            "HyperComputeModule",
-           "DownsampleConv", "FullPAD_Tunnel", *ATTENTION, *HEADS, "Classify", "RTDETRDecoder")
+           "DownsampleConv", "FullPAD_Tunnel", *ATTENTION, *HEADS, "Classify", "RTDETRDecoder", *BACKBONES, "Bi_FPN")
 
 
 def make_divisible(x, divisor: int = 8) -> int:
@@ -221,8 +252,13 @@ def make_divisible(x, divisor: int = 8) -> int:
 def parse_model(d: dict, ch: int = 3, verbose: bool = False):
     """Build the layers of a model YAML dict.
 
-    Returns (nn.Sequential of layers, sorted save list, meta dict). Each layer
-    carries `i` (index), `f` (from) and `type` attributes.
+    Returns (nn.Sequential of layers, sorted save list, meta dict: scale, nc
+    and `channels`, each feature slot's width, None where it has none). Each layer
+    carries `i` (index), `f` (from), `type` and `multi` attributes. A whole
+    backbone (BACKBONES) fills MULTI feature slots, i - 3 .. i, and every
+    later index is its row plus MULTI (the JAX parse's offset), one slot
+    before them left empty; the layer's place in the nn.Sequential stays its
+    row, as the flax name `layers_<row>` does.
     """
     scales = d.get("scales")
     scale = d.get("scale")
@@ -242,14 +278,16 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
         Conv.default_act = act
     try:
         chs = [ch]
-        layers, save = [], []
+        layers, save, offset = [], [], 0
         rows = list(d.get("backbone", [])) + list(d.get("head", []))
         legacy = not any(len(row) == 4 and row[2] in NON_LEGACY for row in rows)
-        for i, row in enumerate(rows):
+        for r, row in enumerate(rows):
+            i = r + offset
             if len(row) != 4:
                 raise NotImplementedError(
                     f"malformed model-yaml row {i}: expected [from, repeats, module, args], got {row!r}")
             f, n, m_name, args = row
+            multi = MULTI if m_name in BACKBONES else 0
             kwargs = {}
             if m_name not in MODULES:
                 raise NotImplementedError(
@@ -309,6 +347,11 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
                 c2, m, args = chs[f[0]], FullPAD_Tunnel, []
             elif m_name == "HyperComputeModule":  # [c2, threshold]: the input's channels out
                 c2, m, args = c1, HyperComputeModule, [c1, _a(args, 1, 10.0)]
+            elif multi:  # a whole backbone: its stage widths fill the slots
+                m, kw = BACKBONES[m_name]
+                m, args = partial(m, **kw), [c1]
+            elif m_name == "Bi_FPN":  # [] -> one weight per input (2 for a single source, as the JAX module)
+                m, (c2, args) = Bi_FPN, (chs[f[0]], [len(f)]) if isinstance(f, list) else (c1, [2])
             elif m_name in ATTENTION:
                 c2 = sc(args[0]) if m_name == "GAMAttention" and args and args[0] else c1
                 m, args = partial(ATTENTION[m_name], c1, args, sc), []
@@ -334,19 +377,22 @@ def parse_model(d: dict, ch: int = 3, verbose: bool = False):
                 c2, m = None, RTDETRDecoder
                 args = [args[0], [chs[x] for x in f], *args[1:4]]
             layer = nn.Sequential(*(m(*args, **kwargs) for _ in range(n))) if n > 1 else m(*args, **kwargs)
+            if multi:
+                offset += multi
+                i = r + offset
             # relative sources other than -1 become absolute layer indices (-2 -> i - 2)
             layer.f = f if f == -1 else f % i if isinstance(f, int) else [x if x == -1 else x % i for x in f]
-            layer.i, layer.type = i, m_name
+            layer.i, layer.type, layer.multi = i, m_name, multi
             layers.append(layer)
             save.extend(x % i for x in ([f] if isinstance(f, int) else f) if x != -1)
             if verbose:
                 LOGGER.info(f"{i:>3} {str(f):>10} {n:>3} {m_name:<12} {args}")
-            if i == 0:
+            if r == 0:
                 chs = []
-            chs.append(c2)
+            chs.extend([None, *layer.width_list] if multi else [c2])
     finally:
         Conv.default_act = "silu"
-    return nn.Sequential(*layers), sorted(set(save)), {"scale": scale, "nc": nc}
+    return nn.Sequential(*layers), sorted(set(save)), {"scale": scale, "nc": nc, "channels": chs}
 
 
 def split_scale(stem: str):
@@ -420,8 +466,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     AdaHGComputation's prototypes xavier-uniform (FullPAD_Tunnel's gates stay
     0), DCNv2's and DeformConvDW's bare `weight` lecun-normal and `bias`
     zero (GRN's `gamma`, `beta` stay 0, UniRepLKNetBlock's `gamma` 1e-6),
-    ImplicitA's and ImplicitM's `implicit` N(0, 0.02) and N(1, 0.02);
-    then MSDeformAttn's own offset and attention init."""
+    ImplicitA's and ImplicitM's `implicit` N(0, 0.02) and N(1, 0.02),
+    Swin's `rel_bias` and Attention4D's talking heads' `_w` N(0, 0.02)
+    (their modules' `seed_params`; the layer scales, Bi_FPN's `weight` and
+    `attention_biases` keep the constants they are built with); then
+    MSDeformAttn's own offset and attention init."""
     for m in model.modules():
         if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d, nn.Linear)) and m.weight.requires_grad:
             _lecun_normal_(m.weight, generator)
@@ -450,6 +499,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             bound = math.sqrt(6.0 / (ne + c))
             with torch.no_grad():
                 m.prototype_base.copy_(torch.empty(ne, c).uniform_(-bound, bound, generator=generator))
+        elif hasattr(m, "seed_params"):  # Swin's rel_bias, Attention4D's talking heads: N(0, 0.02)
+            m.seed_params(generator)
     for m in model.modules():
         if isinstance(m, MSDeformAttn):
             m.reset_parameters()
@@ -474,7 +525,7 @@ class BaseModel(nn.Module):
         self.names = {i: f"class{i}" for i in range(self.nc)}
         self.eval()
         self.stride = torch.tensor([32.0])
-        bound = [m for m in self.modules() if isinstance(m, A.MHSA) and m.pos_emb]
+        bound = size_bound(self)
         self.imgsz = imgsz if bound else None
         head = self.model[-1]
         if isinstance(head, (Detect, AnchorDetect, RTDETRDecoder)) or bound:
@@ -488,8 +539,9 @@ class BaseModel(nn.Module):
     def _probe(self, ch: int, bound=(), imgsz: int = 640) -> torch.Tensor:
         """Strides from the head's input map sizes on a 256 px dry run (the
         detection inputs of a DSegment head: its last is the prototypes'
-        source); each MHSA of `bound` is bound to the map it sees there, then
-        to ceil(imgsz / 256 x that)."""
+        source); each module of `bound` is bound to the map it sees there, then
+        to ceil(imgsz / 256 x that), its map at imgsz where every map is
+        ceil(imgsz / stride)."""
         s = 256
         seen = {}
 
@@ -527,7 +579,12 @@ class BaseModel(nn.Module):
             if isinstance(m, RTDETRDecoder):
                 return x if stop_at_head else m(x, aux=aux, dn=dn)
             x = checkpoint(m, x, use_reentrant=False, context_fn=_recompute_context) if remat else m(x)
-            if m.i in self.save:
+            if m.multi:  # a whole backbone's maps take slots i - multi + 1 .. i
+                for slot, o in enumerate(x, m.i - m.multi + 1):
+                    if slot in self.save:
+                        y[slot] = o
+                x = x[-1]
+            elif m.i in self.save:
                 y[m.i] = x
         return x
 
@@ -580,6 +637,14 @@ class ClassificationModel(BaseModel):
 
 TASK2MODEL = {"detect": DetectionModel, "segment": SegmentationModel, "pose": PoseModel, "obb": OBBModel,
               "classify": ClassificationModel}
+
+
+def size_bound(model: nn.Module) -> list:
+    """The modules of model whose parameters are sized by their input map
+    (`size_params`: MHSA's `rel_h`, `rel_w`; EfficientFormerV2's
+    Attention4D and Attention4DDownsample's `attention_biases`), bound by
+    `bind(h, w)`."""
+    return [m for m in model.modules() if getattr(m, "size_params", ())]
 
 
 def _recompute_context():

@@ -55,6 +55,17 @@ is a norm's `weight`, any other keeps its name both ways. ECAAttention's
 the AdaHGComputation's dense layers `context_net`, `pre_head_proj`,
 `edge_proj`, `node_proj`).
 
+The whole backbones of the 11/ YAMLs (`nn/modules/backbones*.py`,
+`efficientformer.py`) keep their flax names, so the generic rule carries
+them: `s2_b4` stays, `down_1`, `merge_norm_1`, `out_norm_0` and `s2_attn_0`
+are `down.1`, `merge_norm.1`, `out_norm.0` and `s2_attn.0`. Their bare
+parameters are carried under their names (Swin's `rel_bias`,
+EfficientFormerV2's `attention_biases`, `talking_head{1,2}_{w,b}` and
+`layer_scale_{1,2}`; ConvNeXt's layer-scale `gamma`), their `nn.Dense`
+kernels are `nn.Linear` weights and their LayerNorm `scale` a `weight`.
+Bi_FPN's bare 1-D `weight` is a layer's own `model.N.weight`, where a 4-D
+`weight` there is a transposed conv's.
+
 RT-DETR adds two kinds of names:
 - flax attention (`ma/query|key|value|out`, kernels (C, nh, hd) and
   (nh, hd, C)) <-> `nn.MultiheadAttention`'s `in_proj_weight` (3C, C) and
@@ -89,8 +100,9 @@ BARE_PARAMS = ("denoising_class_embed",)  # flax `self.param` leaves: a module's
 # and the attention modules' (nn/modules/attention.py); so is a `scale` of more
 # than one dimension (FocusedLinearAttention's)
 PARAM_LEAVES = ("gamma", "gate", "prototype_base", "rel_h", "rel_w", "cweight", "cbias", "sweight", "sbias", "pos",
-                "beta")
-BARE_KERNEL = "weight"  # DCNv2's and DeformConvDW's flax leaf: an HWIO kernel
+                "beta", "rel_bias", "attention_biases", "talking_head1_w", "talking_head1_b", "talking_head2_w",
+                "talking_head2_b", "layer_scale_1", "layer_scale_2")
+BARE_KERNEL = "weight"  # DCNv2's and DeformConvDW's flax leaf: an HWIO kernel; Bi_FPN's 1-D one is not
 # the torch modules whose `weight` is that bare kernel (DCNv2, DeformConvDW)
 BARE_WEIGHT = re.compile(r"(?:^|\.)(?:m_\d+_cv2|spatial_gating_unit\.(?:conv0|conv_spatial))$")
 IMPLICIT = "implicit"  # ImplicitA/ImplicitM's leaf: flax (1, 1, 1, C), torch (1, C, 1, 1)
@@ -176,6 +188,8 @@ def torch_key_to_flax(key: str, ndim: int) -> Tuple[Tuple[str, ...], str, str]:
         return path[:-1], path[-1], "params"
     if leaf == "weight" and ndim == 4 and BARE_WEIGHT.search(name):
         return path, BARE_KERNEL, "params"
+    if len(path) == 1 and path[0].startswith("layers_") and leaf == "weight" and ndim == 1:
+        return path, BARE_KERNEL, "params"  # Bi_FPN's fusion weights
     if len(path) == 1 and path[0].startswith("layers_") and leaf in ("weight", "bias"):
         path = (*path, TRANSPOSED)  # a bare layer with a weight: nn.ConvTranspose2d
     if leaf == "weight":
@@ -223,7 +237,7 @@ def jax_to_torch_state_dict(variables: dict, reg_max: int = 16) -> Dict[str, tor
                 continue
             if coll == "params" and leaf == IMPLICIT:
                 arr = arr.reshape(1, -1, 1, 1)
-            if coll == "params" and leaf == BARE_KERNEL:
+            if coll == "params" and leaf == BARE_KERNEL and arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
             if coll == "params" and (leaf in (*PARAM_LEAVES, IMPLICIT, BARE_KERNEL)
                                      or leaf == "scale" and arr.ndim != 1):
